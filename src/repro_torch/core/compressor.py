@@ -1,0 +1,212 @@
+"""Rate-adaptive block compressor producing IBEX's chunked layout (PyTorch
+port of ``repro.core.compressor``).
+
+A 4KB page = 4 x 1KB blocks (co-location, §4.6), each encoded at one of four
+rates (zero / 4-bit / 8-bit / raw) and compacted at 128B quanta; the page's
+quanta total sets ``num_chunks`` (512B C-chunks). 4KB-block mode treats the
+page as one 2048-value block.
+
+Two implementations of one format: the plain oracle here
+(``compress_impl="jnp"``) and the fused kernels (``"kernel"``,
+kernels/qpack.py), byte-identical to each other.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.common.types import PoolConfig
+from repro_torch.common.utils import f32_to_bytes
+from repro_torch.core.bitpack import (RATE_4BIT, RATE_8BIT, RATE_RAW,
+                                      RATE_ZERO, dequantize_block, pack4,
+                                      pack8, quantize_block, unpack4, unpack8)
+from repro_torch.kernels import qpack
+
+QUANTUM = 128
+
+
+def resolve_impl(cfg: PoolConfig, device: torch.device) -> str:
+    """``cfg.compress_impl`` for tensors on ``device``: "auto" is the CUDA
+    kernel for CUDA tensors and the plain version for CPU tensors; "kernel"
+    on a CPU tensor raises."""
+    impl = cfg.compress_impl
+    if impl == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else "jnp"
+    if impl == "kernel" and torch.device(device).type != "cuda":
+        raise ValueError("compress_impl='kernel' needs CUDA tensors")
+    if impl not in ("kernel", "jnp"):
+        raise ValueError(f"compress_impl={impl!r}")
+    return impl
+
+
+def quanta_per_rate(vals_per_block: int) -> Tuple[int, int, int, int]:
+    """Quanta per rate code for a ``vals_per_block`` block."""
+    b4 = -(-(4 + vals_per_block // 2) // QUANTUM)
+    b8 = -(-(4 + vals_per_block) // QUANTUM)
+    braw = (2 * vals_per_block) // QUANTUM
+    return (0, b4, b8, braw)
+
+
+def select_rate(x: torch.Tensor, cfg: PoolConfig) -> torch.Tensor:
+    """Cheapest admissible rate for blocks ``x[..., vals]`` (int32)."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    q4, s4 = quantize_block(x, 4)
+    q8, s8 = quantize_block(x, 8)
+    if cfg.lossless:
+        xb = x.to(torch.bfloat16)
+        ok4 = (dequantize_block(q4, s4) == xb).all(dim=-1)
+        ok8 = (dequantize_block(q8, s8) == xb).all(dim=-1)
+    else:
+        err4 = (dequantize_block(q4, s4).to(torch.float32) - xf).abs().amax(dim=-1)
+        err8 = (dequantize_block(q8, s8).to(torch.float32) - xf).abs().amax(dim=-1)
+        safe = torch.where(amax > 0, amax, torch.ones_like(amax))
+        f32 = lambda tol: torch.tensor(tol, dtype=torch.float32, device=x.device)
+        ok4 = err4 / safe <= f32(cfg.tol4)
+        ok8 = err8 / safe <= f32(cfg.tol8)
+    rate = torch.where(ok8, RATE_8BIT, RATE_RAW)
+    rate = torch.where(ok4, RATE_4BIT, rate)
+    rate = torch.where(amax == 0, RATE_ZERO, rate)
+    return rate.to(torch.int32)
+
+
+def _encode_block_dense(x: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
+    """Blocks x [N, V] at ``rate`` [N] -> dense worst-case buffers
+    uint8[N, 2V]; only the first ``quanta*128`` bytes of a row matter."""
+    n, vals = x.shape
+    zeros = torch.zeros((n, 2 * vals), dtype=torch.uint8, device=x.device)
+    q4, s4 = quantize_block(x, 4)
+    q8, s8 = quantize_block(x, 8)
+    enc4 = zeros.clone()
+    enc4[:, :4] = f32_to_bytes(s4[:, None])
+    enc4[:, 4:4 + vals // 2] = pack4(q4)
+    enc8 = zeros.clone()
+    enc8[:, :4] = f32_to_bytes(s8[:, None])
+    enc8[:, 4:4 + vals] = pack8(q8)
+    raw = x.to(torch.bfloat16).contiguous().view(torch.uint8)
+    r = rate[:, None]
+    out = torch.where(r == RATE_4BIT, enc4, zeros)
+    out = torch.where(r == RATE_8BIT, enc8, out)
+    return torch.where(r == RATE_RAW, raw, out)
+
+
+def _decode_block_dense(buf: torch.Tensor, rate: torch.Tensor,
+                        vals: int) -> torch.Tensor:
+    """Inverse of ``_encode_block_dense``: buf [N, 2V], rate [N] -> bf16."""
+    scale = buf[:, 0:4].contiguous().view(torch.float32)[:, 0]
+    dec4 = dequantize_block(unpack4(buf[:, 4:4 + vals // 2], vals), scale)
+    dec8 = dequantize_block(unpack8(buf[:, 4:4 + vals]), scale)
+    raw = buf[:, :2 * vals].contiguous().view(torch.bfloat16)
+    r = rate[:, None]
+    out = torch.where(r == RATE_4BIT, dec4, torch.zeros_like(dec4))
+    out = torch.where(r == RATE_8BIT, dec8, out)
+    return torch.where(r == RATE_RAW, raw, out)
+
+
+def _offsets(quanta: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum of per-block quanta [P, B] (int64)."""
+    q = quanta.to(torch.int64)
+    return torch.cumsum(q, dim=-1) - q
+
+
+def _compact_pages(dense: torch.Tensor, quanta: torch.Tensor,
+                   cfg: PoolConfig) -> torch.Tensor:
+    """Dense per-block buffers [P, B, 2V] -> page streams uint8[P,
+    page_bytes]: block i's bytes live at [start_i, start_i + quanta_i*128).
+    A block's buffer is placed at its start clamped so it fits the page, as
+    the reference's ``dynamic_update_slice`` does."""
+    npages, nblocks, nb = dense.shape
+    starts = _offsets(quanta) * QUANTUM                         # [P, B]
+    ends = starts + quanta.to(torch.int64) * QUANTUM
+    placed = torch.clamp(starts, max=cfg.page_bytes - nb)
+    pos = torch.arange(cfg.page_bytes, device=dense.device)
+    live = (pos[None, None, :] >= starts[..., None]) & \
+        (pos[None, None, :] < ends[..., None])                  # [P, B, page]
+    rel = torch.clamp(pos[None, None, :] - placed[..., None], 0, nb - 1)
+    vals = torch.gather(dense, 2, rel)
+    inside = (pos[None, None, :] >= placed[..., None]) & \
+        (pos[None, None, :] < placed[..., None] + nb)
+    vals = torch.where(inside, vals, torch.zeros_like(vals))
+    buf = torch.zeros((npages, cfg.page_bytes), dtype=torch.uint8,
+                      device=dense.device)
+    for i in range(nblocks):          # later blocks win, as in the reference
+        buf = torch.where(live[:, i], vals[:, i], buf)
+    return buf
+
+
+def encode_pages(xs: torch.Tensor, cfg: PoolConfig):
+    """Pages xs [P, vals_per_page] -> (bufs uint8[P, page_bytes], rates
+    int32[P, B], quanta int32[P, B], num_chunks int32[P]). On the kernel
+    path all P*B blocks go through one fused-encode launch."""
+    nblocks = cfg.blocks_per_page if cfg.coloc else 1
+    npages = xs.shape[0]
+    vals = xs.shape[-1] // nblocks
+    blocks = xs.reshape(npages * nblocks, vals)
+    table = quanta_per_rate(vals)
+    if resolve_impl(cfg, xs.device) == "kernel":
+        dense, rates, quanta = qpack.fused_encode(
+            blocks, tol4=cfg.tol4, tol8=cfg.tol8, lossless=cfg.lossless,
+            zero_elision=cfg.zero_elision, quanta=table)
+    else:
+        rates = select_rate(blocks, cfg)
+        if not cfg.zero_elision:
+            rates = torch.clamp(rates, min=RATE_4BIT)
+        qt = torch.tensor(table, dtype=torch.int32, device=xs.device)
+        quanta = qt[rates.long()]
+        dense = _encode_block_dense(blocks, rates)
+    dense = dense.reshape(npages, nblocks, 2 * vals)
+    rates = rates.reshape(npages, nblocks)
+    quanta = quanta.reshape(npages, nblocks)
+    bufs = _compact_pages(dense, quanta, cfg)
+    qpc = cfg.chunk_bytes // QUANTUM
+    nchunks = (-(-quanta.sum(dim=-1) // qpc)).to(torch.int32)
+    return bufs, rates, quanta, nchunks
+
+
+def encode_page(x: torch.Tensor, cfg: PoolConfig):
+    """One page of ``vals_per_page`` values: (buf, rates, quanta, num_chunks)."""
+    bufs, rates, quanta, nch = encode_pages(x[None], cfg)
+    return bufs[0], rates[0], quanta[0], nch[0]
+
+
+def _page_dense_blocks(bufs: torch.Tensor, rates: torch.Tensor,
+                       vals: int) -> torch.Tensor:
+    """Slice compacted page streams [P, page_bytes] back into dense
+    per-block buffers [P, B, 2V] (slice starts clamped to fit)."""
+    page_bytes = bufs.shape[-1]
+    qt = torch.tensor(quanta_per_rate(vals), dtype=torch.int64,
+                      device=bufs.device)
+    starts = torch.clamp(_offsets(qt[rates.long()]) * QUANTUM,
+                         max=page_bytes - 2 * vals)             # [P, B]
+    idx = starts[..., None] + torch.arange(2 * vals, device=bufs.device)
+    npages, nblocks = rates.shape
+    return torch.gather(bufs, 1, idx.reshape(npages, -1)) \
+        .reshape(npages, nblocks, 2 * vals)
+
+
+def decode_pages(bufs: torch.Tensor, rates: torch.Tensor,
+                 cfg: PoolConfig) -> torch.Tensor:
+    """(bufs [P, page_bytes], rates [P, B]) -> bf16 [P, vals_per_page].
+    Kernel path: one fused-decode launch over all P*B blocks."""
+    npages, nblocks = rates.shape
+    vals = cfg.vals_per_page // nblocks
+    dense = _page_dense_blocks(bufs, rates, vals) \
+        .reshape(npages * nblocks, 2 * vals)
+    flat = rates.reshape(npages * nblocks).to(torch.int32)
+    if resolve_impl(cfg, bufs.device) == "kernel":
+        out = qpack.fused_decode(dense, flat)
+    else:
+        out = _decode_block_dense(dense, flat, vals)
+    return out.reshape(npages, nblocks * vals)
+
+
+def decode_page(buf: torch.Tensor, rates: torch.Tensor,
+                cfg: PoolConfig) -> torch.Tensor:
+    return decode_pages(buf[None], rates[None], cfg)[0]
+
+
+def page_compressed_bytes(rates, vals_per_block: int) -> int:
+    """Bytes a page with these block rates (host ints) occupies."""
+    table = quanta_per_rate(vals_per_block)
+    return sum(table[r] for r in rates) * QUANTUM

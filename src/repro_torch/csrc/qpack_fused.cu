@@ -1,0 +1,298 @@
+// Fused demote / promote kernels of the IBEX compression engine, for
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernels kernels/qpack.py::qpack_fused_encode_2d
+// (_fused_encode_kernel) and ::qpack_fused_decode_2d (_fused_decode_kernel)
+// of the JAX package; the bytes they produce are identical.
+//
+// Encode (demotion), per block of V values (bf16 or f32 input):
+//   amax; 4- and 8-bit quantization with scale = amax * f32(1/qmax),
+//   recip = 1/scale (IEEE division), round-half-even, clip; rate pick
+//   (lossless: the bf16 dequantization equals x; else max |err| / amax <=
+//   tol, compared in f32); zero rate for amax == 0, clamped to 4-bit when
+//   zero elision is off; then ONLY the chosen dense layout is written:
+//     4-bit: f32 scale (LE) | nibbles, low nibble first | zero pad to 2V
+//     8-bit: f32 scale (LE) | int8 codes               | zero pad to 2V
+//     raw  : little-endian bf16 bytes
+//     zero : 2V zero bytes
+// Decode (promotion): f32 scale from bytes 0..3, sign-extended nibbles or
+//   int8 codes times the scale rounded to bf16, raw bf16, or zeros.
+//
+// Bound: both are one pass over memory with no reuse. Encode reads 2V bytes
+// (bf16) and writes 2V + 8 bytes per block; decode reads 2V + 4 and writes
+// 2V. At 3.35 TB/s a 512-value block costs ~0.6 ns each way. The design
+// gives each block one warp: 16-byte loads, the row's values stay in
+// registers between the reduction, the rate test and the store, and each
+// output byte is written once (the TPU kernel built all three candidate
+// rows and selected with a where chain). No shared memory, no atomics; any
+// N >= 1 (no tile padding). Built without fast math and with
+// --fmad=false, so every product and quotient rounds exactly as the
+// reference does.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;              // blocks (rows) per 128-thread CTA
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    out[2 * t] = __uint_as_float((w[t] & 0xffffu) << 16);
+    out[2 * t + 1] = __uint_as_float(w[t] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
+}
+
+__device__ __forceinline__ float quant(float x, float recip, float qmax) {
+  return fminf(fmaxf(rintf(__fmul_rn(x, recip)), -qmax - 1.0f), qmax);
+}
+
+__device__ __forceinline__ float deq_bf16(float q, float scale) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(q, scale)));
+}
+
+template <int CH, typename TIn>
+__global__ void __launch_bounds__(kWarps * 32)
+fused_encode_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ dense,
+                    int32_t* __restrict__ rates, int32_t* __restrict__ quanta,
+                    int n, float tol4, float tol8, int lossless,
+                    int zero_elision, int q0, int q1, int q2, int q3) {
+  constexpr int V = CH * 256;          // values per block
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;                // whole warp leaves together
+
+  // lane owns values [8*(lane + 32*j), +8) for j < CH
+  float v[CH * 8];
+  const TIn* xr = x + static_cast<size_t>(row) * V;
+#pragma unroll
+  for (int j = 0; j < CH; ++j) load8(xr + (lane + 32 * j) * 8, v + 8 * j);
+
+  float amax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < CH * 8; ++k) amax = fmaxf(amax, fabsf(v[k]));
+  amax = warp_max(amax);
+
+  const float s4 = amax > 0.0f ? __fmul_rn(amax, static_cast<float>(1.0 / 7.0)) : 1.0f;
+  const float s8 = amax > 0.0f ? __fmul_rn(amax, static_cast<float>(1.0 / 127.0)) : 1.0f;
+  const float r4 = __fdiv_rn(1.0f, s4);
+  const float r8 = __fdiv_rn(1.0f, s8);
+
+  bool ok4 = true, ok8 = true;
+  float e4 = 0.0f, e8 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < CH * 8; ++k) {
+    const float d4 = deq_bf16(quant(v[k], r4, 7.0f), s4);
+    const float d8 = deq_bf16(quant(v[k], r8, 127.0f), s8);
+    if (lossless) {
+      // float compare of bf16 values: -0.0 == +0.0
+      const float xb = __bfloat162float(__float2bfloat16_rn(v[k]));
+      ok4 = ok4 && (d4 == xb);
+      ok8 = ok8 && (d8 == xb);
+    } else {
+      e4 = fmaxf(e4, fabsf(d4 - v[k]));
+      e8 = fmaxf(e8, fabsf(d8 - v[k]));
+    }
+  }
+  if (lossless) {
+    ok4 = __all_sync(kFull, ok4);
+    ok8 = __all_sync(kFull, ok8);
+  } else {
+    e4 = warp_max(e4);
+    e8 = warp_max(e8);
+    const float safe = amax > 0.0f ? amax : 1.0f;
+    ok4 = __fdiv_rn(e4, safe) <= tol4;
+    ok8 = __fdiv_rn(e8, safe) <= tol8;
+  }
+  int rate = ok8 ? 2 : 3;
+  if (ok4) rate = 1;
+  if (amax == 0.0f) rate = 0;
+  if (!zero_elision && rate < 1) rate = 1;
+
+  uint8_t* dr = dense + static_cast<size_t>(row) * (2 * V);
+  uint32_t* dw = reinterpret_cast<uint32_t*>(dr);
+  if (rate == 0) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int w = lane; w < (2 * V) / 16; w += 32) reinterpret_cast<uint4*>(dr)[w] = z;
+  } else if (rate == 3) {
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const float* p = v + 8 * j;
+      uint4 o;
+      o.x = bf16_bits(p[0]) | (bf16_bits(p[1]) << 16);
+      o.y = bf16_bits(p[2]) | (bf16_bits(p[3]) << 16);
+      o.z = bf16_bits(p[4]) | (bf16_bits(p[5]) << 16);
+      o.w = bf16_bits(p[6]) | (bf16_bits(p[7]) << 16);
+      reinterpret_cast<uint4*>(dr)[lane + 32 * j] = o;
+    }
+  } else if (rate == 1) {
+    if (lane == 0) dw[0] = __float_as_uint(s4);
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      uint32_t word = 0u;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int q = static_cast<int>(quant(v[8 * j + t], r4, 7.0f));
+        word |= (static_cast<uint32_t>(q) & 0xfu) << (4 * t);
+      }
+      dw[1 + lane + 32 * j] = word;
+    }
+    for (int w = 1 + V / 8 + lane; w < V / 2; w += 32) dw[w] = 0u;
+  } else {
+    if (lane == 0) dw[0] = __float_as_uint(s8);
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int qa = static_cast<int>(quant(v[8 * j + t], r8, 127.0f));
+        const int qb = static_cast<int>(quant(v[8 * j + 4 + t], r8, 127.0f));
+        lo |= (static_cast<uint32_t>(qa) & 0xffu) << (8 * t);
+        hi |= (static_cast<uint32_t>(qb) & 0xffu) << (8 * t);
+      }
+      const int idx = lane + 32 * j;
+      dw[1 + 2 * idx] = lo;
+      dw[2 + 2 * idx] = hi;
+    }
+    for (int w = 1 + V / 4 + lane; w < V / 2; w += 32) dw[w] = 0u;
+  }
+  if (lane == 0) {
+    rates[row] = rate;
+    quanta[row] = rate == 0 ? q0 : rate == 1 ? q1 : rate == 2 ? q2 : q3;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  return bf16_bits(a) | (bf16_bits(b) << 16);
+}
+
+template <int CH>
+__global__ void __launch_bounds__(kWarps * 32)
+fused_decode_kernel(const uint8_t* __restrict__ dense,
+                    const int32_t* __restrict__ rates,
+                    __nv_bfloat16* __restrict__ out, int n) {
+  constexpr int V = CH * 256;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const uint8_t* dr = dense + static_cast<size_t>(row) * (2 * V);
+  const uint32_t* dw = reinterpret_cast<const uint32_t*>(dr);
+  const int rate = rates[row];
+  const float scale = __uint_as_float(dw[0]);
+  uint4* orow = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * V);
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int idx = lane + 32 * j;     // 8 output values [8*idx, +8)
+    uint4 o = make_uint4(0u, 0u, 0u, 0u);
+    if (rate == 3) {
+      o = reinterpret_cast<const uint4*>(dr)[idx];
+    } else if (rate == 1 || rate == 2) {
+      float f[8];
+      if (rate == 1) {
+        const uint32_t w = dw[1 + idx];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          int q = static_cast<int>((w >> (4 * t)) & 0xfu);
+          q = q >= 8 ? q - 16 : q;
+          f[t] = __fmul_rn(static_cast<float>(q), scale);
+        }
+      } else {
+        const uint32_t w[2] = {dw[1 + 2 * idx], dw[2 + 2 * idx]};
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int q = static_cast<int8_t>((w[t / 4] >> (8 * (t % 4))) & 0xffu);
+          f[t] = __fmul_rn(static_cast<float>(q), scale);
+        }
+      }
+      o.x = pack2(f[0], f[1]);
+      o.y = pack2(f[2], f[3]);
+      o.z = pack2(f[4], f[5]);
+      o.w = pack2(f[6], f[7]);
+    }
+    orow[idx] = o;
+  }
+}
+
+template <int CH>
+void launch_encode(const void* x, int x_f32, void* dense, void* rates,
+                   void* quanta, int n, float tol4, float tol8, int lossless,
+                   int zero_elision, int q0, int q1, int q2, int q3,
+                   cudaStream_t s) {
+  const dim3 grid((n + kWarps - 1) / kWarps), block(kWarps * 32);
+  if (x_f32) {
+    fused_encode_kernel<CH, float><<<grid, block, 0, s>>>(
+        static_cast<const float*>(x), static_cast<uint8_t*>(dense),
+        static_cast<int32_t*>(rates), static_cast<int32_t*>(quanta), n, tol4,
+        tol8, lossless, zero_elision, q0, q1, q2, q3);
+  } else {
+    fused_encode_kernel<CH, __nv_bfloat16><<<grid, block, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<uint8_t*>(dense),
+        static_cast<int32_t*>(rates), static_cast<int32_t*>(quanta), n, tol4,
+        tol8, lossless, zero_elision, q0, q1, q2, q3);
+  }
+}
+
+template <int CH>
+void launch_decode(const void* dense, const void* rates, void* out, int n,
+                   cudaStream_t s) {
+  const dim3 grid((n + kWarps - 1) / kWarps), block(kWarps * 32);
+  fused_decode_kernel<CH><<<grid, block, 0, s>>>(
+      static_cast<const uint8_t*>(dense), static_cast<const int32_t*>(rates),
+      static_cast<__nv_bfloat16*>(out), n);
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes). V must be a multiple of 256 in
+// [256, 2048]; each returns the cudaError_t of its launch.
+
+extern "C" int qpack_fused_encode(const void* x, int x_f32, void* dense,
+                                  void* rates, void* quanta, int n, int v,
+                                  float tol4, float tol8, int lossless,
+                                  int zero_elision, int q0, int q1, int q2,
+                                  int q3, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || v % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (v / 256) {
+#define ENC(C) case C: launch_encode<C>(x, x_f32, dense, rates, quanta, n, tol4, tol8, lossless, zero_elision, q0, q1, q2, q3, s); break;
+    ENC(1) ENC(2) ENC(3) ENC(4) ENC(5) ENC(6) ENC(7) ENC(8)
+#undef ENC
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qpack_fused_decode(const void* dense, const void* rates,
+                                  void* out, int n, int v, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || v % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (v / 256) {
+#define DEC(C) case C: launch_decode<C>(dense, rates, out, n, s); break;
+    DEC(1) DEC(2) DEC(3) DEC(4) DEC(5) DEC(6) DEC(7) DEC(8)
+#undef DEC
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

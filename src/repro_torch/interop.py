@@ -1,0 +1,64 @@
+"""Pool state <-> numpy, in the reference package's dtypes.
+
+A pool is a dict of numpy arrays keyed by dotted leaf names in the
+reference ``Pool``'s field order ("meta", "activity", "hand",
+"cfree.items", "cfree.top", ..., "cache.tags", "cache.age", "counters",
+"rng", "c_store", "p_store", "rates_table"). The reference's uint32 leaves
+(metadata and activity words, the PRNG key) are int64 inside the port;
+this module is the only place that converts them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.common.types import PoolConfig
+from repro_torch.common.utils import resolve_device
+from repro_torch.core.engine.state import Pool
+from repro_torch.core.freelist import FreeList
+from repro_torch.core.mcache import MCache
+
+_UINT32 = ("meta", "activity", "rng")
+
+
+def leaves(pool, prefix: str = ""):
+    """(dotted name, leaf) pairs of a pool, in field order. Works on any
+    nest of NamedTuples, so it walks the reference ``Pool`` too."""
+    if isinstance(pool, tuple) and hasattr(pool, "_fields"):
+        for f in pool._fields:
+            yield from leaves(getattr(pool, f), f"{prefix}.{f}" if prefix else f)
+    else:
+        yield prefix, pool
+
+
+def pool_to_numpy(pool: Pool) -> dict:
+    """A snapshot of the pool's leaves (copies: the port updates its
+    tensors in place, and a CPU tensor's ``numpy()`` shares memory)."""
+    out = {}
+    for name, t in leaves(pool):
+        a = t.detach().cpu().numpy()
+        out[name] = a.astype(np.uint32) if name in _UINT32 else a.copy()
+    return out
+
+
+def pool_from_numpy(arrays: dict, cfg: PoolConfig, device=None) -> Pool:
+    """Build the port's pool from reference leaves (``uint32`` words,
+    ``int32`` freelists and cache, ``uint8`` stores) on ``device``."""
+    dev = resolve_device(device)
+
+    def t(name):
+        a = np.asarray(arrays[name])
+        if name in _UINT32:
+            a = a.astype(np.int64)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    fl = lambda f: FreeList(t(f"{f}.items"), t(f"{f}.top"))
+    pool = Pool(meta=t("meta"), activity=t("activity"), hand=t("hand"),
+                cfree=fl("cfree"), gfree=fl("gfree"), pfree=fl("pfree"),
+                cache=MCache(t("cache.tags"), t("cache.age")),
+                counters=t("counters"), rng=t("rng"), c_store=t("c_store"),
+                p_store=t("p_store"), rates_table=t("rates_table"))
+    if pool.meta.shape != (cfg.n_pages, 8):
+        raise ValueError(f"meta {tuple(pool.meta.shape)} does not match "
+                         f"n_pages={cfg.n_pages}")
+    return pool

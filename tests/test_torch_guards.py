@@ -1,0 +1,58 @@
+"""Guards on the port's boundaries: it never imports JAX or the reference
+package, and its entry points never fall back to the CPU on their own."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom):
+            yield ("." * node.level) + (node.module or "")
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", "") \
+                == "__import__" and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "repro") or mod.startswith(".")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.exists(), path
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_make_pool_without_device_needs_cuda():
+    from repro_torch.common.types import PoolConfig
+    from repro_torch.core.engine import make_pool
+    cfg = PoolConfig(n_pages=16, n_cchunks=64, n_pchunks=16)
+    if torch.cuda.is_available():
+        assert make_pool(cfg).meta.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_pool(cfg)
+    assert make_pool(cfg, device="cpu").meta.device.type == "cpu"
+
+
+def test_kernel_impl_on_cpu_tensors_raises():
+    from repro_torch.common.types import PoolConfig
+    from repro_torch.core import compressor as comp
+    cfg = PoolConfig(compress_impl="kernel")
+    x = torch.zeros((1, cfg.vals_per_page), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        comp.encode_pages(x, cfg)
