@@ -7,17 +7,33 @@ Phases, in order; each prints its result on its own line and any failure
 exits non-zero:
 
   0 device   the card, its power limit, torch and CUDA versions
-  1 build    nvcc builds the fused demote/promote kernels (sm_90a)
-  2 kernels  each kernel against its plain PyTorch version on the card,
-             byte for byte, over block widths, input types, lossless and
-             zero-elision settings and row counts
+  1 build    nvcc builds the four kernel sources (sm_90a), all at once
+  2 kernels  the fused demote/promote kernels (B1/B2) against their plain
+             PyTorch versions on the card, byte for byte, over block
+             widths, input types, lossless and zero-elision settings and
+             row counts
   3 main     the payload pool at deployment size: population through
              host_write_page, then replay_trace of an mcf trace; launch
              counts, counters, invariants I1-I4 and a bit-exact read-back
   4 whole    the same recipe, small, with the kernels and with the plain
              compressor: every pool leaf identical
-  5 times    kernel / plain / bound times (CUDA events) at the main path's
-             shapes and at 65,536 blocks
+  5 times    B1/B2 kernel / plain / bound times (CUDA events) at the main
+             path's shapes and at 65,536 blocks
+  6 kernels  the serving kernels against their plain versions: fixed-rate
+             encode/decode (B3/B4) byte for byte, decode attention (B5) and
+             prefill attention (B6) within the stated tolerance
+  7 serve    llama3-8b at its published config (32 layers, bf16, random
+             params from a seed) served through Engine: 16 requests over 8
+             lanes (preemption and resume), 64 new tokens each; rates,
+             counters, launches; then torch.profiler over 4 decode steps
+             of 8 lanes: device busy share and the top kernels
+  8 paper    the same model in paper mode (promote-then-read): B4 launches
+  9 whole    a 2-layer model at llama3-8b's widths, kernels against plain
+             versions, in bf16 and float32: prefill and decode logits and
+             their argmax, and the same requests served through Engine
+             both ways (identical generations in float32)
+ 10 times    B3-B6 kernel / eager / plain / library / bound times at the
+             serving path's shapes
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -39,6 +55,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # f32 operations per value, counted from the kernel source: encode does
 # abs/max, then for each of the two rates multiply, round, two clamps, a
 # multiply, a bf16 round trip and a compare (or a subtract, abs and max);
@@ -53,6 +70,24 @@ MAIN_POOL = dict(n_pages=262144, n_pchunks=16384, n_cchunks=2097152)
 MAIN_PAGES = 32768
 MAIN_ACCESSES = 32768
 WHOLE_POOL = dict(n_pages=4096, n_pchunks=512, n_cchunks=32768)
+# serving: the main path's engine and workload
+SERVE_CFG = dict(max_running=8, hot_window=256, kv_rate_bits=4,
+                 attn_chunk=2048)
+SERVE_MAX_LEN = 2048
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
+PROMPT_LENS = (300, 1001)          # seeded, [300, 1000]: buckets 512, 1024
+PAPER_REQUESTS, PAPER_NEW_TOKENS = 4, 16
+PROFILE_STEPS = 4
+# stated tolerances: the reference's kernel bounds (tests/test_kernels.py,
+# atol = rtol), as |kernel - plain| <= tol * (1 + |plain|) for the
+# attention kernels, and normwise per row, max|kernel - plain| <= tol *
+# max|plain|, for the whole path's logits (phase 9)
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
+# the whole path (phase 9): kernels against plain versions asked for
+# explicitly, never taken by default
+WHOLE_IMPLS = {"kernel": dict(attn_impl="kernel", quantize_impl="kernel"),
+               "plain": dict(attn_impl="plain", quantize_impl="jnp")}
+WHOLE_STEPS = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -130,15 +165,19 @@ def phase_device() -> tuple:
     return name, smi
 
 
-def phase_build(qpack, tag: str) -> None:
-    info = qpack.build()
-    qpack.load()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"phase 1 build: {info['seconds']:.3f} s nvcc -> {info['path']} "
-          f"[{tag}]", flush=True)
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
+def phase_build(tag: str) -> None:
+    """One nvcc per source, all started together."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    infos = build.build_all()
+    print(f"phase 1 build: {len(infos)} sources in "
+          f"{time.perf_counter() - t0:.3f} s [{tag}]", flush=True)
+    for info in infos:
+        print(f"  {info['name']}: {info['seconds']:.3f} s nvcc -> "
+              f"{info['path']}")
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                print(f"    ptxas: {ln.strip()}")
 
 
 def phase_kernels(qpack, comp, dev) -> dict:
@@ -420,6 +459,519 @@ def phase_times(qpack, comp, dev, tag: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving phases (B3-B6).
+# ---------------------------------------------------------------------------
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.kernels import qpack
+    return {"qpack_fixed_encode": qpack.encode_launches,
+            "qpack_fixed_decode": qpack.decode_launches,
+            "kvc_decode_attention": KA.launches,
+            "flash_attention": FA.launches}
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.kernels import qpack
+    qpack.encode_launches = qpack.decode_launches = 0
+    KA.launches = FA.launches = 0
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-row equality of the bit patterns (rows = leading dims)."""
+    if a.dtype in (torch.bfloat16, torch.float32):
+        iv = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        a, b = a.view(iv), b.view(iv)
+    return (a == b).reshape(a.shape[0], -1).all(dim=1)
+
+
+def phase_serve_kernels(dev) -> dict:
+    """B3/B4 byte for byte; B5/B6 within ATTN_TOL, max abs error kept."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.kernels import qpack
+    res = {k: {"cases": 0, "mismatches": 0, "err": 0.0}
+           for k in ("qpack_fixed_encode", "qpack_fixed_decode",
+                     "kvc_decode_attention", "flash_attention")}
+    for block in (128, 512):
+        x32 = torch.from_numpy(edge_blocks(131072, block, SEED + block)) \
+            .to(dev)
+        for xall in (x32, x32.to(torch.bfloat16)):
+            for bits in (4, 8):
+                for n in (1, 7, 64, 131072):
+                    x = xall[:n]
+                    got = qpack.encode(x, bits, block)
+                    want = qpack.encode_plain(x, bits, block)
+                    r = res["qpack_fixed_encode"]
+                    r["cases"] += 1
+                    r["mismatches"] += int((~(_bits_equal(got[0], want[0]) &
+                                              _bits_equal(got[1], want[1])))
+                                           .sum())
+                    r["err"] = max(r["err"], float(
+                        (got[1] - want[1]).abs().max()))
+                    for out_dt in (torch.bfloat16, torch.float32):
+                        a = qpack.decode(*want, bits, block, out_dt)
+                        b = qpack.decode_plain(*want, bits, block, out_dt)
+                        r = res["qpack_fixed_decode"]
+                        r["cases"] += 1
+                        r["mismatches"] += int((~_bits_equal(a, b)).sum())
+                        fin = torch.isfinite(b)
+                        r["err"] = max(r["err"], float(
+                            (a.float() - b.float())[fin].abs().max()))
+        del x32, xall
+    torch.cuda.synchronize()
+
+    # B5: lengths 0, 1, ragged and full; S 8 to 2048; G 1 and 4; D 64/128
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for S in (8, 100, 2048):
+        for G, Hkv, D in ((4, 8, 128), (1, 4, 128), (4, 2, 64)):
+            for bits in (4, 8):
+                B = 4
+                q = torch.randn((B, Hkv * G, D), generator=gen, device=dev) \
+                    .to(torch.bfloat16)
+                kv = [qpack.encode(torch.randn((B, S, Hkv, D), generator=gen,
+                                               device=dev), bits, D)
+                      for _ in range(2)]
+                (kc, ks), (vc, vs) = [(c, s_[..., 0].contiguous())
+                                      for c, s_ in kv]
+                lens = torch.tensor([0, 1, max(1, S * 5 // 8), S],
+                                    dtype=torch.int32, device=dev)
+                sm = 1.0 / D ** 0.5
+                got = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens,
+                                            bits=bits)
+                want = KA.kvc_decode_partial_plain(q, kc, ks, vc, vs, lens,
+                                                   bits, sm)
+                gotn = KA.kvc_decode_attention(q, kc, ks, vc, vs, lens,
+                                               bits=bits)
+                wantn = KA.kvc_decode_attention_plain(q, kc, ks, vc, vs,
+                                                      lens, bits, sm)
+                r = res["kvc_decode_attention"]
+                for a, b in list(zip(got, want)) + [(gotn, wantn)]:
+                    a, b = a.float(), b.float()
+                    r["cases"] += 1
+                    bad = (a - b).abs() > ATTN_TOL[torch.bfloat16] * \
+                        (1 + b.abs())
+                    r["mismatches"] += int(bad.sum())
+                    r["err"] = max(r["err"], float((a - b).abs().max()))
+
+    # B6: causal and full; S 8 to 2048; G 1 and 4; bf16 and f32
+    for S, B in ((8, 2), (100, 2), (1024, 1), (2048, 1)):
+        for G, Hkv in ((4, 8), (1, 4)):
+            for dt in (torch.bfloat16, torch.float32):
+                for causal in (True, False):
+                    q, k, v = (torch.randn((B, S, h, 128), generator=gen,
+                                           device=dev).to(dt)
+                               for h in (Hkv * G, Hkv, Hkv))
+                    a = FA.flash_attention(q, k, v, causal=causal).float()
+                    b = FA.flash_attention_plain(q, k, v,
+                                                 causal=causal).float()
+                    r = res["flash_attention"]
+                    r["cases"] += 1
+                    r["mismatches"] += int(((a - b).abs() > ATTN_TOL[dt] *
+                                            (1 + b.abs())).sum())
+                    r["err"] = max(r["err"], float((a - b).abs().max()))
+    torch.cuda.synchronize()
+    print(f"phase 6 serving kernels vs plain: "
+          f"{json.dumps({k: v for k, v in res.items()})} | tolerance "
+          f"|kernel - plain| <= tol * (1 + |plain|), tol 2e-2 (bf16) and "
+          f"2e-3 (f32); B3/B4 byte for byte", flush=True)
+    for k, r in res.items():
+        check(r["mismatches"] == 0, f"phase 6: {k} disagrees with its plain "
+              f"version in {r['mismatches']} elements/rows")
+    return res
+
+
+def _llama(layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3_8b")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def _prompts(n: int, vocab: int, seed: int):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(*PROMPT_LENS, size=n)
+    return [rng.integers(1, vocab, size=int(L)).tolist() for L in lens]
+
+
+class _PhaseTimer:
+    """CUDA-event device time around the engine's prefill and decode-step
+    functions (no host sync added: events are read after the run)."""
+
+    def __init__(self, engine_mod):
+        self.mod = engine_mod
+        self.orig = (engine_mod._prefill_impl, engine_mod._engine_step_impl)
+        self.events = {"prefill": [], "step": []}
+
+    def _wrap(self, fn, kind):
+        def timed(*a, **k):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            self.events[kind].append((s, e))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.mod._prefill_impl = self._wrap(self.orig[0], "prefill")
+        self.mod._engine_step_impl = self._wrap(self.orig[1], "step")
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._prefill_impl, self.mod._engine_step_impl = self.orig
+
+    def seconds(self, kind: str) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[kind]) / 1e3
+
+
+def _serve(cfg, scfg, params, prompts, new_tokens, dev):
+    """Drive Engine over ``prompts``: (engine, wall s, prefill device s,
+    decode-step device s, launches in this run)."""
+    from repro_torch.common import contracts
+    from repro_torch.serve import Engine
+    from repro_torch.serve import engine as engine_mod
+    eng = Engine(cfg, scfg, params, max_len=SERVE_MAX_LEN)
+    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    _reset_launches()
+    contracts.SYNCS.reset()
+    with _PhaseTimer(engine_mod) as tm:
+        t0 = time.perf_counter()
+        eng.run_until_done(max_steps=5000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        t_pre, t_step = tm.seconds("prefill"), tm.seconds("step")
+    check(all(eng.requests[r].state == "done" for r in rids),
+          "serve: a request did not finish")
+    check(eng.counters["step_syncs"] == eng.counters["steps"],
+          f"serve: step_syncs {eng.counters['step_syncs']} != steps "
+          f"{eng.counters['steps']}")
+    check(contracts.SYNCS.count == eng.counters["step_syncs"] +
+          eng.counters["admit_syncs"], "serve: an uncounted sync")
+    return eng, wall, t_pre, t_step, launches
+
+
+def phase_serve(dev, tag: str):
+    """The serving main path: llama3-8b, all 32 layers, 16 requests."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import describe
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    cfg = _llama()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    scfg = ServeConfig(**SERVE_CFG)
+    prompts = _prompts(SERVE_REQUESTS, cfg.vocab_size, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    eng, wall, t_pre, t_step, launches = _serve(cfg, scfg, params, prompts,
+                                                SERVE_NEW_TOKENS, dev)
+    c = eng.counters
+    n_prompt = sum(len(p) for p in prompts)
+    print(f"phase 7 serve: {describe(cfg)}, bf16 params from seed {SEED} "
+          f"({t_init:.3f} s) | {SERVE_REQUESTS} requests, prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+          f"{SERVE_NEW_TOKENS} new each, {scfg.max_running} lanes, "
+          f"max_len {SERVE_MAX_LEN}, W {scfg.hot_window}, "
+          f"{scfg.kv_rate_bits}-bit KV | wall {wall:.3f} s | prefill "
+          f"{n_prompt} prompt tokens in {t_pre:.3f} s device = "
+          f"{n_prompt / t_pre:.3f} tokens/s | decode {c['tokens']} tokens "
+          f"in {c['steps']} steps, {t_step:.3f} s device = "
+          f"{c['tokens'] / t_step:.3f} tokens/s, "
+          f"{1e3 * t_step / c['steps']:.3f} ms per step | KV cache "
+          f"{D.cache_bytes(eng.cache) / 2**30:.3f} GiB, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{tag}]",
+          flush=True)
+    print(f"phase 7 counters: {json.dumps(c)} | step_syncs == steps: "
+          f"{c['step_syncs'] == c['steps']}", flush=True)
+    print(f"phase 7 launches: {json.dumps(launches)}", flush=True)
+    check(c["demotions"] > 0 and c["promotions"] > 0,
+          "phase 7: no demotion or promotion")
+    for k in ("qpack_fixed_encode", "kvc_decode_attention",
+              "flash_attention"):
+        check(launches[k] > 0, f"phase 7: {k} was not launched")
+    # lengths of the compressed prefix the decode attention saw last
+    # (layer 0), for the timing phase's shapes
+    return params, launches, {"t_pre": t_pre, "t_step": t_step,
+                              "wall": wall, "counters": c}
+
+
+def _busy_us(events) -> float:
+    """Microseconds in the union of the device events' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def phase_serve_profile(params, dev, tag: str) -> None:
+    """Where a decode step's time goes: torch.profiler over PROFILE_STEPS
+    steps of 8 running lanes (no admission, no preemption), the main
+    cell's engine and model. Device busy share = the union of the device
+    events over the host wall time of the steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.serve import Engine
+    cfg = _llama()
+    eng = Engine(cfg, ServeConfig(**SERVE_CFG), params,
+                 max_len=SERVE_MAX_LEN)
+    for p in _prompts(SERVE_CFG["max_running"], cfg.vocab_size, SEED + 4):
+        eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+    for _ in range(3):                  # admission, prefill, warm steps
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        print(f"phase 7 profile: torch.profiler recorded no device events; "
+              f"device busy share not measured [{tag}]", flush=True)
+        return
+    busy = _busy_us(kern)
+    by_name: dict = {}
+    for e in kern:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"phase 7 profile: {PROFILE_STEPS} decode steps, 8 lanes, "
+          f"{1e3 * wall / PROFILE_STEPS:.3f} ms per step (host wall, "
+          f"profiler on) | device busy {busy / 1e3:.3f} ms = "
+          f"{busy / (wall * 1e6):.4f} of the wall | {len(kern)} device "
+          f"events, {len(kern) / PROFILE_STEPS:.1f} per step | top by "
+          f"device time: " + "; ".join(
+              f"{n[:60]} x{c} {us / 1e3:.3f} ms" for n, (c, us) in top)
+          + f" [{tag}]", flush=True)
+
+
+def phase_paper(params, dev, tag: str) -> dict:
+    from repro_torch.common.types import ServeConfig
+    cfg = _llama()
+    scfg = ServeConfig(**SERVE_CFG, fused_dequant_attention=False)
+    prompts = _prompts(PAPER_REQUESTS, cfg.vocab_size, SEED + 1)
+    eng, wall, t_pre, t_step, launches = _serve(cfg, scfg, params, prompts,
+                                                PAPER_NEW_TOKENS, dev)
+    c = eng.counters
+    print(f"phase 8 paper mode: {PAPER_REQUESTS} requests, "
+          f"{PAPER_NEW_TOKENS} new each | decode {c['tokens']} tokens in "
+          f"{c['steps']} steps, {1e3 * t_step / c['steps']:.3f} ms per step "
+          f"| launches {json.dumps(launches)} [{tag}]", flush=True)
+    check(launches["qpack_fixed_decode"] > 0,
+          "phase 8: the fixed-rate decode kernel was not launched")
+    return launches
+
+
+def _whole_run(cfg, params, tokens, lens, impl: str, feed=None):
+    """Prefill, then WHOLE_STEPS decode steps fed ``feed`` (or, when None,
+    this run's own greedy tokens). Returns (logits per call, the tokens
+    fed, launches in this run)."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.models import decode as D
+    scfg = ServeConfig(**SERVE_CFG, **WHOLE_IMPLS[impl])
+    _reset_launches()
+    lg, cache = D.prefill(params, {"tokens": tokens}, cfg, scfg,
+                          SERVE_MAX_LEN, lens=lens)
+    out = [lg.float()]
+    toks = [lg.argmax(-1).to(torch.int32)] if feed is None else feed
+    pos = lens.clone()
+    for t in range(WHOLE_STEPS):
+        lg, _ = D.decode_step(params, cache, toks[t], pos, cfg, scfg)
+        out.append(lg.float())
+        if feed is None:
+            toks.append(lg.argmax(-1).to(torch.int32))
+        pos = pos + 1
+    return out, toks, _launch_counts()
+
+
+def phase_serve_whole(dev) -> dict:
+    """2 layers at llama3-8b's widths, kernels against plain versions, in
+    bf16 (the main path's type) and in float32 (where the argmax has
+    margin): logits of a prefill and WHOLE_STEPS decode steps, both runs
+    fed the plain run's greedy tokens, then the same prompts served
+    through Engine both ways."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(_llama(layers=2), dtype=dtype)
+        tol = ATTN_TOL[L.DTYPES[dtype]]
+        params = T.init_params(cfg, seed=SEED + 2, device=dev)
+        prompts = _prompts(4, cfg.vocab_size, SEED + 2)
+        S = 1 << (max(map(len, prompts)) - 1).bit_length()   # the bucket
+        tokens = torch.zeros((4, S), dtype=torch.int32, device=dev)
+        for i, p in enumerate(prompts):
+            tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                            device=dev)
+        want, feed, pl = _whole_run(cfg, params, tokens, lens, "plain")
+        got, _, kl = _whole_run(cfg, params, tokens, lens, "kernel", feed)
+        err, bad, agree = 0.0, 0, 0
+        for a, b in zip(got, want):
+            # normwise per row: the logits come from a hidden state of unit
+            # RMS through one product, so their error scales with the
+            # row's magnitude, not with each logit's own
+            bound = tol * b.abs().amax(dim=-1)
+            err = max(err, float((a - b).abs().max()))
+            bad += int(((a - b).abs().amax(dim=-1) > bound).sum())
+            # the argmax may differ only where the plain run's top-2
+            # margin is within the two runs' joint error bound
+            top2 = b.topk(2, dim=-1).values
+            close = top2[:, 0] - top2[:, 1] <= 2 * bound
+            same = a.argmax(-1) == b.argmax(-1)
+            agree += int(same.sum())
+            check(bool((same | close).all()), f"phase 9 {dtype}: an argmax "
+                  "differs at a top-2 margin above the tolerance")
+        served = {}
+        for name, kw in WHOLE_IMPLS.items():
+            scfg = ServeConfig(**dict(SERVE_CFG, max_running=2), **kw)
+            eng, _, _, _, launches = _serve(cfg, scfg, params, prompts, 8,
+                                            dev)
+            served[name] = ([eng.result(r) for r in range(len(prompts))],
+                            launches)
+        same_gen = sum(x == y for x, y in zip(served["kernel"][0],
+                                              served["plain"][0]))
+        n = len(got) * got[0].shape[0]
+        print(f"phase 9 whole path {dtype}, 2 layers at full width, kernels "
+              f"vs plain: prefill + {WHOLE_STEPS} decode steps x 4 rows, "
+              f"logits max abs err {err:.6f}, {bad}/{n} rows outside tol "
+              f"{tol} * max|plain row| | argmax {agree}/{n} agree, "
+              f"{n - agree} differ "
+              f"at a top-2 margin within the bound | Engine (4 requests, 2 "
+              f"lanes, 8 new): {same_gen}/4 generations identical | "
+              f"launches kernel run {json.dumps(kl)}, Engine "
+              f"{json.dumps(served['kernel'][1])}; plain runs "
+              f"{json.dumps(pl)}, {json.dumps(served['plain'][1])}",
+              flush=True)
+        check(bad == 0, f"phase 9 {dtype}: {bad} rows of logits outside "
+              "tolerance")
+        if dtype == "float32":
+            check(same_gen == 4, "phase 9 float32: Engine generations "
+                  "differ between the kernels and the plain versions")
+        for k, v in list(kl.items()) + list(served["kernel"][1].items()):
+            check(v > 0 or k == "qpack_fixed_decode",
+                  f"phase 9 {dtype}: {k} was not launched in the kernel run")
+        check(not any(pl.values()) and not any(served["plain"][1].values()),
+              f"phase 9 {dtype}: a plain run launched a kernel")
+        res[dtype] = {"err": err, "argmax_differ": n - agree}
+        del params
+        torch.cuda.empty_cache()
+    return res
+
+
+def _sdpa(q, k, v, causal, mask=None):
+    """One PyTorch call (the yardstick, never called by the port)."""
+    F = torch.nn.functional
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=causal, enable_gqa=True)
+
+
+def phase_serve_times(dev, tag: str) -> dict:
+    """B3-B6 at the serving path's shapes (llama3-8b, 8 lanes)."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.kernels import qpack
+    cfg = _llama()
+    B, Hq, Hkv, D = SERVE_CFG["max_running"], cfg.num_heads, \
+        cfg.num_kv_heads, cfg.resolved_head_dim
+    bits, W, S = SERVE_CFG["kv_rate_bits"], SERVE_CFG["hot_window"], \
+        SERVE_MAX_LEN
+    Dp = D * bits // 8
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out = {}
+
+    # B3 at its most launched shape: the per-step ring eviction, one
+    # 128-value block per (lane, KV head), f32 input
+    old = torch.randn((B, Hkv, D), generator=gen, device=dev)
+    nblk = B * Hkv
+    out["qpack_fixed_encode"] = dict(
+        shape=f"{B}x{Hkv}x{D} f32 (ring eviction)",
+        kern=lambda: qpack.encode(old, bits, D),
+        plain=lambda: qpack.encode_plain(old, bits, D), lib=None,
+        nbytes=nblk * (D * 4 + Dp + 4), ops=0, reps=200)
+    # B4 at the paper path's shape: the whole compressed region of 8 lanes
+    kc, ks = qpack.encode(torch.randn((B, S, Hkv, D), generator=gen,
+                                      device=dev), bits, D)
+    out["qpack_fixed_decode"] = dict(
+        shape=f"{B}x{S}x{Hkv}x{D} -> bf16 (paper-mode prefix)",
+        kern=lambda: qpack.decode(kc, ks, bits, D, torch.bfloat16),
+        plain=lambda: qpack.decode_plain(kc, ks, bits, D, torch.bfloat16),
+        lib=None, nbytes=B * S * Hkv * (Dp + 4 + 2 * D), ops=0, reps=20)
+    # B5: the decode step's compressed-prefix read, lengths of this run
+    lens_l = np.random.default_rng(SEED).integers(*PROMPT_LENS, size=B) \
+        + SERVE_NEW_TOKENS // 2 - W
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    vc, vs = qpack.encode(torch.randn((B, S, Hkv, D), generator=gen,
+                                      device=dev), bits, D)
+    ks1, vs1 = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    kdq = qpack.decode(kc, ks, bits, D, torch.bfloat16)
+    vdq = qpack.decode(vc, vs, bits, D, torch.bfloat16)
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[
+        :, None, None, :]
+    tok = int(lens.sum())
+    out["kvc_decode_attention"] = dict(
+        shape=f"q {B}x{Hq}x{D} bf16, {bits}-bit KV {B}x{S}x{Hkv}, lengths "
+              f"{lens_l.tolist()}",
+        kern=lambda: KA.kvc_decode_partial(q, kc, ks1, vc, vs1, lens,
+                                           bits=bits),
+        plain=lambda: KA.kvc_decode_partial_plain(q, kc, ks1, vc, vs1, lens,
+                                                  bits, 1.0 / D ** 0.5),
+        lib=lambda: _sdpa(q[:, None], kdq, vdq, False, mask),
+        nbytes=tok * Hkv * 2 * (Dp + 4) + B * Hq * D * 2 + B * 4
+        + B * Hq * (D + 2) * 4,
+        ops=4 * tok * Hq * D, reps=50)
+    # B6: the prefill's attention at the 1024 bucket, 8 rows, causal
+    Sp = 1024
+    qf, kf, vf = (torch.randn((B, Sp, h, D), generator=gen, device=dev)
+                  .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    out["flash_attention"] = dict(
+        shape=f"q {B}x{Sp}x{Hq}x{D}, kv {B}x{Sp}x{Hkv}x{D} bf16 causal",
+        kern=lambda: FA.flash_attention(qf, kf, vf, causal=True),
+        plain=lambda: FA.flash_attention_plain(qf, kf, vf, causal=True),
+        lib=lambda: _sdpa(qf, kf, vf, True),
+        nbytes=2 * B * Sp * D * (2 * Hq + 2 * Hkv),
+        ops=4 * B * Hq * D * Sp * (Sp + 1) // 2, reps=5)
+    res = {}
+    for name, t in out.items():
+        t_b = t["nbytes"] / HBM_BYTES_PER_S
+        t_o = t["ops"] / BF16_OPS_PER_S
+        r = {"shape": t["shape"], "ms": time_graph(t["kern"], t["reps"]),
+             "eager_ms": time_eager(t["kern"], t["reps"]),
+             "plain_ms": time_eager(t["plain"], max(t["reps"] // 10, 2)),
+             "library_ms": (time_eager(t["lib"], t["reps"])
+                            if t["lib"] else None),
+             "bound_ms": max(t_b, t_o) * 1e3,
+             "bound_by": "bytes" if t_b >= t_o else "operations"}
+        res[name] = r
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.6f} ms"
+        print(f"phase 10 {name} [{r['shape']}]: kernel {r['ms']:.6f} ms "
+              f"(graph replay), {r['eager_ms']:.6f} ms eager | plain "
+              f"{r['plain_ms']:.6f} ms | library {lib} | bound "
+              f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({t['nbytes']} B "
+              f"at 3.35 TB/s, {t['ops']} flop at 989 TF/s) [{tag}]",
+              flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -438,11 +990,21 @@ def main() -> int:
     torch.cuda.set_device(dev)
     name, smi = phase_device()
     tag = smi
-    phase_build(qpack, tag)
+    phase_build(tag)
     errs = phase_kernels(qpack, comp, dev)
     launches = phase_main(qpack, dev, MAIN_PAGES, MAIN_ACCESSES, tag)
     phase_whole(qpack, dev)
     times = phase_times(qpack, comp, dev, tag)
+    torch.cuda.empty_cache()             # the pool is gone: free its memory
+    serve_errs = phase_serve_kernels(dev)
+    params, serve_launches, _ = phase_serve(dev, tag)
+    phase_serve_profile(params, dev, tag)
+    paper_launches = phase_paper(params, dev, tag)
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_whole(dev)
+    torch.cuda.empty_cache()
+    serve_times = phase_serve_times(dev, tag)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     kernels = []
@@ -457,6 +1019,26 @@ def main() -> int:
             "library_ms": None, "eager_ms": t["eager_ms"],
             "shape": f"{n}x512 bf16", "cases": errs[kind]["cases"],
             "mismatches": errs[kind]["mismatches"]})
+    # B4 runs on the paper path only: its launches are that path's
+    path_launches = dict(serve_launches,
+                         qpack_fixed_decode=paper_launches[
+                             "qpack_fixed_decode"])
+    for name_, source, replaces in (
+            ("qpack_fixed_encode", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_fixed_decode", "qpack_fixed.cu", "qpack.py:148"),
+            ("kvc_decode_attention", "kvc_attn.cu", "kvc_attn.py:96"),
+            ("flash_attention", "flash_attn.cu", "flash_attn.py:72")):
+        t, e = serve_times[name_], serve_errs[name_]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": path_launches[name_], "max_abs_err": e["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"]})
     print(f"total {time.perf_counter() - t_start:.3f} s [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,15 +1,20 @@
-"""Pool configuration for the PyTorch port.
+"""Configurations of the PyTorch port: pool, model and serving.
 
-A field-for-field copy of the reference ``PoolConfig`` (same names, defaults
-and allowed values), so ``PoolConfig(**dataclasses.asdict(ref_cfg))`` builds
-the port's config unchanged. On the port, ``compress_impl="jnp"`` names the
-plain PyTorch compressor, ``"kernel"`` the CUDA kernels, and ``"auto"``
-resolves by the tensor's device (core/compressor.py::resolve_impl).
+Field-for-field copies of the reference ``PoolConfig``, ``ModelConfig`` and
+``ServeConfig`` (same names, defaults and allowed values), so
+``PoolConfig(**dataclasses.asdict(ref_cfg))`` builds the port's config
+unchanged (``ServeConfig.from_reference`` does the same for the nested
+serving config). On the port, ``compress_impl``/``quantize_impl="jnp"``
+name the plain PyTorch versions, ``"kernel"`` the CUDA kernels, and
+``"auto"`` resolves by the tensor's device (core/compressor.py). One field
+is the port's own: ``ServeConfig.attn_impl`` switches the two attention
+kernels the same way (the reference computes that attention in jnp).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -62,6 +67,117 @@ class PoolConfig:
     @property
     def vals_per_page(self) -> int:
         return self.page_bytes // 2
+
+
+# ---------------------------------------------------------------------------
+# Model architecture. MoE, MLA and SSM sub-configs are carried as field
+# types only: the port serves the dense family (the others wait for their
+# slices, ROADMAP A.6).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    dense_residual: bool = False
+    dense_d_ff: int = 0
+    router_jitter: float = 0.0
+    load_balance_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba1"
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    ngroups: int = 1
+    chunk: int = 128
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"              # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int = 2
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 0                  # 0 -> d_model // num_heads
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    max_seq_len: int = 8192
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    attn_kind: str = "gqa"             # gqa | mla | none
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    attn_period: int = 0
+    attn_shared_blocks: int = 2
+    frontend: str = "none"             # "none" | "vq_image" | "encodec_audio"
+    dtype: str = "bfloat16"
+    remat: bool = True
+    scan_layers: bool = True
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def param_count(self) -> int:
+        """Parameter count of the dense GQA family (the reference's
+        ``ModelConfig.param_count`` for it)."""
+        if self.family not in ("dense", "vlm", "audio") or \
+                self.attn_kind != "gqa":
+            raise NotImplementedError(
+                f"param_count of family {self.family!r} / attention "
+                f"{self.attn_kind!r}: the port has the dense GQA family "
+                "only (ROADMAP A.6)")
+        d, v, L = self.d_model, self.vocab_size, self.num_layers
+        hd = self.resolved_head_dim
+        n = v * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+            + self.num_heads * hd * d
+        return n + L * (attn + 3 * d * self.d_ff)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_running: int = 8               # concurrently decoding requests
+    max_resident: int = 32
+    page_tokens: int = 64
+    max_pages_per_seq: int = 64
+    kv_rate_bits: int = 4              # compressed-pool KV rate (4 or 8)
+    hot_window: int = 256              # uncompressed recent-token window
+    attn_chunk: int = 2048             # kv chunk of the plain decode attention
+    fused_dequant_attention: bool = True  # False = paper-faithful promote-then-read
+    n_expanders: int = 1
+    quantize_impl: str = "auto"        # "auto" | "kernel" | "jnp"
+    pool: PoolConfig = field(default_factory=PoolConfig)
+    # the port's own: "auto" | "kernel" | "plain" for the decode (B5) and
+    # prefill (B6) attention kernels
+    attn_impl: str = "auto"
+
+    @classmethod
+    def from_reference(cls, ref, **kw) -> "ServeConfig":
+        """The port's config from a reference ``ServeConfig`` (or its
+        ``dataclasses.asdict``), port-only fields from ``kw``."""
+        d = dict(ref if isinstance(ref, dict) else dataclasses.asdict(ref))
+        pool = d.pop("pool")
+        return cls(pool=PoolConfig(**(pool if isinstance(pool, dict) else
+                                      dataclasses.asdict(pool))), **d, **kw)
 
 
 def replace(cfg, **kw):

@@ -1,0 +1,58 @@
+"""Architecture registry: the reference's ten arch ids and their CLI
+aliases. Each ported arch has a module exporting ``CONFIG`` (the published
+configuration) and ``REDUCED`` (a same-family miniature for CPU tests).
+The port serves the dense GQA family; the other ids raise
+``NotImplementedError`` naming the ROADMAP item that ports them."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.common.types import ModelConfig
+
+ARCH_IDS: List[str] = [
+    "chameleon_34b", "qwen3_moe_235b_a22b", "arctic_480b", "deepseek_7b",
+    "minicpm3_4b", "codeqwen15_7b", "llama3_8b", "zamba2_2p7b",
+    "musicgen_medium", "falcon_mamba_7b",
+]
+
+ALIASES: Dict[str, str] = {
+    "chameleon-34b": "chameleon_34b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "arctic-480b": "arctic_480b",
+    "deepseek-7b": "deepseek_7b",
+    "minicpm3-4b": "minicpm3_4b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "llama3-8b": "llama3_8b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "musicgen-medium": "musicgen_medium",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+}
+
+PORTED = ("llama3_8b",)
+
+
+def _module(arch: str):
+    arch = ALIASES.get(arch, arch)
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet: ROADMAP A.6 (serving) queues "
+            f"the other configs and the MoE, MLA, SSM and hybrid families; "
+            f"ported: {list(PORTED)}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return _module(arch).REDUCED
+
+
+def describe(cfg: ModelConfig) -> str:
+    n = cfg.param_count()
+    return (f"{cfg.name}: {cfg.family} {cfg.num_layers}L d={cfg.d_model} "
+            f"{n/1e9:.1f}B params")

@@ -9,6 +9,10 @@ page as one 2048-value block.
 Two implementations of one format: the plain oracle here
 (``compress_impl="jnp"``) and the fused kernels (``"kernel"``,
 kernels/qpack.py), byte-identical to each other.
+
+The flat fixed-rate quantization of the KV cache (``quantize_blocks`` and
+its kin, at the end) is a second format with the same two
+implementations, switched by ``ServeConfig.quantize_impl``.
 """
 from __future__ import annotations
 
@@ -210,3 +214,48 @@ def page_compressed_bytes(rates, vals_per_block: int) -> int:
     """Bytes a page with these block rates (host ints) occupies."""
     table = quanta_per_rate(vals_per_block)
     return sum(table[r] for r in rates) * QUANTUM
+
+
+# ---------------------------------------------------------------------------
+# Flat fixed-rate tensor quantization (the KV cache's compressed region).
+# ---------------------------------------------------------------------------
+
+def resolve_quantize_impl(impl: str, device) -> str:
+    """``ServeConfig.quantize_impl`` for tensors on ``device``: "auto" is
+    the CUDA kernel for CUDA tensors and the plain version for CPU tensors;
+    "kernel" on a CPU tensor raises; "jnp" (the reference's name) is the
+    plain version everywhere."""
+    if impl == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else "jnp"
+    if impl == "kernel" and torch.device(device).type != "cuda":
+        raise ValueError("quantize_impl='kernel' needs CUDA tensors")
+    if impl not in ("kernel", "jnp"):
+        raise ValueError(f"quantize_impl={impl!r}")
+    return impl
+
+
+def quantize_blocks(x: torch.Tensor, bits: int, block: int):
+    """x[..., N] -> (packed codes uint8[..., N*bits/8], scales
+    f32[..., N/block]); the plain version."""
+    return qpack.encode_plain(x, bits, block)
+
+
+def dequantize_blocks(codes: torch.Tensor, scales: torch.Tensor, bits: int,
+                      block: int, dtype=torch.bfloat16,
+                      impl: str = "auto") -> torch.Tensor:
+    """Inverse of ``quantize_blocks``, routed by ``impl`` as
+    ``quantize_blocks_fast`` is: "auto" launches the CUDA decode kernel for
+    CUDA tensors (the reference has only its jnp path here)."""
+    if resolve_quantize_impl(impl, codes.device) == "kernel":
+        return qpack.decode(codes, scales, bits, block, dtype)
+    return qpack.decode_plain(codes, scales, bits, block, dtype)
+
+
+def quantize_blocks_fast(x: torch.Tensor, bits: int, block: int,
+                         impl: str = "auto"):
+    """``quantize_blocks`` with the reference's impl switch: "kernel" is
+    the CUDA kernel (bit-identical to the plain version), "jnp" the plain
+    version, "auto" the kernel for CUDA tensors."""
+    if resolve_quantize_impl(impl, x.device) == "kernel":
+        return qpack.encode(x, bits, block)
+    return qpack.encode_plain(x, bits, block)

@@ -7,13 +7,16 @@ at the site where it occurs. Hooks add to the counters tensor in place;
 ``n`` may be an int or a 0-d tensor.
 
 Schemes: ibex (and its ablation rungs ibex_base/_s/_sc/_scm), tmcc, dylect,
-mxt, dmc, compresso.
+mxt, dmc, compresso. ``SecondChanceLanes`` is the same clock over serving
+lanes.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Dict
+
+import numpy as np
 
 from repro_torch.core import activity as act
 from repro_torch.core.engine.state import (C_ACT_WR, C_DEMO_WR, C_META_RD,
@@ -147,3 +150,44 @@ POLICIES: Dict[str, Policy] = {
     "dmc": DmcPolicy(),
     "compresso": CompressoPolicy(),
 }
+
+
+class SecondChanceLanes:
+    """The §4.4 second-chance victim selection at *lane* (request)
+    granularity, used by the serving engine: reference bit = "generated a
+    token since last sweep". Numpy only, line for line the reference's
+    ``SecondChanceLanes``."""
+
+    def __init__(self, n_lanes: int):
+        self.n = n_lanes
+        self.hand = 0
+
+    def select_mask(self, occupied, referenced, groups=None, group_load=None):
+        """One-pass sweep. occupied/referenced: bool[n] arrays. Returns
+        (victim lane or None, new referenced bits): ref bits of occupied
+        lanes between the hand and the victim are cleared; if every
+        occupied lane is referenced, all are cleared and the first occupied
+        lane after the hand is taken. ``groups``/``group_load`` prefer the
+        least-loaded expander among the candidates."""
+        occ = np.asarray(occupied, bool)
+        ref = np.array(referenced, bool, copy=True)
+        order = (self.hand + np.arange(self.n)) % self.n
+        cand = occ[order] & ~ref[order]
+        if cand.any():
+            if groups is None:
+                k = int(np.argmax(cand))
+            else:
+                pos = np.nonzero(cand)[0]
+                loads = np.asarray(group_load)[
+                    np.asarray(groups)[order[pos]]]
+                k = int(pos[int(np.argmin(loads))])
+            swept = order[:k]
+            ref[swept[occ[swept]]] = False
+        elif occ.any():
+            k = int(np.argmax(occ[order]))
+            ref[occ] = False
+        else:
+            return None, ref
+        victim = int(order[k])
+        self.hand = (victim + 1) % self.n
+        return victim, ref

@@ -1,4 +1,5 @@
-"""Pool state <-> numpy, in the reference package's dtypes.
+"""Pool state, model params and KV caches <-> numpy, in the reference
+package's dtypes and layouts.
 
 A pool is a dict of numpy arrays keyed by dotted leaf names in the
 reference ``Pool``'s field order ("meta", "activity", "hand",
@@ -6,6 +7,11 @@ reference ``Pool``'s field order ("meta", "activity", "hand",
 "rng", "c_store", "p_store", "rates_table"). The reference's uint32 leaves
 (metadata and activity words, the PRNG key) are int64 inside the port;
 this module is the only place that converts them.
+
+Model params: the reference's ``init_params`` tree (layers stacked on a
+leading axis, f32 leaves) becomes the port's (a list of per-layer dicts, in
+the model's dtype). Caches: the port's stacked cache as numpy, bf16 leaves
+as float32 (exact).
 """
 from __future__ import annotations
 
@@ -62,3 +68,50 @@ def pool_from_numpy(arrays: dict, cfg: PoolConfig, device=None) -> Pool:
         raise ValueError(f"meta {tuple(pool.meta.shape)} does not match "
                          f"n_pages={cfg.n_pages}")
     return pool
+
+
+def params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The port's params from the reference ``init_params`` tree (any
+    array-likes: numpy, or JAX arrays), cast to ``cfg.dtype`` on
+    ``device``: the same rounding the reference applies at each use."""
+    from repro_torch.models.layers import torch_dtype
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev).to(dtype)
+
+    def per_layer(sub, i):
+        return {k: per_layer(v, i) if isinstance(v, dict) else t(np.asarray(v)[i])
+                for k, v in sub.items()}
+
+    out = {k: t(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [per_layer(tree["layers"], i)
+                     for i in range(cfg.num_layers)]
+    return out
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """A snapshot of a stacked KV cache (copies; bf16 leaves as f32)."""
+    out = {}
+    for k, v in cache.items():
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            v = v.to(torch.float32)
+        out[k] = v.numpy().copy()
+    return out
+
+
+def cache_from_numpy(arrays: dict, device=None) -> dict:
+    """A stacked KV cache from numpy (the reference's leaves, or
+    ``cache_to_numpy``'s): ring leaves become bf16, the rest keep their
+    dtype."""
+    dev = resolve_device(device)
+    out = {}
+    for k, a in arrays.items():
+        if k.endswith("_hot"):
+            t = torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        out[k] = t.to(dev)
+    return out

@@ -1,0 +1,161 @@
+"""Decode attention over the compressed KV region: the CUDA kernel
+(``csrc/kvc_attn.cu``), its plain PyTorch versions, and the wrappers.
+
+Replaces the JAX package's TPU kernel ``kernels/kvc_attn.py::
+kvc_decode_attention``: one-token GQA attention that dequantizes int4/int8
+K/V (one f32 scale per token and KV head) inside the kernel, with a length
+mask and an online softmax. Two entry points:
+
+  * ``kvc_decode_partial`` -> the unnormalised partial (m [B,Hq,1],
+    l [B,Hq,1], acc [B,Hq,D], f32) that the decode path merges with the hot
+    window's (``models/decode.py::merge_partials``); the reference computes
+    it in jnp (``decode.quantized_attention_partial``). A row of length 0
+    comes out as m = -1e30, l = 0, acc = 0, which a merge weights 0.
+  * ``kvc_decode_attention`` -> that partial plus ``finish``, the reference
+    kernel's normalised output, including its quirk: a length-0 row is the
+    uniform average of V over all S tokens (ROADMAP C).
+
+The wrappers dispatch on the tensor's device: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs the plain version. ``launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import qpack
+
+NEG_INF = -1e30
+launches = 0
+
+
+def _dequant(codes, scales, bits: int, d: int) -> torch.Tensor:
+    """codes [B,S,Hkv,D*bits/8], scales [B,S,Hkv] -> f32 [B,S,Hkv,D]."""
+    return qpack.decode_plain(codes, scales[..., None], bits, d,
+                              torch.float32)
+
+
+def _scores(q, k, lengths, sm_scale):
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qf = q.to(torch.float32).reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bhgd,bthd->bhgt", qf, k) * sm_scale
+    valid = torch.arange(S, device=q.device)[None, :] < \
+        lengths.to(q.device)[:, None]                               # [B,S]
+    return torch.where(valid[:, None, None, :], s, NEG_INF), valid
+
+
+def kvc_decode_partial_plain(q, k_codes, k_scales, v_codes, v_scales,
+                             lengths, bits: int, sm_scale: float):
+    """The partial the kernel computes, in plain PyTorch."""
+    B, Hq, D = q.shape
+    k = _dequant(k_codes, k_scales, bits, D)
+    v = _dequant(v_codes, v_scales, bits, D)
+    s, valid = _scores(q, k, lengths, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid[:, None, None, :]
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgt,bthd->bhgd", p, v)
+    return m.reshape(B, Hq, 1), l.reshape(B, Hq, 1), acc.reshape(B, Hq, D)
+
+
+def kvc_decode_attention_plain(q, k_codes, k_scales, v_codes, v_scales,
+                               lengths, bits: int,
+                               sm_scale: float) -> torch.Tensor:
+    """The reference kernel's normalised output: masked scores at -1e30,
+    so an all-masked row averages V uniformly."""
+    B, Hq, D = q.shape
+    k = _dequant(k_codes, k_scales, bits, D)
+    v = _dequant(v_codes, v_scales, bits, D)
+    s, _ = _scores(q, k, lengths, sm_scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bhgt,bthd->bhgd", p, v)
+    out = acc / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.load("kvc_attn", {
+        "kvc_attn_partial": [P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                             F, I, P]})
+
+
+def _launch(q, k_codes, k_scales, v_codes, v_scales, lengths, bits,
+            sm_scale, empty_uniform: bool):
+    global launches
+    B, Hq, D = q.shape
+    if k_codes.dim() != 4 or k_codes.shape[0] != B:
+        raise ValueError(f"codes {tuple(k_codes.shape)} must be [B,S,Hkv,Dp]")
+    S, Hkv = k_codes.shape[1], k_codes.shape[2]
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q must be bf16/f32, got {q.dtype}")
+    if bits not in (4, 8) or D not in (64, 128):
+        raise ValueError(f"bits {bits}, head dim {D}: the kernel takes bits "
+                         "4/8 and D 64/128")
+    if Hkv < 1 or Hq % Hkv or Hq // Hkv > 8:
+        raise ValueError(f"Hq {Hq}, Hkv {Hkv}: the kernel takes up to 8 "
+                         "query heads per KV head")
+    for name, t, shape, dt in (
+            ("k_codes", k_codes, (B, S, Hkv, D * bits // 8), torch.uint8),
+            ("v_codes", v_codes, (B, S, Hkv, D * bits // 8), torch.uint8),
+            ("k_scales", k_scales, (B, S, Hkv), torch.float32),
+            ("v_scales", v_scales, (B, S, Hkv), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != q.device \
+                or not t.is_contiguous() or (dt == torch.uint8 and
+                                             t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous {dt} {shape} on "
+                             f"{q.device} (codes 16-byte aligned)")
+    q = q.contiguous()
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    if lengths.shape != (B,):
+        raise ValueError("lengths must be [B]")
+    m = torch.empty((B, Hq, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    err = _lib().kvc_attn_partial(
+        q.data_ptr(), int(q.dtype == torch.float32), k_codes.data_ptr(),
+        k_scales.data_ptr(), v_codes.data_ptr(), v_scales.data_ptr(),
+        lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, S,
+        Hq, Hkv, D, bits, float(sm_scale), int(empty_uniform),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch(err, "kvc_attn_partial")
+    launches += 1
+    return m, l, acc
+
+
+def _device_of(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no decode attention for device {q.device}")
+    return q.device.type
+
+
+def kvc_decode_partial(q, k_codes, k_scales, v_codes, v_scales, lengths, *,
+                       bits: int, sm_scale: Optional[float] = None):
+    """q [B,Hq,D]; codes uint8 [B,S,Hkv,D*bits/8]; scales f32 [B,S,Hkv];
+    lengths int32 [B] -> (m, l, acc) over tokens t < lengths[b]."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if _device_of(q) == "cpu":
+        return kvc_decode_partial_plain(q, k_codes, k_scales, v_codes,
+                                        v_scales, lengths, bits, sm_scale)
+    return _launch(q, k_codes, k_scales, v_codes, v_scales, lengths, bits,
+                   sm_scale, empty_uniform=False)
+
+
+def kvc_decode_attention(q, k_codes, k_scales, v_codes, v_scales, lengths,
+                         *, bits: int = 4,
+                         sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The reference kernel's normalised form -> [B,Hq,D] in q's dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if _device_of(q) == "cpu":
+        return kvc_decode_attention_plain(q, k_codes, k_scales, v_codes,
+                                          v_scales, lengths, bits, sm_scale)
+    m, l, acc = _launch(q, k_codes, k_scales, v_codes, v_scales, lengths,
+                        bits, sm_scale, empty_uniform=True)
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)

@@ -1,42 +1,39 @@
-"""Fused demote / promote kernels (CUDA, ``csrc/qpack_fused.cu``), their
-plain PyTorch versions, and the wrappers the compressor calls.
+"""The compression engine's CUDA kernels, their plain PyTorch versions,
+and the wrappers the compressor calls.
 
-Replaces the JAX package's TPU kernels ``kernels/qpack.py::
-qpack_fused_encode_2d`` and ``qpack_fused_decode_2d`` (with their padding
-wrappers in ``kernels/ops.py``). Both are memory-bound single passes; the
-source note in the ``.cu`` file gives the bound and the design.
+  * ``fused_encode``/``fused_decode`` (``csrc/qpack_fused.cu``) replace the
+    JAX package's TPU kernels ``kernels/qpack.py::qpack_fused_encode_2d``
+    and ``qpack_fused_decode_2d``: the pool's rate-adaptive demote/promote.
+  * ``encode``/``decode`` (``csrc/qpack_fixed.cu``) replace
+    ``qpack_encode_2d`` and ``qpack_decode_2d`` with the shape contract of
+    their wrappers ``kernels/ops.py::qpack_encode``/``qpack_decode``:
+    fixed-rate 4/8-bit quantize and pack over blocks of any even size,
+    any leading shape (the KV cache's compressed region).
+
+All four are memory-bound single passes; the source notes in the ``.cu``
+files give the bound and the design.
 
 The wrappers dispatch on the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version. There is no
-fallback from one to the other. ``fused_encode_launches`` and
-``fused_decode_launches`` count kernel launches (not plain-version calls).
+fallback from one to the other. ``*_launches`` count kernel launches (not
+plain-version calls).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from repro_torch.common.utils import f32_to_bytes
-from repro_torch.core.bitpack import RATE_4BIT, RATE_8BIT, RATE_RAW, RATE_ZERO
+from repro_torch.core.bitpack import (RATE_4BIT, RATE_8BIT, RATE_RAW,
+                                      RATE_ZERO, dequantize_block, pack4,
+                                      pack8, quantize_block, unpack4, unpack8)
+from repro_torch.kernels import build as _build
 
 fused_encode_launches = 0
 fused_decode_launches = 0
-
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "qpack_fused.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-# -Xptxas -v puts each kernel's registers, shared memory and spills in the
-# build log; never --use_fast_math (division must round to nearest).
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
+encode_launches = 0
+decode_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -124,54 +121,21 @@ def fused_decode_plain(dense: torch.Tensor, rates: torch.Tensor) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# CUDA build (nvcc -> shared library with a C interface, loaded by ctypes).
+# CUDA libraries (kernels/build.py: nvcc -> shared library, loaded by ctypes).
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    """nvcc on PATH, else under CUDA_HOME (the toolkit's default prefix)."""
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+def _fused_lib() -> ctypes.CDLL:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.load("qpack_fused", {
+        "qpack_fused_encode": [P, I, P, P, P, I, I, F, F, I, I, I, I, I, I, P],
+        "qpack_fused_decode": [P, P, P, I, I, P]})
 
 
-def build() -> dict:
-    """Compile ``qpack_fused.cu`` for sm_90a into ``build/repro_torch/``
-    (cached by a hash of the source and flags). Returns the library path,
-    the build seconds (0 when cached) and the compiler's log."""
-    flags = NVCC_FLAGS
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(flags).encode()) \
-        .hexdigest()[:16]
-    out = BUILD_DIR / f"libqpack_fused-{digest}.so"
-    if out.exists():
-        return {"path": str(out), "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": secs, "log": proc.stderr}
-
-
-def load() -> ctypes.CDLL:
-    """The built library, building it at first use."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.qpack_fused_encode.argtypes = [P, I, P, P, P, I, I, F, F, I, I,
-                                           I, I, I, I, P]
-        lib.qpack_fused_encode.restype = I
-        lib.qpack_fused_decode.argtypes = [P, P, P, I, I, P]
-        lib.qpack_fused_decode.restype = I
-        _lib = lib
-    return _lib
+def _fixed_lib() -> ctypes.CDLL:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return _build.load("qpack_fixed", {
+        "qpack_fixed_encode": [P, I, P, P, I, I, I, I, P],
+        "qpack_fixed_decode": [P, P, P, I, I, I, I, I, P]})
 
 
 def _check_cuda(t: torch.Tensor, name: str) -> None:
@@ -211,13 +175,12 @@ def fused_encode(x: torch.Tensor, *, tol4: float = 0.10, tol8: float = 0.01,
     if n == 0:
         return dense, rates, qnt
     q = tuple(int(a) for a in quanta)
-    err = load().qpack_fused_encode(
+    err = _fused_lib().qpack_fused_encode(
         x.data_ptr(), int(x.dtype == torch.float32), dense.data_ptr(),
         rates.data_ptr(), qnt.data_ptr(), n, v, tol4, tol8, int(lossless),
         int(zero_elision), q[0], q[1], q[2], q[3],
         torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"qpack_fused_encode launch failed: cudaError {err}")
+    _build.check_launch(err, "qpack_fused_encode")
     fused_encode_launches += 1
     return dense, rates, qnt
 
@@ -241,10 +204,112 @@ def fused_decode(dense: torch.Tensor, rates: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, v), dtype=torch.bfloat16, device=dense.device)
     if n == 0:
         return out
-    err = load().qpack_fused_decode(
+    err = _fused_lib().qpack_fused_decode(
         dense.data_ptr(), rates.data_ptr(), out.data_ptr(), n, v,
         torch.cuda.current_stream(dense.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"qpack_fused_decode launch failed: cudaError {err}")
+    _build.check_launch(err, "qpack_fused_decode")
     fused_decode_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fixed-rate quantize + pack (the KV cache's compressed region).
+# ---------------------------------------------------------------------------
+
+def _check_fixed(n: int, bits: int, block: int) -> None:
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}: the fixed-rate kernels take 4 or 8")
+    if block < 2 or block % 2 or n % block:
+        raise ValueError(f"block={block} must be even and divide the last "
+                         f"axis ({n})")
+
+
+def encode_plain(x: torch.Tensor, bits: int, block: int):
+    """x[..., N] (bf16/f32) -> (codes uint8[..., N*bits/8], scales
+    f32[..., N/block]): formula for formula ``_encode_kernel``."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    _check_fixed(n, bits, block)
+    q, s = quantize_block(x.reshape(lead + (n // block, block)), bits)
+    packed = pack4(q) if bits == 4 else pack8(q)
+    return packed.reshape(lead + (n * bits // 8,)), s
+
+
+def decode_plain(codes: torch.Tensor, scales: torch.Tensor, bits: int,
+                 block: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """(codes uint8[..., nb*block*bits/8], scales f32[..., nb]) ->
+    dtype[..., nb*block]: formula for formula ``_decode_kernel``."""
+    lead, nb = scales.shape[:-1], scales.shape[-1]
+    _check_fixed(nb * block, bits, block)
+    if bits == 4:
+        q = unpack4(codes.reshape(lead + (nb, block // 2)), block)
+    else:
+        q = unpack8(codes.reshape(lead + (nb, block)))
+    return dequantize_block(q, scales, dtype).reshape(lead + (nb * block,))
+
+
+def encode(x: torch.Tensor, bits: int, block: int):
+    """Fixed-rate quantize + pack, ``encode_plain``'s contract: the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    global encode_launches
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bf16/f32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return encode_plain(x, bits, block)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fixed-rate encode for device {x.device}")
+    lead, n = x.shape[:-1], x.shape[-1]
+    _check_fixed(n, bits, block)
+    x = x.contiguous()
+    if x.data_ptr() % 16:               # a view at an odd offset
+        x = x.clone()
+    nblk = x.numel() // block
+    codes = torch.empty(lead + (n * bits // 8,), dtype=torch.uint8,
+                        device=x.device)
+    scales = torch.empty(lead + (n // block,), dtype=torch.float32,
+                         device=x.device)
+    if nblk == 0:
+        return codes, scales
+    vec = int(block % 8 == 0)
+    err = _fixed_lib().qpack_fixed_encode(
+        x.data_ptr(), int(x.dtype == torch.float32), codes.data_ptr(),
+        scales.data_ptr(), nblk, block, bits, vec,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(err, "qpack_fixed_encode")
+    encode_launches += 1
+    return codes, scales
+
+
+def decode(codes: torch.Tensor, scales: torch.Tensor, bits: int, block: int,
+           dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of ``encode`` (``decode_plain``'s contract): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    global decode_launches
+    if codes.dtype != torch.uint8 or scales.dtype != torch.float32:
+        raise ValueError("codes must be uint8 and scales float32")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"no fixed-rate decode to {dtype}")
+    if codes.device.type == "cpu":
+        return decode_plain(codes, scales, bits, block, dtype)
+    if codes.device.type != "cuda" or scales.device != codes.device:
+        raise ValueError(f"no fixed-rate decode for devices {codes.device}, "
+                         f"{scales.device}")
+    lead, nb = scales.shape[:-1], scales.shape[-1]
+    _check_fixed(nb * block, bits, block)
+    if codes.shape != lead + (nb * block * bits // 8,):
+        raise ValueError(f"codes {tuple(codes.shape)} do not match scales "
+                         f"{tuple(scales.shape)} at block {block}")
+    codes, scales = codes.contiguous(), scales.contiguous()
+    if codes.data_ptr() % 16:
+        codes = codes.clone()
+    out = torch.empty(lead + (nb * block,), dtype=dtype, device=codes.device)
+    nblk = scales.numel()
+    if nblk == 0:
+        return out
+    vec = int(block % 8 == 0)
+    err = _fixed_lib().qpack_fixed_decode(
+        codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        int(dtype == torch.float32), nblk, block, bits, vec,
+        torch.cuda.current_stream(codes.device).cuda_stream)
+    _build.check_launch(err, "qpack_fixed_decode")
+    decode_launches += 1
     return out

@@ -1,0 +1,296 @@
+"""Serving decode path of the port (``repro.models.decode``, dense GQA):
+the IBEX-compressed KV cache and the one-token step.
+
+The KV cache is an IBEX pool specialized for append-only data:
+
+  * hot window (promoted region): the last ``W`` tokens per sequence, a
+    bf16 ring. New K/V lands here.
+  * compressed region: every token older than ``W``, block-quantized (one
+    block per (token, KV head) over the head dim; 4 or 8 bits + f32 scale)
+    by the fixed-rate encode kernel (B3) when it ages out of the ring.
+
+Two read paths for the compressed prefix:
+  * fused: dequantize inside attention, the decode attention kernel (B5)
+    writing an online-softmax partial that merges with the ring's;
+  * paper: promote-then-read, the whole prefix dequantized to bf16 by the
+    decode kernel (B4), then attended uncompressed.
+
+Prefill attention is the flash kernel (B6). ``ServeConfig.quantize_impl``
+and ``attn_impl`` choose kernels or plain versions ("auto": kernels for
+CUDA tensors).
+
+Unlike the reference, whose arrays are immutable, the port updates the
+cache **in place**: ``decode_step`` writes each layer's codes, scales, ring
+and ``cold_len`` into the tensors it was given (and returns the same dict).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.common.types import ModelConfig, ServeConfig
+from repro_torch.common.utils import resolve_device
+from repro_torch.core.compressor import (dequantize_blocks,
+                                         quantize_blocks_fast)
+from repro_torch.kernels import kvc_attn as KA
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+Params = Dict[str, Any]
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Online-softmax partials and merging
+# ---------------------------------------------------------------------------
+
+class Partial(NamedTuple):
+    m: torch.Tensor     # [B, H, 1]
+    l: torch.Tensor     # [B, H, 1]
+    acc: torch.Tensor   # [B, H, D]
+
+
+def merge_partials(a: Partial, b: Partial) -> Partial:
+    m = torch.maximum(a.m, b.m)
+    ea, eb = torch.exp(a.m - m), torch.exp(b.m - m)
+    return Partial(m, a.l * ea + b.l * eb, a.acc * ea + b.acc * eb)
+
+
+def finish(p: Partial, dtype) -> torch.Tensor:
+    return (p.acc / torch.clamp(p.l, min=1e-30)).to(dtype)
+
+
+def _attend_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid: torch.Tensor, sm_scale: float) -> Partial:
+    """q [B,Hq,D]; k,v [B,T,Hkv,D] f32; valid [B,T] -> partial."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qf = q.to(torch.float32).reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bhgd,bthd->bhgt", qf, k) * sm_scale
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgt,bthd->bhgd", p, v)
+    return Partial(m.reshape(B, Hq, 1), l.reshape(B, Hq, 1),
+                   acc.reshape(B, Hq, D))
+
+
+def quantized_attention_partial(q, k_codes, k_scales, v_codes, v_scales,
+                                length: torch.Tensor, *, bits: int,
+                                sm_scale: float, paper_mode: bool = False,
+                                attn_impl: str = "auto",
+                                quantize_impl: str = "auto") -> Partial:
+    """Attention partial over the compressed prefix (tokens < length).
+
+    fused: the decode attention kernel (or its plain version) dequantizes
+    inside attention; the reference's chunk-parallel jnp form computes the
+    same partial (its chunk size is a layout choice of XLA's; the kernel
+    walks the sequence in its own tiles).
+
+    paper: the whole prefix is dequantized to bf16 first (the promoted-
+    region write + read round trip; B4 materializes it), then attended."""
+    D = q.shape[-1]
+    if paper_mode:
+        k = dequantize_blocks(k_codes, k_scales[..., None], bits, D,
+                              torch.bfloat16, impl=quantize_impl)
+        v = dequantize_blocks(v_codes, v_scales[..., None], bits, D,
+                              torch.bfloat16, impl=quantize_impl)
+        Sc = k_codes.shape[1]
+        valid = torch.arange(Sc, device=q.device)[None, :] < length[:, None]
+        return _attend_partial(q, k.to(torch.float32), v.to(torch.float32),
+                               valid, sm_scale)
+    if L.resolve_attn_impl(attn_impl, q.device) == "kernel":
+        return Partial(*KA.kvc_decode_partial(
+            q, k_codes, k_scales, v_codes, v_scales, length, bits=bits,
+            sm_scale=sm_scale))
+    return Partial(*KA.kvc_decode_partial_plain(
+        q, k_codes, k_scales, v_codes, v_scales, length, bits, sm_scale))
+
+
+# ---------------------------------------------------------------------------
+# Cache containers (stacked on a leading layer axis)
+# ---------------------------------------------------------------------------
+
+def init_gqa_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
+                   max_len: int, n_sites: int,
+                   device=None) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    Hkv, D = cfg.num_kv_heads, cfg.resolved_head_dim
+    W, bits = scfg.hot_window, scfg.kv_rate_bits
+    Dp = D * bits // 8
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {
+        "k_codes": z((n_sites, batch, max_len, Hkv, Dp), torch.uint8),
+        "k_scales": z((n_sites, batch, max_len, Hkv), torch.float32),
+        "v_codes": z((n_sites, batch, max_len, Hkv, Dp), torch.uint8),
+        "v_scales": z((n_sites, batch, max_len, Hkv), torch.float32),
+        "k_hot": z((n_sites, batch, W, Hkv, D), torch.bfloat16),
+        "v_hot": z((n_sites, batch, W, Hkv, D), torch.bfloat16),
+        # boundary between the compressed region and the ring per lane:
+        # positions < cold_len live in codes
+        "cold_len": z((n_sites, batch), torch.int32),
+    }
+
+
+def init_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
+               max_len: int, device=None) -> Dict[str, torch.Tensor]:
+    """Decode cache of the dense GQA family. Leading axis = layer."""
+    T.check_supported(cfg)
+    return init_gqa_cache(cfg, scfg, batch, max_len, cfg.num_layers, device)
+
+
+def cache_bytes(cache: Dict[str, torch.Tensor]) -> int:
+    return sum(x.numel() * x.element_size() for x in cache.values())
+
+
+# ---------------------------------------------------------------------------
+# Hot-window ring ops (in place)
+# ---------------------------------------------------------------------------
+
+def _ring_positions(pos: torch.Tensor, W: int) -> torch.Tensor:
+    """Position stored in each ring slot after inserting token ``pos``:
+    p_s = pos - ((pos%W - s) mod W). [B] -> [B, W]."""
+    s = torch.arange(W, device=pos.device)[None, :]
+    return pos[:, None] - (((pos % W)[:, None] - s) % W)
+
+
+def _evict_to_codes(codes, scales, hot, pos, cold_len, W: int, bits: int,
+                    impl: str) -> None:
+    """Compress the token aging out of the ring (position pos-W) into the
+    compressed region, in place: the streaming clean demotion (B3). Skipped
+    when the slot holds no real token (pos < W, or a resumed lane whose
+    older tokens are already compressed: pos-W < cold_len)."""
+    B = hot.shape[0]
+    bsel = torch.arange(B, device=hot.device)
+    evict_pos = pos - W
+    do = evict_pos >= cold_len
+    old = hot[bsel, (pos % W).long()].to(torch.float32)   # pre-overwrite
+    c, s = quantize_blocks_fast(old, bits, old.shape[-1], impl=impl)
+    idx = torch.where(do, torch.clamp(evict_pos, min=0),
+                      torch.zeros_like(evict_pos)).long()
+    codes[bsel, idx] = torch.where(do[:, None, None], c, codes[bsel, idx])
+    scales[bsel, idx] = torch.where(do[:, None], s[..., 0], scales[bsel, idx])
+
+
+def _hot_insert(hot: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
+    """hot [B,W,...] gets new [B,...] at slot pos%W, in place."""
+    bsel = torch.arange(hot.shape[0], device=hot.device)
+    hot[bsel, (pos % hot.shape[1]).long()] = new.to(hot.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer decode: GQA
+# ---------------------------------------------------------------------------
+
+def gqa_decode_layer(lp: Params, x: torch.Tensor,
+                     cache_l: Dict[str, torch.Tensor], pos: torch.Tensor,
+                     cfg: ModelConfig, scfg: ServeConfig) -> torch.Tensor:
+    """x [B,1,d]; pos [B] current positions; cache_l holds this layer's
+    slices (views into the stacked cache), updated in place."""
+    W, bits = scfg.hot_window, scfg.kv_rate_bits
+    D = cfg.resolved_head_dim
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q = L.gqa_project_q(lp["attn"], h, pos[:, None], cfg)[:, 0]   # [B,Hq,D]
+    k_new, v_new = L.gqa_project_kv(lp["attn"], h, pos[:, None], cfg)
+
+    # demote the token aging out of the hot window (clean by construction)
+    cold_len = cache_l["cold_len"]
+    for kind in ("k", "v"):
+        _evict_to_codes(cache_l[f"{kind}_codes"], cache_l[f"{kind}_scales"],
+                        cache_l[f"{kind}_hot"], pos, cold_len, W, bits,
+                        scfg.quantize_impl)
+    _hot_insert(cache_l["k_hot"], k_new[:, 0], pos)
+    _hot_insert(cache_l["v_hot"], v_new[:, 0], pos)
+    new_cold = torch.maximum(cold_len, torch.clamp(pos - W + 1, min=0))
+
+    sm = 1.0 / (D ** 0.5)
+    cold = quantized_attention_partial(
+        q, cache_l["k_codes"], cache_l["k_scales"], cache_l["v_codes"],
+        cache_l["v_scales"], new_cold, bits=bits, sm_scale=sm,
+        paper_mode=not scfg.fused_dequant_attention,
+        attn_impl=scfg.attn_impl, quantize_impl=scfg.quantize_impl)
+    hot_valid = _ring_positions(pos, W) >= new_cold[:, None]
+    hot = _attend_partial(q, cache_l["k_hot"].to(torch.float32),
+                          cache_l["v_hot"].to(torch.float32), hot_valid, sm)
+    o = finish(merge_partials(cold, hot), x.dtype)[:, None]       # [B,1,Hq,D]
+    x = x + L.gqa_output(lp["attn"], o, cfg)
+    x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    cold_len.copy_(new_cold)
+    return x
+
+
+def decode_step(params: Params, cache: Dict[str, torch.Tensor],
+                tokens: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+                scfg: ServeConfig, embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step. tokens [B] int32 (or embeds [B,d]); pos [B].
+    Returns (logits [B,V], the cache, updated in place)."""
+    T.check_supported(cfg)
+    dtype = L.torch_dtype(cfg)
+    if cfg.frontend != "none" and embeds is not None:
+        x = embeds[:, None].to(dtype)
+    else:
+        x = params["tok_embed"].to(dtype)[tokens.long()][:, None]
+    for i, lp in enumerate(params["layers"]):
+        x = gqa_decode_layer(lp, x, {k: v[i] for k, v in cache.items()},
+                             pos, cfg, scfg)
+    return T.unembed(params, x, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill: full forward that also fills the cache
+# ---------------------------------------------------------------------------
+
+def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            scfg: ServeConfig, max_len: int,
+            lens: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the full prompt [B,S], return (last-token logits, filled cache).
+
+    Every prompt token is written compressed (B3; positions past S hold the
+    codes of zeros, as the reference's padded quantize gives: code 0, scale
+    1); the last W real tokens populate the ring. ``lens`` [B] gives each
+    row's true length for right-padded batches: the ring holds the last W
+    real tokens, ``cold_len`` is the real compressed length, and the
+    returned logits are each row's last real token's."""
+    T.check_supported(cfg)
+    x = T.embed(params, batch, cfg)
+    B, S, _ = x.shape
+    W, bits = scfg.hot_window, scfg.kv_rate_bits
+    D = cfg.resolved_head_dim
+    dev = x.device
+    pos = torch.arange(S, device=dev)[None, :]
+    lens_arr = (torch.full((B,), S, dtype=torch.int32, device=dev)
+                if lens is None else lens.to(device=dev, dtype=torch.int32))
+    cache = init_gqa_cache(cfg, scfg, B, max_len, cfg.num_layers, dev)
+    cache["k_scales"][:, :, S:] = 1.0
+    cache["v_scales"][:, :, S:] = 1.0
+    cache["cold_len"][:] = torch.clamp(lens_arr - W, min=0)
+    # ring: slot s holds the largest p <= lens-1 with p = s (mod W); p < 0
+    # is no real token (short prompt), masked out by decode's ring test
+    last = (lens_arr - 1)[:, None]
+    slots = last - ((last - torch.arange(W, device=dev)[None, :]) % W)
+    safe = torch.clamp(slots, 0, S - 1).long()                    # [B, W]
+    rows = torch.arange(B, device=dev)[:, None]
+
+    for i, lp in enumerate(params["layers"]):
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        k, v = L.gqa_project_kv(lp["attn"], h, pos, cfg)
+        q = L.gqa_project_q(lp["attn"], h, pos, cfg)
+        o = L.attention(q, k, v, causal=True, impl=scfg.attn_impl)
+        x = x + L.gqa_output(lp["attn"], o, cfg)
+        x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        for kind, t in (("k", k), ("v", v)):
+            c, s = quantize_blocks_fast(t, bits, D, impl=scfg.quantize_impl)
+            cache[f"{kind}_codes"][i, :, :S] = c
+            cache[f"{kind}_scales"][i, :, :S] = s[..., 0]
+            cache[f"{kind}_hot"][i] = t[rows, safe].to(torch.bfloat16)
+
+    idx = torch.clamp(lens_arr - 1, 0, S - 1).long()
+    x_last = x[torch.arange(B, device=dev), idx][:, None]          # [B,1,d]
+    return T.unembed(params, x_last, cfg)[:, 0], cache

@@ -1,0 +1,77 @@
+"""The language model of the port (``repro.models.transformer``), dense
+family: init, embedding, unembedding and the full-sequence forward.
+
+The reference stacks layers and walks them with ``lax.scan``; here
+``params["layers"]`` is a list of per-layer dicts walked by a Python loop.
+Other families (MoE, MLA, SSM, hybrid) wait for their slices (ROADMAP A.6).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.common.types import ModelConfig
+from repro_torch.common.utils import resolve_device
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.attn_kind != "gqa":
+        raise NotImplementedError(
+            f"family {cfg.family!r} / attention {cfg.attn_kind!r}: the port "
+            "serves the dense GQA family only (ROADMAP A.6)")
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """Random params from a seeded ``torch.Generator`` on ``device`` (the
+    card unless the caller names another), stored in ``cfg.dtype``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = L.torch_dtype(cfg)
+    d = cfg.d_model
+    params: Params = {
+        "tok_embed": L.init_dense((cfg.vocab_size, d), gen, dtype, dev,
+                                  scale=0.02),
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_dense((d, cfg.vocab_size), gen, dtype, dev,
+                                         scale=0.02)
+    params["layers"] = [
+        {"attn": L.gqa_init(gen, cfg, dtype, dev),
+         "mlp": L.mlp_init(gen, d, cfg.d_ff, dtype, dev),
+         "ln1": torch.ones((d,), dtype=dtype, device=dev),
+         "ln2": torch.ones((d,), dtype=dtype, device=dev)}
+        for _ in range(cfg.num_layers)]
+    return params
+
+
+def embed(params: Params, batch: Dict[str, torch.Tensor],
+          cfg: ModelConfig) -> torch.Tensor:
+    dtype = L.torch_dtype(cfg)
+    if cfg.frontend != "none" and "embeds" in batch:
+        return batch["embeds"].to(dtype)
+    return params["tok_embed"].to(dtype)[batch["tokens"].long()]
+
+
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ w.to(x.dtype)
+
+
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            attn_impl: str = "auto"):
+    """Full-sequence forward. Returns (logits [B,S,V], aux_loss 0)."""
+    check_supported(cfg)
+    x = embed(params, batch, cfg)
+    for lp in params["layers"]:
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + L.gqa_apply_train(lp["attn"], h, cfg, attn_impl)
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(lp["mlp"], h)
+    return unembed(params, x, cfg), torch.zeros((), dtype=torch.float32)
+

@@ -1,7 +1,9 @@
-"""The CUDA kernels on the card: each against its plain PyTorch version,
-byte for byte, and the payload pool's whole path with the kernels against
-the plain compressor. Needs no JAX; every test carries the ``gpu`` marker
-and skips where no card is present:
+"""The CUDA kernels on the card: each against its plain PyTorch version
+(byte for byte for the compression kernels, within the reference's
+tolerance for attention), the payload pool's whole path with the kernels
+against the plain compressor, and a small llama3 served with the kernels
+against the plain versions. Needs no JAX; every test carries the ``gpu``
+marker and skips where no card is present:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
@@ -92,3 +94,109 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     dense, rates, _ = qpack.fused_encode(x)
     qpack.fused_decode(dense, rates)
     torch.cuda.synchronize()
+
+
+# -- fixed-rate quantize/pack (B3/B4) ----------------------------------------
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("block", [64, 128, 512, 6])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fixed_rate_vs_plain(cuda, bits, block, dtype):
+    """Byte for byte, over the edge classes (zeros, +-0, .5 ties,
+    saturation, random bf16) and a block of 6 (the 2-value path)."""
+    rng = np.random.default_rng(block + bits)
+    x = (rng.standard_normal((48, block)) * 0.7).astype(np.float32)
+    x[0::6] = 0.0
+    x[1::6] = rng.integers(-7, 7, size=(8, block)) + 0.5
+    x[2::6], x[3::6] = -8.0, -128.0
+    x[2::6, 0], x[3::6, 0] = 7.0, 127.0
+    x[4::6] = np.where(np.arange(block) % 2, np.float32(-0.0), x[4::6])
+    x = torch.from_numpy(x).reshape(4, 3, 4 * block).to(cuda).to(dtype)
+    e0, d0 = qpack.encode_launches, qpack.decode_launches
+    got = qpack.encode(x, bits, block)
+    want = qpack.encode_plain(x, bits, block)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for out in (torch.bfloat16, torch.float32):
+        a = qpack.decode(*want, bits, block, out)
+        b = qpack.decode_plain(*want, bits, block, out)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int16) if out == torch.bfloat16
+                           else a.view(torch.int32),
+                           b.view(torch.int16) if out == torch.bfloat16
+                           else b.view(torch.int32))
+    assert qpack.encode_launches == e0 + 1 and qpack.decode_launches == d0 + 2
+
+
+# -- decode attention over compressed KV (B5) and prefill attention (B6) -----
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("D,G", [(64, 2), (128, 4), (128, 1), (64, 8)])
+def test_kvc_attn_vs_plain(cuda, bits, D, G):
+    from repro_torch.kernels import kvc_attn as KA
+    B, S, Hkv = 4, 300, 2
+    g = torch.Generator(device=cuda).manual_seed(D + G + bits)
+    q = torch.randn((B, Hkv * G, D), generator=g, device=cuda)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda)
+    kc, ks = qpack.encode(k, bits, D)
+    vc, vs = qpack.encode(v, bits, D)
+    ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    lens = torch.tensor([0, 1, 157, S], dtype=torch.int32, device=cuda)
+    for qq in (q, q.to(torch.bfloat16)):
+        got = KA.kvc_decode_partial(qq, kc, ks, vc, vs, lens, bits=bits)
+        want = KA.kvc_decode_partial_plain(qq, kc, ks, vc, vs, lens, bits,
+                                           1.0 / D ** 0.5)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=2e-2, rtol=2e-2)
+        got = KA.kvc_decode_attention(qq, kc, ks, vc, vs, lens, bits=bits)
+        want = KA.kvc_decode_attention_plain(qq, kc, ks, vc, vs, lens, bits,
+                                             1.0 / D ** 0.5)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,Hq,Hkv,D", [
+    (1, 1, 4, 4, 64), (37, 37, 4, 1, 64), (128, 128, 8, 2, 128),
+    (24, 200, 4, 2, 128), (512, 512, 32, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_vs_plain(cuda, causal, Sq, Sk, Hq, Hkv, D, dtype):
+    from repro_torch.kernels import flash_attn as FA
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q, k, v = (torch.randn((2, s, h, D), generator=g, device=cuda).to(dtype)
+               for s, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_small_llama_serves_alike_with_kernels_and_plain(cuda):
+    """REDUCED llama3 served with the kernels and with the plain versions:
+    the same generations (float32, so the argmax has margin), and each
+    kernel launched in the kernel run only."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(get_reduced("llama3_8b"), dtype="float32")
+    params = T.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (16, 12, 32, 20, 16)]
+    out = {}
+    for impl, q_impl in (("kernel", "kernel"), ("plain", "jnp")):
+        scfg = ServeConfig(max_running=2, hot_window=16, kv_rate_bits=8,
+                           attn_impl=impl, quantize_impl=q_impl)
+        n0 = (qpack.encode_launches, KA.launches, FA.launches)
+        eng = Engine(cfg, scfg, params, max_len=128)
+        rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run_until_done(max_steps=400)
+        n1 = (qpack.encode_launches, KA.launches, FA.launches)
+        out[impl] = ([eng.result(r) for r in rids],
+                     [b - a for a, b in zip(n0, n1)])
+    assert out["kernel"][0] == out["plain"][0]
+    assert all(n > 0 for n in out["kernel"][1])
+    assert out["plain"][1] == [0, 0, 0]

@@ -56,3 +56,31 @@ def test_kernel_impl_on_cpu_tensors_raises():
     x = torch.zeros((1, cfg.vals_per_page), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         comp.encode_pages(x, cfg)
+
+
+def test_engine_without_device_needs_cuda():
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    cfg = get_reduced("llama3_8b")
+    scfg = ServeConfig(max_running=1, hot_window=8, kv_rate_bits=8)
+    params = T.init_params(cfg, device="cpu")
+    if torch.cuda.is_available():
+        assert Engine(cfg, scfg, params, max_len=32).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(cfg, scfg, params, max_len=32)
+    eng = Engine(cfg, scfg, params, max_len=32, device="cpu")
+    rid = eng.submit([1, 2, 3], max_new_tokens=3)
+    eng.run_until_done()
+    assert len(eng.result(rid)) == 3
+    assert eng.counters["step_syncs"] == eng.counters["steps"] == 2
+
+
+def test_unported_arch_raises():
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert len(ARCH_IDS) == 10
+    assert get_config("llama3-8b").num_layers == 32
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        get_config("qwen3_moe_235b_a22b")
