@@ -7,7 +7,9 @@ Phases, in order; each prints its result on its own line and any failure
 exits non-zero:
 
   0 device   the card, its power limit, torch and CUDA versions
-  1 build    nvcc builds the four kernel sources (sm_90a), all at once
+  1 build    nvcc builds the four kernel sources (sm_90a), all at once;
+             ptxas registers and spills, HGMMA/UTMALDG counts in the
+             flash library's SASS
   2 kernels  the fused demote/promote kernels (B1/B2) against their plain
              PyTorch versions on the card, byte for byte, over block
              widths, input types, lossless and zero-elision settings and
@@ -21,19 +23,24 @@ exits non-zero:
              path's shapes and at 65,536 blocks
   6 kernels  the serving kernels against their plain versions: fixed-rate
              encode/decode (B3/B4) byte for byte, decode attention (B5) and
-             prefill attention (B6) within the stated tolerance
+             prefill attention (B6) within the stated tolerance; B5 at the
+             chunk boundaries and bit-identical on a second call, B6's bf16
+             cases on the tensor-core route, B6 also normwise per case
   7 serve    llama3-8b at its published config (32 layers, bf16, random
              params from a seed) served through Engine: 16 requests over 8
              lanes (preemption and resume), 64 new tokens each; rates,
-             counters, launches; then torch.profiler over 4 decode steps
-             of 8 lanes: device busy share and the top kernels
+             counters, launches (B5 one a layer a step, B6 one a layer a
+             prefill batch, all bf16 B6 on the tensor cores), B6's device
+             time inside prefill; then torch.profiler over 4 decode steps
+             of 8 lanes: device busy share, B5's time and the top kernels
   8 paper    the same model in paper mode (promote-then-read): B4 launches
   9 whole    a 2-layer model at llama3-8b's widths, kernels against plain
              versions, in bf16 and float32: prefill and decode logits and
              their argmax, and the same requests served through Engine
              both ways (identical generations in float32)
  10 times    B3-B6 kernel / eager / plain / library / bound times at the
-             serving path's shapes
+             serving path's shapes (B6 also at 4 and 1 rows); B5's working
+             CTAs against the SMs
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -83,6 +91,10 @@ PROFILE_STEPS = 4
 # attention kernels, and normwise per row, max|kernel - plain| <= tol *
 # max|plain|, for the whole path's logits (phase 9)
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
+# and B6 normwise per case, ||kernel - plain||_F <= tol * ||plain||_F: bf16
+# rounding of P stays near 2e-3, a skipped or repeated key tile or a wrong
+# mask does not
+ATTN_NORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # the whole path (phase 9): kernels against plain versions asked for
 # explicitly, never taken by default
 WHOLE_IMPLS = {"kernel": dict(attn_impl="kernel", quantize_impl="kernel"),
@@ -166,7 +178,9 @@ def phase_device() -> tuple:
 
 
 def phase_build(tag: str) -> None:
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; the ptxas lines of each
+    kernel, and the tensor-core and TMA instructions in the flash library's
+    SASS."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     infos = build.build_all()
@@ -176,8 +190,23 @@ def phase_build(tag: str) -> None:
         print(f"  {info['name']}: {info['seconds']:.3f} s nvcc -> "
               f"{info['path']}")
         for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            if "registers" in ln or "spill" in ln or "Compiling" in ln or \
+                    "C7512" in ln:
                 print(f"    ptxas: {ln.strip()}")
+    flash = next(i["path"] for i in infos if i["name"] == "flash_attn")
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        print(f"phase 1 sass: {tool} absent; HGMMA/UTMALDG not counted",
+              flush=True)
+        return
+    sass = subprocess.run([str(tool), "-sass", flash], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG")}
+    print(f"phase 1 sass of {Path(flash).name}: {json.dumps(counts)}",
+          flush=True)
+    check(all(counts.values()), f"phase 1: the flash library has no "
+          f"tensor-core or TMA instructions: {counts}")
 
 
 def phase_kernels(qpack, comp, dev) -> dict:
@@ -470,7 +499,8 @@ def _launch_counts() -> dict:
     return {"qpack_fixed_encode": qpack.encode_launches,
             "qpack_fixed_decode": qpack.decode_launches,
             "kvc_decode_attention": KA.launches,
-            "flash_attention": FA.launches}
+            "flash_attention": FA.launches,
+            "flash_attention_tc": FA.launches_tc}
 
 
 def _reset_launches() -> None:
@@ -478,7 +508,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels import kvc_attn as KA
     from repro_torch.kernels import qpack
     qpack.encode_launches = qpack.decode_launches = 0
-    KA.launches = FA.launches = 0
+    KA.launches = FA.launches = FA.launches_tc = 0
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -566,23 +596,103 @@ def phase_serve_kernels(dev) -> dict:
                     q, k, v = (torch.randn((B, S, h, 128), generator=gen,
                                            device=dev).to(dt)
                                for h in (Hkv * G, Hkv, Hkv))
-                    a = FA.flash_attention(q, k, v, causal=causal).float()
-                    b = FA.flash_attention_plain(q, k, v,
-                                                 causal=causal).float()
-                    r = res["flash_attention"]
+                    _flash_case(res["flash_attention"], FA, q, k, v, causal)
+    # B5 split across the SMs: lengths at the chunk boundaries, S 2048
+    # (many splits) and 8 (one), both forms; repeated calls bit-identical
+    chunk = KA.CHUNK
+    r = res["kvc_decode_attention"]
+    repeats = 0
+    for S, lens_l in ((2048, [0, 1, chunk - 1, chunk, chunk + 1, 2047, 2048]),
+                      (8, [0, 1, 7, 8])):
+        for G, Hkv, D in ((4, 8, 128), (8, 2, 128), (1, 4, 64)):
+            for bits in (4, 8):
+                B = len(lens_l)
+                q = torch.randn((B, Hkv * G, D), generator=gen, device=dev) \
+                    .to(torch.bfloat16)
+                (kc, ks), (vc, vs) = [
+                    (c, s_[..., 0].contiguous()) for c, s_ in (
+                        qpack.encode(torch.randn((B, S, Hkv, D), generator=gen,
+                                                 device=dev), bits, D)
+                        for _ in range(2))]
+                lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+                sm = 1.0 / D ** 0.5
+                got = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
+                again = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens,
+                                              bits=bits)
+                repeats += 1
+                check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                          for a, b in zip(got, again)),
+                      f"phase 6: B5 partials differ between two calls (S {S}, "
+                      f"G {G}, D {D}, bits {bits})")
+                want = KA.kvc_decode_partial_plain(q, kc, ks, vc, vs, lens,
+                                                   bits, sm)
+                gotn = KA.kvc_decode_attention(q, kc, ks, vc, vs, lens,
+                                               bits=bits)
+                wantn = KA.kvc_decode_attention_plain(q, kc, ks, vc, vs,
+                                                      lens, bits, sm)
+                for a, b in list(zip(got, want)) + [(gotn, wantn)]:
+                    a, b = a.float(), b.float()
                     r["cases"] += 1
-                    r["mismatches"] += int(((a - b).abs() > ATTN_TOL[dt] *
-                                            (1 + b.abs())).sum())
+                    r["mismatches"] += int(((a - b).abs() > ATTN_TOL[
+                        torch.bfloat16] * (1 + b.abs())).sum())
                     r["err"] = max(r["err"], float((a - b).abs().max()))
+
+    # B6 on the tensor cores (bf16): D 64 and 128, G 1, 4 and 8, S 1 to
+    # 2048 causal and full, Sq < Sk; every call counted on launches_tc
+    r = res["flash_attention"]
+    tc0, tc_cases = FA.launches_tc, 0
+    shapes = [(S, S, 2 if S <= 1024 else 1)
+              for S in (1, 8, 100, 1000, 1024, 2048)] + \
+        [(24, 200, 2), (200, 1000, 2)]
+    for Sq, Sk, B in shapes:
+        for D in (64, 128):
+            for G, Hkv in ((1, 4), (4, 2), (8, 2)):
+                for causal in (True, False):
+                    q = torch.randn((B, Sq, Hkv * G, D), generator=gen,
+                                    device=dev).to(torch.bfloat16)
+                    k, v = (torch.randn((B, Sk, Hkv, D), generator=gen,
+                                        device=dev).to(torch.bfloat16)
+                            for _ in range(2))
+                    tc_cases += 1
+                    _flash_case(r, FA, q, k, v, causal)
+    check(FA.launches_tc - tc0 == tc_cases, f"phase 6: {tc_cases} bf16 "
+          f"cases launched the tensor-core route {FA.launches_tc - tc0} times")
     torch.cuda.synchronize()
+    print(f"phase 6 redesigned kernels: B5 in {repeats} configurations "
+          f"bit-identical on a second call (chunk {chunk}); B6 {tc_cases} bf16 "
+          f"cases on the tensor cores (launches_tc +{FA.launches_tc - tc0})",
+          flush=True)
     print(f"phase 6 serving kernels vs plain: "
           f"{json.dumps({k: v for k, v in res.items()})} | tolerance "
           f"|kernel - plain| <= tol * (1 + |plain|), tol 2e-2 (bf16) and "
-          f"2e-3 (f32); B3/B4 byte for byte", flush=True)
+          f"2e-3 (f32); B6 also ||kernel - plain|| <= tol * ||plain|| per "
+          f"case, tol 1e-2 (bf16) and 1e-4 (f32); B3/B4 byte for byte",
+          flush=True)
     for k, r in res.items():
         check(r["mismatches"] == 0, f"phase 6: {k} disagrees with its plain "
               f"version in {r['mismatches']} elements/rows")
+    r = res["flash_attention"]
+    check(r["norm_fails"] == 0, f"phase 6: flash_attention is off its plain "
+          f"version normwise in {r['norm_fails']} cases (worst relative "
+          f"error {r['norm_err']})")
     return res
+
+
+def _flash_case(r: dict, FA, q, k, v, causal: bool) -> None:
+    """One B6 case against its plain version: elements outside ATTN_TOL
+    counted as mismatches, a case outside ATTN_NORM_TOL as a normwise
+    failure."""
+    a = FA.flash_attention(q, k, v, causal=causal).float()
+    b = FA.flash_attention_plain(q, k, v, causal=causal).float()
+    d = a - b
+    rel = float(d.norm() / b.norm().clamp_min(1e-30))
+    r["cases"] += 1
+    r["mismatches"] += int((d.abs() > ATTN_TOL[q.dtype] *
+                            (1 + b.abs())).sum())
+    r["err"] = max(r["err"], float(d.abs().max()))
+    r["norm_err"] = max(r.get("norm_err", 0.0), rel)
+    r["norm_fails"] = r.get("norm_fails", 0) + int(rel > ATTN_NORM_TOL[
+        q.dtype])
 
 
 def _llama(layers=None):
@@ -600,12 +710,14 @@ def _prompts(n: int, vocab: int, seed: int):
 
 class _PhaseTimer:
     """CUDA-event device time around the engine's prefill and decode-step
-    functions (no host sync added: events are read after the run)."""
+    functions, and around any extra (module, attribute, kind) hooks (no
+    host sync added: events are read after the run)."""
 
-    def __init__(self, engine_mod):
-        self.mod = engine_mod
-        self.orig = (engine_mod._prefill_impl, engine_mod._engine_step_impl)
-        self.events = {"prefill": [], "step": []}
+    def __init__(self, engine_mod, hooks=()):
+        self.hooks = [(engine_mod, "_prefill_impl", "prefill"),
+                      (engine_mod, "_engine_step_impl", "step"), *hooks]
+        self.orig = [getattr(m, a) for m, a, _ in self.hooks]
+        self.events = {kind: [] for _, _, kind in self.hooks}
 
     def _wrap(self, fn, kind):
         def timed(*a, **k):
@@ -618,21 +730,24 @@ class _PhaseTimer:
         return timed
 
     def __enter__(self):
-        self.mod._prefill_impl = self._wrap(self.orig[0], "prefill")
-        self.mod._engine_step_impl = self._wrap(self.orig[1], "step")
+        for (m, a, kind), fn in zip(self.hooks, self.orig):
+            setattr(m, a, self._wrap(fn, kind))
         return self
 
     def __exit__(self, *exc):
-        self.mod._prefill_impl, self.mod._engine_step_impl = self.orig
+        for (m, a, _), fn in zip(self.hooks, self.orig):
+            setattr(m, a, fn)
 
     def seconds(self, kind: str) -> float:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in self.events[kind]) / 1e3
 
 
-def _serve(cfg, scfg, params, prompts, new_tokens, dev):
+def _serve(cfg, scfg, params, prompts, new_tokens, dev, hooks=(),
+           timed=None):
     """Drive Engine over ``prompts``: (engine, wall s, prefill device s,
-    decode-step device s, launches in this run)."""
+    decode-step device s, launches in this run). ``hooks`` are timed too,
+    their device seconds put in ``timed`` by kind."""
     from repro_torch.common import contracts
     from repro_torch.serve import Engine
     from repro_torch.serve import engine as engine_mod
@@ -641,13 +756,15 @@ def _serve(cfg, scfg, params, prompts, new_tokens, dev):
     torch.cuda.synchronize()
     _reset_launches()
     contracts.SYNCS.reset()
-    with _PhaseTimer(engine_mod) as tm:
+    with _PhaseTimer(engine_mod, hooks) as tm:
         t0 = time.perf_counter()
         eng.run_until_done(max_steps=5000)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _launch_counts()
         t_pre, t_step = tm.seconds("prefill"), tm.seconds("step")
+        for _, _, kind in hooks:
+            timed[kind] = (tm.seconds(kind), len(tm.events[kind]))
     check(all(eng.requests[r].state == "done" for r in rids),
           "serve: a request did not finish")
     check(eng.counters["step_syncs"] == eng.counters["steps"],
@@ -669,11 +786,14 @@ def phase_serve(dev, tag: str):
     params = T.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    from repro_torch.kernels import flash_attn as FA
     scfg = ServeConfig(**SERVE_CFG)
     prompts = _prompts(SERVE_REQUESTS, cfg.vocab_size, SEED)
     torch.cuda.reset_peak_memory_stats()
-    eng, wall, t_pre, t_step, launches = _serve(cfg, scfg, params, prompts,
-                                                SERVE_NEW_TOKENS, dev)
+    timed = {}
+    eng, wall, t_pre, t_step, launches = _serve(
+        cfg, scfg, params, prompts, SERVE_NEW_TOKENS, dev,
+        hooks=[(FA, "flash_attention", "b6")], timed=timed)
     c = eng.counters
     n_prompt = sum(len(p) for p in prompts)
     print(f"phase 7 serve: {describe(cfg)}, bf16 params from seed {SEED} "
@@ -692,12 +812,27 @@ def phase_serve(dev, tag: str):
           flush=True)
     print(f"phase 7 counters: {json.dumps(c)} | step_syncs == steps: "
           f"{c['step_syncs'] == c['steps']}", flush=True)
-    print(f"phase 7 launches: {json.dumps(launches)}", flush=True)
+    t_b6, n_b6 = timed["b6"]
+    want_b5 = c["steps"] * cfg.num_layers
+    want_b6 = c["prefill_batches"] * cfg.num_layers
+    print(f"phase 7 launches: {json.dumps(launches)} | expected B5 one a "
+          f"layer a step = {want_b5}, B6 one a layer a prefill batch = "
+          f"{want_b6}", flush=True)
+    print(f"phase 7 B6 in prefill: {n_b6} calls, {t_b6:.6f} s device "
+          f"(CUDA events around each call) = {t_b6 / t_pre:.4f} of the "
+          f"{t_pre:.3f} s of prefill [{tag}]", flush=True)
     check(c["demotions"] > 0 and c["promotions"] > 0,
           "phase 7: no demotion or promotion")
     for k in ("qpack_fixed_encode", "kvc_decode_attention",
-              "flash_attention"):
+              "flash_attention", "flash_attention_tc"):
         check(launches[k] > 0, f"phase 7: {k} was not launched")
+    check(launches["kvc_decode_attention"] == want_b5 and
+          launches["flash_attention"] == want_b6 == n_b6,
+          f"phase 7: B5 launched {launches['kvc_decode_attention']} times "
+          f"(expected {want_b5}), B6 {launches['flash_attention']} "
+          f"(expected {want_b6})")
+    check(launches["flash_attention_tc"] == launches["flash_attention"],
+          "phase 7: a bf16 prefill missed the tensor-core route")
     # lengths of the compressed prefix the decode attention saw last
     # (layer 0), for the timing phase's shapes
     return params, launches, {"t_pre": t_pre, "t_step": t_step,
@@ -745,6 +880,11 @@ def phase_serve_profile(params, dev, tag: str) -> None:
               f"device busy share not measured [{tag}]", flush=True)
         return
     busy = _busy_us(kern)
+    b5 = [e for e in kern if "kvc_split_kernel" in e.name]
+    b5_us = sum(e.time_range.elapsed_us() for e in b5)
+    print(f"phase 7 profile B5: {len(b5)} launches, {b5_us / 1e3:.6f} ms "
+          f"device, {b5_us / 1e3 / PROFILE_STEPS:.6f} ms a decode step, "
+          f"{b5_us / max(len(b5), 1):.3f} us a launch [{tag}]", flush=True)
     by_name: dict = {}
     for e in kern:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -865,6 +1005,10 @@ def phase_serve_whole(dev) -> dict:
             check(same_gen == 4, "phase 9 float32: Engine generations "
                   "differ between the kernels and the plain versions")
         for k, v in list(kl.items()) + list(served["kernel"][1].items()):
+            # float32 prefill takes the CUDA-core route, bf16 the tensor cores
+            if k == "flash_attention_tc" and dtype == "float32":
+                check(v == 0, "phase 9 float32: the tensor-core route ran")
+                continue
             check(v > 0 or k == "qpack_fixed_decode",
                   f"phase 9 {dtype}: {k} was not launched in the kernel run")
         check(not any(pl.values()) and not any(served["plain"][1].values()),
@@ -938,17 +1082,23 @@ def phase_serve_times(dev, tag: str) -> dict:
         nbytes=tok * Hkv * 2 * (Dp + 4) + B * Hq * D * 2 + B * 4
         + B * Hq * (D + 2) * 4,
         ops=4 * tok * Hq * D, reps=50)
-    # B6: the prefill's attention at the 1024 bucket, 8 rows, causal
+    # B6: the prefill's attention at the 1024 bucket, 8 rows, causal; then
+    # the path's own batches (4 rows and 1 row of the 1024 bucket)
     Sp = 1024
     qf, kf, vf = (torch.randn((B, Sp, h, D), generator=gen, device=dev)
                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
-    out["flash_attention"] = dict(
-        shape=f"q {B}x{Sp}x{Hq}x{D}, kv {B}x{Sp}x{Hkv}x{D} bf16 causal",
-        kern=lambda: FA.flash_attention(qf, kf, vf, causal=True),
-        plain=lambda: FA.flash_attention_plain(qf, kf, vf, causal=True),
-        lib=lambda: _sdpa(qf, kf, vf, True),
-        nbytes=2 * B * Sp * D * (2 * Hq + 2 * Hkv),
-        ops=4 * B * Hq * D * Sp * (Sp + 1) // 2, reps=5)
+    for rows in (B, 4, 1):
+        q_, k_, v_ = qf[:rows], kf[:rows], vf[:rows]
+        out["flash_attention" + ("" if rows == B else f"_{rows}x{Sp}")] = dict(
+            shape=f"q {rows}x{Sp}x{Hq}x{D}, kv {rows}x{Sp}x{Hkv}x{D} bf16 "
+                  f"causal",
+            kern=lambda q_=q_, k_=k_, v_=v_: FA.flash_attention(
+                q_, k_, v_, causal=True),
+            plain=lambda q_=q_, k_=k_, v_=v_: FA.flash_attention_plain(
+                q_, k_, v_, causal=True),
+            lib=lambda q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, True),
+            nbytes=2 * rows * Sp * D * (2 * Hq + 2 * Hkv),
+            ops=4 * rows * Hq * D * Sp * (Sp + 1) // 2, reps=5)
     res = {}
     for name, t in out.items():
         t_b = t["nbytes"] / HBM_BYTES_PER_S
@@ -969,6 +1119,17 @@ def phase_serve_times(dev, tag: str) -> dict:
               f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({t['nbytes']} B "
               f"at 3.35 TB/s, {t['ops']} flop at 989 TF/s) [{tag}]",
               flush=True)
+
+    # B5: CTAs that do work at these lengths (one per chunk of a lane's
+    # length, per KV head) against the card's SMs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    working = Hkv * sum(len(KA.chunk_plan(int(n))) for n in lens_l)
+    grid = B * Hkv * len(KA.chunk_plan(S))
+    print(f"phase 10 kvc_decode_attention split: chunk {KA.CHUNK}, grid "
+          f"{grid} CTAs of which {working} do work, {sms} SMs [{tag}]",
+          flush=True)
+    check(working > sms, f"phase 10: only {working} B5 CTAs do work on "
+          f"{sms} SMs")
     return res
 
 
@@ -1039,6 +1200,11 @@ def main() -> int:
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "shape": t["shape"], "cases": e["cases"],
             "mismatches": e["mismatches"]})
+    # B6 also at the path's own batches (4 rows and 1 row of 1024)
+    kernels[-1]["path_shapes"] = {
+        k.split("_")[-1]: {f: t[f] for f in ("ms", "eager_ms", "library_ms",
+                                              "bound_ms")}
+        for k, t in serve_times.items() if k.startswith("flash_attention_")}
     print(f"total {time.perf_counter() - t_start:.3f} s [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)

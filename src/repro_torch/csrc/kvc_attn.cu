@@ -21,16 +21,42 @@
 //
 // Bound: bytes. Each token a lane attends reads D*bits/8 + 4 bytes of K and
 // the same of V once, shared by the G = Hq/Hkv query heads of its KV head;
-// the arithmetic is 4*G*D flops a token, far under the card's rate. The
-// design: one CTA of four warps per (lane, KV head) walks the sequence in
-// tiles of 32 tokens up to lengths[b] and skips the rest. Each tile is
-// loaded with 16-byte reads, dequantized once into shared memory (K rows
-// padded so that a lane's float4 reads hit distinct banks), and used by all
-// G heads: warp w takes heads w and w + 4, lane j token j of the tile for
-// the scores and dims j, j + 32, ... for acc. Online softmax in f32 with
-// expf; no fast math. Simple first: B*Hkv CTAs (64 at the serving shape)
-// leave most of the 132 SMs idle on a long sequence; splitting the
-// sequence across CTAs is later work.
+// the arithmetic is 4*G*D flops a token, far under the card's rate. At the
+// serving shape (8 lanes, 8 KV heads, a few hundred tokens each) the bytes
+// are about 3 MB, under 1 us at 3.35 TB/s: the call is bound by latency,
+// the length of the longest serial chain of one CTA plus the launch.
+//
+// The design splits the sequence across the card's SMs (flash-decoding)
+// and merges in the same launch:
+//   - grid (Hkv, B, n_split), n_split = ceil(S / CHUNK) fixed by S, so the
+//     host reads no length. A CTA whose chunk starts at or past its lane's
+//     span exits at once; a lane whose span is 0 has its split-0 CTA write
+//     the empty partial straight to the output.
+//   - a CTA of eight warps owns CHUNK (128) tokens of one (lane, KV head). All its
+//     K and V codes are loaded at once into registers (16-byte reads for K;
+//     4 or 8 bytes, 8 values, for V) and dequantized there without the
+//     quarter-rate int-to-float convert (no shared-memory round trip for K
+//     or V): 256 / CHUNK neighbouring threads score a token for the G heads
+//     (q in shared memory, read as broadcasts) and sum their parts with
+//     shuffles; a warp per head takes the chunk's max, exp and sum; then
+//     thread (d-group, token-group) accumulates 8 dims of p.v over its
+//     tokens, and the token groups are summed in a fixed order (shuffles,
+//     then shared memory).
+//   - a CTA that is its lane's only split writes the output directly.
+//     Otherwise it writes (acc, m, l) for its G heads to scratch
+//     [B, Hkv, n_split, G, D + 2] f32 and adds one to a per-(lane, KV head)
+//     counter with an acq_rel atomic (the threadfence reduction, the fence
+//     folded into the atomic); the CTA that brings it to the number of
+//     splits merges splits 0..n-1 in index order, every output loading its
+//     splits' (m, acc) in one round (so repeated calls give bit-identical
+//     partials), and resets the counter to 0. The wrapper keeps the int32
+//     counters per device, zeroed once: the kernel assumes one stream at a
+//     time per counter buffer.
+// Online softmax in f32 with expf; no fast math. What it still lacks: the
+// chain of one CTA (lengths -> codes -> scores -> max -> p.v -> partial ->
+// atomic -> merge) is serial, about 7 us for a lane of one chunk and 11 us
+// with a merge at the serving shape, against a 1.7 us launch (PERF.md); at
+// S = 2048 most of the ~1,000 CTAs exit at once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,12 +64,18 @@
 
 namespace {
 
-constexpr int kT = 32;          // tokens per tile, one per lane
-constexpr int kWarps = 4;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;        // query heads per KV head
 constexpr float kNegInf = -1e30f;
-constexpr float kOutside = -3.0e38f;   // a slot past S: takes no part
 constexpr unsigned kFull = 0xffffffffu;
+// Tokens per CTA (CHUNK above); kernels/kvc_attn.py::CHUNK, which sizes
+// the scratch, holds the same. -DKVC_CHUNK overrides it for
+// tools/sweep_attn.py's sweep only.
+#ifndef KVC_CHUNK
+#define KVC_CHUNK 128
+#endif
+constexpr int kChunk = KVC_CHUNK;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -57,173 +89,351 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 16 code bytes -> 32 (4-bit) or 16 (8-bit) f32 values, code * scale.
+// One 32-bit word of codes -> 8 (4-bit) or 4 (8-bit) values, code * scale.
+// A code c becomes a float without the quarter-rate convert: with its sign
+// bit flipped it is the low mantissa of 2^23 + c + 2^(bits-1), exactly, and
+// subtracting 2^23 + 2^(bits-1) leaves c (the same value I2F gives).
 template <int BITS>
-__device__ __forceinline__ void dequant16(const uint8_t* src, float scale,
-                                          float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+__device__ __forceinline__ void dequant_word(uint32_t w, float scale,
+                                             float* dst) {
+  if constexpr (BITS == 4) {
+    const uint32_t x = w ^ 0x88888888u;
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if constexpr (BITS == 4) {
+    for (int i = 0; i < 8; ++i)
+      dst[i] = (__uint_as_float(0x4B000000u | ((x >> (4 * i)) & 0xFu)) -
+                8388616.0f) * scale;
+  } else {
+    const uint32_t x = w ^ 0x80808080u;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int nib = static_cast<int>((w[t] >> (4 * i)) & 0xFu);
-        dst[8 * t + i] = static_cast<float>(nib >= 8 ? nib - 16 : nib) * scale;
-      }
-    } else {
+    for (int i = 0; i < 4; ++i)
+      dst[i] = (__uint_as_float(0x4B000000u | ((x >> (8 * i)) & 0xFFu)) -
+                8388736.0f) * scale;
+  }
+}
+
+// NW 32-bit words of codes in loads of 16 bytes (or 8, or 4).
+template <int NW>
+__device__ __forceinline__ void load_words(const uint8_t* src, uint32_t (&w)[NW]) {
+  if constexpr (NW == 1) {
+    w[0] = *reinterpret_cast<const uint32_t*>(src);
+  } else if constexpr (NW % 4 == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dst[4 * t + i] = static_cast<float>(
-            static_cast<int8_t>((w[t] >> (8 * i)) & 0xFFu)) * scale;
+    for (int i = 0; i < NW / 4; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(src)[i];
+      w[4 * i] = u.x;
+      w[4 * i + 1] = u.y;
+      w[4 * i + 2] = u.z;
+      w[4 * i + 3] = u.w;
+    }
+  } else {
+    static_assert(NW % 2 == 0, "1, 2k or 4k words");
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) {
+      const uint2 u = reinterpret_cast<const uint2*>(src)[i];
+      w[2 * i] = u.x;
+      w[2 * i + 1] = u.y;
     }
   }
 }
 
-template <int D, int BITS>
-__global__ void __launch_bounds__(kWarps * 32)
-kvc_partial_kernel(const void* __restrict__ q, int q_f32,
-                   const uint8_t* __restrict__ kc, const float* __restrict__ ks,
-                   const uint8_t* __restrict__ vc, const float* __restrict__ vs,
-                   const int* __restrict__ lengths, float* __restrict__ m_out,
-                   float* __restrict__ l_out, float* __restrict__ acc_out,
-                   int S, int Hq, int Hkv, float sm_scale, int empty_uniform) {
+template <int D, int BITS, int CHUNK>
+__global__ void __launch_bounds__(kThreads)
+kvc_split_kernel(const void* __restrict__ q, int q_f32,
+                 const uint8_t* __restrict__ kc, const float* __restrict__ ks,
+                 const uint8_t* __restrict__ vc, const float* __restrict__ vs,
+                 const int* __restrict__ lengths, float* __restrict__ m_out,
+                 float* __restrict__ l_out, float* __restrict__ acc_out,
+                 float* __restrict__ scratch, int* __restrict__ counters,
+                 int S, int Hq, int Hkv, int n_split, float sm_scale,
+                 int empty_uniform) {
   constexpr int DP = D * BITS / 8;      // code bytes per (token, head)
-  constexpr int CPR = DP / 16;          // 16-byte chunks per row
-  constexpr int VPC = 128 / BITS;       // values per chunk
-  constexpr int KS = D + 4;             // padded K row
-  constexpr int DL = D / 32;            // acc values per lane
-  constexpr int HPW = kMaxG / kWarps;   // heads per warp
-  __shared__ __align__(16) float k_s[kT * KS];
-  __shared__ __align__(16) float v_s[kT * D];
+  constexpr int TPT = kThreads / CHUNK; // threads per token for the scores
+  constexpr int KWD = DP / TPT / 4;     // 32-bit code words a thread scores
+  constexpr int VPW = 32 / BITS;        // values per word
+  constexpr int DG = D / 8;             // p.v: 8 dims a thread
+  constexpr int TG = kThreads / DG;     // token groups
+  constexpr int VT = CHUNK / TG;        // V tokens a thread
+  static_assert(TPT >= 1 && CHUNK % TG == 0 && DG <= 32, "chunk and D do not tile");
   __shared__ __align__(16) float q_s[kMaxG * D];
+  __shared__ float p_s[kMaxG][CHUNK];
+  __shared__ __align__(16) float red_s[kWarps][kMaxG * D];
+  __shared__ float m_s[kMaxG], l_s[kMaxG];
+  __shared__ int last_s;
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int64_t qbase = (static_cast<int64_t>(b) * Hq + h * G) * D;
-  for (int i = tid; i < G * D; i += kWarps * 32)
-    q_s[i] = q_f32 ? static_cast<const float*>(q)[qbase + i]
-                   : __bfloat162float(
-                         static_cast<const __nv_bfloat16*>(q)[qbase + i]);
   const int len = min(max(lengths[b], 0), S);
   const int span = (len == 0 && empty_uniform) ? S : len;
-
-  float m[HPW], l[HPW], acc[HPW][DL];
-#pragma unroll
-  for (int hg = 0; hg < HPW; ++hg) {
-    m[hg] = kNegInf;
-    l[hg] = 0.0f;
-#pragma unroll
-    for (int dl = 0; dl < DL; ++dl) acc[hg][dl] = 0.0f;
-  }
-
-  for (int t0 = 0; t0 < span; t0 += kT) {
-    __syncthreads();                    // the previous tile is consumed
-    for (int i = tid; i < 2 * kT * CPR; i += kWarps * 32) {
-      const int which = i / (kT * CPR);             // 0: K, 1: V
-      const int r = (i / CPR) % kT, c = i % CPR;
-      const int t = t0 + r;
-      float vals[VPC];
-      if (t < S) {
-        const int64_t row = (static_cast<int64_t>(b) * S + t) * Hkv + h;
-        dequant16<BITS>((which ? vc : kc) + row * DP + c * 16,
-                        (which ? vs : ks)[row], vals);
-      } else {
-#pragma unroll
-        for (int j = 0; j < VPC; ++j) vals[j] = 0.0f;
-      }
-      float4* dst = reinterpret_cast<float4*>(
-          which ? v_s + r * D + c * VPC : k_s + r * KS + c * VPC);
-#pragma unroll
-      for (int j = 0; j < VPC / 4; ++j)
-        dst[j] = make_float4(vals[4 * j], vals[4 * j + 1], vals[4 * j + 2],
-                             vals[4 * j + 3]);
-    }
-    __syncthreads();
-
-    const int t = t0 + lane;
-    const bool inside = t < S;
-    const bool valid = t < len;
-    const float4* krow = reinterpret_cast<const float4*>(k_s + lane * KS);
-#pragma unroll
-    for (int hg = 0; hg < HPW; ++hg) {
-      const int g = warp + hg * kWarps;
-      if (g >= G) break;                // uniform over the warp
-      const float4* qrow = reinterpret_cast<const float4*>(q_s + g * D);
-      float s = 0.0f;
-#pragma unroll 8
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 a = qrow[d4], kk = krow[d4];
-        s += a.x * kk.x + a.y * kk.y + a.z * kk.z + a.w * kk.w;
-      }
-      s *= sm_scale;
-      const float sv = inside ? (valid ? s : kNegInf) : kOutside;
-      const float m_new = fmaxf(m[hg], warp_max(sv));
-      const float alpha = expf(m[hg] - m_new);
-      const float p = inside ? expf(sv - m_new) : 0.0f;
-      l[hg] = l[hg] * alpha + warp_sum(p);
-      m[hg] = m_new;
-#pragma unroll
-      for (int dl = 0; dl < DL; ++dl) acc[hg][dl] *= alpha;
-#pragma unroll 4
-      for (int j = 0; j < kT; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
-        const float* vrow = v_s + j * D + lane;
-#pragma unroll
-        for (int dl = 0; dl < DL; ++dl) acc[hg][dl] += pj * vrow[32 * dl];
+  const int n_active = (span + CHUNK - 1) / CHUNK;
+  const int64_t row0 = static_cast<int64_t>(b) * Hq + h * G;
+  if (split >= n_active) {
+    if (split == 0) {                   // span 0: the empty partial
+      for (int i = tid; i < G * D; i += kThreads) acc_out[row0 * D + i] = 0.0f;
+      if (tid < G) {
+        m_out[row0 + tid] = kNegInf;
+        l_out[row0 + tid] = 0.0f;
       }
     }
+    return;
   }
+  const int c0 = split * CHUNK;
+  const int n = min(CHUNK, span - c0);  // tokens of this chunk
 
+  // all K and V codes of the chunk, in flight at once: the scores take
+  // token tid / TPT, its dims (tid % TPT) * D / TPT.., the p.v 8 dims of
+  // tokens tg, tg + TG, ..
+  const int tk = tid / TPT, part = tid % TPT;
+  uint32_t kw[KWD];
+  float ksc = 0.0f;
+  if (tk < n) {
+    const int64_t row = (static_cast<int64_t>(b) * S + c0 + tk) * Hkv + h;
+    load_words<KWD>(kc + row * DP + part * (DP / TPT), kw);
+    ksc = ks[row];
+  }
+  const int dg = tid % DG, tg = tid / DG;
+  uint32_t vw[VT][BITS / 4];
+  float vsc[VT];
 #pragma unroll
-  for (int hg = 0; hg < HPW; ++hg) {
-    const int g = warp + hg * kWarps;
-    if (g >= G) break;
-    const int64_t row = static_cast<int64_t>(b) * Hq + h * G + g;
+  for (int j = 0; j < VT; ++j) {
+    const int tt = tg + j * TG;
+    vsc[j] = 0.0f;
 #pragma unroll
-    for (int dl = 0; dl < DL; ++dl) acc_out[row * D + lane + 32 * dl] = acc[hg][dl];
+    for (int w = 0; w < BITS / 4; ++w) vw[j][w] = 0u;
+    if (tt < n) {
+      const int64_t row = (static_cast<int64_t>(b) * S + c0 + tt) * Hkv + h;
+      load_words<BITS / 4>(vc + row * DP + dg * BITS, vw[j]);
+      vsc[j] = vs[row];
+    }
+  }
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int64_t qi = row0 * D + i;
+    q_s[i] = q_f32 ? static_cast<const float*>(q)[qi]
+                   : __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qi]);
+  }
+  __syncthreads();
+
+  // scores: TPT neighbouring threads share a token, then sum their parts
+  float s[kMaxG];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) s[g] = 0.0f;
+  if (tk < n) {
+#pragma unroll
+    for (int w = 0; w < KWD; ++w) {
+      float val[VPW];
+      dequant_word<BITS>(kw[w], ksc, val);
+      const int d0 = part * (D / TPT) + w * VPW;
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g >= G) break;
+        const float4* qrow = reinterpret_cast<const float4*>(q_s + g * D + d0);
+#pragma unroll
+        for (int i4 = 0; i4 < VPW / 4; ++i4) {
+          const float4 a = qrow[i4];
+          s[g] += a.x * val[4 * i4] + a.y * val[4 * i4 + 1] +
+                  a.z * val[4 * i4 + 2] + a.w * val[4 * i4 + 3];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < TPT; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) break;
+      s[g] += __shfl_xor_sync(kFull, s[g], o);
+    }
+  }
+  if (part == 0 && tk < n) {
+    const bool valid = c0 + tk < len;
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) break;
+      p_s[g][tk] = valid ? s[g] * sm_scale : kNegInf;
+    }
+  }
+  __syncthreads();
+
+  // per head (a warp each): the chunk's max, p = exp(s - m) in place, l
+  if (warp < G) {
+    const int g = warp;
+    float mx = kNegInf;
+    for (int tt = lane; tt < n; tt += 32) mx = fmaxf(mx, p_s[g][tt]);
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int tt = lane; tt < CHUNK; tt += 32) {
+      const float p = tt < n ? expf(p_s[g][tt] - mx) : 0.0f;
+      p_s[g][tt] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
     if (lane == 0) {
-      m_out[row] = m[hg];
-      l_out[row] = l[hg];
+      m_s[g] = mx;
+      l_s[g] = sum;
     }
   }
+  __syncthreads();
+
+  // p.v: thread (dg, tg) sums dims 8dg..8dg+7 over tokens tg + j * TG
+  float acc[kMaxG][8];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < VT; ++j) {
+    const int tt = tg + j * TG;
+    float val[8];
+#pragma unroll
+    for (int w = 0; w < BITS / 4; ++w)
+      dequant_word<BITS>(vw[j][w], vsc[j], val + w * VPW);
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) break;
+      const float p = p_s[g][tt];     // 0 past the chunk's tokens
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] += p * val[e];
+    }
+  }
+  // token groups: first inside the warp, then across warps
+#pragma unroll
+  for (int o = DG; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) break;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[g][e] += __shfl_xor_sync(kFull, acc[g][e], o);
+    }
+  }
+  if (lane < DG) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) break;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) red_s[warp][g * D + dg * 8 + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+
+  const bool alone = n_active == 1;
+  float* part_out = scratch +
+      ((static_cast<int64_t>(b) * Hkv + h) * n_split + split) * G * (D + 2);
+  for (int i = tid; i < G * D; i += kThreads) {
+    float a = red_s[0][i];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) a += red_s[w][i];
+    const int g = i / D, d = i % D;
+    if (alone) acc_out[row0 * D + i] = a;
+    else part_out[g * (D + 2) + d] = a;
+  }
+  if (tid < G) {
+    if (alone) {
+      m_out[row0 + tid] = m_s[tid];
+      l_out[row0 + tid] = l_s[tid];
+    } else {
+      part_out[tid * (D + 2) + D] = m_s[tid];
+      part_out[tid * (D + 2) + D + 1] = l_s[tid];
+    }
+  }
+  if (alone) return;
+
+  // The last CTA of this (lane, KV head) merges the splits. The counter's
+  // add is acq_rel at gpu scope: after the barrier it releases this CTA's
+  // partial, and the last adder acquires all of them. Every output then
+  // loads its splits' (m, acc) together, kMerge at a time, and merges them
+  // online in index order (fixed: repeated calls agree bit for bit).
+  __syncthreads();
+  int* counter = counters + b * Hkv + h;
+  if (tid == 0) {
+    int prev;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;"
+                 : "=r"(prev)
+                 : "l"(counter)
+                 : "memory");
+    last_s = prev == n_active - 1;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  constexpr int kMerge = 8;
+  const float* parts =
+      scratch + (static_cast<int64_t>(b) * Hkv + h) * n_split * G * (D + 2);
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float mx = kNegInf, l = 0.0f, a = 0.0f;
+    for (int sp0 = 0; sp0 < n_active; sp0 += kMerge) {
+      float mv[kMerge], av[kMerge], lv[kMerge];
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) {
+        const bool in = sp0 + j < n_active;
+        const float* pp = parts + ((sp0 + j) * G + g) * (D + 2);
+        mv[j] = in ? __ldcg(pp + D) : kNegInf;
+        av[j] = in ? __ldcg(pp + d) : 0.0f;
+        lv[j] = in && d == 0 ? __ldcg(pp + D + 1) : 0.0f;
+      }
+      float mn = mx;
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) mn = fmaxf(mn, mv[j]);
+      const float e0 = expf(mx - mn);
+      a *= e0;
+      l *= e0;
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) {
+        const float e = sp0 + j < n_active ? expf(mv[j] - mn) : 0.0f;
+        a += av[j] * e;
+        l += lv[j] * e;
+      }
+      mx = mn;
+    }
+    acc_out[row0 * D + i] = a;
+    if (d == 0) {
+      m_out[row0 + g] = mx;
+      l_out[row0 + g] = l;
+    }
+  }
+  if (tid == 0) *counter = 0;
 }
 
 template <int D, int BITS>
-void launch(const void* q, int q_f32, const void* kc, const void* ks,
-            const void* vc, const void* vs, const void* lengths, void* m,
-            void* l, void* acc, int B, int S, int Hq, int Hkv,
-            float sm_scale, int empty_uniform, cudaStream_t s) {
-  kvc_partial_kernel<D, BITS><<<dim3(Hkv, B), kWarps * 32, 0, s>>>(
+int launch(const void* q, int q_f32, const void* kc, const void* ks,
+           const void* vc, const void* vs, const void* lengths, void* m,
+           void* l, void* acc, void* scratch, void* counters, int B, int S,
+           int Hq, int Hkv, float sm_scale, int empty_uniform,
+           cudaStream_t s) {
+  const int n_split = (S + kChunk - 1) / kChunk;
+  kvc_split_kernel<D, BITS, kChunk><<<dim3(Hkv, B, n_split), kThreads, 0, s>>>(
       q, q_f32, static_cast<const uint8_t*>(kc), static_cast<const float*>(ks),
       static_cast<const uint8_t*>(vc), static_cast<const float*>(vs),
       static_cast<const int*>(lengths), static_cast<float*>(m),
-      static_cast<float*>(l), static_cast<float*>(acc), S, Hq, Hkv, sm_scale,
-      empty_uniform);
+      static_cast<float*>(l), static_cast<float*>(acc),
+      static_cast<float*>(scratch), static_cast<int*>(counters), S, Hq, Hkv,
+      n_split, sm_scale, empty_uniform);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a shape the kernel does
 // not take (D other than 64/128, bits other than 4/8, G = Hq/Hkv > 8).
+// scratch holds B*Hkv*ceil(S/kChunk)*G*(D+2) floats; counters B*Hkv int32,
+// all 0 between calls.
 extern "C" int kvc_attn_partial(const void* q, int q_f32, const void* kc,
                                 const void* ks, const void* vc,
                                 const void* vs, const void* lengths, void* m,
-                                void* l, void* acc, int B, int S, int Hq,
-                                int Hkv, int D, int bits, float sm_scale,
+                                void* l, void* acc, void* scratch,
+                                void* counters, int B, int S, int Hq, int Hkv,
+                                int D, int bits, float sm_scale,
                                 int empty_uniform, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxG) return cudaErrorInvalidValue;
-  if (D == 128 && bits == 4)
-    launch<128, 4>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
-  else if (D == 128 && bits == 8)
-    launch<128, 8>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
-  else if (D == 64 && bits == 4)
-    launch<64, 4>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
-  else if (D == 64 && bits == 8)
-    launch<64, 8>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
-  else
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxG || S <= 0)
     return cudaErrorInvalidValue;
-  return static_cast<int>(cudaGetLastError());
+  if (D == 128 && bits == 4)
+    return launch<128, 4>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
+  if (D == 128 && bits == 8)
+    return launch<128, 8>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
+  if (D == 64 && bits == 4)
+    return launch<64, 4>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
+  if (D == 64 && bits == 8)
+    return launch<64, 8>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
+  return cudaErrorInvalidValue;
 }

@@ -8,9 +8,12 @@ online softmax over key chunks; ``flash_attention_plain`` is that function
 (``models/layers.py`` re-exports it under its reference name), so on the
 CPU the port computes exactly what the reference computes.
 
-The wrapper dispatches on the tensor's device: a CUDA tensor launches the
-kernel (or raises), a CPU tensor runs the plain version. ``launches``
-counts kernel launches.
+The wrapper dispatches on the tensor's device: a CUDA tensor launches a
+kernel (or raises), a CPU tensor runs the plain version. On the card the
+input type alone picks the route (``ROUTES``): bf16 runs on the tensor
+cores (wgmma fed by TMA), f32 on the CUDA cores; nothing gives way to
+another route at run time. ``launches`` counts every kernel launch,
+``launches_tc`` those of the tensor-core route.
 """
 from __future__ import annotations
 
@@ -23,6 +26,15 @@ from repro_torch.kernels import build as _build
 
 NEG_INF = -1e30
 launches = 0
+launches_tc = 0
+
+# input type -> route on the card; the C entry point takes the type's code
+ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+HEAD_DIMS = (64, 128)
+# keys per tile of the tensor-core route, per head dim (csrc/flash_attn.cu's
+# tc::Tile): at D 128 the widest tile whose registers fit
+TC_KEYS = {128: 96, 64: 128}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,44 +82,79 @@ def _lib() -> ctypes.CDLL:
         "flash_attn_fwd": [P, P, P, P, I, I, I, I, I, I, I, F, I, P]})
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
-    """GQA attention forward, ``flash_attention_plain``'s contract: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    global launches
+def _check_gqa(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("q [B,Sq,Hq,D], k and v [B,Sk,Hkv,D] expected")
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "form a GQA attention")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale)
-    if q.device.type != "cuda" or k.device != q.device or \
-            v.device != q.device:
-        raise ValueError(f"no flash attention for devices {q.device}, "
-                         f"{k.device}, {v.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("q, k, v must all be bf16 or all float32")
-    if D not in (64, 128):
-        raise ValueError(f"head dim {D}: the kernel takes 64 or 128")
+
+
+def route_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The route on the card for this input type and head dim, or a
+    ValueError where no kernel takes them."""
+    if dtype not in ROUTES:
+        raise ValueError(f"no flash attention kernel for {dtype}: q, k, v "
+                         "must all be bf16 or all float32")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim}: the kernels take {HEAD_DIMS}")
+    return ROUTES[dtype]
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool = True) -> str:
+    """The route the card takes for these inputs, or a ValueError for
+    inputs no route takes. Reads shapes, types and devices only."""
+    _check_gqa(q, k, v)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    path = route_for(q.dtype, q.shape[3])
+    Sq, Sk = q.shape[1], k.shape[1]
     if causal and Sq > Sk:
         raise ValueError(f"causal attention with Sq {Sq} > Sk {Sk} leaves "
                          "rows without a key")
-    if sm_scale is None:
-        sm_scale = 1.0 / (D ** 0.5)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    if out.numel() == 0 or Sk == 0:
+    if q.numel() == 0 or Sk == 0:
         raise ValueError("empty attention")
+    if q.device.type != "cuda" or k.device != q.device or \
+            v.device != q.device:
+        raise ValueError(f"no flash attention kernel for devices {q.device}, "
+                         f"{k.device}, {v.device}")
+    return path
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float):
+    """One kernel launch on the route of ``route``."""
+    global launches, launches_tc
+    path = route(q, k, v, causal=causal)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must be 16-byte aligned")
+    out = torch.empty_like(q)
     err = _lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.float32), B, Sq, Sk, Hq, Hkv, D, float(sm_scale),
+        _DTYPE_CODE[q.dtype], B, Sq, Sk, Hq, Hkv, D, float(sm_scale),
         int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(err, "flash_attn_fwd")
     launches += 1
+    launches_tc += int(path == "tensor_cores")
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """GQA attention forward, ``flash_attention_plain``'s contract: a CUDA
+    kernel for CUDA tensors (``route``), the plain version for CPU
+    tensors."""
+    _check_gqa(q, k, v)
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)
+    return _launch(q, k, v, causal, sm_scale)

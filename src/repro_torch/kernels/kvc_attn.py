@@ -18,6 +18,14 @@ mask and an online softmax. Two entry points:
 The wrappers dispatch on the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version. ``launches``
 counts kernel launches.
+
+On the card one launch splits each lane's sequence into chunks of
+``CHUNK`` tokens (``chunk_plan``), one CTA each, and the last CTA of a
+(lane, KV head) merges the chunks' partials in index order, as
+``models/decode.py::merge_partials`` would. The wrapper allocates the
+per-call scratch and keeps the per-device int32 counters the CTAs count
+themselves on (zeroed once; the kernel leaves them at 0): one stream at a
+time per device.
 """
 from __future__ import annotations
 
@@ -31,6 +39,17 @@ from repro_torch.kernels import qpack
 
 NEG_INF = -1e30
 launches = 0
+# tokens per CTA on the card (csrc/kvc_attn.cu's kChunk)
+CHUNK = 128
+_counters: dict = {}
+
+
+def chunk_plan(S: int, chunk: Optional[int] = None) -> list:
+    """The token ranges [start, stop) of the kernel's splits (``CHUNK``
+    tokens each) for a cache of S positions; a split past a lane's length
+    takes no part."""
+    chunk = chunk or CHUNK
+    return [(c, min(c + chunk, S)) for c in range(0, S, chunk)]
 
 
 def _dequant(codes, scales, bits: int, d: int) -> torch.Tensor:
@@ -81,8 +100,18 @@ def kvc_decode_attention_plain(q, k_codes, k_scales, v_codes, v_scales,
 def _lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.load("kvc_attn", {
-        "kvc_attn_partial": [P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                             F, I, P]})
+        "kvc_attn_partial": [P, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                             I, I, F, I, P]})
+
+
+def _counter_buffer(device, n: int) -> torch.Tensor:
+    """int32 counters for n (lane, KV head) pairs on ``device``, zeroed when
+    allocated; the kernel returns each to 0 after its merge."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def _launch(q, k_codes, k_scales, v_codes, v_scales, lengths, bits,
@@ -114,14 +143,20 @@ def _launch(q, k_codes, k_scales, v_codes, v_scales, lengths, bits,
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lengths.shape != (B,):
         raise ValueError("lengths must be [B]")
+    if S < 1:
+        raise ValueError(f"empty cache: S {S}")
     m = torch.empty((B, Hq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((B, Hkv, len(chunk_plan(S)), Hq // Hkv,
+                           D + 2), dtype=torch.float32, device=q.device)
+    counters = _counter_buffer(q.device, B * Hkv)
     err = _lib().kvc_attn_partial(
         q.data_ptr(), int(q.dtype == torch.float32), k_codes.data_ptr(),
         k_scales.data_ptr(), v_codes.data_ptr(), v_scales.data_ptr(),
-        lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, S,
-        Hq, Hkv, D, bits, float(sm_scale), int(empty_uniform),
+        lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        scratch.data_ptr(), counters.data_ptr(), B, S, Hq, Hkv, D, bits,
+        float(sm_scale), int(empty_uniform),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(err, "kvc_attn_partial")
     launches += 1

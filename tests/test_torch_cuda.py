@@ -158,17 +158,61 @@ def test_kvc_attn_vs_plain(cuda, bits, D, G):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("Sq,Sk,Hq,Hkv,D", [
     (1, 1, 4, 4, 64), (37, 37, 4, 1, 64), (128, 128, 8, 2, 128),
-    (24, 200, 4, 2, 128), (512, 512, 32, 8, 128)])
+    (24, 200, 4, 2, 128), (512, 512, 32, 8, 128), (100, 100, 8, 1, 128),
+    (1000, 1000, 16, 2, 64), (2048, 2048, 8, 1, 128)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attn_vs_plain(cuda, causal, Sq, Sk, Hq, Hkv, D, dtype):
+    """bf16 runs on the tensor cores (launches_tc counts it), f32 on the
+    CUDA cores. Element-wise within 2e-2 (bf16) / 2e-3 (f32), and normwise
+    within 1e-2 / 1e-4, which a skipped or repeated key tile would not
+    be."""
     from repro_torch.kernels import flash_attn as FA
     g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
     q, k, v = (torch.randn((2, s, h, D), generator=g, device=cuda).to(dtype)
                for s, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+    tc0 = FA.launches_tc
     got = FA.flash_attention(q, k, v, causal=causal)
     want = FA.flash_attention_plain(q, k, v, causal=causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    norm_tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (got.float() - want.float()).norm() <= \
+        norm_tol * want.float().norm()
+    assert FA.launches_tc == tc0 + (dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("bits,D,G", [(4, 128, 4), (8, 64, 8)])
+def test_kvc_attn_split_boundaries_and_repeats(cuda, bits, D, G):
+    """The split kernel at lengths around its chunk and at S, with S 2048
+    (many splits) and 8 (one): both forms within 2e-2 of the plain
+    versions, and a second call bit-identical to the first."""
+    from repro_torch.kernels import kvc_attn as KA
+    c = KA.CHUNK
+    g = torch.Generator(device=cuda).manual_seed(bits + D)
+    for S, lengths in ((2048, [0, 1, c - 1, c, c + 1, 2047, 2048]),
+                       (8, [0, 1, 7, 8])):
+        B, Hkv = len(lengths), 2
+        q = torch.randn((B, Hkv * G, D), generator=g,
+                        device=cuda).to(torch.bfloat16)
+        kc, ks = qpack.encode(torch.randn((B, S, Hkv, D), generator=g,
+                                          device=cuda), bits, D)
+        vc, vs = qpack.encode(torch.randn((B, S, Hkv, D), generator=g,
+                                          device=cuda), bits, D)
+        ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        sm = 1.0 / D ** 0.5
+        got = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
+        again = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
+        want = KA.kvc_decode_partial_plain(q, kc, ks, vc, vs, lens, bits, sm)
+        torch.cuda.synchronize()
+        for a, b, w in zip(got, again, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            torch.testing.assert_close(a, w, atol=2e-2, rtol=2e-2)
+        got = KA.kvc_decode_attention(q, kc, ks, vc, vs, lens, bits=bits)
+        want = KA.kvc_decode_attention_plain(q, kc, ks, vc, vs, lens, bits,
+                                             sm)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
 
 
 def test_small_llama_serves_alike_with_kernels_and_plain(cuda):
