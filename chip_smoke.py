@@ -10,37 +10,51 @@ exits non-zero:
   1 build    nvcc builds the four kernel sources (sm_90a), all at once;
              ptxas registers and spills, HGMMA/UTMALDG counts in the
              flash library's SASS
-  2 kernels  the fused demote/promote kernels (B1/B2) against their plain
-             PyTorch versions on the card, byte for byte, over block
-             widths, input types, lossless and zero-elision settings and
-             row counts
+  2 kernels  the fused demote/promote kernels (B1/B2) and the demote-and-
+             compact kernel (B1's redesign) against their plain PyTorch
+             versions on the card, byte for byte, over block widths, input
+             types, lossless and zero-elision settings, row counts and
+             victim slots
   3 main     the payload pool at deployment size: population through
              host_write_page, then replay_trace of an mcf trace; launch
-             counts, counters, invariants I1-I4 and a bit-exact read-back
+             counts (one demote-and-compact launch per demotion batch),
+             demotion batches and their share of host time, counters,
+             invariants I1-I4 and a bit-exact read-back
   4 whole    the same recipe, small, with the kernels and with the plain
-             compressor: every pool leaf identical
+             compressor: every pool leaf identical; then its population
+             and replay rates with the demote-and-compact kernel and with
+             the composition it replaced, in turns
   5 times    B1/B2 kernel / plain / bound times (CUDA events) at the main
-             path's shapes and at 65,536 blocks
+             path's shapes and at 65,536 blocks; the demote-and-compact
+             kernel at a demotion batch of 8 pages beside its eager call,
+             its bound and the composition it replaced (device events of
+             one batch each, torch.profiler)
   6 kernels  the serving kernels against their plain versions: fixed-rate
-             encode/decode (B3/B4) byte for byte, decode attention (B5) and
-             prefill attention (B6) within the stated tolerance; B5 at the
-             chunk boundaries and bit-identical on a second call, B6's bf16
-             cases on the tensor-core route, B6 also normwise per case
+             encode/decode (B3/B4) and the ring step (B3's redesign) byte
+             for byte, decode attention (B5) and prefill attention (B6)
+             within the stated tolerance; B5 at the chunk boundaries and
+             bit-identical on a second call, B6's bf16 cases on the
+             tensor-core route, B6 also normwise per case
   7 serve    llama3-8b at its published config (32 layers, bf16, random
              params from a seed) served through Engine: 16 requests over 8
              lanes (preemption and resume), 64 new tokens each; rates,
-             counters, launches (B5 one a layer a step, B6 one a layer a
-             prefill batch, all bf16 B6 on the tensor cores), B6's device
-             time inside prefill; then torch.profiler over 4 decode steps
-             of 8 lanes: device busy share, B5's time and the top kernels
+             counters, launches (the ring step and B5 one a layer a step,
+             B3 two a layer a prefill batch and two a lane demotion, B6 one
+             a layer a prefill batch, all bf16 B6 on the tensor cores),
+             B6's device time inside prefill; then torch.profiler over 4
+             decode steps of 8 lanes: device busy share, device events a
+             step, B5's time and the top kernels; then decode ms a step
+             with the ring step and with the composition it replaced, in
+             turns, and the device events a step of each
   8 paper    the same model in paper mode (promote-then-read): B4 launches
   9 whole    a 2-layer model at llama3-8b's widths, kernels against plain
              versions, in bf16 and float32: prefill and decode logits and
              their argmax, and the same requests served through Engine
              both ways (identical generations in float32)
- 10 times    B3-B6 kernel / eager / plain / library / bound times at the
-             serving path's shapes (B6 also at 4 and 1 rows); B5's working
-             CTAs against the SMs
+ 10 times    B3-B6 and the ring step: kernel / eager / plain / library /
+             bound times at the serving path's shapes (B6 also at 4 and 1
+             rows; the ring step also beside the composition it replaced);
+             B5's working CTAs against the SMs
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -86,6 +100,7 @@ SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
 PROMPT_LENS = (300, 1001)          # seeded, [300, 1000]: buckets 512, 1024
 PAPER_REQUESTS, PAPER_NEW_TOKENS = 4, 16
 PROFILE_STEPS = 4
+RING_AB_STEPS = 6      # decode steps a turn of phase 7's ring step A/B
 # stated tolerances: the reference's kernel bounds (tests/test_kernels.py,
 # atol = rtol), as |kernel - plain| <= tol * (1 + |plain|) for the
 # attention kernels, and normwise per row, max|kernel - plain| <= tol *
@@ -251,6 +266,7 @@ def phase_kernels(qpack, comp, dev) -> dict:
         torch.cuda.synchronize()
     check(rates_seen == {0, 1, 2, 3},
           f"phase 2 exercised rates {sorted(rates_seen)}, not all four")
+    res["demote"] = _demote_cases(qpack, comp, dev)
     summary = [{"name": k, "launches": getattr(qpack, f"fused_{k}_launches"),
                 "cases": r["cases"], "mismatches": r["mismatches"]}
                for k, r in res.items()]
@@ -260,6 +276,45 @@ def phase_kernels(qpack, comp, dev) -> dict:
               f"phase 2: fused_{k} disagrees with its plain version in "
               f"{r['mismatches']} rows")
     return res
+
+
+def _demote_cases(qpack, comp, dev) -> dict:
+    """The demote-and-compact kernel against its plain version, byte for
+    byte in every output: pages of 4 x 512 and 1 x 2,048 values mixing the
+    edge classes (every eighth page all raw, so its quanta fill the page),
+    read through seeded victim slots (repeats included) or directly."""
+    r = {"cases": 0, "mismatches": 0, "err": 0.0}
+    rng = np.random.default_rng(SEED + 5)
+    pages = 8192
+    for nb, v in ((4, 512), (1, 2048)):
+        x32 = torch.from_numpy(edge_blocks(pages * nb, v, SEED + 3 * v)) \
+            .to(dev).reshape(pages, nb * v)
+        x32[::8] = torch.from_numpy(
+            rng.standard_normal((pages // 8, nb * v)).astype(np.float32)
+            * 0.7).to(dev)
+        for xall in (x32, x32.to(torch.bfloat16)):
+            for lossless in (True, False):
+                for ze in (True, False):
+                    kw = dict(blocks=nb, chunk_bytes=512, lossless=lossless,
+                              zero_elision=ze, quanta=comp.quanta_per_rate(v))
+                    for k in (1, 8, 4096, None):
+                        slots = None if k is None else torch.from_numpy(
+                            rng.integers(0, pages, k)).to(dev)
+                        x = xall[:8] if k is None else xall
+                        got = qpack.fused_demote(x, slots, **kw)
+                        want = qpack.fused_demote_plain(x, slots, **kw)
+                        r["cases"] += 1
+                        rows = want[0].shape[0]
+                        bad = torch.zeros(rows, dtype=torch.bool, device=dev)
+                        for a, b in zip(got[:4], want[:4]):
+                            bad |= (a != b).reshape(rows, -1).any(dim=1)
+                        bad_rec = bool((got[4] != want[4]).any())
+                        r["mismatches"] += int(bad.sum()) + int(bad_rec)
+                        r["err"] = max(r["err"], *(
+                            float((a.int() - b.int()).abs().max())
+                            for a, b in zip(got, want)))
+    torch.cuda.synchronize()
+    return r
 
 
 def _populate_and_replay(cfg, E, pol, content, trace, stats=None):
@@ -299,13 +354,37 @@ def phase_main(qpack, dev, pages: int, accesses: int, tag: str) -> dict:
                        seed=SEED)
     stats = batch.new_stats()
 
+    # demotion batches (victim batches and recompressions: every call of
+    # the compressor's demote_pages) and the host time inside them, the
+    # fetch of their record included
+    from repro_torch.core import compressor as comp
+    from repro_torch.core.engine import ops
+    batches = {"calls": 0, "s": 0.0}
+    orig = (comp.demote_pages, ops._encode_victims)
+
+    def timed_demote(*a, **k):
+        batches["calls"] += 1
+        return orig[0](*a, **k)
+
+    def timed_victims(*a, **k):
+        t0 = time.perf_counter()
+        out = orig[1](*a, **k)
+        batches["s"] += time.perf_counter() - t0
+        return out
+
+    comp.demote_pages, ops._encode_victims = timed_demote, timed_victims
     qpack.fused_encode_launches = 0
     qpack.fused_decode_launches = 0
+    qpack.fused_demote_launches = 0
     contracts.SYNCS.reset()
-    pool, t_pop, t_rep = _populate_and_replay(cfg, E, pol, content, trace,
-                                              stats)
+    try:
+        pool, t_pop, t_rep = _populate_and_replay(cfg, E, pol, content,
+                                                  trace, stats)
+    finally:
+        comp.demote_pages, ops._encode_victims = orig
     launches = {"encode": qpack.fused_encode_launches,
-                "decode": qpack.fused_decode_launches}
+                "decode": qpack.fused_decode_launches,
+                "demote": qpack.fused_demote_launches}
     syncs = contracts.SYNCS.count
 
     c = E.counters_dict(pool)
@@ -321,12 +400,24 @@ def phase_main(qpack, dev, pages: int, accesses: int, tag: str) -> dict:
           f"{accesses / t_rep:.3f} accesses/s ({t_rep:.3f} s) | syncs "
           f"{syncs} total, {w_syncs:.3f} per window ({stats['windows']} "
           f"windows), {s_syncs:.3f} per slow access ({stats['slow']} slow) "
-          f"| launches encode {launches['encode']} decode "
-          f"{launches['decode']} | compression ratio {ratio:.6f} [{tag}]",
-          flush=True)
+          f"| launches demote-and-compact {launches['demote']} decode "
+          f"{launches['decode']} encode {launches['encode']} | compression "
+          f"ratio {ratio:.6f} [{tag}]", flush=True)
+    n_b = batches["calls"]
+    print(f"phase 3 demotion: {n_b} batches (victim batches and "
+          f"recompressions), {launches['demote'] / max(n_b, 1):.3f} "
+          f"demote-and-compact launches a batch, fused-encode launches "
+          f"{launches['encode']} | victim batches {batches['s']:.3f} s of "
+          f"host time (fetch included) = "
+          f"{batches['s'] / (t_pop + t_rep):.4f} of the {t_pop + t_rep:.3f} "
+          f"s of population and replay [{tag}]", flush=True)
     print(f"phase 3 counters: {json.dumps(c)}", flush=True)
-    check(launches["encode"] > 0 and launches["decode"] > 0,
+    check(launches["demote"] > 0 and launches["decode"] > 0,
           f"phase 3: a kernel was not launched on the main path: {launches}")
+    check(launches["demote"] == n_b and launches["encode"] == 0,
+          f"phase 3: {n_b} demotion batches took {launches['demote']} "
+          f"demote-and-compact and {launches['encode']} fused-encode "
+          "launches (one and none expected)")
     check(c["demotions_clean"] + c["demotions_dirty"] > 0,
           "phase 3: no demotion")
     check(c["promotions"] > 0, "phase 3: no promotion")
@@ -386,21 +477,47 @@ def phase_whole(qpack, dev) -> None:
     out = {}
     for impl in ("kernel", "jnp"):
         cfg = dataclasses.replace(base, compress_impl=impl)
-        e0, d0 = qpack.fused_encode_launches, qpack.fused_decode_launches
+        e0, d0 = qpack.fused_demote_launches, qpack.fused_decode_launches
         pool, _, _ = _populate_and_replay(cfg, E, E.POLICIES["ibex"],
                                           content, trace)
         out[impl] = (interop.pool_to_numpy(pool),
-                     qpack.fused_encode_launches - e0,
+                     qpack.fused_demote_launches - e0,
                      qpack.fused_decode_launches - d0)
     (ka, ke, kd), (pa, pe, pd) = out["kernel"], out["jnp"]
     diff = [k for k in ka if not np.array_equal(ka[k], pa[k])]
     print(f"phase 4 whole path kernel vs plain: {len(ka)} leaves, "
-          f"{len(diff)} differ {diff} | kernel run launches encode {ke} "
+          f"{len(diff)} differ {diff} | kernel run launches demote {ke} "
           f"decode {kd}, plain run {pe} {pd}", flush=True)
     check(not diff, f"phase 4: leaves differ: {diff}")
     check(ke > 0 and kd > 0 and pe == 0 and pd == 0,
           "phase 4: the kernel run did not launch the kernels, or the plain "
           "run did")
+
+    # the same recipe with the kernels, the demotion done by the demote-
+    # and-compact kernel and by the composition it replaced (the gather,
+    # the fused-encode kernel, the eager compaction), in turns
+    fused = qpack.fused_demote
+
+    def composition(x, slots, **kw):
+        return qpack.fused_demote_plain(x, slots, encode=qpack.fused_encode,
+                                        **kw)
+
+    cfg = dataclasses.replace(base, compress_impl="kernel")
+    rates_ab = {"demote-and-compact": [], "composition": []}
+    try:
+        for name in ("demote-and-compact", "composition", "composition",
+                     "demote-and-compact"):
+            qpack.fused_demote = fused if name == "demote-and-compact" \
+                else composition
+            _, t_pop, t_rep = _populate_and_replay(cfg, E, E.POLICIES["ibex"],
+                                                   content, trace)
+            rates_ab[name].append([pages / t_pop, accesses / t_rep])
+    finally:
+        qpack.fused_demote = fused
+    print(f"phase 4 demote-and-compact vs the composition it replaced, "
+          f"{pages} pages over {base.n_pchunks} P-chunks and {accesses} "
+          f"accesses, in turns: [population pages/s, replay accesses/s] "
+          f"{json.dumps(rates_ab)}", flush=True)
 
 
 def time_graph(fn, reps: int, samples: int = 21) -> float:
@@ -485,11 +602,75 @@ def phase_times(qpack, comp, dev, tag: str) -> dict:
                   f"{r['plain_ms']:.6f} ms | bound {r['bound_ms']:.6f} ms by "
                   f"{r['bound_by']} ({nbytes} B at 3.35 TB/s) [{tag}]",
                   flush=True)
+
+    # the demote-and-compact kernel at the main path's demotion batch
+    # (window 32: 8 pages of 4 x 512 values), read through slots from a
+    # store of mcf pages, beside the composition it replaced (the gather,
+    # the fused-encode kernel, the plain compaction, the chunk counts and
+    # the record's concatenation)
+    k, nb, v = 8, 4, 512
+    store = torch.from_numpy(mcf_blocks(1024 * nb, SEED + 9)
+                             .reshape(1024, nb * v)).to(dev) \
+        .to(torch.bfloat16)
+    slots = torch.from_numpy(np.random.default_rng(SEED + 9).choice(
+        1024, k, replace=False)).to(dev)
+    kw = dict(blocks=nb, chunk_bytes=512, lossless=True, quanta=qt)
+    kern = lambda: qpack.fused_demote(store, slots, **kw)       # noqa: E731
+    old = lambda: qpack.fused_demote_plain(                     # noqa: E731
+        store, slots, encode=qpack.fused_encode, **kw)
+    page = 2 * nb * v
+    # slots and pages read; page streams, quanta and record written
+    nbytes = k * (8 + 2 * page + 4 * nb + 4 * (nb + 1))
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = ENCODE_OPS_PER_VALUE * k * nb * v / F32_OPS_PER_S
+    r = {"ms": time_graph(kern, 200), "eager_ms": time_eager(kern, 200),
+         "plain_ms": time_eager(lambda: qpack.fused_demote_plain(
+             store, slots, **kw), 20),
+         "composition_ms": time_eager(old, 50),
+         "composition_graph_ms": time_graph(old, 50),
+         "bound_ms": max(t_b, t_o) * 1e3,
+         "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": nbytes,
+         "event_names": device_events(kern),
+         "composition_events": sum(device_events(old).values())}
+    r["events"] = sum(r["event_names"].values())
+    out[("demote", k)] = r
+    print(f"phase 5 demote-and-compact {k} pages of {nb}x{v} bf16: kernel "
+          f"{r['ms']:.6f} ms (graph replay), {r['eager_ms']:.6f} ms eager, "
+          f"{r['events']:.2f} device events a call {r['event_names']} | "
+          f"the "
+          f"composition it replaced "
+          f"{r['composition_ms']:.6f} ms eager, "
+          f"{r['composition_graph_ms']:.6f} ms graph replay, "
+          f"{r['composition_events']:.2f} device events | plain "
+          f"{r['plain_ms']:.6f} ms | bound {r['bound_ms']:.6f} ms by "
+          f"{r['bound_by']} ({nbytes} B at 3.35 TB/s) [{tag}]", flush=True)
     return out
 
 
+def device_events(fn, calls: int = 4) -> dict:
+    """Device events (kernels, copies, fills) a call of ``fn``, by name,
+    from torch.profiler over ``calls`` calls (warmed up first). A short
+    profile can miss a kernel launched through ctypes (the ring step alone
+    has read 0 and 0.25 a call); a decode step's profile counts it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n = e.name[:60]
+            names[n] = names.get(n, 0) + 1 / calls
+    return names
+
+
 # ---------------------------------------------------------------------------
-# Serving phases (B3-B6).
+# Serving phases (B3-B6, the ring step).
 # ---------------------------------------------------------------------------
 
 def _launch_counts() -> dict:
@@ -498,6 +679,7 @@ def _launch_counts() -> dict:
     from repro_torch.kernels import qpack
     return {"qpack_fixed_encode": qpack.encode_launches,
             "qpack_fixed_decode": qpack.decode_launches,
+            "qpack_ring_step": qpack.ring_step_launches,
             "kvc_decode_attention": KA.launches,
             "flash_attention": FA.launches,
             "flash_attention_tc": FA.launches_tc}
@@ -508,6 +690,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels import kvc_attn as KA
     from repro_torch.kernels import qpack
     qpack.encode_launches = qpack.decode_launches = 0
+    qpack.ring_step_launches = 0
     KA.launches = FA.launches = FA.launches_tc = 0
 
 
@@ -520,13 +703,16 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def phase_serve_kernels(dev) -> dict:
-    """B3/B4 byte for byte; B5/B6 within ATTN_TOL, max abs error kept."""
+    """B3/B4 and the ring step byte for byte; B5/B6 within ATTN_TOL, max
+    abs error kept."""
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import kvc_attn as KA
     from repro_torch.kernels import qpack
     res = {k: {"cases": 0, "mismatches": 0, "err": 0.0}
            for k in ("qpack_fixed_encode", "qpack_fixed_decode",
-                     "kvc_decode_attention", "flash_attention")}
+                     "qpack_ring_step", "kvc_decode_attention",
+                     "flash_attention")}
+    _ring_cases(res["qpack_ring_step"], qpack, dev)
     for block in (128, 512):
         x32 = torch.from_numpy(edge_blocks(131072, block, SEED + block)) \
             .to(dev)
@@ -666,7 +852,8 @@ def phase_serve_kernels(dev) -> dict:
           f"{json.dumps({k: v for k, v in res.items()})} | tolerance "
           f"|kernel - plain| <= tol * (1 + |plain|), tol 2e-2 (bf16) and "
           f"2e-3 (f32); B6 also ||kernel - plain|| <= tol * ||plain|| per "
-          f"case, tol 1e-2 (bf16) and 1e-4 (f32); B3/B4 byte for byte",
+          f"case, tol 1e-2 (bf16) and 1e-4 (f32); B3/B4 and the ring step "
+          f"byte for byte",
           flush=True)
     for k, r in res.items():
         check(r["mismatches"] == 0, f"phase 6: {k} disagrees with its plain "
@@ -676,6 +863,69 @@ def phase_serve_kernels(dev) -> dict:
           f"version normwise in {r['norm_fails']} cases (worst relative "
           f"error {r['norm_err']})")
     return res
+
+
+# (pos, cold_len) of the ring step's lanes at W 256, S 2048: before the
+# window fills, at pos == W, resumed lanes (pos - W < cold_len), evictions
+# at 0, in the middle and at S - 1
+RING_LANES = ((100, 0), (256, 0), (600, 500), (700, 0), (1500, 1244),
+              (2303, 0), (257, 2), (2000, 100))
+
+
+def ring_inputs(B, H, D, bits, ring, new, gen, dev, W=256, S=2048):
+    """A layer's cache slices and new tokens for the ring step: random
+    codes and scales, rings of normal values with a zero slot, a +-0 slot
+    and a slot of .5 ties; the lanes of RING_LANES."""
+    codes = [torch.randint(0, 256, (B, S, H, D * bits // 8), generator=gen,
+                           device=dev, dtype=torch.uint8) for _ in range(2)]
+    scales = [torch.randn((B, S, H), generator=gen, device=dev)
+              for _ in range(2)]
+    hot = []
+    for _ in range(2):
+        h = torch.randn((B, W, H, D), generator=gen, device=dev) * 0.7
+        h[:, 1] = 0.0
+        h[:, 2, :, 1::2] = -0.0
+        h[:, 3] = torch.randint(-7, 7, (B, H, D), generator=gen,
+                                device=dev) + 0.5
+        hot.append(h.to(ring))
+    newv = [(torch.randn((B, H, D), generator=gen, device=dev) * 3).to(new)
+            for _ in range(2)]
+    lanes = [RING_LANES[i % len(RING_LANES)] for i in range(B)]
+    pos = torch.tensor([p for p, _ in lanes], dtype=torch.int32, device=dev)
+    cold = torch.tensor([c for _, c in lanes], dtype=torch.int32, device=dev)
+    return codes, scales, hot, newv, pos, cold
+
+
+def _ring_cases(r: dict, qpack, dev) -> None:
+    """The ring step kernel against its plain version, in place, byte for
+    byte (codes, scales, both rings); a mismatch is a lane that differs."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    bf, f32 = torch.bfloat16, torch.float32
+    for B, H, D in ((8, 8, 128), (6, 2, 64), (5, 3, 16)):
+        for bits in (4, 8):
+            for ring, new in ((bf, bf), (bf, f32), (f32, f32)):
+                codes, scales, hot, newv, pos, cold = ring_inputs(
+                    B, H, D, bits, ring, new, gen, dev)
+                out = []
+                for fn in (qpack.ring_step, qpack.ring_step_plain):
+                    c, s_, h = ([t.clone() for t in ts]
+                                for ts in (codes, scales, hot))
+                    fn(c[0], s_[0], h[0], c[1], s_[1], h[1], newv[0],
+                       newv[1], pos, cold, bits)
+                    out.append((c, s_, h))
+                (kc, ks, kh), (pc, ps, ph) = out
+                bad = torch.zeros(B, dtype=torch.bool, device=dev)
+                for i in range(2):
+                    bad |= ~_bits_equal(kc[i], pc[i])
+                    bad |= ~_bits_equal(ks[i], ps[i])
+                    bad |= ~_bits_equal(kh[i], ph[i])
+                    r["err"] = max(r["err"], float(
+                        (kc[i].int() - pc[i].int()).abs().max()), float(
+                        (ks[i] - ps[i]).abs().max()), float(
+                        (kh[i].float() - ph[i].float()).abs().max()))
+                r["cases"] += 1
+                r["mismatches"] += int(bad.sum())
+    torch.cuda.synchronize()
 
 
 def _flash_case(r: dict, FA, q, k, v, causal: bool) -> None:
@@ -815,17 +1065,24 @@ def phase_serve(dev, tag: str):
     t_b6, n_b6 = timed["b6"]
     want_b5 = c["steps"] * cfg.num_layers
     want_b6 = c["prefill_batches"] * cfg.num_layers
-    print(f"phase 7 launches: {json.dumps(launches)} | expected B5 one a "
-          f"layer a step = {want_b5}, B6 one a layer a prefill batch = "
-          f"{want_b6}", flush=True)
+    want_b3 = 2 * (want_b6 + c["demotions"])
+    print(f"phase 7 launches: {json.dumps(launches)} | expected the ring "
+          f"step and B5 one a layer a step = {want_b5}, B3 two a layer a "
+          f"prefill batch and two a lane demotion = {want_b3}, B6 one a "
+          f"layer a prefill batch = {want_b6}", flush=True)
     print(f"phase 7 B6 in prefill: {n_b6} calls, {t_b6:.6f} s device "
           f"(CUDA events around each call) = {t_b6 / t_pre:.4f} of the "
           f"{t_pre:.3f} s of prefill [{tag}]", flush=True)
     check(c["demotions"] > 0 and c["promotions"] > 0,
           "phase 7: no demotion or promotion")
-    for k in ("qpack_fixed_encode", "kvc_decode_attention",
+    for k in ("qpack_fixed_encode", "qpack_ring_step", "kvc_decode_attention",
               "flash_attention", "flash_attention_tc"):
         check(launches[k] > 0, f"phase 7: {k} was not launched")
+    check(launches["qpack_ring_step"] == want_b5 and
+          launches["qpack_fixed_encode"] == want_b3,
+          f"phase 7: the ring step launched {launches['qpack_ring_step']} "
+          f"times (expected {want_b5}), B3 {launches['qpack_fixed_encode']} "
+          f"(expected {want_b3})")
     check(launches["kvc_decode_attention"] == want_b5 and
           launches["flash_attention"] == want_b6 == n_b6,
           f"phase 7: B5 launched {launches['kvc_decode_attention']} times "
@@ -850,14 +1107,32 @@ def _busy_us(events) -> float:
     return busy
 
 
+def _profile_steps(eng, n: int):
+    """(device events, host wall s) of ``n`` engine steps under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return ([e for e in prof.events() if e.device_type == DeviceType.CUDA],
+            wall)
+
+
 def phase_serve_profile(params, dev, tag: str) -> None:
     """Where a decode step's time goes: torch.profiler over PROFILE_STEPS
     steps of 8 running lanes (no admission, no preemption), the main
     cell's engine and model. Device busy share = the union of the device
-    events over the host wall time of the steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    events over the host wall time of the steps. Then the same engine's
+    decode steps with the ring step and with the composition it replaced
+    (the eager eviction chain around B3's kernel), in turns."""
     from repro_torch.common.types import ServeConfig
+    from repro_torch.kernels import qpack
     from repro_torch.serve import Engine
     cfg = _llama()
     eng = Engine(cfg, ServeConfig(**SERVE_CFG), params,
@@ -866,38 +1141,61 @@ def phase_serve_profile(params, dev, tag: str) -> None:
         eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
     for _ in range(3):                  # admission, prefill, warm steps
         eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern, wall = _profile_steps(eng, PROFILE_STEPS)
     if not kern:
         print(f"phase 7 profile: torch.profiler recorded no device events; "
               f"device busy share not measured [{tag}]", flush=True)
-        return
-    busy = _busy_us(kern)
-    b5 = [e for e in kern if "kvc_split_kernel" in e.name]
-    b5_us = sum(e.time_range.elapsed_us() for e in b5)
-    print(f"phase 7 profile B5: {len(b5)} launches, {b5_us / 1e3:.6f} ms "
-          f"device, {b5_us / 1e3 / PROFILE_STEPS:.6f} ms a decode step, "
-          f"{b5_us / max(len(b5), 1):.3f} us a launch [{tag}]", flush=True)
-    by_name: dict = {}
-    for e in kern:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    print(f"phase 7 profile: {PROFILE_STEPS} decode steps, 8 lanes, "
-          f"{1e3 * wall / PROFILE_STEPS:.3f} ms per step (host wall, "
-          f"profiler on) | device busy {busy / 1e3:.3f} ms = "
-          f"{busy / (wall * 1e6):.4f} of the wall | {len(kern)} device "
-          f"events, {len(kern) / PROFILE_STEPS:.1f} per step | top by "
-          f"device time: " + "; ".join(
-              f"{n[:60]} x{c} {us / 1e3:.3f} ms" for n, (c, us) in top)
-          + f" [{tag}]", flush=True)
+    else:
+        busy = _busy_us(kern)
+        b5 = [e for e in kern if "kvc_split_kernel" in e.name]
+        b5_us = sum(e.time_range.elapsed_us() for e in b5)
+        print(f"phase 7 profile B5: {len(b5)} launches, {b5_us / 1e3:.6f} "
+              f"ms device, {b5_us / 1e3 / PROFILE_STEPS:.6f} ms a decode "
+              f"step, {b5_us / max(len(b5), 1):.3f} us a launch [{tag}]",
+              flush=True)
+        by_name: dict = {}
+        for e in kern:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"phase 7 profile: {PROFILE_STEPS} decode steps, 8 lanes, "
+              f"{1e3 * wall / PROFILE_STEPS:.3f} ms per step (host wall, "
+              f"profiler on) | device busy {busy / 1e3:.3f} ms = "
+              f"{busy / (wall * 1e6):.4f} of the wall | {len(kern)} device "
+              f"events, {len(kern) / PROFILE_STEPS:.1f} per step | top by "
+              f"device time: " + "; ".join(
+                  f"{n[:60]} x{c} {us / 1e3:.3f} ms" for n, (c, us) in top)
+              + f" [{tag}]", flush=True)
+
+    ring_step = qpack.ring_step
+
+    def composition(*a):
+        return qpack.ring_step_plain(*a, quantize=qpack.encode)
+
+    ms = {"ring step": [], "composition": []}
+    events = {}
+    try:
+        for name in ("ring step", "composition", "composition", "ring step"):
+            qpack.ring_step = ring_step if name == "ring step" else \
+                composition
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(RING_AB_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0) / RING_AB_STEPS)
+            if name not in events:
+                ev, _ = _profile_steps(eng, 1)
+                events[name] = {"all": len(ev), **{
+                    k: sum(k in e.name for e in ev)
+                    for k in ("ring_step_kernel", "encode_kernel")}}
+    finally:
+        qpack.ring_step = ring_step
+    print(f"phase 7 ring step vs the composition it replaced, the same "
+          f"engine, {RING_AB_STEPS} decode steps a turn in turns ring step, "
+          f"composition, composition, ring step: ms a step (host wall) "
+          f"{json.dumps(ms)} | device events a step (torch.profiler, one "
+          f"step) {json.dumps(events)} [{tag}]", flush=True)
 
 
 def phase_paper(params, dev, tag: str) -> dict:
@@ -1041,15 +1339,34 @@ def phase_serve_times(dev, tag: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     out = {}
 
-    # B3 at its most launched shape: the per-step ring eviction, one
-    # 128-value block per (lane, KV head), f32 input
-    old = torch.randn((B, Hkv, D), generator=gen, device=dev)
-    nblk = B * Hkv
+    # B3 at its most launched shape since the ring step took the eviction:
+    # a 1-row prefill batch of the 1,024 bucket, K or V of one layer (bf16)
+    kv1 = torch.randn((1, 1024, Hkv, D), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    nblk = 1024 * Hkv
     out["qpack_fixed_encode"] = dict(
-        shape=f"{B}x{Hkv}x{D} f32 (ring eviction)",
-        kern=lambda: qpack.encode(old, bits, D),
-        plain=lambda: qpack.encode_plain(old, bits, D), lib=None,
-        nbytes=nblk * (D * 4 + Dp + 4), ops=0, reps=200)
+        shape=f"1x1024x{Hkv}x{D} bf16 (prefill, one row)",
+        kern=lambda: qpack.encode(kv1, bits, D),
+        plain=lambda: qpack.encode_plain(kv1, bits, D), lib=None,
+        nbytes=nblk * (D * 2 + Dp + 4), ops=0, reps=200)
+    # the ring step of one layer, 8 lanes in steady state (every lane
+    # evicts: cold_len = pos - W), beside the composition it replaced
+    rng_pos = np.random.default_rng(SEED).integers(*PROMPT_LENS, size=B) \
+        + SERVE_NEW_TOKENS // 2
+    ring = ring_inputs(B, Hkv, D, bits, torch.bfloat16, torch.bfloat16, gen,
+                       dev, W=W, S=S)[:4]
+    pos = torch.tensor(rng_pos, dtype=torch.int32, device=dev)
+    cold = pos - W
+    ring_args = [ring[0][0], ring[1][0], ring[2][0], ring[0][1], ring[1][1],
+                 ring[2][1], ring[3][0], ring[3][1], pos, cold, bits]
+    out["qpack_ring_step"] = dict(
+        shape=f"{B} lanes x {Hkv} KV heads x {D}, bf16 ring of {W}, "
+              f"{bits}-bit codes of {S}, every lane evicting",
+        kern=lambda: qpack.ring_step(*ring_args),
+        plain=lambda: qpack.ring_step_plain(*ring_args), lib=None,
+        composition=lambda: qpack.ring_step_plain(*ring_args,
+                                                  quantize=qpack.encode),
+        nbytes=2 * B * Hkv * (6 * D + Dp + 4) + 8 * B, ops=0, reps=200)
     # B4 at the paper path's shape: the whole compressed region of 8 lanes
     kc, ks = qpack.encode(torch.randn((B, S, Hkv, D), generator=gen,
                                       device=dev), bits, D)
@@ -1110,6 +1427,19 @@ def phase_serve_times(dev, tag: str) -> dict:
                             if t["lib"] else None),
              "bound_ms": max(t_b, t_o) * 1e3,
              "bound_by": "bytes" if t_b >= t_o else "operations"}
+        comp_txt = ""
+        if "composition" in t:
+            r["composition_ms"] = time_eager(t["composition"], 50)
+            r["composition_graph_ms"] = time_graph(t["composition"], 50)
+            r["event_names"] = device_events(t["kern"])
+            r["events"] = sum(r["event_names"].values())
+            r["composition_events"] = sum(
+                device_events(t["composition"]).values())
+            comp_txt = (f" | {r['events']:.2f} device events a call "
+                        f"{r['event_names']}; the composition "
+                        f"it replaced {r['composition_ms']:.6f} ms eager, "
+                        f"{r['composition_graph_ms']:.6f} ms graph replay, "
+                        f"{r['composition_events']:.2f} device events")
         res[name] = r
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.6f} ms"
@@ -1117,8 +1447,8 @@ def phase_serve_times(dev, tag: str) -> dict:
               f"(graph replay), {r['eager_ms']:.6f} ms eager | plain "
               f"{r['plain_ms']:.6f} ms | library {lib} | bound "
               f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({t['nbytes']} B "
-              f"at 3.35 TB/s, {t['ops']} flop at 989 TF/s) [{tag}]",
-              flush=True)
+              f"at 3.35 TB/s, {t['ops']} flop at 989 TF/s){comp_txt} "
+              f"[{tag}]", flush=True)
 
     # B5: CTAs that do work at these lengths (one per chunk of a lane's
     # length, per KV head) against the card's SMs
@@ -1168,8 +1498,15 @@ def main() -> int:
     serve_times = phase_serve_times(dev, tag)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
+    extra = ("composition_ms", "composition_graph_ms", "events",
+             "composition_events")
     kernels = []
-    for kind, n, line in (("encode", 32, 278), ("decode", 4, 305)):
+    for kind, n, line, path in (
+            ("encode", 32, 278, "none since the demote-and-compact kernel "
+             "took the pool's demotion: the TPU kernel's contract, held in "
+             "phase 2"),
+            ("decode", 4, 305, "pool main (phase 3)"),
+            ("demote", 8, 278, "pool main (phase 3)")):
         t = times[(kind, n)]
         kernels.append({
             "name": f"qpack_fused_{kind}", "route": "cuda", "source": src,
@@ -1177,15 +1514,18 @@ def main() -> int:
             "launches": launches[kind], "max_abs_err": errs[kind]["err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "eager_ms": t["eager_ms"],
-            "shape": f"{n}x512 bf16", "cases": errs[kind]["cases"],
-            "mismatches": errs[kind]["mismatches"]})
+            "library_ms": None, "eager_ms": t["eager_ms"], "path": path,
+            "shape": (f"{n} pages of 4x512 bf16" if kind == "demote" else
+                      f"{n}x512 bf16"), "cases": errs[kind]["cases"],
+            "mismatches": errs[kind]["mismatches"],
+            **{f: t[f] for f in extra if f in t}})
     # B4 runs on the paper path only: its launches are that path's
     path_launches = dict(serve_launches,
                          qpack_fixed_decode=paper_launches[
                              "qpack_fixed_decode"])
     for name_, source, replaces in (
             ("qpack_fixed_encode", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_ring_step", "qpack_fixed.cu", "qpack.py:122"),
             ("qpack_fixed_decode", "qpack_fixed.cu", "qpack.py:148"),
             ("kvc_decode_attention", "kvc_attn.cu", "kvc_attn.py:96"),
             ("flash_attention", "flash_attn.cu", "flash_attn.py:72")):
@@ -1198,8 +1538,11 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "path": ("serve paper (phase 8)" if name_ == "qpack_fixed_decode"
+                     else "serve main (phase 7)"),
             "shape": t["shape"], "cases": e["cases"],
-            "mismatches": e["mismatches"]})
+            "mismatches": e["mismatches"],
+            **{f: t[f] for f in extra if f in t}})
     # B6 also at the path's own batches (4 rows and 1 row of 1024)
     kernels[-1]["path_shapes"] = {
         k.split("_")[-1]: {f: t[f] for f in ("ms", "eager_ms", "library_ms",

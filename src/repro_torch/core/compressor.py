@@ -8,7 +8,8 @@ page as one 2048-value block.
 
 Two implementations of one format: the plain oracle here
 (``compress_impl="jnp"``) and the fused kernels (``"kernel"``,
-kernels/qpack.py), byte-identical to each other.
+kernels/qpack.py: a demotion is one launch of the demote-and-compact
+kernel), byte-identical to each other.
 
 The flat fixed-rate quantization of the KV cache (``quantize_blocks`` and
 its kin, at the end) is a second format with the same two
@@ -16,6 +17,7 @@ implementations, switched by ``ServeConfig.quantize_impl``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -27,7 +29,7 @@ from repro_torch.core.bitpack import (RATE_4BIT, RATE_8BIT, RATE_RAW,
                                       pack8, quantize_block, unpack4, unpack8)
 from repro_torch.kernels import qpack
 
-QUANTUM = 128
+QUANTUM = qpack.QUANTUM
 
 
 def resolve_impl(cfg: PoolConfig, device: torch.device) -> str:
@@ -108,64 +110,42 @@ def _decode_block_dense(buf: torch.Tensor, rate: torch.Tensor,
     return torch.where(r == RATE_RAW, raw, out)
 
 
-def _offsets(quanta: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix sum of per-block quanta [P, B] (int64)."""
-    q = quanta.to(torch.int64)
-    return torch.cumsum(q, dim=-1) - q
+def _encode_blocks(blocks: torch.Tensor, *, cfg: PoolConfig, quanta: tuple,
+                   **_):
+    """The oracle's rate pick and dense encode with ``fused_encode``'s
+    contract: (dense uint8[N, 2V], rates int32[N], quanta int32[N])."""
+    rates = select_rate(blocks, cfg)
+    if not cfg.zero_elision:
+        rates = torch.clamp(rates, min=RATE_4BIT)
+    qt = torch.tensor(quanta, dtype=torch.int32, device=blocks.device)
+    return _encode_block_dense(blocks, rates), rates, qt[rates.long()]
 
 
-def _compact_pages(dense: torch.Tensor, quanta: torch.Tensor,
-                   cfg: PoolConfig) -> torch.Tensor:
-    """Dense per-block buffers [P, B, 2V] -> page streams uint8[P,
-    page_bytes]: block i's bytes live at [start_i, start_i + quanta_i*128).
-    A block's buffer is placed at its start clamped so it fits the page, as
-    the reference's ``dynamic_update_slice`` does."""
-    npages, nblocks, nb = dense.shape
-    starts = _offsets(quanta) * QUANTUM                         # [P, B]
-    ends = starts + quanta.to(torch.int64) * QUANTUM
-    placed = torch.clamp(starts, max=cfg.page_bytes - nb)
-    pos = torch.arange(cfg.page_bytes, device=dense.device)
-    live = (pos[None, None, :] >= starts[..., None]) & \
-        (pos[None, None, :] < ends[..., None])                  # [P, B, page]
-    rel = torch.clamp(pos[None, None, :] - placed[..., None], 0, nb - 1)
-    vals = torch.gather(dense, 2, rel)
-    inside = (pos[None, None, :] >= placed[..., None]) & \
-        (pos[None, None, :] < placed[..., None] + nb)
-    vals = torch.where(inside, vals, torch.zeros_like(vals))
-    buf = torch.zeros((npages, cfg.page_bytes), dtype=torch.uint8,
-                      device=dense.device)
-    for i in range(nblocks):          # later blocks win, as in the reference
-        buf = torch.where(live[:, i], vals[:, i], buf)
-    return buf
+def demote_pages(x: torch.Tensor, slots, cfg: PoolConfig):
+    """The pages x[slots] (all of x when ``slots`` is None; x [N,
+    vals_per_page] bf16, e.g. the promoted store read as bf16) -> (bufs
+    uint8[K, page_bytes], rates int32[K, B], quanta int32[K, B],
+    num_chunks int32[K], record int32[K*B + K]: the rates, then num_chunks,
+    what the host fetches in one read). The kernel path is one launch of
+    the demote kernel (gather, encode, compaction and chunk counts); the
+    plain path is that kernel's plain composition with the oracle's rate
+    pick and dense encode."""
+    nblocks = cfg.blocks_per_page if cfg.coloc else 1
+    kw = dict(blocks=nblocks, chunk_bytes=cfg.chunk_bytes, tol4=cfg.tol4,
+              tol8=cfg.tol8, lossless=cfg.lossless,
+              zero_elision=cfg.zero_elision,
+              quanta=quanta_per_rate(x.shape[-1] // nblocks))
+    if resolve_impl(cfg, x.device) == "kernel":
+        return qpack.fused_demote(x, slots, **kw)
+    return qpack.fused_demote_plain(
+        x, slots, encode=functools.partial(_encode_blocks, cfg=cfg), **kw)
 
 
 def encode_pages(xs: torch.Tensor, cfg: PoolConfig):
     """Pages xs [P, vals_per_page] -> (bufs uint8[P, page_bytes], rates
     int32[P, B], quanta int32[P, B], num_chunks int32[P]). On the kernel
-    path all P*B blocks go through one fused-encode launch."""
-    nblocks = cfg.blocks_per_page if cfg.coloc else 1
-    npages = xs.shape[0]
-    vals = xs.shape[-1] // nblocks
-    blocks = xs.reshape(npages * nblocks, vals)
-    table = quanta_per_rate(vals)
-    if resolve_impl(cfg, xs.device) == "kernel":
-        dense, rates, quanta = qpack.fused_encode(
-            blocks, tol4=cfg.tol4, tol8=cfg.tol8, lossless=cfg.lossless,
-            zero_elision=cfg.zero_elision, quanta=table)
-    else:
-        rates = select_rate(blocks, cfg)
-        if not cfg.zero_elision:
-            rates = torch.clamp(rates, min=RATE_4BIT)
-        qt = torch.tensor(table, dtype=torch.int32, device=xs.device)
-        quanta = qt[rates.long()]
-        dense = _encode_block_dense(blocks, rates)
-    dense = dense.reshape(npages, nblocks, 2 * vals)
-    rates = rates.reshape(npages, nblocks)
-    quanta = quanta.reshape(npages, nblocks)
-    bufs = _compact_pages(dense, quanta, cfg)
-    qpc = cfg.chunk_bytes // QUANTUM
-    nchunks = (-(-quanta.sum(dim=-1) // qpc)).to(torch.int32)
-    return bufs, rates, quanta, nchunks
+    path all P pages go through one demote launch."""
+    return demote_pages(xs, None, cfg)[:4]
 
 
 def encode_page(x: torch.Tensor, cfg: PoolConfig):
@@ -181,7 +161,7 @@ def _page_dense_blocks(bufs: torch.Tensor, rates: torch.Tensor,
     page_bytes = bufs.shape[-1]
     qt = torch.tensor(quanta_per_rate(vals), dtype=torch.int64,
                       device=bufs.device)
-    starts = torch.clamp(_offsets(qt[rates.long()]) * QUANTUM,
+    starts = torch.clamp(qpack.offsets(qt[rates.long()]) * QUANTUM,
                          max=page_bytes - 2 * vals)             # [P, B]
     idx = starts[..., None] + torch.arange(2 * vals, device=bufs.device)
     npages, nblocks = rates.shape

@@ -287,9 +287,9 @@ def _encode_victims(pool: Pool, cfg: PoolConfig, entries: List[List[int]]):
     slots = contracts.upload(
         [_pslot(pool, md.get_ptr(e, md.PCHUNK_SLOT)) for e in entries],
         torch.int64, pool.p_store.device)
-    vals = pool.p_store.index_select(0, slots).view(torch.bfloat16)
-    bufs, rates, _, nch = comp.encode_pages(vals, cfg)
-    host = contracts.tolist(torch.cat([rates.reshape(-1), nch]))
+    bufs, rates, _, _, record = comp.demote_pages(
+        pool.p_store.view(torch.bfloat16), slots, cfg)
+    host = contracts.tolist(record)
     nb = rates.shape[1]
     return bufs, [host[i * nb:(i + 1) * nb] for i in range(k)], host[k * nb:]
 
@@ -333,7 +333,7 @@ def _use_batched_demote(cfg: PoolConfig, device) -> bool:
 def demote_batch(pool: Pool, cfg: PoolConfig, policy: Policy,
                  max_demotes: int, target: int) -> Pool:
     """Demote up to ``max_demotes`` victims with ONE batched recompression
-    (one fused-encode launch over all ``max_demotes`` pages), bit-identical
+    (one demote launch over all ``max_demotes`` pages), bit-identical
     to the serial loop: phase 1 selects victims and releases their
     P-chunks in serial order, phase 2 recompresses, phase 3 applies the
     metadata/chunk effects in victim order."""
@@ -562,8 +562,9 @@ def _write_inplace(pool: Pool, cfg: PoolConfig, policy: Policy, ospn: int,
     # recompression attempt: read the page, re-encode
     if cfg.store_payload:
         pv = _gather_page_buf(pool, cfg, entry).view(torch.bfloat16)
-        buf, rates, _, nch = comp.encode_page(pv, cfg)
-        host = contracts.tolist(torch.cat([rates, nch.reshape(1)]))
+        bufs, _, _, _, record = comp.demote_pages(pv[None], None, cfg)
+        buf = bufs[0]
+        host = contracts.tolist(record)
         rates, nch = host[:-1], host[-1]
     else:
         buf = _zero_page(pool, cfg)

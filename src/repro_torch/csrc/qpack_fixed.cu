@@ -1,5 +1,6 @@
 // Fixed-rate block quantize + pack (encode) and its inverse (decode) for
-// Hopper (sm_90a): the KV cache's compressed region.
+// Hopper (sm_90a): the KV cache's compressed region; and the decode step's
+// ring step, which does the hot window's eviction with the same quantize.
 //
 // Replaces the TPU kernels kernels/qpack.py::qpack_encode_2d
 // (_encode_kernel) and ::qpack_decode_2d (_decode_kernel) of the JAX
@@ -9,8 +10,8 @@
 // The bytes are identical to core/compressor.py::quantize_blocks /
 // dequantize_blocks:
 //
-//   encode, per block: amax = max |x| (f32); scale = amax * f32(1/qmax), or
-//     1 when amax == 0; recip = 1 / scale (IEEE division); q = clip(
+//   encode, per block: amax = max |x| (f32); scale = amax * f32(1/qmax),
+//     or 1 when amax == 0; recip = 1 / scale (IEEE division); q = clip(
 //     rint(x * recip), -qmax - 1, qmax) (round half to even); 4-bit codes
 //     packed two to a byte, low nibble first; 8-bit codes as int8.
 //   decode: sign-extended nibbles or int8 codes, times the block's scale,
@@ -26,6 +27,19 @@
 // are 4 or 8 bytes a thread. No shared memory, no atomics, any N >= 1.
 // Built without fast math and with --fmad=false, so each product and the
 // reciprocal round exactly as the plain version's do.
+//
+// Ring step (qpack_ring_step): one decode step's hot-window update of one
+// layer, K and V, in place and in one launch: for each lane b and KV head,
+// read the ring slot pos[b] % W; when pos[b] - W >= cold_len[b], quantize
+// it (encode_block, the encode's own body) into codes/scales at position
+// pos[b] - W; then write the new token into the slot. pos and cold_len are
+// read on the card, so the step needs no host sync. It replaces an eager
+// chain of about 48 launches a layer (models/decode.py's eviction: the
+// slot gather, the encode, the index arithmetic and masked scatters, and
+// the two ring inserts). Bound: it moves about 2 * B * Hkv * (3D + D*bits/8
+// + 4) bytes, some 10 ns at llama3-8b's widths, so the call costs the
+// latency of one launch. A group of D/8 threads (16 at D 128) owns one
+// (lane, head, K or V) block, so one warp does K and V of a head.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,21 +80,19 @@ __device__ __forceinline__ void load_vals(const float* p, float* v) {
   }
 }
 
-// VPC values per chunk (8, or 2 when the block is not a multiple of 8);
-// groups of (1 << tpb_log2) threads per block.
+// One block of `block` values at xb, owned by a group of tpb threads (a
+// power of two up to 32, aligned inside the warp): thread `sub` takes the
+// chunks of VPC values sub, sub + tpb, ... The group's amax is a shuffle
+// reduction, so every thread of the warp must call this; a thread with
+// store false takes part in the reduction and writes nothing. Writes the
+// packed codes at out and the scale at *scale_out.
 template <int VPC, typename TIn>
-__global__ void __launch_bounds__(kThreads)
-encode_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ codes,
-              float* __restrict__ scales, int n, int block, int bits,
-              int tpb_log2) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int tpb = 1 << tpb_log2;
-  int64_t blk = g >> tpb_log2;
-  const int sub = static_cast<int>(g & (tpb - 1));
-  const bool live = blk < n;
-  if (!live) blk = n - 1;              // still joins the group's shuffles
+__device__ __forceinline__ void encode_block(const TIn* __restrict__ xb,
+                                             uint8_t* __restrict__ out,
+                                             float* __restrict__ scale_out,
+                                             int block, int bits, int sub,
+                                             int tpb, bool store) {
   const int nchunks = block / VPC;
-  const TIn* xb = x + blk * block;
   const float qmax = bits == 4 ? 7.0f : 127.0f;
   const float inv = bits == 4 ? static_cast<float>(1.0 / 7.0)
                               : static_cast<float>(1.0 / 127.0);
@@ -96,7 +108,7 @@ encode_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ codes,
     amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
   const float scale = amax > 0.0f ? __fmul_rn(amax, inv) : 1.0f;
   const float recip = __fdiv_rn(1.0f, scale);
-  if (!live) return;
+  if (!store) return;
 
   for (int c = sub; c < nchunks; c += tpb) {
     float v[VPC];
@@ -107,31 +119,48 @@ encode_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ codes,
       q[i] = static_cast<int>(
           fminf(fmaxf(rintf(__fmul_rn(v[i], recip)), -qmax - 1.0f), qmax));
     if (bits == 4) {
-      uint8_t* out = codes + blk * (block / 2) + c * (VPC / 2);
+      uint8_t* o = out + c * (VPC / 2);
       if constexpr (VPC == 8) {
         uint32_t w = 0;
 #pragma unroll
         for (int i = 0; i < 8; ++i) w |= static_cast<uint32_t>(q[i] & 0xF) << (4 * i);
-        *reinterpret_cast<uint32_t*>(out) = w;
+        *reinterpret_cast<uint32_t*>(o) = w;
       } else {
-        *out = static_cast<uint8_t>((q[0] & 0xF) | ((q[1] & 0xF) << 4));
+        *o = static_cast<uint8_t>((q[0] & 0xF) | ((q[1] & 0xF) << 4));
       }
     } else {
-      uint8_t* out = codes + blk * block + c * VPC;
+      uint8_t* o = out + c * VPC;
       if constexpr (VPC == 8) {
         uint2 w;
         w.x = (q[0] & 0xFF) | ((q[1] & 0xFF) << 8) | ((q[2] & 0xFF) << 16) |
               (static_cast<uint32_t>(q[3] & 0xFF) << 24);
         w.y = (q[4] & 0xFF) | ((q[5] & 0xFF) << 8) | ((q[6] & 0xFF) << 16) |
               (static_cast<uint32_t>(q[7] & 0xFF) << 24);
-        *reinterpret_cast<uint2*>(out) = w;
+        *reinterpret_cast<uint2*>(o) = w;
       } else {
-        *reinterpret_cast<uint16_t*>(out) =
+        *reinterpret_cast<uint16_t*>(o) =
             static_cast<uint16_t>((q[0] & 0xFF) | ((q[1] & 0xFF) << 8));
       }
     }
   }
-  if (sub == 0) scales[blk] = scale;
+  if (sub == 0) *scale_out = scale;
+}
+
+// VPC values per chunk (8, or 2 when the block is not a multiple of 8);
+// groups of (1 << tpb_log2) threads per block.
+template <int VPC, typename TIn>
+__global__ void __launch_bounds__(kThreads)
+encode_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ codes,
+              float* __restrict__ scales, int n, int block, int bits,
+              int tpb_log2) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int tpb = 1 << tpb_log2;
+  int64_t blk = g >> tpb_log2;
+  const int sub = static_cast<int>(g & (tpb - 1));
+  const bool live = blk < n;
+  if (!live) blk = n - 1;              // still joins the group's shuffles
+  encode_block<VPC>(x + blk * block, codes + blk * (block * bits / 8),
+                    scales + blk, block, bits, sub, tpb, live);
 }
 
 template <int NV>
@@ -202,6 +231,50 @@ decode_kernel(const uint8_t* __restrict__ codes,
   store_vals<VPC>(out + blk * block + c * VPC, v);
 }
 
+// The ring step: block blk = (b * H + h) * 2 + kind (kind 1 = V), groups of
+// (1 << tpb_log2) threads, 8 values a chunk (D % 8 == 0).
+template <typename THot, typename TNew>
+__global__ void __launch_bounds__(kThreads)
+ring_step_kernel(uint8_t* __restrict__ k_codes, float* __restrict__ k_scales,
+                 THot* k_hot, uint8_t* __restrict__ v_codes,
+                 float* __restrict__ v_scales, THot* v_hot,
+                 const TNew* __restrict__ k_new,
+                 const TNew* __restrict__ v_new,
+                 const int32_t* __restrict__ pos,
+                 const int32_t* __restrict__ cold_len, int B, int S, int W,
+                 int H, int D, int bits, int tpb_log2) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int tpb = 1 << tpb_log2;
+  const int nblk = 2 * B * H;
+  int64_t blk = g >> tpb_log2;
+  const int sub = static_cast<int>(g & (tpb - 1));
+  const bool live = blk < nblk;
+  if (!live) blk = nblk - 1;           // still joins the group's shuffles
+  const bool is_v = blk & 1;
+  const int h = static_cast<int>((blk >> 1) % H);
+  const int b = static_cast<int>((blk >> 1) / H);
+  const int p = pos[b];
+  const int slot = ((p % W) + W) % W;  // floor mod, as torch's %
+  const int e = p - W;                 // the position aging out
+  const bool evict = live && e >= cold_len[b] && e < S;
+  const int64_t at = (static_cast<int64_t>(b) * S + (evict ? e : 0)) * H + h;
+  THot* ring = (is_v ? v_hot : k_hot) +
+               ((static_cast<int64_t>(b) * W + slot) * H + h) * D;
+  // the slot's old token, read before it is overwritten below
+  encode_block<8>(ring, (is_v ? v_codes : k_codes) + at * (D * bits / 8),
+                  (is_v ? v_scales : k_scales) + at, D, bits, sub, tpb,
+                  evict);
+  if (!live) return;
+  // each thread rewrites only the chunks it read above
+  const TNew* src = (is_v ? v_new : k_new) +
+                    (static_cast<int64_t>(b) * H + h) * D;
+  for (int c = sub; c < D / 8; c += tpb) {
+    float v[8];
+    load_vals<8>(src + c * 8, v);
+    store_vals<8>(ring + c * 8, v);
+  }
+}
+
 int tpb_log2_for(int nchunks) {
   int t = 0;                            // largest power of two <= 32
   while (t < 5 && nchunks % (2 << t) == 0) ++t;   // that divides nchunks
@@ -254,5 +327,41 @@ extern "C" int qpack_fixed_decode(const void* codes, const void* scales,
     if (vec) decode_kernel<8, __nv_bfloat16><<<grid, kThreads, 0, s>>>(c, sc, o, chunks, block, bits);
     else decode_kernel<2, __nv_bfloat16><<<grid, kThreads, 0, s>>>(c, sc, o, chunks, block, bits);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The ring step of one layer, in place: codes [B, S, H, D*bits/8] u8,
+// scales [B, S, H] f32, hot [B, W, H, D] (bf16, or f32 when hot_f32), new
+// [B, H, D] (bf16, or f32 when new_f32), pos and cold_len [B] int32. D a
+// multiple of 8, every pointer 16-byte aligned.
+extern "C" int qpack_ring_step(void* k_codes, void* k_scales, void* k_hot,
+                               void* v_codes, void* v_scales, void* v_hot,
+                               const void* k_new, const void* v_new,
+                               const void* pos, const void* cold_len,
+                               int hot_f32, int new_f32, int b, int s_len,
+                               int w, int h, int d, int bits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b < 1 || w < 1 || h < 1 || d % 8 != 0 || d < 8 ||
+      (bits != 4 && bits != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tl = tpb_log2_for(d / 8);
+  const int64_t threads = static_cast<int64_t>(2) * b * h << tl;
+  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
+  uint8_t* kc = static_cast<uint8_t*>(k_codes);
+  uint8_t* vc = static_cast<uint8_t*>(v_codes);
+  float* ks = static_cast<float*>(k_scales);
+  float* vs = static_cast<float*>(v_scales);
+  const int32_t* p = static_cast<const int32_t*>(pos);
+  const int32_t* cl = static_cast<const int32_t*>(cold_len);
+#define RING(THOT, TNEW)                                                    \
+  ring_step_kernel<THOT, TNEW><<<grid, kThreads, 0, s>>>(                  \
+      kc, ks, static_cast<THOT*>(k_hot), vc, vs, static_cast<THOT*>(v_hot), \
+      static_cast<const TNEW*>(k_new), static_cast<const TNEW*>(v_new), p,  \
+      cl, b, s_len, w, h, d, bits, tl)
+  if (hot_f32 && new_f32) RING(float, float);
+  else if (hot_f32) RING(float, __nv_bfloat16);
+  else if (new_f32) RING(__nv_bfloat16, float);
+  else RING(__nv_bfloat16, __nv_bfloat16);
+#undef RING
   return static_cast<int>(cudaGetLastError());
 }

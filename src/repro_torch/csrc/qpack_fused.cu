@@ -18,16 +18,30 @@
 // Decode (promotion): f32 scale from bytes 0..3, sign-extended nibbles or
 //   int8 codes times the scale rounded to bf16, raw bf16, or zeros.
 //
+// Demote-and-compact (qpack_fused_demote): the pool's whole demotion step
+// in one launch, the same kernel with the compaction epilogue on. One CTA
+// per page, one warp per block; the page is read straight from the store
+// row slots[k]; each warp writes its dense row to shared memory, the warps
+// exchange their quanta there across one barrier, and each copies its live
+// bytes [start_i, start_i + quanta_i*128) to the page stream with 16-byte
+// stores (start_i = 128 * sum(quanta[:i]), the dense row placed at start_i
+// clamped to page_bytes - 2V, as compressor.py::_compact_pages places it);
+// the CTA zeroes the tail and writes the page's chunk count. It replaces
+// the eager chain around the TPU kernel's contract (a gather of the
+// victims, the encode, about 26 launches of compaction, the chunk
+// arithmetic and a concatenation of what the host fetches).
+//
 // Bound: both are one pass over memory with no reuse. Encode reads 2V bytes
 // (bf16) and writes 2V + 8 bytes per block; decode reads 2V + 4 and writes
-// 2V. At 3.35 TB/s a 512-value block costs ~0.6 ns each way. The design
-// gives each block one warp: 16-byte loads, the row's values stay in
+// 2V. At 3.35 TB/s a 512-value block costs ~0.6 ns each way; a demotion
+// batch of 8 pages moves about 64 KB, some 20 ns, so a call is bound by the
+// latency of one launch (about 2 us) and the design spends exactly one.
+// Each block has one warp: 16-byte loads, the row's values stay in
 // registers between the reduction, the rate test and the store, and each
 // output byte is written once (the TPU kernel built all three candidate
-// rows and selected with a where chain). No shared memory, no atomics; any
-// N >= 1 (no tile padding). Built without fast math and with
-// --fmad=false, so every product and quotient rounds exactly as the
-// reference does.
+// rows and selected with a where chain). No atomics; any N >= 1 (no tile
+// padding). Built without fast math and with --fmad=false, so every product
+// and quotient rounds exactly as the reference does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,7 +49,8 @@
 
 namespace {
 
-constexpr int kWarps = 4;              // blocks (rows) per 128-thread CTA
+constexpr int kWarps = 4;              // blocks (rows) per CTA of the encode
+constexpr int kMaxPageWarps = 8;       // blocks per page of the demotion
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -73,20 +88,33 @@ __device__ __forceinline__ float deq_bf16(float q, float scale) {
   return __bfloat162float(__float2bfloat16_rn(__fmul_rn(q, scale)));
 }
 
-template <int CH, typename TIn>
-__global__ void __launch_bounds__(kWarps * 32)
-fused_encode_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ dense,
-                    int32_t* __restrict__ rates, int32_t* __restrict__ quanta,
-                    int n, float tol4, float tol8, int lossless,
-                    int zero_elision, int q0, int q1, int q2, int q3) {
+// kCompact false: rows x[row] -> dense rows out[row] (the TPU kernel's
+// contract), kWarps rows per CTA. kCompact true: CTA k encodes the page
+// x[slots[k]] (x[k] when slots is null), one warp per block, and writes the
+// compacted page stream out[k] and nchunks[k].
+template <int CH, typename TIn, bool kCompact>
+__global__ void __launch_bounds__(kMaxPageWarps * 32)
+fused_encode_kernel(const TIn* __restrict__ x,
+                    const int64_t* __restrict__ slots,
+                    uint8_t* __restrict__ out, int32_t* __restrict__ rates,
+                    int32_t* __restrict__ quanta,
+                    int32_t* __restrict__ nchunks, int n, int qpc,
+                    float tol4, float tol8, int lossless, int zero_elision,
+                    int q0, int q1, int q2, int q3) {
   constexpr int V = CH * 256;          // values per block
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n) return;                // whole warp leaves together
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int row = blockIdx.x * warps + warp;
+  if (!kCompact && row >= n) return;   // whole warp leaves together
 
   // lane owns values [8*(lane + 32*j), +8) for j < CH
   float v[CH * 8];
-  const TIn* xr = x + static_cast<size_t>(row) * V;
+  size_t src = row;
+  if (kCompact)
+    src = static_cast<size_t>(slots ? slots[blockIdx.x] : blockIdx.x) *
+          warps + warp;
+  const TIn* xr = x + src * V;
 #pragma unroll
   for (int j = 0; j < CH; ++j) load8(xr + (lane + 32 * j) * 8, v + 8 * j);
 
@@ -131,7 +159,11 @@ fused_encode_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ dense,
   if (amax == 0.0f) rate = 0;
   if (!zero_elision && rate < 1) rate = 1;
 
-  uint8_t* dr = dense + static_cast<size_t>(row) * (2 * V);
+  // the dense row: straight to memory, or to shared memory for compaction
+  extern __shared__ __align__(16) uint8_t page_smem[];
+  __shared__ int block_quanta[kMaxPageWarps];
+  uint8_t* dr = kCompact ? page_smem + warp * (2 * V)
+                         : out + static_cast<size_t>(row) * (2 * V);
   uint32_t* dw = reinterpret_cast<uint32_t*>(dr);
   if (rate == 0) {
     const uint4 z = make_uint4(0u, 0u, 0u, 0u);
@@ -178,9 +210,32 @@ fused_encode_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ dense,
     }
     for (int w = 1 + V / 4 + lane; w < V / 2; w += 32) dw[w] = 0u;
   }
+  const int qn = rate == 0 ? q0 : rate == 1 ? q1 : rate == 2 ? q2 : q3;
   if (lane == 0) {
     rates[row] = rate;
-    quanta[row] = rate == 0 ? q0 : rate == 1 ? q1 : rate == 2 ? q2 : q3;
+    quanta[row] = qn;
+  }
+  if constexpr (kCompact) {
+    if (lane == 0) block_quanta[warp] = qn;
+    __syncthreads();                   // dense rows and quanta are shared
+    int start = 0, total = 0;
+    for (int i = 0; i < warps; ++i) {
+      start += i < warp ? block_quanta[i] : 0;
+      total += block_quanta[i];
+    }
+    start *= 128;
+    total *= 128;
+    const int page_bytes = warps * (2 * V);
+    const int placed = min(start, page_bytes - 2 * V);
+    uint8_t* page = out + static_cast<size_t>(blockIdx.x) * page_bytes;
+    // start, placed and total are multiples of 16: 16-byte copies
+    for (int o = start + 16 * lane; o < start + qn * 128; o += 16 * 32)
+      *reinterpret_cast<uint4*>(page + o) =
+          *reinterpret_cast<const uint4*>(dr + (o - placed));
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int o = total + 16 * threadIdx.x; o < page_bytes; o += 16 * blockDim.x)
+      *reinterpret_cast<uint4*>(page + o) = z;
+    if (threadIdx.x == 0) nchunks[blockIdx.x] = (total / 128 + qpc - 1) / qpc;
   }
 }
 
@@ -235,23 +290,37 @@ fused_decode_kernel(const uint8_t* __restrict__ dense,
   }
 }
 
-template <int CH>
-void launch_encode(const void* x, int x_f32, void* dense, void* rates,
-                   void* quanta, int n, float tol4, float tol8, int lossless,
+template <int CH, bool kCompact, typename TIn>
+void launch_encode_as(const void* x, const void* slots, void* out,
+                      void* rates, void* quanta, void* nchunks, int n,
+                      int qpc, int page_warps, float tol4, float tol8,
+                      int lossless, int zero_elision, int q0, int q1, int q2,
+                      int q3, cudaStream_t s) {
+  // compaction: one CTA a page and its page in shared memory
+  const int warps = kCompact ? page_warps : kWarps;
+  const dim3 grid(kCompact ? n / page_warps : (n + kWarps - 1) / kWarps);
+  const size_t smem = kCompact ? static_cast<size_t>(warps) * 2 * CH * 256 : 0;
+  fused_encode_kernel<CH, TIn, kCompact><<<grid, warps * 32, smem, s>>>(
+      static_cast<const TIn*>(x), static_cast<const int64_t*>(slots),
+      static_cast<uint8_t*>(out), static_cast<int32_t*>(rates),
+      static_cast<int32_t*>(quanta), static_cast<int32_t*>(nchunks), n, qpc,
+      tol4, tol8, lossless, zero_elision, q0, q1, q2, q3);
+}
+
+template <int CH, bool kCompact>
+void launch_encode(const void* x, int x_f32, const void* slots, void* out,
+                   void* rates, void* quanta, void* nchunks, int n, int qpc,
+                   int page_warps, float tol4, float tol8, int lossless,
                    int zero_elision, int q0, int q1, int q2, int q3,
                    cudaStream_t s) {
-  const dim3 grid((n + kWarps - 1) / kWarps), block(kWarps * 32);
-  if (x_f32) {
-    fused_encode_kernel<CH, float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<uint8_t*>(dense),
-        static_cast<int32_t*>(rates), static_cast<int32_t*>(quanta), n, tol4,
-        tol8, lossless, zero_elision, q0, q1, q2, q3);
-  } else {
-    fused_encode_kernel<CH, __nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<uint8_t*>(dense),
-        static_cast<int32_t*>(rates), static_cast<int32_t*>(quanta), n, tol4,
-        tol8, lossless, zero_elision, q0, q1, q2, q3);
-  }
+  if (x_f32)
+    launch_encode_as<CH, kCompact, float>(
+        x, slots, out, rates, quanta, nchunks, n, qpc, page_warps, tol4, tol8,
+        lossless, zero_elision, q0, q1, q2, q3, s);
+  else
+    launch_encode_as<CH, kCompact, __nv_bfloat16>(
+        x, slots, out, rates, quanta, nchunks, n, qpc, page_warps, tol4, tol8,
+        lossless, zero_elision, q0, q1, q2, q3, s);
 }
 
 template <int CH>
@@ -276,9 +345,30 @@ extern "C" int qpack_fused_encode(const void* x, int x_f32, void* dense,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || v % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (v / 256) {
-#define ENC(C) case C: launch_encode<C>(x, x_f32, dense, rates, quanta, n, tol4, tol8, lossless, zero_elision, q0, q1, q2, q3, s); break;
+#define ENC(C) case C: launch_encode<C, false>(x, x_f32, nullptr, dense, rates, quanta, nullptr, n, 0, 0, tol4, tol8, lossless, zero_elision, q0, q1, q2, q3, s); break;
     ENC(1) ENC(2) ENC(3) ENC(4) ENC(5) ENC(6) ENC(7) ENC(8)
 #undef ENC
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Demote-and-compact: k pages of nb blocks of v values, page i read from
+// row slots[i] of x (row i when slots is null) -> bufs [k, nb*2v] (page
+// streams), rates and quanta [k*nb], nchunks [k] = ceil(sum quanta / qpc).
+extern "C" int qpack_fused_demote(const void* x, int x_f32,
+                                  const void* slots, void* bufs, void* rates,
+                                  void* quanta, void* nchunks, int k, int nb,
+                                  int v, int qpc, float tol4, float tol8,
+                                  int lossless, int zero_elision, int q0,
+                                  int q1, int q2, int q3, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || nb < 1 || nb > kMaxPageWarps || qpc < 1 || v % 256 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (v / 256) {
+#define DEM(C) case C: launch_encode<C, true>(x, x_f32, slots, bufs, rates, quanta, nchunks, k * nb, qpc, nb, tol4, tol8, lossless, zero_elision, q0, q1, q2, q3, s); break;
+    DEM(1) DEM(2) DEM(3) DEM(4) DEM(5) DEM(6) DEM(7) DEM(8)
+#undef DEM
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

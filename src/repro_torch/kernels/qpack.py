@@ -4,14 +4,21 @@ and the wrappers the compressor calls.
   * ``fused_encode``/``fused_decode`` (``csrc/qpack_fused.cu``) replace the
     JAX package's TPU kernels ``kernels/qpack.py::qpack_fused_encode_2d``
     and ``qpack_fused_decode_2d``: the pool's rate-adaptive demote/promote.
+  * ``fused_demote`` is the pool's whole demotion step in one launch of the
+    same encode kernel: the victims' pages read from the store, encoded,
+    compacted into page streams, and their chunk counts and the record the
+    host fetches.
   * ``encode``/``decode`` (``csrc/qpack_fixed.cu``) replace
     ``qpack_encode_2d`` and ``qpack_decode_2d`` with the shape contract of
     their wrappers ``kernels/ops.py::qpack_encode``/``qpack_decode``:
     fixed-rate 4/8-bit quantize and pack over blocks of any even size,
     any leading shape (the KV cache's compressed region).
+  * ``ring_step`` is one decode step's hot-window update of a layer (the
+    eviction of the token aging out of the ring into the compressed region
+    with the encode's quantize, then the new token's insert) in one launch.
 
-All four are memory-bound single passes; the source notes in the ``.cu``
-files give the bound and the design.
+All are memory-bound single passes; the source notes in the ``.cu`` files
+give the bound and the design.
 
 The wrappers dispatch on the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version. There is no
@@ -32,8 +39,12 @@ from repro_torch.kernels import build as _build
 
 fused_encode_launches = 0
 fused_decode_launches = 0
+fused_demote_launches = 0
 encode_launches = 0
 decode_launches = 0
+ring_step_launches = 0
+
+QUANTUM = 128                   # bytes of a compaction quantum
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +131,66 @@ def fused_decode_plain(dense: torch.Tensor, rates: torch.Tensor) -> torch.Tensor
     return torch.where(rate == RATE_RAW, raw, out)
 
 
+def offsets(quanta: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum of per-block quanta [P, B] (int64)."""
+    q = quanta.to(torch.int64)
+    return torch.cumsum(q, dim=-1) - q
+
+
+def compact_pages_plain(dense: torch.Tensor, quanta: torch.Tensor,
+                        page_bytes: int) -> torch.Tensor:
+    """Dense per-block buffers [P, B, 2V] -> page streams uint8[P,
+    page_bytes]: block i's bytes live at [start_i, start_i + quanta_i*128).
+    A block's buffer is placed at its start clamped so it fits the page, as
+    the reference's ``dynamic_update_slice`` does."""
+    npages, nblocks, nb = dense.shape
+    starts = offsets(quanta) * QUANTUM                          # [P, B]
+    ends = starts + quanta.to(torch.int64) * QUANTUM
+    placed = torch.clamp(starts, max=page_bytes - nb)
+    pos = torch.arange(page_bytes, device=dense.device)
+    live = (pos[None, None, :] >= starts[..., None]) & \
+        (pos[None, None, :] < ends[..., None])                  # [P, B, page]
+    rel = torch.clamp(pos[None, None, :] - placed[..., None], 0, nb - 1)
+    vals = torch.gather(dense, 2, rel)
+    inside = (pos[None, None, :] >= placed[..., None]) & \
+        (pos[None, None, :] < placed[..., None] + nb)
+    vals = torch.where(inside, vals, torch.zeros_like(vals))
+    buf = torch.zeros((npages, page_bytes), dtype=torch.uint8,
+                      device=dense.device)
+    for i in range(nblocks):          # later blocks win, as in the reference
+        buf = torch.where(live[:, i], vals[:, i], buf)
+    return buf
+
+
+def num_chunks(quanta: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
+    """Chunks a page of these block quanta [P, B] occupies: int32[P]."""
+    qpc = chunk_bytes // QUANTUM
+    return (-(-quanta.sum(dim=-1) // qpc)).to(torch.int32)
+
+
+def fused_demote_plain(x: torch.Tensor, slots, *, blocks: int,
+                       chunk_bytes: int, tol4: float = 0.10,
+                       tol8: float = 0.01, lossless: bool = False,
+                       zero_elision: bool = True, quanta: tuple = (0, 3, 5, 8),
+                       encode=fused_encode_plain):
+    """The pages x[slots] (all of x when ``slots`` is None), x [N,
+    vals_per_page] bf16/f32, as ``fused_demote`` returns them: the encode
+    of their blocks (``encode``, ``fused_encode_plain``; the kernel
+    ``fused_encode`` gives the composition the demote kernel replaced),
+    the compaction and the chunk counts."""
+    rows = x if slots is None else x.index_select(0, slots)
+    k, vals = rows.shape[0], rows.shape[1] // blocks
+    dense, rates, qnt = encode(
+        rows.reshape(k * blocks, vals), tol4=tol4, tol8=tol8,
+        lossless=lossless, zero_elision=zero_elision, quanta=quanta)
+    qnt = qnt.reshape(k, blocks)
+    bufs = compact_pages_plain(dense.reshape(k, blocks, 2 * vals), qnt,
+                               2 * rows.shape[1])
+    nch = num_chunks(qnt, chunk_bytes)
+    return (bufs, rates.reshape(k, blocks), qnt, nch,
+            torch.cat([rates.reshape(-1), nch]))
+
+
 # ---------------------------------------------------------------------------
 # CUDA libraries (kernels/build.py: nvcc -> shared library, loaded by ctypes).
 # ---------------------------------------------------------------------------
@@ -128,6 +199,8 @@ def _fused_lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.load("qpack_fused", {
         "qpack_fused_encode": [P, I, P, P, P, I, I, F, F, I, I, I, I, I, I, P],
+        "qpack_fused_demote": [P, I, P, P, P, P, P, I, I, I, I, F, F, I, I,
+                               I, I, I, I, P],
         "qpack_fused_decode": [P, P, P, I, I, P]})
 
 
@@ -135,12 +208,21 @@ def _fixed_lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     return _build.load("qpack_fixed", {
         "qpack_fixed_encode": [P, I, P, P, I, I, I, I, P],
-        "qpack_fixed_decode": [P, P, P, I, I, I, I, I, P]})
+        "qpack_fixed_decode": [P, P, P, I, I, I, I, I, P],
+        "qpack_ring_step": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                            I, P]})
 
 
 def _check_cuda(t: torch.Tensor, name: str) -> None:
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a view at an odd offset is
+    copied)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _check_shape(v: int) -> None:
@@ -183,6 +265,64 @@ def fused_encode(x: torch.Tensor, *, tol4: float = 0.10, tol8: float = 0.01,
     _build.check_launch(err, "qpack_fused_encode")
     fused_encode_launches += 1
     return dense, rates, qnt
+
+
+def fused_demote(x: torch.Tensor, slots, *, blocks: int, chunk_bytes: int,
+                 tol4: float = 0.10, tol8: float = 0.01,
+                 lossless: bool = False, zero_elision: bool = True,
+                 quanta: tuple = (0, 3, 5, 8)):
+    """Demote the pages x[slots] (all of x when ``slots`` is None): x [N,
+    vals_per_page] bf16/f32, each page ``blocks`` blocks; ``slots``
+    int64[K] on x's device. Returns (bufs uint8[K, page_bytes] compacted
+    page streams, rates int32[K, blocks], quanta int32[K, blocks], nchunks
+    int32[K], record int32[K*blocks + K]: the rates, then nchunks). The
+    record is the storage of rates and nchunks, so the host reads both in
+    one fetch. One kernel launch for a CUDA tensor."""
+    global fused_demote_launches
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be [N, vals_per_page] bf16/f32, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    kw = dict(blocks=blocks, chunk_bytes=chunk_bytes, tol4=tol4, tol8=tol8,
+              lossless=lossless, zero_elision=zero_elision, quanta=quanta)
+    if x.device.type == "cpu":
+        return fused_demote_plain(x, slots, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused demote for device {x.device}")
+    if x.shape[1] % blocks or not 1 <= blocks <= 8:
+        raise ValueError(f"{blocks} blocks do not split a page of "
+                         f"{x.shape[1]} values (1 to 8 blocks)")
+    v = x.shape[1] // blocks
+    _check_shape(v)
+    _check_cuda(x, "x")
+    if chunk_bytes % QUANTUM or chunk_bytes < QUANTUM:
+        raise ValueError(f"chunk_bytes={chunk_bytes}: a multiple of "
+                         f"{QUANTUM}")
+    if max(quanta) * QUANTUM > 2 * v:     # the kernel copies from the row
+        raise ValueError(f"quanta {quanta} exceed a dense row of {2 * v} B")
+    if slots is None:
+        k, sp = x.shape[0], None
+    else:
+        if slots.dtype != torch.int64 or slots.dim() != 1 or \
+                slots.device != x.device or not slots.is_contiguous():
+            raise ValueError("slots must be contiguous int64[K] on x's device")
+        k, sp = slots.shape[0], slots.data_ptr()
+    page_bytes = 2 * x.shape[1]
+    bufs = torch.empty((k, page_bytes), dtype=torch.uint8, device=x.device)
+    record = torch.empty((k * blocks + k,), dtype=torch.int32,
+                         device=x.device)
+    qnt = torch.empty((k, blocks), dtype=torch.int32, device=x.device)
+    rates, nch = record[:k * blocks].view(k, blocks), record[k * blocks:]
+    if k == 0:
+        return bufs, rates, qnt, nch, record
+    q = tuple(int(a) for a in quanta)
+    err = _fused_lib().qpack_fused_demote(
+        x.data_ptr(), int(x.dtype == torch.float32), sp, bufs.data_ptr(),
+        record.data_ptr(), qnt.data_ptr(), nch.data_ptr(), k, blocks, v,
+        chunk_bytes // QUANTUM, tol4, tol8, int(lossless), int(zero_elision),
+        q[0], q[1], q[2], q[3], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(err, "qpack_fused_demote")
+    fused_demote_launches += 1
+    return bufs, rates, qnt, nch, record
 
 
 def fused_decode(dense: torch.Tensor, rates: torch.Tensor) -> torch.Tensor:
@@ -259,9 +399,7 @@ def encode(x: torch.Tensor, bits: int, block: int):
         raise ValueError(f"no fixed-rate encode for device {x.device}")
     lead, n = x.shape[:-1], x.shape[-1]
     _check_fixed(n, bits, block)
-    x = x.contiguous()
-    if x.data_ptr() % 16:               # a view at an odd offset
-        x = x.clone()
+    x = _aligned(x)
     nblk = x.numel() // block
     codes = torch.empty(lead + (n * bits // 8,), dtype=torch.uint8,
                         device=x.device)
@@ -298,9 +436,7 @@ def decode(codes: torch.Tensor, scales: torch.Tensor, bits: int, block: int,
     if codes.shape != lead + (nb * block * bits // 8,):
         raise ValueError(f"codes {tuple(codes.shape)} do not match scales "
                          f"{tuple(scales.shape)} at block {block}")
-    codes, scales = codes.contiguous(), scales.contiguous()
-    if codes.data_ptr() % 16:
-        codes = codes.clone()
+    codes, scales = _aligned(codes), scales.contiguous()
     out = torch.empty(lead + (nb * block,), dtype=dtype, device=codes.device)
     nblk = scales.numel()
     if nblk == 0:
@@ -313,3 +449,99 @@ def decode(codes: torch.Tensor, scales: torch.Tensor, bits: int, block: int,
     _build.check_launch(err, "qpack_fixed_decode")
     decode_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The decode step's ring step (the hot window's eviction and insert).
+# ---------------------------------------------------------------------------
+
+def _evict_plain(codes, scales, hot, pos, cold_len, bits: int,
+                 quantize) -> None:
+    """Compress the token aging out of the ring (position pos-W) into the
+    compressed region, in place. Skipped when the slot holds no real token
+    (pos < W, or a resumed lane whose older tokens are already compressed:
+    pos-W < cold_len)."""
+    B, W = hot.shape[:2]
+    bsel = torch.arange(B, device=hot.device)
+    evict_pos = pos - W
+    do = evict_pos >= cold_len
+    old = hot[bsel, (pos % W).long()].to(torch.float32)   # pre-overwrite
+    c, s = quantize(old, bits, old.shape[-1])
+    idx = torch.where(do, torch.clamp(evict_pos, min=0),
+                      torch.zeros_like(evict_pos)).long()
+    codes[bsel, idx] = torch.where(do[:, None, None], c, codes[bsel, idx])
+    scales[bsel, idx] = torch.where(do[:, None], s[..., 0], scales[bsel, idx])
+
+
+def _hot_insert_plain(hot: torch.Tensor, new: torch.Tensor,
+                      pos: torch.Tensor) -> None:
+    """hot [B,W,...] gets new [B,...] at slot pos%W, in place."""
+    bsel = torch.arange(hot.shape[0], device=hot.device)
+    hot[bsel, (pos % hot.shape[1]).long()] = new.to(hot.dtype)
+
+
+def ring_step_plain(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot,
+                    k_new, v_new, pos, cold_len, bits: int, *,
+                    quantize=encode_plain) -> None:
+    """``ring_step``'s plain version: the eviction of K and of V, then the
+    two inserts, as the reference's ``_evict_to_codes`` and
+    ``_hot_insert`` do them. ``quantize`` is the block quantizer
+    (``encode_plain``; the kernel ``encode`` gives the composition the ring
+    step replaced)."""
+    for codes, scales, hot in ((k_codes, k_scales, k_hot),
+                               (v_codes, v_scales, v_hot)):
+        _evict_plain(codes, scales, hot, pos, cold_len, bits, quantize)
+    _hot_insert_plain(k_hot, k_new, pos)
+    _hot_insert_plain(v_hot, v_new, pos)
+
+
+def ring_step(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, k_new,
+              v_new, pos, cold_len, bits: int) -> None:
+    """One decode step's hot-window update of one layer, in place: for each
+    lane b, the ring slot pos[b] % W is quantized into codes/scales at
+    position pos[b] - W when pos[b] - W >= cold_len[b], then k_new/v_new
+    [B, Hkv, D] take the slot. codes [B, S, Hkv, D*bits/8] uint8, scales
+    [B, S, Hkv] f32, hot [B, W, Hkv, D] bf16/f32, pos and cold_len [B].
+    One kernel launch for CUDA tensors, no host sync; the plain version
+    for CPU tensors."""
+    global ring_step_launches
+    if k_hot.device.type == "cpu":
+        return ring_step_plain(k_codes, k_scales, k_hot, v_codes, v_scales,
+                               v_hot, k_new, v_new, pos, cold_len, bits)
+    if k_hot.device.type != "cuda":
+        raise ValueError(f"no ring step for device {k_hot.device}")
+    B, W, H, D = k_hot.shape
+    S = k_codes.shape[1]
+    if bits not in (4, 8) or D % 8:
+        raise ValueError(f"bits={bits}, D={D}: the ring step takes 4 or 8 "
+                         "bits and D a multiple of 8")
+    ftypes = (torch.bfloat16, torch.float32)
+    for t, shape, dtypes, name in (
+            (k_codes, (B, S, H, D * bits // 8), (torch.uint8,), "codes"),
+            (v_codes, (B, S, H, D * bits // 8), (torch.uint8,), "codes"),
+            (k_scales, (B, S, H), (torch.float32,), "scales"),
+            (v_scales, (B, S, H), (torch.float32,), "scales"),
+            (k_hot, (B, W, H, D), ftypes, "hot"),
+            (v_hot, (B, W, H, D), (k_hot.dtype,), "hot"),
+            (k_new, (B, H, D), ftypes, "new"),
+            (v_new, (B, H, D), (k_new.dtype,), "new")):
+        if tuple(t.shape) != shape or t.dtype not in dtypes or \
+                t.device != k_hot.device:
+            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}: the ring step takes {shape} of "
+                             f"{dtypes} on {k_hot.device}")
+        if name != "new":               # updated in place
+            _check_cuda(t, name)
+    k_new, v_new = _aligned(k_new), _aligned(v_new)
+    pos, cold_len = (t.to(torch.int32).contiguous() for t in (pos, cold_len))
+    if pos.shape != (B,) or cold_len.shape != (B,):
+        raise ValueError("pos and cold_len must be [B]")
+    err = _fixed_lib().qpack_ring_step(
+        k_codes.data_ptr(), k_scales.data_ptr(), k_hot.data_ptr(),
+        v_codes.data_ptr(), v_scales.data_ptr(), v_hot.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), pos.data_ptr(),
+        cold_len.data_ptr(), int(k_hot.dtype == torch.float32),
+        int(k_new.dtype == torch.float32), B, S, W, H, D, bits,
+        torch.cuda.current_stream(k_hot.device).cuda_stream)
+    _build.check_launch(err, "qpack_ring_step")
+    ring_step_launches += 1

@@ -7,7 +7,9 @@ The KV cache is an IBEX pool specialized for append-only data:
     bf16 ring. New K/V lands here.
   * compressed region: every token older than ``W``, block-quantized (one
     block per (token, KV head) over the head dim; 4 or 8 bits + f32 scale)
-    by the fixed-rate encode kernel (B3) when it ages out of the ring.
+    when it ages out of the ring: the ring step (``qpack.ring_step``, one
+    launch a layer with B3's quantize) evicts it and inserts the new token;
+    prefill fills the region with the fixed-rate encode kernel (B3).
 
 Two read paths for the compressed prefix:
   * fused: dequantize inside attention, the decode attention kernel (B5)
@@ -32,8 +34,10 @@ import torch
 from repro_torch.common.types import ModelConfig, ServeConfig
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.compressor import (dequantize_blocks,
-                                         quantize_blocks_fast)
+                                         quantize_blocks_fast,
+                                         resolve_quantize_impl)
 from repro_torch.kernels import kvc_attn as KA
+from repro_torch.kernels import qpack
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -149,7 +153,7 @@ def cache_bytes(cache: Dict[str, torch.Tensor]) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Hot-window ring ops (in place)
+# Hot-window ring positions
 # ---------------------------------------------------------------------------
 
 def _ring_positions(pos: torch.Tensor, W: int) -> torch.Tensor:
@@ -157,30 +161,6 @@ def _ring_positions(pos: torch.Tensor, W: int) -> torch.Tensor:
     p_s = pos - ((pos%W - s) mod W). [B] -> [B, W]."""
     s = torch.arange(W, device=pos.device)[None, :]
     return pos[:, None] - (((pos % W)[:, None] - s) % W)
-
-
-def _evict_to_codes(codes, scales, hot, pos, cold_len, W: int, bits: int,
-                    impl: str) -> None:
-    """Compress the token aging out of the ring (position pos-W) into the
-    compressed region, in place: the streaming clean demotion (B3). Skipped
-    when the slot holds no real token (pos < W, or a resumed lane whose
-    older tokens are already compressed: pos-W < cold_len)."""
-    B = hot.shape[0]
-    bsel = torch.arange(B, device=hot.device)
-    evict_pos = pos - W
-    do = evict_pos >= cold_len
-    old = hot[bsel, (pos % W).long()].to(torch.float32)   # pre-overwrite
-    c, s = quantize_blocks_fast(old, bits, old.shape[-1], impl=impl)
-    idx = torch.where(do, torch.clamp(evict_pos, min=0),
-                      torch.zeros_like(evict_pos)).long()
-    codes[bsel, idx] = torch.where(do[:, None, None], c, codes[bsel, idx])
-    scales[bsel, idx] = torch.where(do[:, None], s[..., 0], scales[bsel, idx])
-
-
-def _hot_insert(hot: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
-    """hot [B,W,...] gets new [B,...] at slot pos%W, in place."""
-    bsel = torch.arange(hot.shape[0], device=hot.device)
-    hot[bsel, (pos % hot.shape[1]).long()] = new.to(hot.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -199,13 +179,13 @@ def gqa_decode_layer(lp: Params, x: torch.Tensor,
     k_new, v_new = L.gqa_project_kv(lp["attn"], h, pos[:, None], cfg)
 
     # demote the token aging out of the hot window (clean by construction)
+    # and insert the new one: the ring step (one launch on the card)
     cold_len = cache_l["cold_len"]
-    for kind in ("k", "v"):
-        _evict_to_codes(cache_l[f"{kind}_codes"], cache_l[f"{kind}_scales"],
-                        cache_l[f"{kind}_hot"], pos, cold_len, W, bits,
-                        scfg.quantize_impl)
-    _hot_insert(cache_l["k_hot"], k_new[:, 0], pos)
-    _hot_insert(cache_l["v_hot"], v_new[:, 0], pos)
+    ring_step = qpack.ring_step if resolve_quantize_impl(
+        scfg.quantize_impl, x.device) == "kernel" else qpack.ring_step_plain
+    ring_step(cache_l["k_codes"], cache_l["k_scales"], cache_l["k_hot"],
+              cache_l["v_codes"], cache_l["v_scales"], cache_l["v_hot"],
+              k_new[:, 0], v_new[:, 0], pos, cold_len, bits)
     new_cold = torch.maximum(cold_len, torch.clamp(pos - W + 1, min=0))
 
     sm = 1.0 / (D ** 0.5)

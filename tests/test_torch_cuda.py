@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: each against its plain PyTorch version
-(byte for byte for the compression kernels, within the reference's
-tolerance for attention), the payload pool's whole path with the kernels
+(byte for byte for the compression kernels and the fused steps, demote
+and ring step; within the reference's tolerance for attention), the payload pool's whole path with the kernels
 against the plain compressor, and a small llama3 served with the kernels
 against the plain versions. Needs no JAX; every test carries the ``gpu``
 marker and skips where no card is present:
@@ -70,16 +70,19 @@ def test_whole_path_kernel_vs_plain(cuda):
     content = torch.from_numpy(make_block_content(rates, 512, seed=3)
                                .reshape(64, -1)).to(cuda).to(torch.bfloat16)
     trace = make_trace(WORKLOADS["mcf"], n_accesses=512, n_pages=64, seed=3)
-    out = {}
+    out, demotes = {}, {}
     for impl in ("kernel", "jnp"):
         cfg = dataclasses.replace(base, compress_impl=impl)
         pol = E.POLICIES["ibex"]
         pool = E.make_pool(cfg, seed=3)
         assert pool.meta.device.type == "cuda"
+        n0 = qpack.fused_demote_launches
         for i in range(content.shape[0]):
             E.host_write_page(pool, cfg, pol, i, content[i])
         batch.replay_trace(pool, cfg, pol, *trace)
         out[impl] = interop.pool_to_numpy(pool)
+        demotes[impl] = qpack.fused_demote_launches - n0
+    assert demotes["kernel"] > 0 and demotes["jnp"] == 0
     for k in out["kernel"]:
         np.testing.assert_array_equal(out["kernel"][k], out["jnp"][k],
                                       err_msg=k)
@@ -93,6 +96,138 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     x = torch.zeros((4, 512), dtype=torch.bfloat16, device=cuda)
     dense, rates, _ = qpack.fused_encode(x)
     qpack.fused_decode(dense, rates)
+    torch.cuda.synchronize()
+
+
+def _store(nb: int, vals: int, seed: int) -> np.ndarray:
+    """float32 pages [16, nb*vals]: every content class mixed in a page,
+    all-raw pages, and pages of normal values not exact in bf16."""
+    rng = np.random.default_rng(seed)
+    classes = rng.integers(0, 4, (16, nb))
+    classes[0], classes[1] = 3, np.arange(nb) % 4
+    x = make_block_content(classes, vals, seed=seed).reshape(16, -1)
+    x[2] = rng.standard_normal(nb * vals) * 0.7
+    x[3, ::5] = np.float32(-0.0)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("nb,vals", [(4, 512), (1, 2048)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lossless", [True, False])
+@pytest.mark.parametrize("ze", [True, False])
+def test_fused_demote_vs_plain(cuda, nb, vals, dtype, lossless, ze):
+    """The demote kernel against its plain version byte for byte: pages
+    read through slots (repeats included) and without, every output."""
+    store = torch.from_numpy(_store(nb, vals, nb + vals)).to(cuda).to(dtype)
+    kw = dict(blocks=nb, chunk_bytes=512, lossless=lossless,
+              zero_elision=ze, quanta=comp.quanta_per_rate(vals),
+              **({} if lossless else dict(tol4=0.05, tol8=0.003)))
+    slots = torch.tensor([5, 0, 1, 15, 1, 2, 3, 3], dtype=torch.int64,
+                         device=cuda)
+    for sl in (slots, None):
+        n0 = qpack.fused_demote_launches
+        got = qpack.fused_demote(store, sl, **kw)
+        want = qpack.fused_demote_plain(store, sl, **kw)
+        torch.cuda.synchronize()
+        assert qpack.fused_demote_launches == n0 + 1
+        for name, a, b in zip(("bufs", "rates", "quanta", "nchunks",
+                               "record"), got, want):
+            assert torch.equal(a, b), name
+        assert len(set(want[1].flatten().tolist())) >= 3
+
+
+# -- the ring step -------------------------------------------------------------
+
+RING_SCENARIOS = {
+    "before_window": ([3, 7], [0, 0]),
+    "at_window": ([8, 8], [0, 0]),
+    "resumed": ([12, 20], [10, 13]),
+    "mixed": ([3, 8, 12, 19, 23, 9, 40, 47], [0, 0, 10, 2, 15, 1, 0, 40]),
+}
+
+
+def _ring_case(cuda, B, H, D, bits, ring, new, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    S, W = 48, 8
+    codes = [torch.randint(0, 256, (B, S, H, D * bits // 8), generator=g,
+                           device=cuda, dtype=torch.uint8) for _ in range(2)]
+    scales = [torch.randn((B, S, H), generator=g, device=cuda)
+              for _ in range(2)]
+    hot = [(torch.randn((B, W, H, D), generator=g, device=cuda) * 0.7)
+           for _ in range(2)]
+    for h in hot:
+        h[:, 1] = 0.0
+        h[:, 2, :, 1::2] = -0.0
+        h[:, 3] = torch.randint(-7, 7, (B, H, D), generator=g,
+                                device=cuda) + 0.5
+        h[:, 3, :, 0] = 7.0
+    hot = [h.to(ring) for h in hot]
+    newv = [(torch.randn((B, H, D), generator=g, device=cuda) * 3).to(new)
+            for _ in range(2)]
+    return codes, scales, hot, newv
+
+
+@pytest.mark.parametrize("scenario", list(RING_SCENARIOS))
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("ring,new", [(torch.bfloat16, torch.bfloat16),
+                                      (torch.bfloat16, torch.float32),
+                                      (torch.float32, torch.float32)])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16)])
+def test_ring_step_vs_plain(cuda, scenario, bits, ring, new, H, D):
+    """The ring step kernel against its plain version, in place, byte for
+    byte: codes, scales and both rings."""
+    pos_l, cold_l = RING_SCENARIOS[scenario]
+    B = len(pos_l)
+    codes, scales, hot, newv = _ring_case(cuda, B, H, D, bits, ring, new,
+                                          seed=bits + D + B)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda)
+    cold = torch.tensor(cold_l, dtype=torch.int32, device=cuda)
+    state = {}
+    for name, fn in (("kernel", qpack.ring_step),
+                     ("plain", qpack.ring_step_plain)):
+        c, s, h = ([t.clone() for t in ts] for ts in (codes, scales, hot))
+        n0 = qpack.ring_step_launches
+        fn(c[0], s[0], h[0], c[1], s[1], h[1], newv[0], newv[1], pos, cold,
+           bits)
+        torch.cuda.synchronize()
+        assert qpack.ring_step_launches == n0 + (name == "kernel")
+        state[name] = (c, s, h)
+    (kc, ks, kh), (pc, ps, ph) = state["kernel"], state["plain"]
+    iv = torch.int16 if ring == torch.bfloat16 else torch.int32
+    for i in range(2):
+        assert torch.equal(kc[i], pc[i])
+        assert torch.equal(ks[i].view(torch.int32), ps[i].view(torch.int32))
+        assert torch.equal(kh[i].view(iv), ph[i].view(iv))
+    evicted = bool(((pos - 8) >= cold).any())
+    assert evicted == (not torch.equal(pc[0], codes[0]))
+
+
+def test_ring_step_rejects_other_types(cuda):
+    codes, scales, hot, newv = _ring_case(cuda, 2, 2, 64, 4, torch.bfloat16,
+                                          torch.bfloat16, seed=1)
+    pos = torch.tensor([9, 9], dtype=torch.int32, device=cuda)
+    cold = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for bad in (torch.float16, torch.int32):
+        with pytest.raises(ValueError, match="new"):
+            qpack.ring_step(codes[0], scales[0], hot[0], codes[1], scales[1],
+                            hot[1], newv[0].to(bad), newv[1].to(bad), pos,
+                            cold, 4)
+
+
+def test_cuda_tensor_never_takes_the_fused_steps_plain_versions(cuda,
+                                                                monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    for fn in ("fused_demote_plain", "fused_encode_plain",
+               "compact_pages_plain", "ring_step_plain", "encode_plain"):
+        monkeypatch.setattr(qpack, fn, boom)
+    x = torch.zeros((4, 2048), dtype=torch.bfloat16, device=cuda)
+    qpack.fused_demote(x, None, blocks=4, chunk_bytes=512)
+    codes, scales, hot, newv = _ring_case(cuda, 2, 2, 64, 4, torch.bfloat16,
+                                          torch.bfloat16, seed=2)
+    pos = torch.tensor([9, 3], dtype=torch.int32, device=cuda)
+    qpack.ring_step(codes[0], scales[0], hot[0], codes[1], scales[1], hot[1],
+                    newv[0], newv[1], pos, torch.zeros_like(pos), 4)
     torch.cuda.synchronize()
 
 
@@ -234,13 +369,15 @@ def test_small_llama_serves_alike_with_kernels_and_plain(cuda):
     for impl, q_impl in (("kernel", "kernel"), ("plain", "jnp")):
         scfg = ServeConfig(max_running=2, hot_window=16, kv_rate_bits=8,
                            attn_impl=impl, quantize_impl=q_impl)
-        n0 = (qpack.encode_launches, KA.launches, FA.launches)
+        n0 = (qpack.encode_launches, KA.launches, FA.launches,
+              qpack.ring_step_launches)
         eng = Engine(cfg, scfg, params, max_len=128)
         rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
         eng.run_until_done(max_steps=400)
-        n1 = (qpack.encode_launches, KA.launches, FA.launches)
+        n1 = (qpack.encode_launches, KA.launches, FA.launches,
+              qpack.ring_step_launches)
         out[impl] = ([eng.result(r) for r in rids],
                      [b - a for a, b in zip(n0, n1)])
     assert out["kernel"][0] == out["plain"][0]
     assert all(n > 0 for n in out["kernel"][1])
-    assert out["plain"][1] == [0, 0, 0]
+    assert out["plain"][1] == [0, 0, 0, 0]
