@@ -10,51 +10,59 @@ exits non-zero:
   1 build    nvcc builds the four kernel sources (sm_90a), all at once;
              ptxas registers and spills, HGMMA/UTMALDG counts in the
              flash library's SASS
-  2 kernels  the fused demote/promote kernels (B1/B2) and the demote-and-
-             compact kernel (B1's redesign) against their plain PyTorch
-             versions on the card, byte for byte, over block widths, input
-             types, lossless and zero-elision settings, row counts and
-             victim slots
+  2 kernels  the fused demote/promote kernels (B1/B2), the demote-and-
+             compact kernel (B1's redesign) and the promote step (B2's)
+             against their plain PyTorch versions on the card, byte for
+             byte, over block widths, input types, lossless and zero-
+             elision settings, row counts, victim slots, 8-chunk pages and
+             range masks
   3 main     the payload pool at deployment size: population through
              host_write_page, then replay_trace of an mcf trace; launch
-             counts (one demote-and-compact launch per demotion batch),
+             counts (one demote-and-compact launch per demotion batch, one
+             promote launch per promotion fill, no fused-decode launch),
              demotion batches and their share of host time, counters,
              invariants I1-I4 and a bit-exact read-back
   4 whole    the same recipe, small, with the kernels and with the plain
              compressor: every pool leaf identical; then its population
              and replay rates with the demote-and-compact kernel and with
+             the composition it replaced, and with the promote step and
              the composition it replaced, in turns
   5 times    B1/B2 kernel / plain / bound times (CUDA events) at the main
              path's shapes and at 65,536 blocks; the demote-and-compact
-             kernel at a demotion batch of 8 pages beside its eager call,
-             its bound and the composition it replaced (device events of
-             one batch each, torch.profiler)
+             kernel at a demotion batch of 8 pages and the promote step at
+             one page, each beside its eager call, its bound and the
+             composition it replaced (device events of one call each,
+             torch.profiler)
   6 kernels  the serving kernels against their plain versions: fixed-rate
-             encode/decode (B3/B4) and the ring step (B3's redesign) byte
-             for byte, decode attention (B5) and prefill attention (B6)
-             within the stated tolerance; B5 at the chunk boundaries and
-             bit-identical on a second call, B6's bf16 cases on the
-             tensor-core route, B6 also normwise per case
+             encode/decode (B3/B4), the ring step, the prefill fill and
+             the lane flush (B3's redesigns) byte for byte, decode
+             attention (B5) and prefill attention (B6) within the stated
+             tolerance; B5 at the chunk boundaries and bit-identical on a
+             second call, B6's bf16 cases on the tensor-core route, B6
+             also normwise per case
   7 serve    llama3-8b at its published config (32 layers, bf16, random
              params from a seed) served through Engine: 16 requests over 8
              lanes (preemption and resume), 64 new tokens each; rates,
              counters, launches (the ring step and B5 one a layer a step,
-             B3 two a layer a prefill batch and two a lane demotion, B6 one
-             a layer a prefill batch, all bf16 B6 on the tensor cores),
-             B6's device time inside prefill; then torch.profiler over 4
-             decode steps of 8 lanes: device busy share, device events a
-             step, B5's time and the top kernels; then decode ms a step
-             with the ring step and with the composition it replaced, in
-             turns, and the device events a step of each
+             the prefill fill and B6 one a layer a prefill batch, the lane
+             flush one a lane demotion, B3's own encode none, all bf16 B6
+             on the tensor cores), B6's device time inside prefill; then
+             torch.profiler over 4 decode steps of 8 lanes: device busy
+             share, device events a step, B5's time and the top kernels;
+             then decode ms a step with the ring step and with the
+             composition it replaced, in turns, and the device events a
+             step of each; and the device events of one prefill batch and
+             of one lane demotion, each step against its composition
   8 paper    the same model in paper mode (promote-then-read): B4 launches
   9 whole    a 2-layer model at llama3-8b's widths, kernels against plain
              versions, in bf16 and float32: prefill and decode logits and
              their argmax, and the same requests served through Engine
              both ways (identical generations in float32)
- 10 times    B3-B6 and the ring step: kernel / eager / plain / library /
-             bound times at the serving path's shapes (B6 also at 4 and 1
-             rows; the ring step also beside the composition it replaced);
-             B5's working CTAs against the SMs
+ 10 times    B3-B6 and B3's three steps: kernel / eager / plain / library
+             / bound times at the serving path's shapes (B6 also at 4 and
+             1 rows; the ring step, the prefill fill and the lane flush
+             also beside the compositions they replaced); B5's working
+             CTAs against the SMs
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -267,8 +275,10 @@ def phase_kernels(qpack, comp, dev) -> dict:
     check(rates_seen == {0, 1, 2, 3},
           f"phase 2 exercised rates {sorted(rates_seen)}, not all four")
     res["demote"] = _demote_cases(qpack, comp, dev)
+    res["promote"] = _promote_cases(qpack, comp, dev)
     summary = [{"name": k, "launches": getattr(qpack, f"fused_{k}_launches"),
-                "cases": r["cases"], "mismatches": r["mismatches"]}
+                "cases": r["cases"], "mismatches": r["mismatches"],
+                **{f: r[f] for f in ("rates", "groups") if f in r}}
                for k, r in res.items()]
     print(f"phase 2 kernels vs plain: {json.dumps(summary)}", flush=True)
     for k, r in res.items():
@@ -317,6 +327,101 @@ def _demote_cases(qpack, comp, dev) -> dict:
     return r
 
 
+LOSSY = dict(tol4=0.05, tol8=0.003)   # all four rates occur (tests' setting)
+
+
+def promote_inputs(qpack, comp, dev, content: np.ndarray, nb: int,
+                   lossless: bool, masks, seed: int):
+    """Promotions of the pages ``content`` (float32 [K, nb * v]): demoted
+    by the demote-and-compact kernel, each page stream written into its own
+    chunks of a store of random bytes (an aligned group of 8 for an
+    8-chunk page, else its chunks in seeded order), a store of random
+    P-chunk rows, and one record a page (its chunk ids, 0 past its chunk
+    count as ops._page_chunk_ids gives them, its rates, a distinct seeded
+    slot, and ``masks[k % len(masks)]``). Returns (c_store, p_store,
+    record, fused_promote's keywords, record rows on the host, compressed
+    bytes of the pages, chunk counts)."""
+    rng = np.random.default_rng(seed)
+    k, v = content.shape[0], content.shape[1] // nb
+    page_bytes, cb = 2 * nb * v, 512
+    cpp = page_bytes // cb
+    quanta = comp.quanta_per_rate(v)
+    x = torch.from_numpy(content).to(dev).to(torch.bfloat16)
+    bufs, rates, qnt, nch, _ = qpack.fused_demote(
+        x, None, blocks=nb, chunk_bytes=cb, lossless=lossless, quanta=quanta,
+        **({} if lossless else LOSSY))
+    rates_h, nch_h = rates.tolist(), nch.tolist()
+    n_rows = 8 * k + 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c_store = torch.randint(0, 256, (n_rows, cb), generator=gen, device=dev,
+                            dtype=torch.uint8)
+    p_store = torch.randint(0, 256, (k + 8, page_bytes), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    groups, slots = rng.permutation(n_rows // 8), rng.permutation(k + 8)
+    rows, dst, src = [], [], []
+    for p in range(k):
+        base = 8 * int(groups[p])
+        n = nch_h[p]
+        own = list(range(base, base + 8)) if n == 8 else \
+            (rng.permutation(8)[:n] + base).tolist()
+        ids = [own[i] if i < n else 0 for i in range(cpp)]
+        dst += own[:n]
+        src += [p * cpp + i for i in range(n)]
+        rows.append(ids + rates_h[p] + [int(slots[p]), masks[p % len(masks)]])
+    if dst:
+        c_store[torch.tensor(dst, device=dev)] = \
+            bufs.reshape(k * cpp, cb)[torch.tensor(src, device=dev)]
+    record = torch.tensor(rows, dtype=torch.int32, device=dev)
+    kw = dict(blocks=nb, chunk_bytes=cb, range_bytes=1024, quanta=quanta)
+    return (c_store, p_store, record, kw, rows, int(qnt.sum()) * 128,
+            nch_h)
+
+
+def _promote_cases(qpack, comp, dev) -> dict:
+    """The promote kernel against its plain version, byte for byte in
+    every P-chunk row: pages of 4 x 512 and 1 x 2,048 values of the edge
+    classes (every fourth page all raw: an 8-chunk group whose last block
+    starts at page_bytes - 2V, the bound of the slicing's clamp, which no
+    quanta table the wrapper accepts can pass), lossless and lossy, 1 to
+    64 pages a record, masks of the full page, of single blocks and of
+    seeded sets of ranges that are not hot."""
+    r = {"cases": 0, "mismatches": 0, "err": 0.0, "rates": set(),
+         "groups": 0}
+    rng = np.random.default_rng(SEED + 11)
+    for nb, v in ((4, 512), (1, 2048)):
+        n_ranges = 2 * nb * v // 1024
+        full = (1 << n_ranges) - 1
+        mask_sets = {"full": [full],
+                     "single": [1 << i for i in range(n_ranges)],
+                     "not hot": rng.integers(1, full, 64).tolist()}
+        for lossless in (True, False):
+            for k in (1, 8, 64):
+                content = edge_blocks(k * nb, v, SEED + k + v) \
+                    .reshape(k, nb * v)
+                content[::4] = rng.standard_normal(
+                    (len(range(0, k, 4)), nb * v)) * 0.7
+                for name, masks in mask_sets.items():
+                    c_store, p_store, record, kw, rows, _, nch = \
+                        promote_inputs(qpack, comp, dev, content, nb,
+                                       lossless, masks, SEED + k)
+                    got, want = p_store.clone(), p_store.clone()
+                    qpack.fused_promote(c_store, got, record, **kw)
+                    qpack.fused_promote_plain(c_store, want, record, **kw)
+                    r["cases"] += 1
+                    r["mismatches"] += int((got != want).any(dim=1).sum())
+                    r["err"] = max(r["err"], float(
+                        (got.int() - want.int()).abs().max()))
+                    r["rates"] |= {x for row in rows
+                                   for x in row[-2 - nb:-2]}
+                    r["groups"] += sum(n == 8 for n in nch)
+    torch.cuda.synchronize()
+    check(r["rates"] == {0, 1, 2, 3} and r["groups"] > 0,
+          f"phase 2: the promote cases saw rates {sorted(r['rates'])} and "
+          f"{r['groups']} 8-chunk pages")
+    r["rates"] = sorted(r["rates"])
+    return r
+
+
 def _populate_and_replay(cfg, E, pol, content, trace, stats=None):
     """Write every page of ``content`` with host_write_page, then replay
     ``trace``: the port's main path, through its entry points."""
@@ -359,12 +464,16 @@ def phase_main(qpack, dev, pages: int, accesses: int, tag: str) -> dict:
     # fetch of their record included
     from repro_torch.core import compressor as comp
     from repro_torch.core.engine import ops
-    batches = {"calls": 0, "s": 0.0}
-    orig = (comp.demote_pages, ops._encode_victims)
+    batches = {"calls": 0, "s": 0.0, "fills": 0}
+    orig = (comp.demote_pages, ops._encode_victims, comp.promote_pages)
 
     def timed_demote(*a, **k):
         batches["calls"] += 1
         return orig[0](*a, **k)
+
+    def counted_promote(*a, **k):      # a promotion fill of a P-chunk row
+        batches["fills"] += 1
+        return orig[2](*a, **k)
 
     def timed_victims(*a, **k):
         t0 = time.perf_counter()
@@ -372,19 +481,22 @@ def phase_main(qpack, dev, pages: int, accesses: int, tag: str) -> dict:
         batches["s"] += time.perf_counter() - t0
         return out
 
-    comp.demote_pages, ops._encode_victims = timed_demote, timed_victims
+    comp.demote_pages, ops._encode_victims, comp.promote_pages = \
+        timed_demote, timed_victims, counted_promote
     qpack.fused_encode_launches = 0
     qpack.fused_decode_launches = 0
     qpack.fused_demote_launches = 0
+    qpack.fused_promote_launches = 0
     contracts.SYNCS.reset()
     try:
         pool, t_pop, t_rep = _populate_and_replay(cfg, E, pol, content,
                                                   trace, stats)
     finally:
-        comp.demote_pages, ops._encode_victims = orig
+        comp.demote_pages, ops._encode_victims, comp.promote_pages = orig
     launches = {"encode": qpack.fused_encode_launches,
                 "decode": qpack.fused_decode_launches,
-                "demote": qpack.fused_demote_launches}
+                "demote": qpack.fused_demote_launches,
+                "promote": qpack.fused_promote_launches}
     syncs = contracts.SYNCS.count
 
     c = E.counters_dict(pool)
@@ -400,8 +512,9 @@ def phase_main(qpack, dev, pages: int, accesses: int, tag: str) -> dict:
           f"{accesses / t_rep:.3f} accesses/s ({t_rep:.3f} s) | syncs "
           f"{syncs} total, {w_syncs:.3f} per window ({stats['windows']} "
           f"windows), {s_syncs:.3f} per slow access ({stats['slow']} slow) "
-          f"| launches demote-and-compact {launches['demote']} decode "
-          f"{launches['decode']} encode {launches['encode']} | compression "
+          f"| launches demote-and-compact {launches['demote']} promote "
+          f"{launches['promote']} decode {launches['decode']} encode "
+          f"{launches['encode']} | compression "
           f"ratio {ratio:.6f} [{tag}]", flush=True)
     n_b = batches["calls"]
     print(f"phase 3 demotion: {n_b} batches (victim batches and "
@@ -411,9 +524,18 @@ def phase_main(qpack, dev, pages: int, accesses: int, tag: str) -> dict:
           f"host time (fetch included) = "
           f"{batches['s'] / (t_pop + t_rep):.4f} of the {t_pop + t_rep:.3f} "
           f"s of population and replay [{tag}]", flush=True)
+    n_f = batches["fills"]
+    print(f"phase 3 promotion: {n_f} promotion fills (promote and "
+          f"update-promote), {launches['promote'] / max(n_f, 1):.3f} promote "
+          f"launches a fill, fused-decode launches {launches['decode']} "
+          f"[{tag}]", flush=True)
     print(f"phase 3 counters: {json.dumps(c)}", flush=True)
-    check(launches["demote"] > 0 and launches["decode"] > 0,
+    check(launches["demote"] > 0 and launches["promote"] > 0,
           f"phase 3: a kernel was not launched on the main path: {launches}")
+    check(launches["promote"] == n_f and launches["decode"] == 0,
+          f"phase 3: {n_f} promotion fills took {launches['promote']} promote "
+          f"and {launches['decode']} fused-decode launches (one and none "
+          "expected)")
     check(launches["demote"] == n_b and launches["encode"] == 0,
           f"phase 3: {n_b} demotion batches took {launches['demote']} "
           f"demote-and-compact and {launches['encode']} fused-encode "
@@ -477,17 +599,17 @@ def phase_whole(qpack, dev) -> None:
     out = {}
     for impl in ("kernel", "jnp"):
         cfg = dataclasses.replace(base, compress_impl=impl)
-        e0, d0 = qpack.fused_demote_launches, qpack.fused_decode_launches
+        e0, d0 = qpack.fused_demote_launches, qpack.fused_promote_launches
         pool, _, _ = _populate_and_replay(cfg, E, E.POLICIES["ibex"],
                                           content, trace)
         out[impl] = (interop.pool_to_numpy(pool),
                      qpack.fused_demote_launches - e0,
-                     qpack.fused_decode_launches - d0)
+                     qpack.fused_promote_launches - d0)
     (ka, ke, kd), (pa, pe, pd) = out["kernel"], out["jnp"]
     diff = [k for k in ka if not np.array_equal(ka[k], pa[k])]
     print(f"phase 4 whole path kernel vs plain: {len(ka)} leaves, "
           f"{len(diff)} differ {diff} | kernel run launches demote {ke} "
-          f"decode {kd}, plain run {pe} {pd}", flush=True)
+          f"promote {kd}, plain run {pe} {pd}", flush=True)
     check(not diff, f"phase 4: leaves differ: {diff}")
     check(ke > 0 and kd > 0 and pe == 0 and pd == 0,
           "phase 4: the kernel run did not launch the kernels, or the plain "
@@ -518,6 +640,55 @@ def phase_whole(qpack, dev) -> None:
           f"{pages} pages over {base.n_pchunks} P-chunks and {accesses} "
           f"accesses, in turns: [population pages/s, replay accesses/s] "
           f"{json.dumps(rates_ab)}", flush=True)
+
+    # and the promotion done by the promote step and by the composition it
+    # replaced, in turns (the pool leaves must not differ)
+    from repro_torch.core.engine import ops
+    step = ops._promote_into
+    rates_ab = {"promote step": [], "composition": []}
+    leaves = {}
+    try:
+        for name in ("promote step", "composition", "composition",
+                     "promote step"):
+            ops._promote_into = step if name == "promote step" else \
+                promote_composition()
+            pool, t_pop, t_rep = _populate_and_replay(
+                cfg, E, E.POLICIES["ibex"], content, trace)
+            rates_ab[name].append([pages / t_pop, accesses / t_rep])
+            leaves.setdefault(name, interop.pool_to_numpy(pool))
+    finally:
+        ops._promote_into = step
+    a, b = leaves["promote step"], leaves["composition"]
+    diff = [k for k in a if not np.array_equal(a[k], b[k])]
+    print(f"phase 4 promote step vs the composition it replaced, in turns: "
+          f"[population pages/s, replay accesses/s] {json.dumps(rates_ab)} | "
+          f"{len(diff)} leaves differ", flush=True)
+    check(not diff, f"phase 4: the promote composition's leaves differ: "
+          f"{diff}")
+
+
+def promote_composition():
+    """ops._promote_into as it was before the promote step: the chunk ids'
+    upload and gather (ops._gather_page_buf), the rates' upload,
+    compressor.decode_page (the quanta table's upload, the dense slicing,
+    the fused-decode kernel) and a copy into the P-chunk row for each range
+    (one for a whole page)."""
+    from repro_torch.common import contracts
+    from repro_torch.core import compressor as comp
+    from repro_torch.core.engine import ops
+
+    def promote_into(pool, cfg, entry, slot, ranges):
+        buf = ops._gather_page_buf(pool, cfg, entry)
+        rates = contracts.upload(ops._rates_of(entry, cfg), torch.int32,
+                                 buf.device)
+        page = ops._page_to_bytes(comp.decode_page(buf, rates, cfg))
+        if len(ranges) == cfg.page_bytes // cfg.block_bytes:
+            pool.p_store[slot] = page
+            return
+        for r in ranges:
+            rng = slice(r * cfg.block_bytes, (r + 1) * cfg.block_bytes)
+            pool.p_store[slot, rng] = page[rng]
+    return promote_into
 
 
 def time_graph(fn, reps: int, samples: int = 21) -> float:
@@ -644,29 +815,118 @@ def phase_times(qpack, comp, dev, tag: str) -> dict:
           f"{r['composition_events']:.2f} device events | plain "
           f"{r['plain_ms']:.6f} ms | bound {r['bound_ms']:.6f} ms by "
           f"{r['bound_by']} ({nbytes} B at 3.35 TB/s) [{tag}]", flush=True)
+    out[("promote", 1)] = _promote_times(qpack, comp, dev, tag)
     return out
 
 
+def _promote_times(qpack, comp, dev, tag: str) -> dict:
+    """The promote step at the main path's promotion (one page of 4 x 512
+    mcf values, the whole page written), beside the composition it
+    replaced: eager with its three uploads; replayed, its device work with
+    the uploads made beforehand (a graph cannot capture a copy from
+    pageable memory)."""
+    from repro_torch.common import contracts
+    from repro_torch.common.types import PoolConfig
+    nb, v = 4, 512
+    qt = comp.quanta_per_rate(v)
+    cfg = PoolConfig(lossless=True, compress_impl="kernel")
+    c_store, p_store, record, kw, rows, comp_bytes, _ = promote_inputs(
+        qpack, comp, dev, mcf_blocks(nb, SEED + 10).reshape(1, nb * v), nb,
+        True, [15], SEED + 10)
+    cpp = cfg.chunks_per_page
+    ids_h, rates_h, slot = rows[0][:cpp], rows[0][cpp:cpp + nb], rows[0][-2]
+    kern = lambda: qpack.fused_promote(c_store, p_store, record, **kw)  # noqa: E731
+
+    def old():
+        ids = contracts.upload(ids_h, torch.int64, dev)
+        buf = c_store.index_select(0, ids).reshape(cfg.page_bytes)
+        rates = contracts.upload(rates_h, torch.int32, dev)
+        p_store[slot] = comp.decode_page(buf, rates, cfg).contiguous() \
+            .view(torch.uint8)
+
+    ids_t = torch.tensor(ids_h, dtype=torch.int64, device=dev)
+    rates_t = torch.tensor(rates_h, dtype=torch.int32, device=dev)
+    qt_t = torch.tensor(qt, dtype=torch.int64, device=dev)
+
+    def old_device():
+        buf = c_store.index_select(0, ids_t).reshape(1, cfg.page_bytes)
+        starts = torch.clamp(qpack.offsets(qt_t[rates_t.long()][None]) * 128,
+                             max=cfg.page_bytes - 2 * v)
+        idx = starts[..., None] + torch.arange(2 * v, device=dev)
+        dense = torch.gather(buf, 1, idx.reshape(1, -1)).reshape(nb, 2 * v)
+        p_store[slot] = qpack.fused_decode(dense, rates_t).reshape(-1) \
+            .view(torch.uint8)
+
+    # record and compressed bytes read, the whole page written
+    nbytes = 4 * len(rows[0]) + comp_bytes + cfg.page_bytes
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = DECODE_OPS_PER_VALUE * nb * v / F32_OPS_PER_S
+    r = {"ms": time_graph(kern, 200), "eager_ms": time_eager(kern, 200),
+         "plain_ms": time_eager(lambda: qpack.fused_promote_plain(
+             c_store, p_store, record, **kw), 20),
+         "composition_ms": time_eager(old, 50),
+         "composition_graph_ms": time_graph(old_device, 50),
+         "bound_ms": max(t_b, t_o) * 1e3,
+         "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": nbytes,
+         "event_names": device_events(kern),
+         "composition_events": sum(device_events(old).values())}
+    r["events"] = sum(r["event_names"].values())
+    print(f"phase 5 promote step, 1 page of {nb}x{v} bf16 (rates "
+          f"{rates_h}, {comp_bytes} compressed B), whole page written: kernel "
+          f"{r['ms']:.6f} ms (graph replay), {r['eager_ms']:.6f} ms eager, "
+          f"{r['events']:.2f} device events a call {r['event_names']} | the "
+          f"composition it replaced {r['composition_ms']:.6f} ms eager, "
+          f"{r['composition_events']:.2f} device events; its device work "
+          f"{r['composition_graph_ms']:.6f} ms graph replay | plain "
+          f"{r['plain_ms']:.6f} ms | bound {r['bound_ms']:.6f} ms by "
+          f"{r['bound_by']} ({nbytes} B at 3.35 TB/s) [{tag}]", flush=True)
+    return r
+
+
+# the port's kernels: every one lives in a top-level anonymous namespace
+PORT_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::")
+
+
 def device_events(fn, calls: int = 4) -> dict:
-    """Device events (kernels, copies, fills) a call of ``fn``, by name,
-    from torch.profiler over ``calls`` calls (warmed up first). A short
-    profile can miss a kernel launched through ctypes (the ring step alone
-    has read 0 and 0.25 a call); a decode step's profile counts it."""
+    """Device events a call of ``fn`` over ``calls`` calls (warmed up
+    first), by name: PyTorch's own kernels, copies and fills as
+    torch.profiler records them, and the port's kernels as their launch
+    counters count them. A short profile can miss a kernel launched
+    through ctypes (a lone ring step, prefill fill or lane flush has read
+    0 to 0.5 a call after the serving phases, 1 a call in a fresh
+    process), so the profiler's records of the port's kernels are dropped
+    and the counters stand in."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    n0 = _port_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    n1 = _port_launch_counts()
     names: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not PORT_KERNEL.match(e.name):
             n = e.name[:60]
             names[n] = names.get(n, 0) + 1 / calls
+    for k, n in n1.items():
+        if n > n0[k]:
+            names[k] = (n - n0[k]) / calls
     return names
+
+
+def _port_launch_counts() -> dict:
+    """Every launch counter of the port's kernels (B6's tensor-core count
+    is part of its total, so it is left out)."""
+    from repro_torch.kernels import qpack
+    counts = {f"qpack_fused_{k}": getattr(qpack, f"fused_{k}_launches")
+              for k in ("encode", "decode", "demote", "promote")}
+    counts.update(_launch_counts())
+    del counts["flash_attention_tc"]
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -680,6 +940,8 @@ def _launch_counts() -> dict:
     return {"qpack_fixed_encode": qpack.encode_launches,
             "qpack_fixed_decode": qpack.decode_launches,
             "qpack_ring_step": qpack.ring_step_launches,
+            "qpack_prefill_fill": qpack.prefill_fill_launches,
+            "qpack_lane_flush": qpack.lane_flush_launches,
             "kvc_decode_attention": KA.launches,
             "flash_attention": FA.launches,
             "flash_attention_tc": FA.launches_tc}
@@ -691,6 +953,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels import qpack
     qpack.encode_launches = qpack.decode_launches = 0
     qpack.ring_step_launches = 0
+    qpack.prefill_fill_launches = qpack.lane_flush_launches = 0
     KA.launches = FA.launches = FA.launches_tc = 0
 
 
@@ -710,9 +973,12 @@ def phase_serve_kernels(dev) -> dict:
     from repro_torch.kernels import qpack
     res = {k: {"cases": 0, "mismatches": 0, "err": 0.0}
            for k in ("qpack_fixed_encode", "qpack_fixed_decode",
-                     "qpack_ring_step", "kvc_decode_attention",
+                     "qpack_ring_step", "qpack_prefill_fill",
+                     "qpack_lane_flush", "kvc_decode_attention",
                      "flash_attention")}
     _ring_cases(res["qpack_ring_step"], qpack, dev)
+    _fill_cases(res["qpack_prefill_fill"], qpack, dev)
+    _flush_cases(res["qpack_lane_flush"], qpack, dev)
     for block in (128, 512):
         x32 = torch.from_numpy(edge_blocks(131072, block, SEED + block)) \
             .to(dev)
@@ -852,8 +1118,8 @@ def phase_serve_kernels(dev) -> dict:
           f"{json.dumps({k: v for k, v in res.items()})} | tolerance "
           f"|kernel - plain| <= tol * (1 + |plain|), tol 2e-2 (bf16) and "
           f"2e-3 (f32); B6 also ||kernel - plain|| <= tol * ||plain|| per "
-          f"case, tol 1e-2 (bf16) and 1e-4 (f32); B3/B4 and the ring step "
-          f"byte for byte",
+          f"case, tol 1e-2 (bf16) and 1e-4 (f32); B3/B4, the ring step, the "
+          f"prefill fill and the lane flush byte for byte",
           flush=True)
     for k, r in res.items():
         check(r["mismatches"] == 0, f"phase 6: {k} disagrees with its plain "
@@ -925,6 +1191,114 @@ def _ring_cases(r: dict, qpack, dev) -> None:
                         (kh[i].float() - ph[i].float()).abs().max()))
                 r["cases"] += 1
                 r["mismatches"] += int(bad.sum())
+    torch.cuda.synchronize()
+
+
+def fill_inputs(B, S, L, W, H, D, bits, dtype, lens, gen, dev):
+    """A prefill layer's k and v [B, S, H, D] (normal values with an
+    all-zero token and a +-0 token), its six cache leaves (slices [1] of
+    stacked random leaves of 3 layers) and lens."""
+    kv = [torch.randn((B, S, H, D), generator=gen, device=dev) * 2
+          for _ in range(2)]
+    for t in kv:
+        t[:, 0] = 0.0
+        t[:, 1, :, ::3] = -0.0
+    leaves = []
+    for _ in range(2):
+        leaves += [torch.randint(0, 256, (3, B, L, H, D * bits // 8),
+                                 generator=gen, device=dev,
+                                 dtype=torch.uint8)[1],
+                   torch.randn((3, B, L, H), generator=gen, device=dev)[1],
+                   torch.randn((3, B, W, H, D), generator=gen, device=dev)
+                   .to(torch.bfloat16)[1]]
+    return ([t.to(dtype) for t in kv], leaves,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _fill_cases(r: dict, qpack, dev) -> None:
+    """The prefill fill against its plain version, byte for byte in the
+    six leaves: the serving path's 1 x 1,024 row and small rows with short
+    prompts (ring slots of no real token) and a window wider than the
+    prompt; D 128/64/16, 4 and 8 bits, bf16 and f32 input."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    shapes = [(1, 1024, 2048, 256, 8, 128, [1024]),
+              (4, 40, 49, 8, 8, 128, [40, 5, 1, 23])] + \
+        [(4, 40, 49, 8, H, D, [40, 5, 1, 23]) for H, D in ((2, 64), (3, 16))] \
+        + [(2, 6, 9, 8, 3, 16, [6, 3])]
+    for B, S, L, W, H, D, lens in shapes:
+        for bits in (4, 8):
+            for dtype in (torch.bfloat16, torch.float32):
+                kv, leaves, lens_t = fill_inputs(B, S, L, W, H, D, bits,
+                                                 dtype, lens, gen, dev)
+                out = []
+                for fn in (qpack.prefill_fill, qpack.prefill_fill_plain):
+                    ls = [t.clone() for t in leaves]
+                    fn(kv[0], kv[1], *ls, lens_t, bits)
+                    out.append(ls)
+                bad = torch.zeros(B, dtype=torch.bool, device=dev)
+                for a, b in zip(*out):
+                    bad |= ~_bits_equal(a, b)
+                    r["err"] = max(r["err"], float(
+                        (a.float() - b.float()).abs().max()))
+                r["cases"] += 1
+                r["mismatches"] += int(bad.sum())
+    torch.cuda.synchronize()
+
+
+# (pos, cold_len of the 3 layers) of the lane flush at W 256, T 2048: a
+# steady lane, cold_len above pos - W, a lane shorter than the window, an
+# empty ring (cold_len == pos) and pos at the end of the region
+FLUSH_LANES = ((1000, (0, 744, 900)), (700, (650, 690, 699)),
+               (100, (0, 0, 60)), (500, (500, 500, 500)),
+               (2048, (1792, 2000, 0)))
+
+
+def flush_inputs(Lyr, B, T, W, H, D, bits, gen, dev):
+    """The six leaves [Lyr, B, ...] of a batch cache: random codes and
+    scales, rings of normal values with a zero slot, a +-0 slot and a slot
+    of .5 ties."""
+    leaves = []
+    for _ in range(2):
+        hot = torch.randn((Lyr, B, W, H, D), generator=gen, device=dev) * 0.7
+        hot[:, :, 1] = 0.0
+        hot[:, :, 2, :, 1::2] = -0.0
+        hot[:, :, 3] = torch.randint(-7, 7, (Lyr, B, H, D), generator=gen,
+                                     device=dev) + 0.5
+        leaves += [torch.randint(0, 256, (Lyr, B, T, H, D * bits // 8),
+                                 generator=gen, device=dev,
+                                 dtype=torch.uint8),
+                   torch.randn((Lyr, B, T, H), generator=gen, device=dev),
+                   hot.to(torch.bfloat16)]
+    return leaves
+
+
+def _flush_cases(r: dict, qpack, dev) -> None:
+    """The lane flush on lane 1's slice of a batch cache against its plain
+    version, byte for byte in every leaf of every lane and in the clamped
+    cold_len: the lanes of FLUSH_LANES, D 128/64/16, 4 and 8 bits."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for H, D in ((8, 128), (2, 64), (3, 16)):
+        for bits in (4, 8):
+            leaves = flush_inputs(3, 3, 2048, 256, H, D, bits, gen, dev)
+            for pos, cold in FLUSH_LANES:
+                cold_len = torch.zeros((3, 3), dtype=torch.int32, device=dev)
+                cold_len[:, 1] = torch.tensor(cold, dtype=torch.int32,
+                                              device=dev)
+                out = []
+                for fn in (qpack.lane_flush, qpack.lane_flush_plain):
+                    ls = [t.clone() for t in leaves]
+                    new = fn(*(t[:, 1] for t in ls), cold_len[:, 1], pos,
+                             bits)
+                    out.append((ls, new))
+                (ka, kc), (pa, pc) = out
+                bad = int(not torch.equal(kc, pc))
+                for a, b in zip(ka, pa):
+                    bad += int((~_bits_equal(a.transpose(0, 1),
+                                             b.transpose(0, 1))).sum())
+                    r["err"] = max(r["err"], float(
+                        (a.float() - b.float()).abs().max()))
+                r["cases"] += 1
+                r["mismatches"] += bad
     torch.cuda.synchronize()
 
 
@@ -1065,24 +1439,30 @@ def phase_serve(dev, tag: str):
     t_b6, n_b6 = timed["b6"]
     want_b5 = c["steps"] * cfg.num_layers
     want_b6 = c["prefill_batches"] * cfg.num_layers
-    want_b3 = 2 * (want_b6 + c["demotions"])
+    want_flush = c["demotions"] - c["shadow_repreempts"]     # lanes parked
     print(f"phase 7 launches: {json.dumps(launches)} | expected the ring "
-          f"step and B5 one a layer a step = {want_b5}, B3 two a layer a "
-          f"prefill batch and two a lane demotion = {want_b3}, B6 one a "
-          f"layer a prefill batch = {want_b6}", flush=True)
+          f"step and B5 one a layer a step = {want_b5}, the prefill fill "
+          f"and B6 one a layer a prefill batch = {want_b6}, the lane flush "
+          f"one a lane demotion = {want_flush}, B3's own encode 0",
+          flush=True)
     print(f"phase 7 B6 in prefill: {n_b6} calls, {t_b6:.6f} s device "
           f"(CUDA events around each call) = {t_b6 / t_pre:.4f} of the "
           f"{t_pre:.3f} s of prefill [{tag}]", flush=True)
     check(c["demotions"] > 0 and c["promotions"] > 0,
           "phase 7: no demotion or promotion")
-    for k in ("qpack_fixed_encode", "qpack_ring_step", "kvc_decode_attention",
-              "flash_attention", "flash_attention_tc"):
+    for k in ("qpack_ring_step", "qpack_prefill_fill", "qpack_lane_flush",
+              "kvc_decode_attention", "flash_attention",
+              "flash_attention_tc"):
         check(launches[k] > 0, f"phase 7: {k} was not launched")
     check(launches["qpack_ring_step"] == want_b5 and
-          launches["qpack_fixed_encode"] == want_b3,
+          launches["qpack_prefill_fill"] == want_b6 and
+          launches["qpack_lane_flush"] == want_flush and
+          launches["qpack_fixed_encode"] == 0,
           f"phase 7: the ring step launched {launches['qpack_ring_step']} "
-          f"times (expected {want_b5}), B3 {launches['qpack_fixed_encode']} "
-          f"(expected {want_b3})")
+          f"times (expected {want_b5}), the prefill fill "
+          f"{launches['qpack_prefill_fill']} ({want_b6}), the lane flush "
+          f"{launches['qpack_lane_flush']} ({want_flush}), B3 "
+          f"{launches['qpack_fixed_encode']} (0)")
     check(launches["kvc_decode_attention"] == want_b5 and
           launches["flash_attention"] == want_b6 == n_b6,
           f"phase 7: B5 launched {launches['kvc_decode_attention']} times "
@@ -1130,7 +1510,10 @@ def phase_serve_profile(params, dev, tag: str) -> None:
     cell's engine and model. Device busy share = the union of the device
     events over the host wall time of the steps. Then the same engine's
     decode steps with the ring step and with the composition it replaced
-    (the eager eviction chain around B3's kernel), in turns."""
+    (the eager eviction chain around B3's kernel), in turns; and the
+    device events of one prefill batch and one lane demotion with the
+    prefill fill and the lane flush and with the compositions they
+    replaced."""
     from repro_torch.common.types import ServeConfig
     from repro_torch.kernels import qpack
     from repro_torch.serve import Engine
@@ -1196,6 +1579,97 @@ def phase_serve_profile(params, dev, tag: str) -> None:
           f"composition, composition, ring step: ms a step (host wall) "
           f"{json.dumps(ms)} | device events a step (torch.profiler, one "
           f"step) {json.dumps(events)} [{tag}]", flush=True)
+
+    # one prefill batch (a 1,000-token prompt, the 1,024 bucket) and one
+    # lane demotion (lane 0 of this engine), each with its step and with
+    # the composition it replaced: host wall ms a call in turns, and the
+    # device events of a call
+    from repro_torch.serve import engine as engine_mod
+    prompt = _prompts(1, cfg.vocab_size, SEED + 5)[0]
+    prompt = (prompt * 4)[:1000]
+    tokens = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
+    tokens[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    lens = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+    pos = int(eng.state["pos"][0])
+    steps = {
+        "prefill batch": (
+            lambda: engine_mod._prefill_impl(
+                params, {"tokens": tokens}, lens, cfg=cfg, scfg=eng.scfg,
+                max_len=SERVE_MAX_LEN),
+            "prefill_fill", ("qpack_prefill_fill", "qpack_fixed_encode"), 3),
+        "lane demotion": (
+            lambda: engine_mod._demote_lane_impl(
+                engine_mod._lane_slice(eng.cache, 0), pos, scfg=eng.scfg),
+            "lane_flush", ("qpack_lane_flush", "qpack_fixed_encode"), 20),
+    }
+    demote = engine_mod._demote_lane_impl
+    for what, (fn, attr, names, reps) in steps.items():
+        step_fn = getattr(qpack, attr)
+        ev, ms = {}, {"step": [], "composition": []}
+        try:
+            for name in ("step", "composition", "composition", "step"):
+                if attr == "lane_flush":
+                    engine_mod._demote_lane_impl = demote if name == "step" \
+                        else lane_demotion_composition(qpack)
+                else:
+                    qpack.prefill_fill = step_fn if name == "step" else \
+                        fill_composition(qpack)
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - t0) / reps)
+                if name not in ev:
+                    got = device_events(fn, calls=2)
+                    ev[name] = {"all": sum(got.values()),
+                                **{k: got.get(k, 0) for k in names}}
+        finally:
+            setattr(qpack, attr, step_fn)
+            engine_mod._demote_lane_impl = demote
+        print(f"phase 7 one {what}, the {attr.replace('_', ' ')} vs the "
+              f"composition it replaced, in turns step, composition, "
+              f"composition, step: ms a call (host wall, {reps} calls a "
+              f"turn) {json.dumps(ms)} | device events a call (two calls; "
+              f"torch.profiler, the port's kernels by their launch "
+              f"counters) {json.dumps(ev)} [{tag}]", flush=True)
+
+
+def fill_composition(qpack):
+    """The prefill's cache writes before the prefill fill: the ring's
+    sources computed once a prefill, then for K and V of each layer B3's
+    encode kernel, the codes and scales copies, the ring's gather and its
+    copy."""
+    memo = {}
+
+    def fill(k, v, kc, ks, kh, vc, vs, vh, lens, bits):
+        if memo.get("lens") is not lens:
+            memo["lens"] = lens
+            memo["where"] = (
+                torch.arange(k.shape[0], device=k.device)[:, None],
+                qpack.ring_sources(lens, k.shape[1], kh.shape[1]))
+        for t, c, s_, h in ((k, kc, ks, kh), (v, vc, vs, vh)):
+            qpack.fill_plain(t, c, s_, h, memo["where"], bits,
+                             quantize=qpack.encode)
+    return fill
+
+
+def lane_demotion_composition(qpack):
+    """serve/engine.py::_demote_lane_impl before the lane flush: the
+    reference's _ring_to_codes for K and V with B3's encode kernel (new
+    tensors), then cold_len's clamp."""
+    def demote(lane_cache, pos, *, scfg):
+        out = dict(lane_cache)
+        for kind in "kv":
+            out[f"{kind}_codes"], out[f"{kind}_scales"] = \
+                qpack.ring_to_codes_plain(
+                    out[f"{kind}_codes"], out[f"{kind}_scales"],
+                    out[f"{kind}_hot"], out["cold_len"], pos,
+                    scfg.kv_rate_bits, quantize=qpack.encode)
+        out["cold_len"] = torch.clamp(out["cold_len"], min=pos)
+        return out
+    return demote
 
 
 def phase_paper(params, dev, tag: str) -> dict:
@@ -1302,13 +1776,18 @@ def phase_serve_whole(dev) -> dict:
         if dtype == "float32":
             check(same_gen == 4, "phase 9 float32: Engine generations "
                   "differ between the kernels and the plain versions")
-        for k, v in list(kl.items()) + list(served["kernel"][1].items()):
-            # float32 prefill takes the CUDA-core route, bf16 the tensor cores
-            if k == "flash_attention_tc" and dtype == "float32":
-                check(v == 0, "phase 9 float32: the tensor-core route ran")
-                continue
-            check(v > 0 or k == "qpack_fixed_decode",
-                  f"phase 9 {dtype}: {k} was not launched in the kernel run")
+        for run, counts in (("prefill and decode", kl),
+                            ("Engine", served["kernel"][1])):
+            for k, v in counts.items():
+                # float32 prefill takes the CUDA-core route, bf16 the tensor
+                # cores; B3 and B4 themselves are off the path, and only
+                # the Engine demotes lanes
+                idle = k in ("qpack_fixed_encode", "qpack_fixed_decode") or \
+                    (k == "flash_attention_tc" and dtype == "float32") or \
+                    (k == "qpack_lane_flush" and run != "Engine")
+                check((v == 0) if idle else (v > 0),
+                      f"phase 9 {dtype}: {k} launched {v} times in the "
+                      f"kernel run's {run}")
         check(not any(pl.values()) and not any(served["plain"][1].values()),
               f"phase 9 {dtype}: a plain run launched a kernel")
         res[dtype] = {"err": err, "argmax_differ": n - agree}
@@ -1339,8 +1818,9 @@ def phase_serve_times(dev, tag: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     out = {}
 
-    # B3 at its most launched shape since the ring step took the eviction:
-    # a 1-row prefill batch of the 1,024 bucket, K or V of one layer (bf16)
+    # B3's own encode (the TPU kernel's contract; off the path since the
+    # prefill fill and the lane flush) at the shape it had there: a 1-row
+    # prefill batch of the 1,024 bucket, K or V of one layer (bf16)
     kv1 = torch.randn((1, 1024, Hkv, D), generator=gen, device=dev) \
         .to(torch.bfloat16)
     nblk = 1024 * Hkv
@@ -1367,6 +1847,43 @@ def phase_serve_times(dev, tag: str) -> dict:
         composition=lambda: qpack.ring_step_plain(*ring_args,
                                                   quantize=qpack.encode),
         nbytes=2 * B * Hkv * (6 * D + Dp + 4) + 8 * B, ops=0, reps=200)
+    # the prefill fill of one layer of a 1-row batch of the 1,024 bucket
+    # (a 1,000-token prompt), K and V, beside the composition it replaced
+    # (the ring's sources made beforehand, once a prefill as then)
+    kvf, leaves, lens1 = fill_inputs(1, 1024, S, W, Hkv, D, bits,
+                                     torch.bfloat16, [1000], gen, dev)
+    where = (torch.zeros((1, 1), dtype=torch.int64, device=dev),
+             qpack.ring_sources(lens1, 1024, W))
+    out["qpack_prefill_fill"] = dict(
+        shape=f"1x1024x{Hkv}x{D} K and V bf16 -> {bits}-bit codes of {S} "
+              f"and a ring of {W} (a prefill layer)",
+        kern=lambda: qpack.prefill_fill(kvf[0], kvf[1], *leaves, lens1, bits),
+        plain=lambda: qpack.prefill_fill_plain(kvf[0], kvf[1], *leaves,
+                                               lens1, bits), lib=None,
+        composition=lambda: [qpack.fill_plain(
+            t, *leaves[3 * j:3 * j + 3], where, bits, quantize=qpack.encode)
+            for j, t in enumerate(kvf)],
+        nbytes=2 * (1024 * Hkv * (2 * D + Dp + 4) + W * Hkv * 2 * D) + 4,
+        ops=0, reps=200)
+    # the lane flush of lane 1 of an 8-lane cache of 32 layers, a live ring
+    # of W tokens in every layer, beside the composition it replaced
+    from repro_torch.common.types import ServeConfig
+    lyr, posf = cfg.num_layers, 1000
+    flush_leaves = flush_inputs(lyr, B, S, W, Hkv, D, bits, gen, dev)
+    lane = [t[:, 1] for t in flush_leaves]
+    cold_f = torch.full((lyr, B), posf - W, dtype=torch.int32, device=dev)
+    names = ("k_codes", "k_scales", "k_hot", "v_codes", "v_scales", "v_hot")
+    lane_cache = dict(zip(names, lane), cold_len=cold_f[:, 1])
+    old_demote = lane_demotion_composition(qpack)
+    scfg = ServeConfig(**SERVE_CFG)
+    out["qpack_lane_flush"] = dict(
+        shape=f"lane 1 of {B}: {lyr} layers, a live ring of {W} x {Hkv} x "
+              f"{D} bf16 -> {bits}-bit codes of {S}",
+        kern=lambda: qpack.lane_flush(*lane, cold_f[:, 1], posf, bits),
+        plain=lambda: qpack.lane_flush_plain(*lane, cold_f[:, 1], posf,
+                                             bits), lib=None,
+        composition=lambda: old_demote(lane_cache, posf, scfg=scfg),
+        nbytes=lyr * (W * Hkv * 2 * (2 * D + Dp + 4) + 8), ops=0, reps=50)
     # B4 at the paper path's shape: the whole compressed region of 8 lanes
     kc, ks = qpack.encode(torch.randn((B, S, Hkv, D), generator=gen,
                                       device=dev), bits, D)
@@ -1505,8 +2022,10 @@ def main() -> int:
             ("encode", 32, 278, "none since the demote-and-compact kernel "
              "took the pool's demotion: the TPU kernel's contract, held in "
              "phase 2"),
-            ("decode", 4, 305, "pool main (phase 3)"),
-            ("demote", 8, 278, "pool main (phase 3)")):
+            ("decode", 4, 305, "none since the promote step took the "
+             "pool's promotion: the TPU kernel's contract, held in phase 2"),
+            ("demote", 8, 278, "pool main (phase 3)"),
+            ("promote", 1, 305, "pool main (phase 3)")):
         t = times[(kind, n)]
         kernels.append({
             "name": f"qpack_fused_{kind}", "route": "cuda", "source": src,
@@ -1515,8 +2034,9 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "eager_ms": t["eager_ms"], "path": path,
-            "shape": (f"{n} pages of 4x512 bf16" if kind == "demote" else
-                      f"{n}x512 bf16"), "cases": errs[kind]["cases"],
+            "shape": (f"{n} pages of 4x512 bf16" if kind in ("demote",
+                                                            "promote")
+                      else f"{n}x512 bf16"), "cases": errs[kind]["cases"],
             "mismatches": errs[kind]["mismatches"],
             **{f: t[f] for f in extra if f in t}})
     # B4 runs on the paper path only: its launches are that path's
@@ -1526,6 +2046,8 @@ def main() -> int:
     for name_, source, replaces in (
             ("qpack_fixed_encode", "qpack_fixed.cu", "qpack.py:122"),
             ("qpack_ring_step", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_prefill_fill", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_lane_flush", "qpack_fixed.cu", "qpack.py:122"),
             ("qpack_fixed_decode", "qpack_fixed.cu", "qpack.py:148"),
             ("kvc_decode_attention", "kvc_attn.cu", "kvc_attn.py:96"),
             ("flash_attention", "flash_attn.cu", "flash_attn.py:72")):
@@ -1539,6 +2061,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": ("serve paper (phase 8)" if name_ == "qpack_fixed_decode"
+                     else "none since the prefill fill and the lane flush: "
+                     "the TPU kernel's contract, held in phase 6"
+                     if name_ == "qpack_fixed_encode"
                      else "serve main (phase 7)"),
             "shape": t["shape"], "cases": e["cases"],
             "mismatches": e["mismatches"],

@@ -9,7 +9,8 @@ page as one 2048-value block.
 Two implementations of one format: the plain oracle here
 (``compress_impl="jnp"``) and the fused kernels (``"kernel"``,
 kernels/qpack.py: a demotion is one launch of the demote-and-compact
-kernel), byte-identical to each other.
+kernel, a promotion one launch of the promote kernel), byte-identical to
+each other.
 
 The flat fixed-rate quantization of the KV cache (``quantize_blocks`` and
 its kin, at the end) is a second format with the same two
@@ -158,14 +159,8 @@ def _page_dense_blocks(bufs: torch.Tensor, rates: torch.Tensor,
                        vals: int) -> torch.Tensor:
     """Slice compacted page streams [P, page_bytes] back into dense
     per-block buffers [P, B, 2V] (slice starts clamped to fit)."""
-    page_bytes = bufs.shape[-1]
-    qt = torch.tensor(quanta_per_rate(vals), dtype=torch.int64,
-                      device=bufs.device)
-    starts = torch.clamp(qpack.offsets(qt[rates.long()]) * QUANTUM,
-                         max=page_bytes - 2 * vals)             # [P, B]
-    idx = starts[..., None] + torch.arange(2 * vals, device=bufs.device)
     npages, nblocks = rates.shape
-    return torch.gather(bufs, 1, idx.reshape(npages, -1)) \
+    return qpack.dense_rows_plain(bufs, rates, vals, quanta_per_rate(vals)) \
         .reshape(npages, nblocks, 2 * vals)
 
 
@@ -188,6 +183,26 @@ def decode_pages(bufs: torch.Tensor, rates: torch.Tensor,
 def decode_page(buf: torch.Tensor, rates: torch.Tensor,
                 cfg: PoolConfig) -> torch.Tensor:
     return decode_pages(buf[None], rates[None], cfg)[0]
+
+
+def promote_pages(c_store: torch.Tensor, p_store: torch.Tensor,
+                  record: torch.Tensor, cfg: PoolConfig) -> None:
+    """The pool's promotion step, in place on ``p_store``: ``record``
+    int32[K, chunks_per_page + B + 2] holds, per page, its chunk ids, its
+    block rates, its P-chunk slot and its mask over the page's
+    ``block_bytes`` ranges. The kernel path is one launch of the promote
+    kernel (chunk gather, dense slicing, decode, masked store); the plain
+    path is that kernel's plain composition with the oracle's decode."""
+    nblocks = cfg.blocks_per_page if cfg.coloc else 1
+    vals = cfg.vals_per_page // nblocks
+    kw = dict(blocks=nblocks, chunk_bytes=cfg.chunk_bytes,
+              range_bytes=cfg.block_bytes, quanta=quanta_per_rate(vals))
+    if resolve_impl(cfg, c_store.device) == "kernel":
+        return qpack.fused_promote(c_store, p_store, record, **kw)
+    return qpack.fused_promote_plain(
+        c_store, p_store, record,
+        decode=lambda dense, rates: _decode_block_dense(dense, rates, vals),
+        **kw)
 
 
 def page_compressed_bytes(rates, vals_per_block: int) -> int:

@@ -417,13 +417,17 @@ def _rates_of(entry: List[int], cfg: PoolConfig) -> List[int]:
     return [md.get_block_sz(entry[0], 0)]
 
 
-def _decode_into(pool: Pool, cfg: PoolConfig, entry: List[int]
-                 ) -> torch.Tensor:
-    """Decode ``entry``'s compressed page: its bytes, uint8[page_bytes]."""
-    buf = _gather_page_buf(pool, cfg, entry)
-    rates = contracts.upload(_rates_of(entry, cfg), torch.int32,
-                             buf.device)
-    return _page_to_bytes(comp.decode_page(buf, rates, cfg))
+def _promote_into(pool: Pool, cfg: PoolConfig, entry: List[int], slot: int,
+                  ranges: List[int]) -> None:
+    """Decode ``entry``'s compressed page into P-chunk ``slot``, only in
+    its ``block_bytes`` ranges listed in ``ranges``: one record upload and
+    one promote step (``compressor.promote_pages``)."""
+    mask = sum(1 << r for r in ranges)
+    rec = _page_chunk_ids(cfg, entry, pool.c_store.shape[0]) + \
+        _rates_of(entry, cfg) + [slot, mask]
+    comp.promote_pages(pool.c_store, pool.p_store,
+                       contracts.upload([rec], torch.int32,
+                                        pool.p_store.device), cfg)
 
 
 def promote(pool: Pool, cfg: PoolConfig, policy: Policy, ospn: int,
@@ -454,13 +458,10 @@ def promote(pool: Pool, cfg: PoolConfig, policy: Policy, ospn: int,
     policy.charge_migration(pool.counters, C_PROMO_RD, q_all if full else q_blk)
 
     if cfg.store_payload:
-        page = _decode_into(pool, cfg, entry)
-        slot = _pslot(pool, pidx)
-        if cfg.coloc and not full:
-            rng = _block_range(cfg, block_idx)
-            pool.p_store[slot, rng] = page[rng]
-        else:
-            pool.p_store[slot] = page
+        n_ranges = cfg.page_bytes // cfg.block_bytes
+        ranges = [_block_range(cfg, block_idx).start // cfg.block_bytes] \
+            if cfg.coloc and not full else list(range(n_ranges))
+        _promote_into(pool, cfg, entry, _pslot(pool, pidx), ranges)
     policy.charge_migration(pool.counters, C_PROMO_WR,
                             cfg.page_bytes // 64 if full else cfg.block_bytes // 64)
     bump(pool.counters, C_PROMOTIONS)
@@ -599,13 +600,10 @@ def _update_promote(pool: Pool, cfg: PoolConfig, policy: Policy, ospn: int,
     if any(cold):
         rates = _rates_of(e, cfg)
         if cfg.store_payload:
-            page = _decode_into(pool, cfg, e)
-            slot = _pslot(pool, pidx)
-            for p in range(cfg.page_bytes // cfg.block_bytes):
-                hot = p < nblocks and md.get_block_type(ww, p) == md.BT_PROM
-                if not hot:
-                    rng = slice(p * cfg.block_bytes, (p + 1) * cfg.block_bytes)
-                    pool.p_store[slot, rng] = page[rng]
+            _promote_into(pool, cfg, e, _pslot(pool, pidx), [
+                p for p in range(cfg.page_bytes // cfg.block_bytes)
+                if not (p < nblocks and
+                        md.get_block_type(ww, p) == md.BT_PROM)])
         nb = comp.page_compressed_bytes(rates, cfg.vals_per_page // len(rates)) // 64
         policy.charge_migration(pool.counters, C_PROMO_RD, nb)
         policy.charge_migration(pool.counters, C_PROMO_WR, cfg.page_bytes // 64)

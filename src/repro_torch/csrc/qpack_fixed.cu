@@ -40,6 +40,31 @@
 // + 4) bytes, some 10 ns at llama3-8b's widths, so the call costs the
 // latency of one launch. A group of D/8 threads (16 at D 128) owns one
 // (lane, head, K or V) block, so one warp does K and V of a head.
+//
+// Prefill fill (qpack_prefill_fill): a prefill layer's cache writes, K and
+// V, in one launch: every prompt token quantized (encode_block) straight
+// into the strided codes/scales rows [:, :S] of the layer's cache, and the
+// ring's W slots copied from their source tokens in bf16. It replaces
+// about 8 device events a layer (the encode, the codes and scales copies,
+// the ring gather and its copy, for K and for V). Bound: at llama3-8b's
+// widths one 1,024-token row moves about 6.3 MB, some 2 us.
+//
+// Lane flush (qpack_lane_flush): the device half of a lane demotion, K and
+// V of all layers in one launch: only the live ring tokens, positions
+// [max(cold_len, pos - W), pos), are quantized from slot p % W into the
+// lane's codes and scales at p, in place, and each layer's cold_len
+// clamped to pos goes to a fresh output. It replaces about 29 device events
+// and some 200 MB of traffic for each of K and V (the whole ring converted to f32 and
+// quantized, masks, a gather of codes over every position and two
+// where-selects over the lane's region, for K and for V). In place is
+// safe: serve/engine.py parks (copies to the host) the lane's codes right
+// after the flush, and nothing reads the lane's slice again before
+// _install_parked or _lanes_install overwrites all of it (the decode steps
+// in between run the lane inactive and drop its output). Bound: a live
+// ring of 256 tokens in each of 32 layers reads 33.6 MB of bf16 (K and V)
+// and writes 8.9 MB of codes and scales at llama3-8b's widths, some 13 us.
+// One group of D/8 threads a (layer, K or V, position, head) block, as in
+// the ring step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -275,6 +300,109 @@ ring_step_kernel(uint8_t* __restrict__ k_codes, float* __restrict__ k_scales,
   }
 }
 
+// The prefill fill of one layer, K and V: CTAs [0, enc_ctas) quantize the
+// blocks of t[B, S, H, D] (block blk = ((kind * B + b) * S + s) * H + h,
+// groups of (1 << tpb_log2) threads) into codes [B, L, H, D*bits/8] and
+// scales [B, L, H] at position s < S <= L; the CTAs after them copy the
+// ring, one group a row (kind, b, w, h): hot[b, w, h] = t[b, src, h] in
+// bf16 with src = clamp(last - ((last - w) mod W), 0, S - 1), last =
+// lens[b] - 1, the latest real token at a position = w (mod W). The
+// branch is per CTA, so a group's shuffles never diverge.
+template <typename TIn>
+__global__ void __launch_bounds__(kThreads)
+prefill_fill_kernel(const TIn* __restrict__ k, const TIn* __restrict__ v,
+                    uint8_t* __restrict__ k_codes,
+                    float* __restrict__ k_scales,
+                    __nv_bfloat16* __restrict__ k_hot,
+                    uint8_t* __restrict__ v_codes,
+                    float* __restrict__ v_scales,
+                    __nv_bfloat16* __restrict__ v_hot,
+                    const int32_t* __restrict__ lens, int B, int S, int L,
+                    int W, int H, int D, int bits, int tpb_log2,
+                    int enc_ctas) {
+  const int tpb = 1 << tpb_log2;
+  const int sub = static_cast<int>(threadIdx.x & (tpb - 1));
+  if (static_cast<int>(blockIdx.x) < enc_ctas) {
+    const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+    const int64_t per = static_cast<int64_t>(B) * S * H;
+    int64_t blk = g >> tpb_log2;
+    const bool live = blk < 2 * per;
+    if (!live) blk = 2 * per - 1;      // still joins the group's shuffles
+    const bool is_v = blk >= per;
+    const int64_t r = is_v ? blk - per : blk;   // (b * S + s) * H + h
+    const int64_t bs = r / H;
+    const int64_t at = ((bs / S) * L + bs % S) * H + r % H;
+    encode_block<8>((is_v ? v : k) + r * D,
+                    (is_v ? v_codes : k_codes) + at * (D * bits / 8),
+                    (is_v ? v_scales : k_scales) + at, D, bits, sub, tpb,
+                    live);
+    return;
+  }
+  const int64_t g = static_cast<int64_t>(blockIdx.x - enc_ctas) * kThreads +
+                    threadIdx.x;
+  const int64_t per = static_cast<int64_t>(B) * W * H;
+  const int64_t row = g >> tpb_log2;
+  if (row >= 2 * per) return;
+  const bool is_v = row >= per;
+  const int64_t r = is_v ? row - per : row;     // (b * W + w) * H + h
+  const int h = static_cast<int>(r % H);
+  const int w = static_cast<int>((r / H) % W);
+  const int b = static_cast<int>(r / H / W);
+  const int last = lens[b] - 1;
+  const int src = min(max(last - (((last - w) % W) + W) % W, 0), S - 1);
+  const TIn* x = (is_v ? v : k) +
+                 ((static_cast<int64_t>(b) * S + src) * H + h) * D;
+  __nv_bfloat16* y = (is_v ? v_hot : k_hot) + r * D;
+  for (int c = sub; c < D / 8; c += tpb) {
+    float vals[8];
+    load_vals<8>(x + c * 8, vals);
+    store_vals<8>(y + c * 8, vals);
+  }
+}
+
+// The device half of a lane demotion, K and V of every layer, in place:
+// block blk = ((l * 2 + kind) * W + j) * H + h quantizes the ring slot of
+// position p = pos - W + j into codes/scales at p when p >= 0, p >=
+// cold_len[l] and p < T (the live ring tokens, [max(cold_len, pos - W),
+// pos)); the bf16 ring converts to f32 exactly, so the codes are those of
+// the f32 path. Each layer's clamped cold_len, max(cold_len, pos), goes
+// to cold_out. Leading (layer) strides in elements; a layer's codes
+// [T, H, D*bits/8], scales [T, H] and ring [W, H, D] are contiguous.
+__global__ void __launch_bounds__(kThreads)
+lane_flush_kernel(uint8_t* __restrict__ k_codes, float* __restrict__ k_scales,
+                  const __nv_bfloat16* __restrict__ k_hot,
+                  uint8_t* __restrict__ v_codes, float* __restrict__ v_scales,
+                  const __nv_bfloat16* __restrict__ v_hot,
+                  const int32_t* __restrict__ cold_len,
+                  int32_t* __restrict__ cold_out, int64_t codes_ls,
+                  int64_t scales_ls, int64_t hot_ls, int64_t cold_ls,
+                  int Lyr, int T, int W, int H, int D, int bits, int pos,
+                  int tpb_log2) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int tpb = 1 << tpb_log2;
+  const int64_t nblk = static_cast<int64_t>(Lyr) * 2 * W * H;
+  int64_t blk = g >> tpb_log2;
+  const int sub = static_cast<int>(g & (tpb - 1));
+  const bool live = blk < nblk;
+  if (!live) blk = nblk - 1;           // still joins the group's shuffles
+  const int h = static_cast<int>(blk % H);
+  const int j = static_cast<int>((blk / H) % W);
+  const bool is_v = (blk / H / W) & 1;
+  const int l = static_cast<int>(blk / H / W / 2);
+  const int cl = cold_len[l * cold_ls];
+  const int p = pos - W + j;
+  const bool flush = live && p >= 0 && p >= cl && p < T;
+  const int slot = flush ? p % W : 0;
+  const __nv_bfloat16* ring = (is_v ? v_hot : k_hot) + l * hot_ls +
+                              (static_cast<int64_t>(slot) * H + h) * D;
+  const int64_t at = static_cast<int64_t>(flush ? p : 0) * H + h;
+  encode_block<8>(ring, (is_v ? v_codes : k_codes) + l * codes_ls +
+                            at * (D * bits / 8),
+                  (is_v ? v_scales : k_scales) + l * scales_ls + at, D, bits,
+                  sub, tpb, flush);
+  if (live && j == 0 && h == 0 && !is_v && sub == 0) cold_out[l] = max(cl, pos);
+}
+
 int tpb_log2_for(int nchunks) {
   int t = 0;                            // largest power of two <= 32
   while (t < 5 && nchunks % (2 << t) == 0) ++t;   // that divides nchunks
@@ -363,5 +491,66 @@ extern "C" int qpack_ring_step(void* k_codes, void* k_scales, void* k_hot,
   else if (new_f32) RING(__nv_bfloat16, float);
   else RING(__nv_bfloat16, __nv_bfloat16);
 #undef RING
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prefill fill of one layer (see prefill_fill_kernel): k, v [B, S, H,
+// D] (bf16, or f32 when x_f32), codes [B, L, H, D*bits/8] u8, scales [B,
+// L, H] f32, hot [B, W, H, D] bf16, lens [B] int32; S <= L, D a multiple of
+// 8, k/v/hot 16-byte aligned, codes aligned to their 4- or 8-byte stores.
+extern "C" int qpack_prefill_fill(const void* k, const void* v, int x_f32,
+                                  void* k_codes, void* k_scales, void* k_hot,
+                                  void* v_codes, void* v_scales, void* v_hot,
+                                  const void* lens, int b, int s_len,
+                                  int l_len, int w, int h, int d, int bits,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b < 1 || s_len < 1 || s_len > l_len || w < 1 || h < 1 || d % 8 != 0 ||
+      d < 8 || (bits != 4 && bits != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tl = tpb_log2_for(d / 8);
+  const int64_t enc = (static_cast<int64_t>(2) * b * s_len * h) << tl;
+  const int64_t hot = (static_cast<int64_t>(2) * b * w * h) << tl;
+  const int enc_ctas = static_cast<int>((enc + kThreads - 1) / kThreads);
+  const dim3 grid(static_cast<unsigned>(enc_ctas + (hot + kThreads - 1) / kThreads));
+#define FILL(TIN)                                                            \
+  prefill_fill_kernel<TIN><<<grid, kThreads, 0, s>>>(                       \
+      static_cast<const TIN*>(k), static_cast<const TIN*>(v),               \
+      static_cast<uint8_t*>(k_codes), static_cast<float*>(k_scales),        \
+      static_cast<__nv_bfloat16*>(k_hot), static_cast<uint8_t*>(v_codes),   \
+      static_cast<float*>(v_scales), static_cast<__nv_bfloat16*>(v_hot),    \
+      static_cast<const int32_t*>(lens), b, s_len, l_len, w, h, d, bits, tl, \
+      enc_ctas)
+  if (x_f32) FILL(float);
+  else FILL(__nv_bfloat16);
+#undef FILL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lane flush (see lane_flush_kernel): codes [Lyr, T, H, D*bits/8] u8,
+// scales [Lyr, T, H] f32, hot [Lyr, W, H, D] bf16, cold_len [Lyr] int32,
+// each with its own layer stride (elements); cold_out int32[Lyr].
+extern "C" int qpack_lane_flush(void* k_codes, void* k_scales,
+                                const void* k_hot, void* v_codes,
+                                void* v_scales, const void* v_hot,
+                                const void* cold_len, void* cold_out,
+                                long long codes_ls, long long scales_ls,
+                                long long hot_ls, long long cold_ls, int lyr,
+                                int t_len, int w, int h, int d, int bits,
+                                int pos, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lyr < 1 || t_len < 1 || w < 1 || h < 1 || d % 8 != 0 || d < 8 ||
+      (bits != 4 && bits != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tl = tpb_log2_for(d / 8);
+  const int64_t threads = (static_cast<int64_t>(lyr) * 2 * w * h) << tl;
+  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
+  lane_flush_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<uint8_t*>(k_codes), static_cast<float*>(k_scales),
+      static_cast<const __nv_bfloat16*>(k_hot), static_cast<uint8_t*>(v_codes),
+      static_cast<float*>(v_scales), static_cast<const __nv_bfloat16*>(v_hot),
+      static_cast<const int32_t*>(cold_len), static_cast<int32_t*>(cold_out),
+      codes_ls, scales_ls, hot_ls, cold_ls, lyr, t_len, w, h, d, bits, pos,
+      tl);
   return static_cast<int>(cudaGetLastError());
 }

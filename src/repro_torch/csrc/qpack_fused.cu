@@ -31,6 +31,22 @@
 // victims, the encode, about 26 launches of compaction, the chunk
 // arithmetic and a concatenation of what the host fetches).
 //
+// Promotion step (qpack_fused_promote): the pool's whole promotion in one
+// launch, with the decode's own body (decode_piece). One CTA per page of
+// 128 threads: the page's compacted stream is read from the C-chunk store
+// through the page's chunk ids (16-byte loads into shared memory), block i
+// is located at 128 * sum(quanta[:i]) clamped to page_bytes - 2V, decoded
+// in registers 8 values a thread at a time, and written with 16-byte
+// stores straight into the page's P-chunk row, only in the block_bytes
+// ranges its mask selects (fine-grained promotion writes one block; an
+// update-promotion keeps the hot ones). The host uploads one int32 record
+// a page (chunk ids, rates, slot, mask). It replaces an eager chain of
+// about 15 device events per promotion around the TPU kernel's contract
+// (three uploads, the chunk gather, the dense slicing's index arithmetic
+// and gather, the decode, and one to four copies into the store). A page
+// moves at most 4 KB in and 4 KB out, some 2.5 ns at 3.35 TB/s, so the
+// step is bound by the latency of its one launch.
+//
 // Bound: both are one pass over memory with no reuse. Encode reads 2V bytes
 // (bf16) and writes 2V + 8 bytes per block; decode reads 2V + 4 and writes
 // 2V. At 3.35 TB/s a 512-value block costs ~0.6 ns each way; a demotion
@@ -51,6 +67,7 @@ namespace {
 
 constexpr int kWarps = 4;              // blocks (rows) per CTA of the encode
 constexpr int kMaxPageWarps = 8;       // blocks per page of the demotion
+constexpr int kPromoteThreads = 128;   // threads of a promotion CTA
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -243,6 +260,43 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
   return bf16_bits(a) | (bf16_bits(b) << 16);
 }
 
+// The 8 values [8*idx, +8) of a dense row dr at `rate`, as 8 bf16 (one
+// 16-byte store): raw bytes, sign-extended nibbles or int8 codes times the
+// row's f32 scale rounded to bf16, or zeros. The one copy of the decode:
+// fused_decode_kernel calls it on rows in device memory, fused_promote_
+// kernel on rows of a page stream in shared memory. dr is 16-byte aligned.
+__device__ __forceinline__ uint4 decode_piece(const uint8_t* dr, int rate,
+                                              float scale, int idx) {
+  const uint32_t* dw = reinterpret_cast<const uint32_t*>(dr);
+  uint4 o = make_uint4(0u, 0u, 0u, 0u);
+  if (rate == 3) {
+    o = reinterpret_cast<const uint4*>(dr)[idx];
+  } else if (rate == 1 || rate == 2) {
+    float f[8];
+    if (rate == 1) {
+      const uint32_t w = dw[1 + idx];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        int q = static_cast<int>((w >> (4 * t)) & 0xfu);
+        q = q >= 8 ? q - 16 : q;
+        f[t] = __fmul_rn(static_cast<float>(q), scale);
+      }
+    } else {
+      const uint32_t w[2] = {dw[1 + 2 * idx], dw[2 + 2 * idx]};
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int q = static_cast<int8_t>((w[t / 4] >> (8 * (t % 4))) & 0xffu);
+        f[t] = __fmul_rn(static_cast<float>(q), scale);
+      }
+    }
+    o.x = pack2(f[0], f[1]);
+    o.y = pack2(f[2], f[3]);
+    o.z = pack2(f[4], f[5]);
+    o.w = pack2(f[6], f[7]);
+  }
+  return o;
+}
+
 template <int CH>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_decode_kernel(const uint8_t* __restrict__ dense,
@@ -253,40 +307,57 @@ fused_decode_kernel(const uint8_t* __restrict__ dense,
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n) return;
   const uint8_t* dr = dense + static_cast<size_t>(row) * (2 * V);
-  const uint32_t* dw = reinterpret_cast<const uint32_t*>(dr);
   const int rate = rates[row];
-  const float scale = __uint_as_float(dw[0]);
+  const float scale = __uint_as_float(reinterpret_cast<const uint32_t*>(dr)[0]);
   uint4* orow = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * V);
 #pragma unroll
   for (int j = 0; j < CH; ++j) {
     const int idx = lane + 32 * j;     // 8 output values [8*idx, +8)
-    uint4 o = make_uint4(0u, 0u, 0u, 0u);
-    if (rate == 3) {
-      o = reinterpret_cast<const uint4*>(dr)[idx];
-    } else if (rate == 1 || rate == 2) {
-      float f[8];
-      if (rate == 1) {
-        const uint32_t w = dw[1 + idx];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          int q = static_cast<int>((w >> (4 * t)) & 0xfu);
-          q = q >= 8 ? q - 16 : q;
-          f[t] = __fmul_rn(static_cast<float>(q), scale);
-        }
-      } else {
-        const uint32_t w[2] = {dw[1 + 2 * idx], dw[2 + 2 * idx]};
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int q = static_cast<int8_t>((w[t / 4] >> (8 * (t % 4))) & 0xffu);
-          f[t] = __fmul_rn(static_cast<float>(q), scale);
-        }
-      }
-      o.x = pack2(f[0], f[1]);
-      o.y = pack2(f[2], f[3]);
-      o.z = pack2(f[4], f[5]);
-      o.w = pack2(f[6], f[7]);
+    orow[idx] = decode_piece(dr, rate, scale, idx);
+  }
+}
+
+// The pool's promotion step: CTA k promotes one page. Its record rec =
+// record + k * (cpp + nb + 2) holds the page's cpp chunk ids, its nb block
+// rates, the P-chunk slot and the mask of the range_bytes ranges to write.
+// The page stream is gathered into shared memory with 16-byte loads
+// through the chunk table (a piece never straddles a chunk: chunk_bytes
+// and every offset are multiples of 16); then each thread decodes 16-byte
+// pieces of the bf16 page (block i's dense row starts at 128 * sum of the
+// quanta of blocks < i, clamped to page_bytes - 2v, as
+// compressor.py::_page_dense_blocks slices it) and stores the pieces of
+// the ranges the mask selects straight into p_store[slot].
+__global__ void __launch_bounds__(kPromoteThreads)
+fused_promote_kernel(const uint8_t* __restrict__ c_store,
+                     uint8_t* __restrict__ p_store,
+                     const int32_t* __restrict__ record, int cpp, int nb,
+                     int v, int chunk_bytes, int range_bytes, int q0, int q1,
+                     int q2, int q3) {
+  extern __shared__ __align__(16) uint8_t stream[];
+  const int page_bytes = 2 * nb * v;
+  const int32_t* rec = record + static_cast<size_t>(blockIdx.x) * (cpp + nb + 2);
+  for (int o = 16 * threadIdx.x; o < page_bytes; o += 16 * blockDim.x) {
+    const int c = o / chunk_bytes;
+    *reinterpret_cast<uint4*>(stream + o) = *reinterpret_cast<const uint4*>(
+        c_store + static_cast<size_t>(rec[c]) * chunk_bytes +
+        (o - c * chunk_bytes));
+  }
+  __syncthreads();
+  const int32_t* rates = rec + cpp;
+  const uint32_t mask = static_cast<uint32_t>(rec[cpp + nb + 1]);
+  uint8_t* dst = p_store + static_cast<size_t>(rec[cpp + nb]) * page_bytes;
+  for (int p = threadIdx.x; p < page_bytes / 16; p += blockDim.x) {
+    if (!((mask >> ((16 * p) / range_bytes)) & 1u)) continue;
+    const int i = (8 * p) / v;         // the piece's block
+    int start = 0;
+    for (int j = 0; j < i; ++j) {
+      const int r = rates[j];
+      start += r == 0 ? q0 : r == 1 ? q1 : r == 2 ? q2 : q3;
     }
-    orow[idx] = o;
+    const uint8_t* dr = stream + min(128 * start, page_bytes - 2 * v);
+    const float scale = __uint_as_float(reinterpret_cast<const uint32_t*>(dr)[0]);
+    *reinterpret_cast<uint4*>(dst + 16 * p) =
+        decode_piece(dr, rates[i], scale, p - i * (v / 8));
   }
 }
 
@@ -384,5 +455,29 @@ extern "C" int qpack_fused_decode(const void* dense, const void* rates,
 #undef DEC
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Promotion: k pages, each of nb blocks of v values (cpp chunks of
+// chunk_bytes), from c_store [*, chunk_bytes] into p_store [*,
+// 2*nb*v] through record int32[k, cpp + nb + 2] (chunk ids, rates, slot,
+// range mask over 2*nb*v / range_bytes <= 31 ranges). Slots must differ.
+extern "C" int qpack_fused_promote(const void* c_store, void* p_store,
+                                   const void* record, int k, int cpp,
+                                   int nb, int v, int chunk_bytes,
+                                   int range_bytes, int q0, int q1, int q2,
+                                   int q3, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int page_bytes = 2 * nb * v;
+  if (k < 1 || nb < 1 || nb > kMaxPageWarps || v % 256 != 0 || v < 256 ||
+      v > 2048 || chunk_bytes < 16 || chunk_bytes % 16 != 0 ||
+      cpp * chunk_bytes != page_bytes || range_bytes < 16 ||
+      range_bytes % 16 != 0 || page_bytes % range_bytes != 0 ||
+      page_bytes / range_bytes > 31)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fused_promote_kernel<<<k, kPromoteThreads, page_bytes, s>>>(
+      static_cast<const uint8_t*>(c_store), static_cast<uint8_t*>(p_store),
+      static_cast<const int32_t*>(record), cpp, nb, v, chunk_bytes,
+      range_bytes, q0, q1, q2, q3);
   return static_cast<int>(cudaGetLastError());
 }

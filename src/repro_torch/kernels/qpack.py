@@ -8,6 +8,10 @@ and the wrappers the compressor calls.
     same encode kernel: the victims' pages read from the store, encoded,
     compacted into page streams, and their chunk counts and the record the
     host fetches.
+  * ``fused_promote`` is the pool's whole promotion step in one launch,
+    with B2's decode body: each page's compacted stream read from the
+    C-chunk store through its chunk ids, its blocks decoded, and the bf16
+    bytes written into its P-chunk row in the ranges a mask selects.
   * ``encode``/``decode`` (``csrc/qpack_fixed.cu``) replace
     ``qpack_encode_2d`` and ``qpack_decode_2d`` with the shape contract of
     their wrappers ``kernels/ops.py::qpack_encode``/``qpack_decode``:
@@ -16,6 +20,10 @@ and the wrappers the compressor calls.
   * ``ring_step`` is one decode step's hot-window update of a layer (the
     eviction of the token aging out of the ring into the compressed region
     with the encode's quantize, then the new token's insert) in one launch.
+  * ``prefill_fill`` is a prefill layer's cache fill (K and V quantized into
+    the codes region, the ring copied) and ``lane_flush`` a lane demotion's
+    device half (the live ring tokens of every layer quantized into the
+    lane's codes), each one launch with the same quantize.
 
 All are memory-bound single passes; the source notes in the ``.cu`` files
 give the bound and the design.
@@ -43,6 +51,9 @@ fused_demote_launches = 0
 encode_launches = 0
 decode_launches = 0
 ring_step_launches = 0
+fused_promote_launches = 0
+prefill_fill_launches = 0
+lane_flush_launches = 0
 
 QUANTUM = 128                   # bytes of a compaction quantum
 
@@ -191,6 +202,52 @@ def fused_demote_plain(x: torch.Tensor, slots, *, blocks: int,
             torch.cat([rates.reshape(-1), nch]))
 
 
+def dense_rows_plain(bufs: torch.Tensor, rates: torch.Tensor, vals: int,
+                     quanta: tuple) -> torch.Tensor:
+    """Slice compacted page streams [P, page_bytes] back into dense
+    per-block rows [P*B, 2V]: block i at 128 * sum(quanta[rates[:i]]),
+    clamped to fit (the reference's ``dynamic_slice``)."""
+    page_bytes = bufs.shape[-1]
+    qt = torch.tensor(tuple(quanta), dtype=torch.int64, device=bufs.device)
+    starts = torch.clamp(offsets(qt[rates.long()]) * QUANTUM,
+                         max=page_bytes - 2 * vals)             # [P, B]
+    idx = starts[..., None] + torch.arange(2 * vals, device=bufs.device)
+    npages, nblocks = rates.shape
+    return torch.gather(bufs, 1, idx.reshape(npages, nblocks * 2 * vals)) \
+        .reshape(npages * nblocks, 2 * vals)
+
+
+def fused_promote_plain(c_store: torch.Tensor, p_store: torch.Tensor,
+                        record: torch.Tensor, *, blocks: int,
+                        chunk_bytes: int, range_bytes: int,
+                        quanta: tuple = (0, 3, 5, 8),
+                        decode=fused_decode_plain) -> None:
+    """``fused_promote``'s plain version, in place on ``p_store``: for each
+    page k of ``record`` int32[K, cpp + blocks + 2] (its cpp chunk ids, its
+    block rates, its P-chunk slot, its range mask), the page stream is
+    gathered from ``c_store`` rows, sliced into dense rows, decoded
+    (``decode``: ``fused_decode_plain``, or the kernel ``fused_decode``
+    for the composition the step replaced) and written into
+    ``p_store[slot]`` where bit r of the mask selects bytes [r *
+    range_bytes, (r + 1) * range_bytes)."""
+    k = record.shape[0]
+    cpp = record.shape[1] - blocks - 2
+    page_bytes = cpp * chunk_bytes
+    vals = page_bytes // (2 * blocks)
+    bufs = c_store.index_select(0, record[:, :cpp].reshape(-1).long()) \
+        .reshape(k, page_bytes)
+    rates = record[:, cpp:cpp + blocks]
+    page = decode(dense_rows_plain(bufs, rates, vals, quanta),
+                  rates.reshape(-1)).reshape(k, blocks * vals).contiguous() \
+        .view(torch.uint8)
+    ranges = torch.arange(page_bytes // range_bytes, dtype=torch.int32,
+                          device=record.device)
+    sel = ((record[:, cpp + blocks + 1:] >> ranges) & 1).bool() \
+        .repeat_interleave(range_bytes, dim=1)
+    slots = record[:, cpp + blocks].long()
+    p_store[slots] = torch.where(sel, page, p_store[slots])
+
+
 # ---------------------------------------------------------------------------
 # CUDA libraries (kernels/build.py: nvcc -> shared library, loaded by ctypes).
 # ---------------------------------------------------------------------------
@@ -201,16 +258,21 @@ def _fused_lib() -> ctypes.CDLL:
         "qpack_fused_encode": [P, I, P, P, P, I, I, F, F, I, I, I, I, I, I, P],
         "qpack_fused_demote": [P, I, P, P, P, P, P, I, I, I, I, F, F, I, I,
                                I, I, I, I, P],
-        "qpack_fused_decode": [P, P, P, I, I, P]})
+        "qpack_fused_decode": [P, P, P, I, I, P],
+        "qpack_fused_promote": [P, P, P, I, I, I, I, I, I, I, I, I, I, P]})
 
 
 def _fixed_lib() -> ctypes.CDLL:
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _build.load("qpack_fixed", {
         "qpack_fixed_encode": [P, I, P, P, I, I, I, I, P],
         "qpack_fixed_decode": [P, P, P, I, I, I, I, I, P],
         "qpack_ring_step": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                            I, P]})
+                            I, P],
+        "qpack_prefill_fill": [P, P, I, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                               I, P],
+        "qpack_lane_flush": [P, P, P, P, P, P, P, P, L, L, L, L, I, I, I, I,
+                             I, I, I, P]})
 
 
 def _check_cuda(t: torch.Tensor, name: str) -> None:
@@ -229,6 +291,25 @@ def _check_shape(v: int) -> None:
     if v % 256 or not 256 <= v <= 2048:
         raise ValueError(f"block of {v} values: the kernels take V a "
                          "multiple of 256 in [256, 2048]")
+
+
+def _check_rows(t: torch.Tensor, name: str, shape: tuple, dtypes: tuple,
+                device, align: int, lead: int = 0) -> None:
+    """``t`` of ``shape`` and one of ``dtypes`` on ``device``, contiguous
+    after its first ``lead`` dimensions, its start and those dimensions'
+    strides multiples of ``align`` bytes."""
+    if tuple(t.shape) != tuple(shape) or t.dtype not in dtypes or \
+            t.device != device:
+        raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on {t.device}: "
+                         f"expected {tuple(shape)} of {dtypes} on {device}")
+    inner = 1
+    for d in range(t.dim() - 1, lead - 1, -1):
+        if t.shape[d] > 1 and t.stride(d) != inner:
+            raise ValueError(f"{name} must be contiguous after dim {lead}")
+        inner *= t.shape[d]
+    if t.data_ptr() % align or any(
+            t.stride(d) * t.element_size() % align for d in range(lead)):
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +431,66 @@ def fused_decode(dense: torch.Tensor, rates: torch.Tensor) -> torch.Tensor:
     _build.check_launch(err, "qpack_fused_decode")
     fused_decode_launches += 1
     return out
+
+
+def fused_promote(c_store: torch.Tensor, p_store: torch.Tensor,
+                  record: torch.Tensor, *, blocks: int, chunk_bytes: int,
+                  range_bytes: int, quanta: tuple = (0, 3, 5, 8)) -> None:
+    """Promote K pages in place: ``record`` int32[K, cpp + blocks + 2] on
+    the stores' device holds, per page, its cpp = page_bytes / chunk_bytes
+    chunk ids (rows of ``c_store`` uint8[N, chunk_bytes]), its ``blocks``
+    rates, its P-chunk slot (a row of ``p_store`` uint8[M, page_bytes];
+    the K slots differ) and its mask over the page's ``range_bytes``
+    ranges (at most 31). Each page's blocks are decoded to bf16 and the
+    selected ranges of its row written. One kernel launch for CUDA
+    tensors; the plain version for CPU tensors."""
+    global fused_promote_launches
+    kw = dict(blocks=blocks, chunk_bytes=chunk_bytes,
+              range_bytes=range_bytes, quanta=quanta)
+    if c_store.device.type == "cpu":
+        return fused_promote_plain(c_store, p_store, record, **kw)
+    if c_store.device.type != "cuda":
+        raise ValueError(f"no fused promote for device {c_store.device}")
+    page_bytes = p_store.shape[-1]
+    for t, name in ((c_store, "c_store"), (p_store, "p_store")):
+        if t.dim() != 2 or t.dtype != torch.uint8 or t.device != c_store.device:
+            raise ValueError(f"{name} must be uint8[rows, bytes] on "
+                             f"{c_store.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        _check_cuda(t, name)
+    if not 1 <= blocks <= 8 or page_bytes % (2 * blocks):
+        raise ValueError(f"{blocks} blocks do not split a page of "
+                         f"{page_bytes} B (1 to 8 blocks)")
+    v = page_bytes // (2 * blocks)
+    _check_shape(v)
+    if c_store.shape[1] != chunk_bytes or chunk_bytes % 16 or \
+            page_bytes % chunk_bytes:
+        raise ValueError(f"chunks of {chunk_bytes} B (c_store rows of "
+                         f"{c_store.shape[1]}) do not split a page of "
+                         f"{page_bytes} B in multiples of 16")
+    if range_bytes % 16 or page_bytes % range_bytes or \
+            page_bytes // range_bytes > 31:
+        raise ValueError(f"ranges of {range_bytes} B: multiples of 16 that "
+                         f"split a page of {page_bytes} B in at most 31")
+    if max(quanta) * QUANTUM > 2 * v:     # a block's bytes in its dense row
+        raise ValueError(f"quanta {quanta} exceed a dense row of {2 * v} B")
+    cpp = page_bytes // chunk_bytes
+    if record.dtype != torch.int32 or record.dim() != 2 or \
+            record.shape[1] != cpp + blocks + 2 or \
+            record.device != c_store.device or not record.is_contiguous():
+        raise ValueError(f"record must be contiguous int32[K, {cpp + blocks + 2}]"
+                         f" on {c_store.device}, got {record.dtype} "
+                         f"{tuple(record.shape)} on {record.device}")
+    if record.shape[0] == 0:
+        return None
+    q = tuple(int(a) for a in quanta)
+    err = _fused_lib().qpack_fused_promote(
+        c_store.data_ptr(), p_store.data_ptr(), record.data_ptr(),
+        record.shape[0], cpp, blocks, v, chunk_bytes, range_bytes, q[0], q[1],
+        q[2], q[3], torch.cuda.current_stream(c_store.device).cuda_stream)
+    _build.check_launch(err, "qpack_fused_promote")
+    fused_promote_launches += 1
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +657,7 @@ def ring_step(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, k_new,
         raise ValueError(f"bits={bits}, D={D}: the ring step takes 4 or 8 "
                          "bits and D a multiple of 8")
     ftypes = (torch.bfloat16, torch.float32)
+    k_new, v_new = _aligned(k_new), _aligned(v_new)
     for t, shape, dtypes, name in (
             (k_codes, (B, S, H, D * bits // 8), (torch.uint8,), "codes"),
             (v_codes, (B, S, H, D * bits // 8), (torch.uint8,), "codes"),
@@ -525,14 +667,7 @@ def ring_step(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, k_new,
             (v_hot, (B, W, H, D), (k_hot.dtype,), "hot"),
             (k_new, (B, H, D), ftypes, "new"),
             (v_new, (B, H, D), (k_new.dtype,), "new")):
-        if tuple(t.shape) != shape or t.dtype not in dtypes or \
-                t.device != k_hot.device:
-            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}: the ring step takes {shape} of "
-                             f"{dtypes} on {k_hot.device}")
-        if name != "new":               # updated in place
-            _check_cuda(t, name)
-    k_new, v_new = _aligned(k_new), _aligned(v_new)
+        _check_rows(t, name, shape, dtypes, k_hot.device, 16)
     pos, cold_len = (t.to(torch.int32).contiguous() for t in (pos, cold_len))
     if pos.shape != (B,) or cold_len.shape != (B,):
         raise ValueError("pos and cold_len must be [B]")
@@ -545,3 +680,170 @@ def ring_step(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, k_new,
         torch.cuda.current_stream(k_hot.device).cuda_stream)
     _build.check_launch(err, "qpack_ring_step")
     ring_step_launches += 1
+
+
+# ---------------------------------------------------------------------------
+# The prefill's cache fill and the lane demotion's flush.
+# ---------------------------------------------------------------------------
+
+def ring_sources(lens: torch.Tensor, S: int, W: int) -> torch.Tensor:
+    """int64[B, W]: the prompt position each ring slot takes after a
+    prefill of ``lens`` [B] real tokens (padded to S): the largest p <=
+    lens - 1 with p = slot (mod W), clamped to [0, S - 1] (p < 0 is no
+    real token; decode's ring test masks it out)."""
+    last = (lens - 1)[:, None]
+    slots = last - ((last - torch.arange(W, device=lens.device)[None, :]) % W)
+    return torch.clamp(slots, 0, S - 1).long()
+
+
+def fill_plain(t, codes, scales, hot, where, bits: int,
+               quantize=encode_plain) -> None:
+    """One of K or V of a prefill layer, in place, as the reference's
+    ``fill_gqa`` computes it: t [B, S, H, D] quantized (``quantize``) into
+    codes/scales [:, :S], and ``hot`` = t[where] in bf16, ``where`` = (row
+    indices [B, 1], ``ring_sources``)."""
+    S, D = t.shape[1], t.shape[-1]
+    c, s = quantize(t, bits, D)
+    codes[:, :S] = c
+    scales[:, :S] = s[..., 0]
+    hot.copy_(t[where].to(torch.bfloat16))
+
+
+def prefill_fill_plain(k, v, k_codes, k_scales, k_hot, v_codes, v_scales,
+                       v_hot, lens, bits: int, *, quantize=encode_plain
+                       ) -> None:
+    """``prefill_fill``'s plain version: ``fill_plain`` for K, then V."""
+    B, S = k.shape[:2]
+    where = (torch.arange(B, device=k.device)[:, None],
+             ring_sources(lens, S, k_hot.shape[1]))
+    for t, codes, scales, hot in ((k, k_codes, k_scales, k_hot),
+                                  (v, v_codes, v_scales, v_hot)):
+        fill_plain(t, codes, scales, hot, where, bits, quantize)
+
+
+def prefill_fill(k, v, k_codes, k_scales, k_hot, v_codes, v_scales, v_hot,
+                 lens, bits: int) -> None:
+    """A prefill layer's cache fill, in place: k, v [B, S, Hkv, D]
+    (bf16/f32) quantized into codes [B, L, Hkv, D*bits/8] and scales [B, L,
+    Hkv] at positions [0, S) (S <= L), and each ring hot [B, W, Hkv, D]
+    bf16 filled with the latest of ``lens`` [B] real tokens
+    (``ring_sources``). One kernel launch for K and V of CUDA tensors; the
+    plain version for CPU tensors."""
+    global prefill_fill_launches
+    if k.device.type == "cpu":
+        return prefill_fill_plain(k, v, k_codes, k_scales, k_hot, v_codes,
+                                  v_scales, v_hot, lens, bits)
+    if k.device.type != "cuda":
+        raise ValueError(f"no prefill fill for device {k.device}")
+    B, S, H, D = k.shape
+    L, W = k_codes.shape[1], k_hot.shape[1]
+    if bits not in (4, 8) or D % 8 or S > L:
+        raise ValueError(f"bits={bits}, D={D}, S={S}, L={L}: the prefill "
+                         "fill takes 4 or 8 bits, D a multiple of 8, S <= L")
+    dev, ftypes = k.device, (torch.bfloat16, torch.float32)
+    k, v = _aligned(k), _aligned(v)
+    for t, shape, dtypes, name, align in (
+            (k, (B, S, H, D), ftypes, "k", 16),
+            (v, (B, S, H, D), (k.dtype,), "v", 16),
+            (k_codes, (B, L, H, D * bits // 8), (torch.uint8,), "codes",
+             bits),
+            (v_codes, (B, L, H, D * bits // 8), (torch.uint8,), "codes",
+             bits),
+            (k_scales, (B, L, H), (torch.float32,), "scales", 4),
+            (v_scales, (B, L, H), (torch.float32,), "scales", 4),
+            (k_hot, (B, W, H, D), (torch.bfloat16,), "hot", 16),
+            (v_hot, (B, W, H, D), (torch.bfloat16,), "hot", 16),
+            (lens, (B,), (torch.int32,), "lens", 4)):
+        _check_rows(t, name, shape, dtypes, dev, align)
+    err = _fixed_lib().qpack_prefill_fill(
+        k.data_ptr(), v.data_ptr(), int(k.dtype == torch.float32),
+        k_codes.data_ptr(), k_scales.data_ptr(), k_hot.data_ptr(),
+        v_codes.data_ptr(), v_scales.data_ptr(), v_hot.data_ptr(),
+        lens.data_ptr(), B, S, L, W, H, D, bits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(err, "qpack_prefill_fill")
+    prefill_fill_launches += 1
+    return None
+
+
+def ring_to_codes_plain(codes, scales, hot, cold_len, pos: int, bits: int,
+                        quantize=encode_plain):
+    """The reference's ``_ring_to_codes``: the whole ring [Lyr, W, ..., D]
+    quantized (``quantize``), and its live tokens, positions
+    [max(cold_len, pos - W), pos), selected into codes [Lyr, T, ...] and
+    scales [Lyr, T, ...] from slot p % W. Returns new tensors."""
+    T_, W = codes.shape[1], hot.shape[1]
+    c, s = quantize(hot.to(torch.float32), bits, hot.shape[-1])
+    t = torch.arange(T_, device=codes.device)
+    sel = (t[None, :] >= cold_len[:, None]) & (t[None, :] >= pos - W) & \
+        (t[None, :] < pos)                                     # [Lyr, T]
+    slot = t % W
+    gc = c[:, slot]                                # slot content per position
+    gs = s[..., 0][:, slot]
+    selc = sel.reshape(sel.shape + (1,) * (codes.dim() - 2))
+    sels = sel.reshape(sel.shape + (1,) * (scales.dim() - 2))
+    return torch.where(selc, gc, codes), torch.where(sels, gs, scales)
+
+
+def lane_flush_plain(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot,
+                     cold_len, pos: int, bits: int, *,
+                     quantize=encode_plain) -> torch.Tensor:
+    """``lane_flush``'s plain version: ``ring_to_codes_plain`` for K and V,
+    copied into the codes and scales in place; returns max(cold_len,
+    pos)."""
+    for codes, scales, hot in ((k_codes, k_scales, k_hot),
+                               (v_codes, v_scales, v_hot)):
+        c, s = ring_to_codes_plain(codes, scales, hot, cold_len, pos, bits,
+                                   quantize)
+        codes.copy_(c)
+        scales.copy_(s)
+    return torch.clamp(cold_len, min=pos)
+
+
+def lane_flush(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, cold_len,
+               pos: int, bits: int) -> torch.Tensor:
+    """A lane demotion's device half, in place: the live ring tokens of
+    every layer, positions [max(cold_len, pos - W), pos), quantized from
+    ring slot p % W into codes [Lyr, T, Hkv, D*bits/8] and scales [Lyr, T,
+    Hkv] at p. hot [Lyr, W, Hkv, D] bf16, cold_len int32[Lyr]; each tensor
+    may have any layer stride (a lane's slice of the batch cache). Returns
+    the new cold_len, max(cold_len, pos), a fresh int32[Lyr]. One kernel
+    launch for K and V of CUDA tensors; the plain version for CPU
+    tensors."""
+    global lane_flush_launches
+    if k_hot.device.type == "cpu":
+        return lane_flush_plain(k_codes, k_scales, k_hot, v_codes, v_scales,
+                                v_hot, cold_len, pos, bits)
+    if k_hot.device.type != "cuda":
+        raise ValueError(f"no lane flush for device {k_hot.device}")
+    Lyr, W, H, D = k_hot.shape
+    T_ = k_codes.shape[1]
+    if bits not in (4, 8) or D % 8:
+        raise ValueError(f"bits={bits}, D={D}: the lane flush takes 4 or 8 "
+                         "bits and D a multiple of 8")
+    dev = k_hot.device
+    for t, shape, dtype, name, align in (
+            (k_codes, (Lyr, T_, H, D * bits // 8), torch.uint8, "codes",
+             bits),
+            (v_codes, (Lyr, T_, H, D * bits // 8), torch.uint8, "codes",
+             bits),
+            (k_scales, (Lyr, T_, H), torch.float32, "scales", 4),
+            (v_scales, (Lyr, T_, H), torch.float32, "scales", 4),
+            (k_hot, (Lyr, W, H, D), torch.bfloat16, "hot", 16),
+            (v_hot, (Lyr, W, H, D), torch.bfloat16, "hot", 16),
+            (cold_len, (Lyr,), torch.int32, "cold_len", 4)):
+        _check_rows(t, name, shape, (dtype,), dev, align, lead=1)
+    strides = [t.stride(0) for t in (k_codes, k_scales, k_hot, cold_len)]
+    if any(t.stride(0) != st for t, st in ((v_codes, strides[0]),
+                                           (v_scales, strides[1]),
+                                           (v_hot, strides[2]))):
+        raise ValueError("K and V must share their layer strides")
+    cold_out = torch.empty((Lyr,), dtype=torch.int32, device=dev)
+    err = _fixed_lib().qpack_lane_flush(
+        k_codes.data_ptr(), k_scales.data_ptr(), k_hot.data_ptr(),
+        v_codes.data_ptr(), v_scales.data_ptr(), v_hot.data_ptr(),
+        cold_len.data_ptr(), cold_out.data_ptr(), *strides, Lyr, T_, W, H, D,
+        bits, int(pos), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(err, "qpack_lane_flush")
+    lane_flush_launches += 1
+    return cold_out

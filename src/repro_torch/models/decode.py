@@ -9,7 +9,8 @@ The KV cache is an IBEX pool specialized for append-only data:
     block per (token, KV head) over the head dim; 4 or 8 bits + f32 scale)
     when it ages out of the ring: the ring step (``qpack.ring_step``, one
     launch a layer with B3's quantize) evicts it and inserts the new token;
-    prefill fills the region with the fixed-rate encode kernel (B3).
+    prefill fills the region and the ring with the prefill fill
+    (``qpack.prefill_fill``, one launch a layer, the same quantize).
 
 Two read paths for the compressed prefix:
   * fused: dequantize inside attention, the decode attention kernel (B5)
@@ -34,7 +35,6 @@ import torch
 from repro_torch.common.types import ModelConfig, ServeConfig
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.compressor import (dequantize_blocks,
-                                         quantize_blocks_fast,
                                          resolve_quantize_impl)
 from repro_torch.kernels import kvc_attn as KA
 from repro_torch.kernels import qpack
@@ -232,7 +232,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the full prompt [B,S], return (last-token logits, filled cache).
 
-    Every prompt token is written compressed (B3; positions past S hold the
+    Every prompt token is written compressed (the prefill fill, B3's
+    quantize, one launch a layer on the card; positions past S hold the
     codes of zeros, as the reference's padded quantize gives: code 0, scale
     1); the last W real tokens populate the ring. ``lens`` [B] gives each
     row's true length for right-padded batches: the ring holds the last W
@@ -242,7 +243,6 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     x = T.embed(params, batch, cfg)
     B, S, _ = x.shape
     W, bits = scfg.hot_window, scfg.kv_rate_bits
-    D = cfg.resolved_head_dim
     dev = x.device
     pos = torch.arange(S, device=dev)[None, :]
     lens_arr = (torch.full((B,), S, dtype=torch.int32, device=dev)
@@ -251,12 +251,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     cache["k_scales"][:, :, S:] = 1.0
     cache["v_scales"][:, :, S:] = 1.0
     cache["cold_len"][:] = torch.clamp(lens_arr - W, min=0)
-    # ring: slot s holds the largest p <= lens-1 with p = s (mod W); p < 0
-    # is no real token (short prompt), masked out by decode's ring test
-    last = (lens_arr - 1)[:, None]
-    slots = last - ((last - torch.arange(W, device=dev)[None, :]) % W)
-    safe = torch.clamp(slots, 0, S - 1).long()                    # [B, W]
-    rows = torch.arange(B, device=dev)[:, None]
+    fill = qpack.prefill_fill if resolve_quantize_impl(
+        scfg.quantize_impl, dev) == "kernel" else qpack.prefill_fill_plain
 
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -265,11 +261,12 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         o = L.attention(q, k, v, causal=True, impl=scfg.attn_impl)
         x = x + L.gqa_output(lp["attn"], o, cfg)
         x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
-        for kind, t in (("k", k), ("v", v)):
-            c, s = quantize_blocks_fast(t, bits, D, impl=scfg.quantize_impl)
-            cache[f"{kind}_codes"][i, :, :S] = c
-            cache[f"{kind}_scales"][i, :, :S] = s[..., 0]
-            cache[f"{kind}_hot"][i] = t[rows, safe].to(torch.bfloat16)
+        # codes, scales and ring of K and V (the ring: slot s holds the
+        # largest real position p = s mod W; p < 0 is no real token, masked
+        # out by decode's ring test)
+        fill(k, v, *(cache[n][i] for n in ("k_codes", "k_scales", "k_hot",
+                                           "v_codes", "v_scales", "v_hot")),
+             lens_arr, bits)
 
     idx = torch.clamp(lens_arr - 1, 0, S - 1).long()
     x_last = x[torch.arange(B, device=dev), idx][:, None]          # [B,1,d]

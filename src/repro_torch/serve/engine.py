@@ -4,10 +4,10 @@
   * running requests occupy decode *lanes* (batch slots of ``decode_step``):
     their recent tokens sit uncompressed in the hot ring (promoted region),
     older tokens in the quantized region;
-  * a **preempted** request is *demoted*: its hot ring is quantized into the
-    codes region on the card (the fixed-rate encode kernel; always a clean
-    demotion, KV is append-only) and only the codes + scales are parked on
-    the host;
+  * a **preempted** request is *demoted*: its live ring tokens are
+    quantized into the codes region on the card, in place (the lane flush,
+    one launch for every layer's K and V; always a clean demotion, KV is
+    append-only) and only the codes + scales are parked on the host;
   * **resume** is a promotion: the lane adopts the parked codes (cold_len =
     full length, empty ring) and decode reads them through the fused
     dequantizing attention: no KV byte is dequantized on promotion;
@@ -46,8 +46,9 @@ import torch
 from repro_torch.common import contracts
 from repro_torch.common.types import ModelConfig, ServeConfig
 from repro_torch.common.utils import resolve_device
-from repro_torch.core.compressor import quantize_blocks_fast
+from repro_torch.core.compressor import resolve_quantize_impl
 from repro_torch.core.engine.policy import SecondChanceLanes
+from repro_torch.kernels import qpack
 from repro_torch.models import decode as D
 
 WAITING, RUNNING, PREEMPTED, DONE = "waiting", "running", "preempted", "done"
@@ -107,36 +108,18 @@ def _prefill_impl(params, batch, lens, *, cfg: ModelConfig, scfg: ServeConfig,
     return logits.argmax(dim=-1).to(torch.int32), cache
 
 
-def _ring_to_codes(codes, scales, hot, cold_len, pos: int, W: int, bits: int,
-                   impl: str = "auto"):
-    """Quantize the live ring tokens (positions [max(cold_len, pos-W), pos))
-    into the codes region: the device half of a lane demotion, the whole
-    ring at once (the fixed-rate encode kernel). codes [Lyr,T,...], scales
-    [Lyr,T,...], hot [Lyr,W,...,D]. Returns new tensors."""
-    T_ = codes.shape[1]
-    c, s = quantize_blocks_fast(hot.to(torch.float32), bits, hot.shape[-1],
-                                impl=impl)
-    t = torch.arange(T_, device=codes.device)
-    sel = (t[None, :] >= cold_len[:, None]) & (t[None, :] >= pos - W) & \
-        (t[None, :] < pos)                                     # [Lyr, T]
-    slot = t % W
-    gc = c[:, slot]                                # slot content per position
-    gs = s[..., 0][:, slot]
-    selc = sel.reshape(sel.shape + (1,) * (codes.dim() - 2))
-    sels = sel.reshape(sel.shape + (1,) * (scales.dim() - 2))
-    return torch.where(selc, gc, codes), torch.where(sels, gs, scales)
-
-
 def _demote_lane_impl(lane_cache, pos: int, *, scfg: ServeConfig):
-    """Clean-demote one lane's cache slice: every ring token is quantized
-    into the codes region and cold_len advances to ``pos``."""
-    W, bits = scfg.hot_window, scfg.kv_rate_bits
+    """Clean-demote one lane's cache slice: its live ring tokens are
+    quantized into the codes region, in place (the lane flush; the lane's
+    slice is parked right after and rewritten whole before it is read
+    again), and cold_len advances to ``pos`` (a new tensor)."""
     out = dict(lane_cache)
-    for kind in ("k", "v"):
-        out[f"{kind}_codes"], out[f"{kind}_scales"] = _ring_to_codes(
-            out[f"{kind}_codes"], out[f"{kind}_scales"], out[f"{kind}_hot"],
-            out["cold_len"], pos, W, bits, scfg.quantize_impl)
-    out["cold_len"] = torch.clamp(out["cold_len"], min=pos)
+    flush = qpack.lane_flush if resolve_quantize_impl(
+        scfg.quantize_impl, out["k_hot"].device) == "kernel" \
+        else qpack.lane_flush_plain
+    out["cold_len"] = flush(*(out[n] for n in (
+        "k_codes", "k_scales", "k_hot", "v_codes", "v_scales", "v_hot",
+        "cold_len")), pos, scfg.kv_rate_bits)
     return out
 
 

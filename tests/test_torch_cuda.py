@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: each against its plain PyTorch version
-(byte for byte for the compression kernels and the fused steps, demote
-and ring step; within the reference's tolerance for attention), the payload pool's whole path with the kernels
+(byte for byte for the compression kernels and the fused steps: demote,
+promote, ring step, prefill fill and lane flush; within the reference's
+tolerance for attention), the payload pool's whole path with the kernels
 against the plain compressor, and a small llama3 served with the kernels
 against the plain versions. Needs no JAX; every test carries the ``gpu``
 marker and skips where no card is present:
@@ -70,19 +71,22 @@ def test_whole_path_kernel_vs_plain(cuda):
     content = torch.from_numpy(make_block_content(rates, 512, seed=3)
                                .reshape(64, -1)).to(cuda).to(torch.bfloat16)
     trace = make_trace(WORKLOADS["mcf"], n_accesses=512, n_pages=64, seed=3)
-    out, demotes = {}, {}
+    out, demotes, promotes = {}, {}, {}
     for impl in ("kernel", "jnp"):
         cfg = dataclasses.replace(base, compress_impl=impl)
         pol = E.POLICIES["ibex"]
         pool = E.make_pool(cfg, seed=3)
         assert pool.meta.device.type == "cuda"
         n0 = qpack.fused_demote_launches
+        p0 = qpack.fused_promote_launches
         for i in range(content.shape[0]):
             E.host_write_page(pool, cfg, pol, i, content[i])
         batch.replay_trace(pool, cfg, pol, *trace)
         out[impl] = interop.pool_to_numpy(pool)
         demotes[impl] = qpack.fused_demote_launches - n0
+        promotes[impl] = qpack.fused_promote_launches - p0
     assert demotes["kernel"] > 0 and demotes["jnp"] == 0
+    assert promotes["kernel"] > 0 and promotes["jnp"] == 0
     for k in out["kernel"]:
         np.testing.assert_array_equal(out["kernel"][k], out["jnp"][k],
                                       err_msg=k)
@@ -219,16 +223,202 @@ def test_cuda_tensor_never_takes_the_fused_steps_plain_versions(cuda,
     def boom(*a, **k):
         raise AssertionError("plain version called for a CUDA tensor")
     for fn in ("fused_demote_plain", "fused_encode_plain",
-               "compact_pages_plain", "ring_step_plain", "encode_plain"):
+               "compact_pages_plain", "ring_step_plain", "encode_plain",
+               "fused_promote_plain", "fused_decode_plain",
+               "dense_rows_plain", "prefill_fill_plain", "fill_plain",
+               "lane_flush_plain", "ring_to_codes_plain"):
         monkeypatch.setattr(qpack, fn, boom)
     x = torch.zeros((4, 2048), dtype=torch.bfloat16, device=cuda)
     qpack.fused_demote(x, None, blocks=4, chunk_bytes=512)
+    c_store, p_store, record, kw = _promote_case(cuda, True, True, 3, seed=1)
+    qpack.fused_promote(c_store, p_store, record, **kw)
     codes, scales, hot, newv = _ring_case(cuda, 2, 2, 64, 4, torch.bfloat16,
                                           torch.bfloat16, seed=2)
     pos = torch.tensor([9, 3], dtype=torch.int32, device=cuda)
     qpack.ring_step(codes[0], scales[0], hot[0], codes[1], scales[1], hot[1],
                     newv[0], newv[1], pos, torch.zeros_like(pos), 4)
+    kv, cache, lens = _fill_case(cuda, 2, 24, 40, 8, 2, 64, 4,
+                                 torch.bfloat16, [24, 5], seed=3)
+    qpack.prefill_fill(kv[0], kv[1], *cache, lens, 4)
+    leaves, cold = _flush_case(cuda, 3, 2, 40, 8, 2, 64, 4, [0, 20, 25],
+                               seed=4)
+    qpack.lane_flush(*(t[:, 1] for t in leaves), cold[:, 1], 30, 4)
     torch.cuda.synchronize()
+
+
+# -- the promotion step --------------------------------------------------------
+
+def _promote_case(cuda, coloc: bool, lossless: bool, k: int, seed: int):
+    """(c_store, p_store, record, kwargs) of ``k`` promotions: the page
+    streams of ``_store`` pages (the port's own encode_pages) written into
+    the chunks of a store of random bytes, single chunks or an 8-chunk
+    group, and a record per page (chunk ids, rates, a distinct slot of a
+    store of random rows, a mask cycling through the full page, each
+    single block and random sets of ranges)."""
+    cfg = PoolConfig(coloc=coloc, lossless=lossless, compress_impl="kernel",
+                     **({} if lossless else dict(tol4=0.05, tol8=0.003)))
+    nb = cfg.blocks_per_page if coloc else 1
+    vals = cfg.vals_per_page // nb
+    rng = np.random.default_rng(seed)
+    pages = torch.from_numpy(np.concatenate(
+        [_store(nb, vals, seed + i) for i in range(-(-k // 16))])[:k]) \
+        .to(cuda).to(torch.bfloat16)
+    bufs, rates, _, nch = comp.encode_pages(pages, cfg)
+    bufs, rates, nch = bufs.cpu(), rates.cpu().tolist(), nch.cpu().tolist()
+    cpp, cb = cfg.chunks_per_page, cfg.chunk_bytes
+    n_rows = 8 * k + 64
+    c_store = torch.from_numpy(rng.integers(0, 256, (n_rows, cb))
+                               .astype(np.uint8))
+    free = iter(rng.permutation(n_rows // 8).tolist())
+    n_ranges = cfg.page_bytes // cfg.block_bytes
+    masks = [(1 << n_ranges) - 1] + [1 << r for r in range(n_ranges)]
+    rows = []
+    for p in range(k):
+        base = 8 * next(free)               # the page's own 8 chunks
+        if nch[p] == 8:
+            ids = list(range(base, base + 8))
+        else:
+            own = rng.permutation(8)[:nch[p]] + base
+            ids = [int(own[i]) if i < nch[p] else 0 for i in range(cpp)]
+        for i in range(min(nch[p], cpp)):
+            c_store[ids[i]] = bufs[p, i * cb:(i + 1) * cb]
+        mask = masks[p] if p < len(masks) else \
+            int(rng.integers(1, 1 << n_ranges))
+        rows.append(ids + rates[p] + [k + 7 - p, mask])
+    p_store = torch.from_numpy(rng.integers(0, 256, (k + 8, cfg.page_bytes))
+                               .astype(np.uint8)).to(cuda)
+    record = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    kw = dict(blocks=nb, chunk_bytes=cb, range_bytes=cfg.block_bytes,
+              quanta=comp.quanta_per_rate(vals))
+    return c_store.to(cuda), p_store, record, kw
+
+
+@pytest.mark.parametrize("coloc", [True, False])
+@pytest.mark.parametrize("lossless", [True, False])
+@pytest.mark.parametrize("k", [1, 6, 64])
+def test_fused_promote_vs_plain(cuda, coloc, lossless, k):
+    """The promote kernel against its plain version, byte for byte in
+    every P-chunk row (the rows not promoted included)."""
+    c_store, p_store, record, kw = _promote_case(cuda, coloc, lossless, k,
+                                                 seed=k + 2 * coloc)
+    got, want = p_store.clone(), p_store.clone()
+    n0 = qpack.fused_promote_launches
+    qpack.fused_promote(c_store, got, record, **kw)
+    qpack.fused_promote_plain(c_store, want, record, **kw)
+    torch.cuda.synchronize()
+    assert qpack.fused_promote_launches == n0 + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, p_store)
+
+
+def test_fused_promote_rejects_bad_records(cuda):
+    c_store, p_store, record, kw = _promote_case(cuda, True, True, 2, seed=5)
+    with pytest.raises(ValueError, match="record"):
+        qpack.fused_promote(c_store, p_store, record[:, :-1].contiguous(),
+                            **kw)
+    with pytest.raises(ValueError, match="quanta"):
+        qpack.fused_promote(c_store, p_store, record,
+                            **dict(kw, quanta=(0, 3, 5, 9)))
+    with pytest.raises(ValueError, match="p_store"):
+        qpack.fused_promote(c_store, p_store[:, :-16], record, **kw)
+
+
+# -- the prefill fill and the lane flush ---------------------------------------
+
+def _fill_case(cuda, B, S, L, W, H, D, bits, dtype, lens, seed):
+    """(k and v [B, S, H, D], a layer's six cache leaves, lens): the
+    layer's leaves are slices [1] of stacked leaves of 3 layers."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    kv = [(torch.randn((B, S, H, D), generator=g, device=cuda) * 2)
+          for _ in range(2)]
+    for t in kv:
+        t[:, 0] = 0.0
+        t[:, 1, :, ::3] = -0.0
+    kv = [t.to(dtype) for t in kv]
+    dp = D * bits // 8
+    cache = []
+    for _ in range(2):
+        cache += [torch.randint(0, 256, (3, B, L, H, dp), generator=g,
+                                device=cuda, dtype=torch.uint8)[1],
+                  torch.randn((3, B, L, H), generator=g, device=cuda)[1],
+                  torch.randn((3, B, W, H, D), generator=g,
+                              device=cuda).to(torch.bfloat16)[1]]
+    return kv, cache, torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16)])
+@pytest.mark.parametrize("S,W,lens", [(40, 8, [40, 40]),
+                                      (40, 8, [5, 40, 1, 23]),
+                                      (6, 8, [6, 3])])
+def test_prefill_fill_vs_plain(cuda, bits, dtype, H, D, S, W, lens):
+    """The prefill fill against its plain version, byte for byte in each
+    of the six leaves (positions past S untouched)."""
+    kv, cache, lens_t = _fill_case(cuda, len(lens), S, S + 9, W, H, D, bits,
+                                   dtype, lens, seed=S + H + D + bits)
+    out = {}
+    for name, fn in (("kernel", qpack.prefill_fill),
+                     ("plain", qpack.prefill_fill_plain)):
+        leaves = [t.clone() for t in cache]
+        n0 = qpack.prefill_fill_launches
+        fn(kv[0], kv[1], *leaves, lens_t, bits)
+        torch.cuda.synchronize()
+        assert qpack.prefill_fill_launches == n0 + (name == "kernel")
+        out[name] = leaves
+    for a, b in zip(out["kernel"], out["plain"]):
+        iv = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+              torch.uint8: torch.uint8}[a.dtype]
+        assert torch.equal(a.view(iv), b.view(iv))
+
+
+def _flush_case(cuda, Lyr, B, T, W, H, D, bits, cold, seed):
+    """(six leaves [Lyr, B, ...] of a batch cache, cold_len [Lyr, B])."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dp = D * bits // 8
+    leaves = []
+    for _ in range(2):
+        hot = torch.randn((Lyr, B, W, H, D), generator=g, device=cuda) * 0.7
+        hot[:, :, 1] = 0.0
+        hot[:, :, 2, :, 1::2] = -0.0
+        hot[:, :, 3] = torch.randint(-7, 7, (Lyr, B, H, D), generator=g,
+                                     device=cuda) + 0.5
+        leaves += [torch.randint(0, 256, (Lyr, B, T, H, dp), generator=g,
+                                 device=cuda, dtype=torch.uint8),
+                   torch.randn((Lyr, B, T, H), generator=g, device=cuda),
+                   hot.to(torch.bfloat16)]
+    cold_len = torch.zeros((Lyr, B), dtype=torch.int32, device=cuda)
+    cold_len[:, 1] = torch.tensor(cold, dtype=torch.int32, device=cuda)
+    return leaves, cold_len
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16)])
+@pytest.mark.parametrize("T,W,pos,cold", [
+    (40, 8, 30, [0, 22, 25]), (40, 8, 21, [18, 20, 13]),
+    (40, 8, 5, [0, 0, 3]), (40, 8, 17, [17, 17, 17]),
+    (24, 8, 24, [10, 16, 0]), (300, 256, 290, [34, 100, 280])])
+def test_lane_flush_vs_plain(cuda, bits, H, D, T, W, pos, cold):
+    """The lane flush on lane 1's slice of a batch cache against its plain
+    version, byte for byte in every leaf of every lane, and the clamped
+    cold_len."""
+    leaves, cold_len = _flush_case(cuda, len(cold), 3, T, W, H, D, bits,
+                                   cold, seed=T + pos + D + bits)
+    out = {}
+    for name, fn in (("kernel", qpack.lane_flush),
+                     ("plain", qpack.lane_flush_plain)):
+        ls = [t.clone() for t in leaves]
+        n0 = qpack.lane_flush_launches
+        new = fn(*(t[:, 1] for t in ls), cold_len[:, 1], pos, bits)
+        torch.cuda.synchronize()
+        assert qpack.lane_flush_launches == n0 + (name == "kernel")
+        out[name] = (ls, new)
+    (kl, kc), (pl, pc) = out["kernel"], out["plain"]
+    assert torch.equal(kc, pc)
+    for a, b in zip(kl, pl):
+        iv = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+              torch.uint8: torch.uint8}[a.dtype]
+        assert torch.equal(a.view(iv), b.view(iv))
 
 
 # -- fixed-rate quantize/pack (B3/B4) ----------------------------------------
@@ -369,15 +559,18 @@ def test_small_llama_serves_alike_with_kernels_and_plain(cuda):
     for impl, q_impl in (("kernel", "kernel"), ("plain", "jnp")):
         scfg = ServeConfig(max_running=2, hot_window=16, kv_rate_bits=8,
                            attn_impl=impl, quantize_impl=q_impl)
-        n0 = (qpack.encode_launches, KA.launches, FA.launches,
-              qpack.ring_step_launches)
+        launches = lambda: (  # noqa: E731
+            qpack.prefill_fill_launches, qpack.lane_flush_launches,
+            KA.launches, FA.launches, qpack.ring_step_launches,
+            qpack.encode_launches)
+        n0 = launches()
         eng = Engine(cfg, scfg, params, max_len=128)
         rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
         eng.run_until_done(max_steps=400)
-        n1 = (qpack.encode_launches, KA.launches, FA.launches,
-              qpack.ring_step_launches)
         out[impl] = ([eng.result(r) for r in rids],
-                     [b - a for a, b in zip(n0, n1)])
+                     [b - a for a, b in zip(n0, launches())])
     assert out["kernel"][0] == out["plain"][0]
-    assert all(n > 0 for n in out["kernel"][1])
-    assert out["plain"][1] == [0, 0, 0, 0]
+    # every step of the path launched, and B3's own encode no more
+    assert all(n > 0 for n in out["kernel"][1][:-1])
+    assert out["kernel"][1][-1] == 0
+    assert out["plain"][1] == [0] * 6

@@ -1,5 +1,5 @@
-"""The port's two fused steps against the reference, on the CPU, bit for
-bit in every case:
+"""The port's fused steps against the reference, on the CPU, bit for bit
+in every case:
 
   * the pool's demotion: ``compressor.demote_pages``/``encode_pages`` (the
     plain path) and the demote kernel's plain version
@@ -10,7 +10,16 @@ bit in every case:
   * the decode step's ring step: ``qpack.ring_step_plain`` (and
     ``qpack.ring_step`` on CPU tensors), in place, against the JAX
     ``_evict_to_codes`` for K and V then ``_hot_insert`` for K and V
-    (``repro/models/decode.py``).
+    (``repro/models/decode.py``);
+  * the prefill fill: ``qpack.prefill_fill_plain`` (and ``prefill_fill``
+    on CPU tensors), in place on a layer of a stacked cache, against the
+    reference prefill's ``fill_gqa`` (its ``quantize_blocks`` of the padded
+    prompt and its ring gather);
+  * the lane flush: ``qpack.lane_flush_plain`` (and ``lane_flush``), in
+    place on a lane's slice, against the JAX ``serve/engine.py::
+    _ring_to_codes`` for K and V.
+
+The pool's promotion step has its own file, test_torch_promote_step.py.
 
 The CUDA kernels are held against these plain versions on the card, in
 test_torch_cuda.py."""
@@ -25,7 +34,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.common.types import PoolConfig as JConfig  # noqa: E402
 from repro.core import compressor as jcomp  # noqa: E402
+from repro.core.compressor import quantize_blocks as jquantize  # noqa: E402
 from repro.models import decode as jdec  # noqa: E402
+from repro.serve import engine as jengine  # noqa: E402
 from repro_torch.common.types import PoolConfig  # noqa: E402
 from repro_torch.core import compressor as comp  # noqa: E402
 from repro_torch.kernels import qpack  # noqa: E402
@@ -226,3 +237,148 @@ def test_ring_step_plain_vs_reference(scenario, bits, ring, new):
     changed = (want["k"][0] != inp["codes"][0]).any(axis=(1, 2, 3))
     assert (changed <= evicted).all()
     assert evicted.any() == (scenario in ("at_window", "mixed"))
+
+
+# -- the prefill fill and the lane flush -------------------------------------
+
+# (S, W, lens): rows of full length, short prompts whose ring keeps slots of
+# no real token (p < 0), a one-token row, and a window wider than the prompt
+FILL_CASES = {
+    "full": (24, 8, [24, 24]),
+    "short": (24, 8, [5, 24, 1, 13]),
+    "wide_window": (6, 8, [6, 3]),
+}
+
+
+def _ref_fill(t, lens, max_len: int, W: int, bits: int) -> tuple:
+    """The reference prefill's ``fill_gqa`` for one of K or V: the padded
+    prompt quantized with its ``quantize_blocks``, and the ring gathered
+    from the latest real token of each slot."""
+    B, S, _, Dh = t.shape
+    tp = jnp.pad(t, ((0, 0), (0, max_len - S), (0, 0), (0, 0)))
+    c, s = jquantize(tp, bits, Dh)
+    last = jnp.asarray(lens) - 1
+    p = last[:, None] - ((last[:, None] - jnp.arange(W)[None, :]) % W)
+    safe = jnp.clip(p, 0, S - 1)[:, :, None, None]
+    hot = jnp.take_along_axis(t, safe, axis=1).astype(jnp.bfloat16)
+    return (np.asarray(c), np.asarray(s[..., 0]),
+            np.asarray(hot.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("case", list(FILL_CASES))
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("H,Dh,dtype", [(2, 128, "bf16"), (3, 64, "f32"),
+                                        (2, 16, "bf16"), (2, 16, "f32")])
+def test_prefill_fill_plain_vs_reference(case, bits, H, Dh, dtype):
+    """qpack.prefill_fill_plain (and prefill_fill on CPU tensors) writes
+    the reference prefill's cache leaves bit for bit into a layer of a
+    stacked cache prepared as models/decode.py's prefill prepares it
+    (codes 0, scales 1 past the prompt), and no other layer."""
+    S, W, lens_l = FILL_CASES[case]
+    B, max_len, layers, i = len(lens_l), S + 5, 3, 1
+    rng = np.random.default_rng(bits + H + Dh + S)
+    tdt, jdt = TYPES[dtype]
+    kv = (rng.standard_normal((2, B, S, H, Dh)) * 2).astype(np.float32)
+    kv[:, :, 0] = 0.0                        # an all-zero token (scale 1)
+    kv[:, :, 1, :, ::3] = -0.0
+    kv = np.array(jnp.asarray(kv).astype(jdt).astype(jnp.float32))
+    lens = np.array(lens_l, np.int32)
+    want = [_ref_fill(jnp.asarray(kv[j]).astype(jdt), lens, max_len, W, bits)
+            for j in range(2)]
+    dp = Dh * bits // 8
+    for fill in (qpack.prefill_fill_plain, qpack.prefill_fill):
+        cache = {}
+        for kind in "kv":
+            cache[f"{kind}_codes"] = torch.zeros(
+                (layers, B, max_len, H, dp), dtype=torch.uint8)
+            cache[f"{kind}_scales"] = torch.zeros((layers, B, max_len, H))
+            cache[f"{kind}_scales"][:, :, S:] = 1.0
+            cache[f"{kind}_hot"] = torch.zeros((layers, B, W, H, Dh),
+                                               dtype=torch.bfloat16)
+        before = {k: v.clone() for k, v in cache.items()}
+        n0 = qpack.prefill_fill_launches
+        fill(torch.from_numpy(kv[0]).to(tdt), torch.from_numpy(kv[1]).to(tdt),
+             *(cache[n][i] for n in ("k_codes", "k_scales", "k_hot",
+                                     "v_codes", "v_scales", "v_hot")),
+             torch.from_numpy(lens), bits)
+        assert qpack.prefill_fill_launches == n0
+        for j, kind in enumerate("kv"):
+            c, s, h = want[j]
+            np.testing.assert_array_equal(cache[f"{kind}_codes"][i].numpy(),
+                                          c, err_msg=f"{kind} codes")
+            np.testing.assert_array_equal(
+                _bits(cache[f"{kind}_scales"][i].numpy()), _bits(s),
+                err_msg=f"{kind} scales")
+            np.testing.assert_array_equal(
+                _bits(cache[f"{kind}_hot"][i].float().numpy()), _bits(h),
+                err_msg=f"{kind} ring")
+        for name, leaf in cache.items():
+            for other in (0, 2):
+                assert torch.equal(leaf[other], before[name][other]), name
+
+
+# (T, W, pos, cold_len per layer): a live ring wider than what is left
+# above cold_len, cold_len above pos - W, a short lane (pos < W), an
+# empty flush (cold_len == pos), and pos at the end of the region
+FLUSH_CASES = {
+    "steady": (40, 8, 30, [0, 22, 25]),
+    "resumed": (40, 8, 21, [18, 20, 13]),
+    "short": (40, 8, 5, [0, 0, 3]),
+    "empty": (40, 8, 17, [17, 17, 17]),
+    "at_end": (24, 8, 24, [10, 16, 0]),
+}
+
+
+@pytest.mark.parametrize("case", list(FLUSH_CASES))
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("Dh", [64, 16])
+def test_lane_flush_plain_vs_reference(case, bits, Dh):
+    """qpack.lane_flush_plain (and lane_flush on CPU tensors), in place on a
+    lane's slice of a batch cache, against the reference's
+    ``_ring_to_codes`` for K and V, bit for bit; cold_len comes back as
+    max(cold_len, pos) and the other lanes are untouched."""
+    T_, W, pos, cold_l = FLUSH_CASES[case]
+    Lyr, B, H, lane = len(cold_l), 3, 2, 1
+    rng = np.random.default_rng(bits + Dh + pos)
+    dp = Dh * bits // 8
+    codes = rng.integers(0, 256, (2, Lyr, B, T_, H, dp)).astype(np.uint8)
+    scales = rng.standard_normal((2, Lyr, B, T_, H)).astype(np.float32)
+    hot = (rng.standard_normal((2, Lyr, B, W, H, Dh)) * 0.7).astype(np.float32)
+    hot[:, :, :, 1] = 0.0
+    hot[:, :, :, 2, :, 1::2] = -0.0
+    hot[:, :, :, 3] = rng.integers(-7, 7, (2, Lyr, B, H, Dh)) + 0.5
+    hot = np.array(jnp.asarray(hot).astype(jnp.bfloat16).astype(jnp.float32))
+    cold = np.zeros((Lyr, B), np.int32)
+    cold[:, lane] = cold_l
+    want = [jengine._ring_to_codes(
+        jnp.asarray(codes[j][:, lane]), jnp.asarray(scales[j][:, lane]),
+        jnp.asarray(hot[j][:, lane]).astype(jnp.bfloat16),
+        jnp.asarray(cold[:, lane]), pos, W, bits, impl="jnp")
+        for j in range(2)]
+    for flush in (qpack.lane_flush_plain, qpack.lane_flush):
+        c = torch.from_numpy(codes.copy())
+        s = torch.from_numpy(scales.copy())
+        h = torch.from_numpy(hot).to(torch.bfloat16)
+        cl = torch.from_numpy(cold.copy())
+        n0 = qpack.lane_flush_launches
+        new_cold = flush(c[0][:, lane], s[0][:, lane], h[0][:, lane],
+                         c[1][:, lane], s[1][:, lane], h[1][:, lane],
+                         cl[:, lane], pos, bits)
+        assert qpack.lane_flush_launches == n0
+        np.testing.assert_array_equal(new_cold.numpy(),
+                                      np.maximum(cold[:, lane], pos))
+        assert torch.equal(cl, torch.from_numpy(cold))
+        for j, kind in enumerate("kv"):
+            np.testing.assert_array_equal(c[j][:, lane].numpy(),
+                                          np.asarray(want[j][0]),
+                                          err_msg=f"{kind} codes")
+            np.testing.assert_array_equal(
+                _bits(s[j][:, lane].numpy()), _bits(want[j][1]),
+                err_msg=f"{kind} scales")
+            for other in (0, 2):
+                assert np.array_equal(c[j][:, other].numpy(),
+                                      codes[j][:, other])
+                assert np.array_equal(s[j][:, other].numpy(),
+                                      scales[j][:, other])
+    flushed = (np.asarray(want[0][0]) != codes[0][:, lane]).any()
+    assert flushed == (case != "empty")
