@@ -63,6 +63,16 @@ exits non-zero:
              1 rows; the ring step, the prefill fill and the lane flush
              also beside the compositions they replaced); B5's working
              CTAs against the SMs
+ 11 simx     the paper's evaluation path (payload-less pools, no kernel):
+             one timed full-size cell (ibex x pr), then fig09 at the
+             paper's full size and the other nine figures in quick mode
+             through ``launch/paper_figs.py``, each distinct cell once;
+             every cell's metrics and every figure row equal to the JAX
+             package's (``src/repro_torch/simx/reference_cells.json``),
+             the cells whose pool breaks I1-I4 (fault C5) the reference's
+             with the same message, no kernel launched; accesses/s per
+             cell and per scheme, windows, slow accesses and syncs a
+             window, fig09's speedup rows, the phase's wall time
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -1980,6 +1990,124 @@ def phase_serve_times(dev, tag: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The paper's evaluation path (simx): payload-less pools, no kernel.
+# ---------------------------------------------------------------------------
+
+# the JAX package's numbers for every cell phase 11 runs, written on the
+# CPU by tests/test_torch_simx_reference.py
+SIMX_REFERENCE = ROOT / "src" / "repro_torch" / "simx" / "reference_cells.json"
+
+
+def _zero_port_launches() -> None:
+    from repro_torch.kernels import qpack
+    _reset_launches()
+    for k in ("encode", "decode", "demote", "promote"):
+        setattr(qpack, f"fused_{k}_launches", 0)
+
+
+def phase_simx(dev, tag: str) -> dict:
+    """fig09 at the paper's full size (6 schemes x 10 workloads, 12,000
+    accesses over 96 promoted pages) and the other nine figures in quick
+    mode, each distinct cell computed once on the card (``CellCache``),
+    after one timed full-size cell. Every cell's metrics must equal the
+    reference file's (``==``, floats included), every figure row too, the
+    set of cells whose pool breaks I1-I4 (C5) must be the reference's with
+    the same first message, and no kernel may launch."""
+    from repro_torch.common import contracts
+    from repro_torch.launch import paper_figs as PF
+    from repro_torch.simx.trace import WORKLOADS
+    ref = json.loads(SIMX_REFERENCE.read_text())
+    want = {c["key"]: c for c in ref["cells"]}
+    _zero_port_launches()
+    contracts.SYNCS.reset()
+    t0 = time.perf_counter()
+    cache = PF.CellCache(dev)
+    cache("ibex", WORKLOADS["pr"], n_accesses=PF.N_F,
+          promoted_pages=PF.PROM_F)
+    first = next(iter(cache.cells.values()))
+    rate = first["accesses"] / first["seconds"]
+    total = sum(c["n_accesses"] + (0 if c["scheme"] == "compresso" else
+                                   4 * c["promoted_pages"])
+                for c in ref["cells"])
+    print(f"phase 11 first cell: ibex x pr at full size, "
+          f"{first['accesses']} accesses in {first['seconds']:.3f} s = "
+          f"{rate:.3f} accesses/s; the {len(ref['cells'])} cells' "
+          f"{total} accesses predicted at {total / rate:.1f} s [{tag}]",
+          flush=True)
+    rows, fig_s = {}, {}
+    for fig in PF.ALL_FIGS:
+        t = time.perf_counter()
+        rows[fig.__name__] = fig(fig is not PF.fig09_speedup, cache)
+        fig_s[fig.__name__] = round(time.perf_counter() - t, 3)
+    wall = time.perf_counter() - t0
+    launches = _port_launch_counts()
+
+    cells = cache.cells
+    extra = sorted(set(cells) - set(want))
+    missing = sorted(set(want) - set(cells))
+    differ = {k: [f for f in want[k]["metrics"]
+                  if c["metrics"].get(f) != want[k]["metrics"][f]]
+              for k, c in cells.items() if k in want and
+              c["metrics"] != want[k]["metrics"]}
+    bad_rows = {n: [r for r, w in zip(
+        [[x["name"], x["derived"]] for x in got], ref["rows"][n]) if r != w]
+        for n, got in rows.items()
+        if [[x["name"], x["derived"]] for x in got] != ref["rows"][n]}
+    card_c5 = {k: c["invariants"] for k, c in cells.items() if c["invariants"]}
+    ref_c5 = {k: want[k]["invariants"] for k in cells
+              if k in want and want[k]["invariants"]}
+
+    full = {k: c for k, c in cells.items() if f"|n={PF.N_F}|" in k}
+    by_scheme: dict = {}
+    for c in full.values():
+        by_scheme.setdefault(c["scheme"], []).append(
+            c["accesses"] / c["seconds"])
+    grid_s = sum(c["seconds"] for c in full.values())
+    stats = {k: sum(c["stats"][k] for c in cells.values())
+             for k in ("windows", "slow", "window_syncs", "slow_syncs",
+                       "serial", "serial_syncs")}
+    syncs = sum(stats[k] for k in ("window_syncs", "slow_syncs",
+                                   "serial_syncs"))
+    print(f"phase 11 cells: {len(cells)} computed ({len(full)} at full "
+          f"size), {len(cells) - len(differ) - len(extra)} equal to the "
+          f"reference file, {len(missing)} of its cells not run; figure "
+          f"rows equal: {len(rows) - len(bad_rows)}/{len(rows)}; wall "
+          f"{wall:.3f} s, fig09's full grid {grid_s:.3f} s of cell time, "
+          f"figures {json.dumps(fig_s)} [{tag}]", flush=True)
+    print("phase 11 accesses/s at full size (median, min, max over the "
+          "workloads): " + json.dumps({
+              s: [round(statistics.median(v), 3), round(min(v), 3),
+                  round(max(v), 3)] for s, v in by_scheme.items()}) +
+          f" [{tag}]", flush=True)
+    print("phase 11 cell accesses/s: " + json.dumps({
+        k: round(c["accesses"] / c["seconds"], 3) for k, c in cells.items()}),
+        flush=True)
+    print(f"phase 11 replay: {stats['windows']} windows, {stats['slow']} "
+          f"slow accesses, {stats['serial']} serial accesses, {syncs} syncs "
+          f"({(stats['window_syncs'] + stats['slow_syncs']) / max(stats['windows'], 1):.3f} "
+          f"a window, {stats['slow_syncs'] / max(stats['slow'], 1):.3f} a "
+          f"slow access); counted syncs {contracts.SYNCS.count}", flush=True)
+    print(f"phase 11 C5: {len(card_c5)} cells break I1-I4 on the card, "
+          f"{len(ref_c5)} in the reference file; the same set: "
+          f"{set(card_c5) == set(ref_c5)}", flush=True)
+    for k in sorted(card_c5):
+        print(f"  {k}: {card_c5[k]}")
+    for r in rows["fig09_speedup"]:
+        if "speedup" in r["name"]:
+            print(f"phase 11 {r['name']}: {r['derived']}", flush=True)
+    print(f"phase 11 launches: {json.dumps(launches)}", flush=True)
+    check(not extra, f"phase 11: cells not in the reference file: {extra}")
+    check(not missing, f"phase 11: reference cells not run: {missing}")
+    check(not differ, f"phase 11: cells differ from the reference: {differ}")
+    check(not bad_rows, f"phase 11: figure rows differ: {bad_rows}")
+    check(card_c5 == ref_c5, f"phase 11: I1-I4 status differs from the "
+          f"reference: card {card_c5}, reference {ref_c5}")
+    check(not any(launches.values()),
+          f"phase 11: a kernel launched on the payload-less path: {launches}")
+    return {"wall_s": wall, "cells": len(cells), "grid_s": grid_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2013,6 +2141,8 @@ def main() -> int:
     phase_serve_whole(dev)
     torch.cuda.empty_cache()
     serve_times = phase_serve_times(dev, tag)
+    torch.cuda.empty_cache()
+    phase_simx(dev, tag)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     extra = ("composition_ms", "composition_graph_ms", "events",

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.common import contracts, prng
@@ -46,6 +47,7 @@ COUNTER_NAMES = [
 # The ten internal 64B-access categories (excludes host accesses and events).
 TRAFFIC_IDX = (C_META_RD, C_META_WR, C_DATA_RD, C_DATA_WR, C_PROMO_RD,
                C_PROMO_WR, C_DEMO_RD, C_DEMO_WR, C_ACT_RD, C_ACT_WR)
+TRAFFIC_NAMES = tuple(COUNTER_NAMES[i] for i in TRAFFIC_IDX)
 
 
 class Pool(NamedTuple):
@@ -117,8 +119,44 @@ def compression_ratio(pool: Pool, cfg: PoolConfig) -> float:
         8 * (n_groups - fl.free_count(pool.gfree))
     used_p = cfg.n_pchunks - fl.free_count(pool.pfree)
     physical = used_chunks * cfg.chunk_bytes + used_p * cfg.page_bytes
-    return logical / max(physical, 1)
+    # the reference divides two int32 scalars, which rounds to float32
+    return float(np.float32(logical) / np.float32(max(physical, 1)))
 
 
 def counters_dict(pool: Pool) -> dict:
     return dict(zip(COUNTER_NAMES, contracts.tolist(pool.counters)))
+
+
+def traffic_vector(counters):
+    """Internal-traffic view of a counter vector: ``[..., NUM_COUNTERS]`` ->
+    ``[..., len(TRAFFIC_IDX)]`` in ``TRAFFIC_IDX`` order, for numpy arrays
+    and tensors alike, with any leading axes."""
+    return counters[..., list(TRAFFIC_IDX)]
+
+
+def counters_snapshot(pool: Pool) -> torch.Tensor:
+    """A point-in-time copy of the counter vector. The port updates pools
+    in place, so unlike the reference's live array this must copy."""
+    return pool.counters.clone()
+
+
+def counters_delta(before, after):
+    """Counter delta between two snapshots (leading axes broadcast)."""
+    return after - before
+
+
+def counters_delta_dict(delta) -> dict:
+    """Name-keyed view of a counter delta: ``[..., NUM_COUNTERS]`` (leading
+    axes summed) -> ``{counter_name: int}``. Keys come from
+    ``COUNTER_NAMES``, never positions. A tensor is read with one counted
+    sync."""
+    vals = delta.reshape(-1, NUM_COUNTERS).sum(axis=0)
+    if isinstance(vals, torch.Tensor):
+        vals = contracts.tolist(vals)
+    return {k: int(v) for k, v in zip(COUNTER_NAMES, vals)}
+
+
+def total_traffic(pool: Pool) -> torch.Tensor:
+    """Total internal 64B accesses (host accesses and event counters
+    excluded), in the counters' dtype, on the pool's device."""
+    return traffic_vector(pool.counters).sum(dim=-1, dtype=CTR_DTYPE)

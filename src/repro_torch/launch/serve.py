@@ -72,6 +72,11 @@ def main(argv=None) -> None:
     print(f"host: step_syncs={c['step_syncs']}/{c['steps']} steps, "
           f"admit_syncs={c['admit_syncs']}, "
           f"prefill_batches={c['prefill_batches']}")
+    mt = eng.modeled_time()
+    print(f"modeled: {mt['modeled_s'] * 1e3:.3f}ms total, "
+          f"{mt['modeled_s_per_step'] * 1e6:.2f}us/step "
+          f"(sync={mt['sync_s'] * 1e3:.3f}ms, motion bottleneck="
+          f"{max(mt['motion_s_per_expander']) * 1e6:.2f}us)")
     for rid in rids[:3]:
         print(f"  req {rid}: {eng.result(rid)}")
 

@@ -29,10 +29,9 @@ also counts in ``common.contracts.SYNCS``.
 prefilled together in power-of-two length buckets (right-padded; the
 prefill's ``lens`` keeps padded positions out of the valid range).
 
-The cache is updated in place (``models/decode.py``). The reference's
-``modeled_time`` prices the counters with ``simx.time`` and waits for the
-port's simx slice; its telemetry hook (``obs``) waits for the telemetry
-slice. ``serve.serial.SerialEngine`` is the per-lane baseline; both engines
+The cache is updated in place (``models/decode.py``). ``modeled_time``
+prices the counters with ``simx.time``; the reference's telemetry hook
+(``obs``) waits for the telemetry slice. ``serve.serial.SerialEngine`` is the per-lane baseline; both engines
 share ``_EngineBase``.
 """
 from __future__ import annotations
@@ -221,6 +220,18 @@ class _EngineBase:
 
     def _upload(self, values, dtype) -> torch.Tensor:
         return contracts.upload(values, dtype, self.device)
+
+    # -- delivered-time accounting ------------------------------------------
+
+    def modeled_time(self, devices=None) -> Dict[str, Any]:
+        """The engine's preempt/resume bytes and host syncs in modeled
+        seconds (``simx.time.serve_modeled_time``): each expander's payload
+        motion priced by its own DeviceConfig (the bottleneck across the
+        stripe), plus one CXL round trip per host sync."""
+        from repro_torch.simx import time as TM
+        devs = TM.resolve_fleet(devices, self.n_expanders)
+        return TM.serve_modeled_time(self.counters, self.expander_stats,
+                                     devs)
 
     # -- shared mechanics ---------------------------------------------------
 

@@ -1,1 +1,2 @@
-"""Trace generators for the port (numpy only)."""
+"""The paper's evaluation layer: workload traces (numpy only), the
+delivered-time model and the per-cell evaluation engine."""

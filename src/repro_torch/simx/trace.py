@@ -1,5 +1,7 @@
 """Workload trace generators (numpy only) — a copy of the reference
-package's ``simx/trace.py`` so the port needs nothing of it at run time.
+package's ``simx/trace.py`` so the port needs nothing of it at run time,
+with one change: Zipf ranks come from ``zipf`` (numpy 2.0's sampler), so a
+trace is the same under every numpy version.
 
 Each paper workload (Table 2) is modeled by memory intensity, write ratio,
 locality (Zipf exponent over the page footprint + streaming fraction) and a
@@ -9,6 +11,7 @@ function of its ``seed``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -57,6 +60,41 @@ def make_rates_table(spec: WorkloadSpec, n_pages: int, blocks: int = 4,
     return rates.astype(np.int32)
 
 
+_RAND_INT_MAX = float(np.iinfo(np.int64).max)
+
+
+def _zipf_one(rng: np.random.Generator, a: float) -> int:
+    """One Zipf(a) draw by numpy 2.0's ``Generator.zipf`` rejection sampler,
+    from the same stream of doubles. Later numpy (2.3 is one) draws U from
+    a floored interval instead, which changes every draw for a < ~1.8 and
+    so every trace: the port keeps 2.0's sampler, the one the reference's
+    numbers were made with, whatever numpy is installed."""
+    if a >= 1025:
+        return 1
+    am1 = a - 1.0
+    b = math.pow(2.0, am1)
+    while True:
+        u = 1.0 - rng.random()
+        v = rng.random()
+        try:
+            x = math.floor(math.pow(u, -1.0 / am1))
+        except OverflowError:       # C's pow gives inf: rejected
+            continue
+        if x > _RAND_INT_MAX or x < 1.0:
+            continue
+        t = math.pow(1.0 + 1.0 / x, am1)
+        if v * x * (t - 1.0) / (b - 1.0) <= t / b:
+            return x
+
+
+def zipf(rng: np.random.Generator, a: float, size=None):
+    """``rng.zipf(a, size)`` as numpy 2.0 draws it (``_zipf_one``): an
+    int64 array of ``size`` draws, or one int."""
+    if size is None:
+        return _zipf_one(rng, a)
+    return np.asarray([_zipf_one(rng, a) for _ in range(size)], np.int64)
+
+
 def make_trace(spec: WorkloadSpec, *, n_accesses: int, n_pages: int,
                seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(ospn, is_write, block) arrays. Pages are random-placed (paper §5:
@@ -65,10 +103,10 @@ def make_trace(spec: WorkloadSpec, *, n_accesses: int, n_pages: int,
     n_stream = int(n_accesses * spec.stream_frac)
     n_zipf = n_accesses - n_stream
     # zipf over a randomly permuted page ranking
-    ranks = rng.zipf(max(spec.zipf_a, 1.01) + 1e-9, size=2 * n_zipf)
+    ranks = zipf(rng, max(spec.zipf_a, 1.01) + 1e-9, size=2 * n_zipf)
     ranks = ranks[ranks <= n_pages][:n_zipf]
     while ranks.shape[0] < n_zipf:
-        extra = rng.zipf(max(spec.zipf_a, 1.01))
+        extra = zipf(rng, max(spec.zipf_a, 1.01))
         ranks = np.append(ranks, extra if extra <= n_pages else 1)
     perm = rng.permutation(n_pages)
     zipf_pages = perm[(ranks - 1).astype(np.int64)]
