@@ -73,6 +73,23 @@ exits non-zero:
              with the same message, no kernel launched; accesses/s per
              cell and per scheme, windows, slow accesses and syncs a
              window, fig09's speedup rows, the phase's wall time
+ 12 fabric   the multi-expander fabric: (a) every fabric of the reference
+             fabric bench's full recipe (N = 1, 2, 4, 8; the mixed fleets;
+             the skew sweep; the rebalance pipeline at depth 2, sync and
+             depth 1) replayed once, payload-less, each equal to
+             ``src/repro_torch/fabric/reference_fabric.json`` in every
+             field (float32 segment times bit for bit), depth 1 ==
+             sync, fetches one a segment plus one an epoch, no kernel
+             launched; accesses/s, fetches and the replay's syncs a
+             window per fabric; (b) the payload fabric over pool main's
+             OSPA space, 4 expanders, 80% of the pages on expander 0, spill
+             live at depth 2: I1-I4 on every expander, at least 5 epochs,
+             every moved page's compressed bytes equal on its destination,
+             B1's and B2's step launches, population pages/s, replay
+             accesses/s, pages and bytes moved, the device busy share over
+             one segment (torch.profiler); (c) (b)'s recipe on a 4,096-page
+             space with the kernels and with the plain versions: every
+             leaf of every expander and the override table equal
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -2108,6 +2125,354 @@ def phase_simx(dev, tag: str) -> dict:
     return {"wall_s": wall, "cells": len(cells), "grid_s": grid_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the multi-expander fabric.
+# ---------------------------------------------------------------------------
+
+FABRIC_N = 4
+FABRIC_WEIGHTS = [0.8] + [(1.0 - 0.8) / 3] * 3
+# 12b: the payload fabric over pool main's OSPA space. Expander 0 takes 80%
+# of the written pages; its compressed region (24,576 chunks) cannot hold
+# its share (about 11,000 demoted pages of 3.6 chunks), so the spill
+# carries the overflow to expanders 1-3, which keep their headroom. The
+# watermark clears a segment's demand (512 writes) plus the 1/8 of the
+# region held as 8-chunk groups, which mcf's pages hardly use. The
+# metadata cache holds 1/8 of the promoted region, pool main's ratio (a
+# cache that covers it marks every page referenced and the clock falls
+# back to random victims).
+FABRIC_POOL = dict(n_pages=262144, n_pchunks=2048, n_cchunks=24576,
+                   mcache_sets=16)
+FABRIC_PAGES = 16384
+FABRIC_ACCESSES = 16384
+FABRIC_RUN = dict(window=32, spill_interval=512, spill_k=512,
+                  spill_low=6144)
+FABRIC_MIN_EPOCHS = 5
+# 12c: the same recipe on a 4,096-page space (the 16,384-page recipe's
+# sizes over 16), kernels against plain versions
+FABRIC_WHOLE = dict(pool=dict(n_pages=4096, n_pchunks=128, n_cchunks=1536,
+                              mcache_sets=1),
+                    pages=1024, accesses=2048,
+                    run=dict(window=32, spill_interval=32, spill_k=32,
+                             spill_low=384))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _fabric_reference(dev, tag: str) -> dict:
+    """12a: every fabric of the reference bench's full recipe
+    (``launch.fabric.BENCH_FABRICS``: scaling N = 1, 2, 4, 8 with
+    migration off, the mixed2/mixed4 fleets, the skew sweep at N = 4 with
+    spill live, the rebalance pipeline at depth 2, synchronous and depth
+    1), each replayed once, against the JAX package's record
+    (``fabric/reference_fabric.json``): every field equal, the float32
+    segment times bit for bit."""
+    from repro_torch.common import contracts
+    from repro_torch.launch import fabric as LF
+    ref = json.loads(LF.REFERENCE.read_text())
+    check(ref["recipe"] == LF.BENCH_RECIPE and
+          [{k: v for k, v in f.items() if k != "result"}
+           for f in ref["fabrics"]] == json.loads(json.dumps(
+               LF.BENCH_FABRICS)),
+          "phase 12a: the reference file is not this recipe's")
+    rates, trace = LF.bench_inputs()
+    check([LF.digest(np.asarray(a)) for a in trace] == ref["trace_sha256"],
+          "phase 12a: the trace differs from the one the reference replayed")
+    n_acc = LF.BENCH_RECIPE["n_accesses"]
+    _zero_port_launches()
+    rows, differ, fabs = {}, {}, {}
+    t_all = time.perf_counter()
+    for want in ref["fabrics"]:
+        name = want["name"]
+        contracts.SYNCS.reset()
+        _sync(dev)
+        t0 = time.perf_counter()
+        fab = LF.build(want, rates, device=dev).replay(*trace)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        syncs = contracts.SYNCS.count
+        got = json.loads(json.dumps(LF.record(fab)))
+        bad = [k for k in want["result"] if got[k] != want["result"][k]]
+        if bad:
+            differ[name] = bad
+        ss, rs = fab.sync_stats(), fab.replay_stats
+        rows[name] = {
+            "expanders": fab.n_expanders, "seconds": round(dt, 3),
+            "accesses_per_s": round(n_acc / dt, 3),
+            "segments": ss["segments"], "segment_fetches":
+            ss["segment_syncs"], "epochs": ss["epochs"],
+            "epoch_fetches": ss["epoch_syncs"],
+            "pages_moved": int(fab.spill_pages_out.sum()),
+            "syncs": syncs, "windows": rs["windows"],
+            "replay_syncs_a_window": round(
+                (rs["window_syncs"] + rs["slow_syncs"]) /
+                max(rs["windows"], 1), 3),
+            "serial_accesses": rs["serial"], "apply_syncs": fab.apply_syncs}
+        if name.startswith("migration."):
+            fabs[name] = fab
+    wall = time.perf_counter() - t_all
+    launches = _port_launch_counts()
+    same = fabs["migration.depth1"].state_identical(fabs["migration.sync"])
+    pt = fabs["migration.depth2"].pipeline_times()
+    over_ok = bool((pt["overlapped_s"] <= pt["sync_s"]).all())
+    budget = all(r["segment_fetches"] == r["segments"] and
+                 r["epoch_fetches"] == r["epochs"] for r in rows.values())
+    print(f"phase 12a reference recipe: {len(rows)} fabrics of {n_acc} "
+          f"accesses over {LF.BENCH_RECIPE['n_pages']} pages (window "
+          f"{LF.BENCH_RECIPE['window']}), {len(rows) - len(differ)} equal to "
+          f"the reference file in every field; depth 1 == sync "
+          f"(state_identical): {same}; overlapped <= sync pricing: "
+          f"{over_ok} (overlapped {float(np.max(pt['overlapped_s'])):.9e} "
+          f"s, sync {float(np.max(pt['sync_s'])):.9e} s); fetches one a "
+          f"segment + one an epoch: {budget}; wall {wall:.3f} s [{tag}]",
+          flush=True)
+    for name, r in rows.items():
+        print(f"phase 12a {name}: {json.dumps(r)}", flush=True)
+    print(f"phase 12a launches: {json.dumps(launches)}", flush=True)
+    check(not differ, f"phase 12a: fabrics differ from the reference: "
+          f"{differ}")
+    check(same, "phase 12a: the depth-1 pipeline drifted from the "
+          "synchronous driver")
+    check(over_ok, "phase 12a: overlapped pricing exceeded sync pricing")
+    check(budget, "phase 12a: fetches off the one-a-segment, one-an-epoch "
+          "budget")
+    check(not any(launches.values()),
+          f"phase 12a: a kernel launched on the payload-less path: "
+          f"{launches}")
+    return {"wall_s": wall, "rows": rows}
+
+
+def _fabric_payload(dev, pool: dict, pages: int, accesses: int, run: dict,
+                    impl=None, profile: bool = False) -> dict:
+    """The payload fabric: ``pages`` pages of mcf's rate mix written through
+    ``Fabric.write_pages``, then an mcf trace of ``accesses`` accesses,
+    over FABRIC_N expanders with FABRIC_WEIGHTS, spill live, pipelined at
+    depth 2. Before every epoch's apply each planned page's entry and
+    compressed bytes are read on its source; after the commit every page
+    that moved must read back equal on its destination. That read-back
+    check's syncs are taken out of the apply's count and its wall out of
+    the ``*_net_s`` times. ``impl`` names ``compress_impl`` (with the
+    batched demote step on), else the defaults."""
+    from repro_torch.common import contracts
+    from repro_torch.common.types import PoolConfig
+    from repro_torch.core import metadata as md
+    from repro_torch.core.engine import POLICIES
+    from repro_torch.core.engine import ops as E
+    from repro_torch.core.engine import state as S
+    from repro_torch.fabric import Fabric, WeightedInterleave
+    from repro_torch.fabric import ops as fops
+    from repro_torch.kernels import qpack
+    from repro_torch.simx.trace import (WORKLOADS, make_block_content,
+                                        make_rates_table, make_trace)
+    kw = {} if impl is None else dict(compress_impl=impl, fused_demote="on")
+    cfg = PoolConfig(**pool, store_payload=True, lossless=True, **kw)
+    rates = make_rates_table(WORKLOADS["mcf"], pages, cfg.blocks_per_page,
+                             SEED)
+    content = torch.from_numpy(
+        make_block_content(rates, cfg.vals_per_block, SEED)
+        .reshape(pages, cfg.vals_per_page)).to(dev).to(torch.bfloat16)
+    trace = make_trace(WORKLOADS["mcf"], n_accesses=accesses, n_pages=pages,
+                       seed=SEED)
+    before, moved_log = {}, {"pages": 0, "bytes": 0, "bad": [], "epochs": 0}
+    check_cost = {"syncs": 0, "s": 0.0}   # the read-back check's own
+    apply = fops.apply_migrations
+
+    def snapshot(pools, cfg_, policy, pg, srcs, dsts):
+        t, s0 = time.perf_counter(), contracts.SYNCS.count
+        for p, s_ in zip(pg.tolist(), srcs.tolist()):
+            src = S.pool_slice(pools, s_)
+            entry = E._entry(src, p)
+            before[p] = (entry, E._gather_page_buf(src, cfg_, entry))
+        _sync(dev)
+        check_cost["syncs"] += contracts.SYNCS.count - s0
+        check_cost["s"] += time.perf_counter() - t
+        return apply(pools, cfg_, policy, pg, srcs, dsts)
+
+    def on_epoch(fab, plan, moved):
+        t = time.perf_counter()
+        try:
+            _read_back(fab, plan, moved)
+        finally:
+            check_cost["s"] += time.perf_counter() - t
+
+    def _read_back(fab, plan, moved):
+        moved_log["epochs"] += 1
+        dst_of = dict(zip(plan.pages.tolist(), plan.dsts.tolist()))
+        for p in moved.tolist():
+            entry, buf = before.pop(p)
+            dst = fab.pool(dst_of[p])
+            got = E._entry(dst, p)
+            n = md.get_num_chunks(entry[0])
+            same = got[0] == entry[0] and torch.equal(
+                E._gather_page_buf(dst, fab.cfg, got)[:n * cfg.chunk_bytes],
+                buf[:n * cfg.chunk_bytes])
+            if not same:
+                moved_log["bad"].append(p)
+            moved_log["pages"] += 1
+            moved_log["bytes"] += n * cfg.chunk_bytes
+        before.clear()
+
+    pl = WeightedInterleave(FABRIC_N, cfg.n_pages, FABRIC_WEIGHTS)
+    d0, p0 = qpack.fused_demote_launches, qpack.fused_promote_launches
+    fops.apply_migrations = snapshot
+    try:
+        fab = Fabric(cfg, POLICIES["ibex"], pl, seed=SEED, window=run["window"],
+                     spill_interval=run["spill_interval"],
+                     spill_k=run["spill_k"], spill_low=run["spill_low"],
+                     on_epoch=on_epoch, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        fab.write_pages(np.arange(pages), content)
+        _sync(dev)
+        t1 = time.perf_counter()
+        check_pop_s = check_cost["s"]
+        seg0, ep0 = fab.segments_replayed, fab.epochs_applied
+        fab.replay(*trace)
+        _sync(dev)
+        t2 = time.perf_counter()
+    finally:
+        fops.apply_migrations = apply
+    out = {"fab": fab, "cfg": cfg, "pop_s": t1 - t0, "replay_s": t2 - t1,
+           "pop_net_s": t1 - t0 - check_pop_s,
+           "replay_net_s": t2 - t1 - (check_cost["s"] - check_pop_s),
+           "apply_syncs": fab.apply_syncs - check_cost["syncs"],
+           "check_syncs": check_cost["syncs"], "check_s": check_cost["s"],
+           "pop_segments": seg0, "pop_epochs": ep0,
+           "demote": qpack.fused_demote_launches - d0,
+           "promote": qpack.fused_promote_launches - p0, **moved_log}
+    if profile:
+        out["busy"] = _fabric_busy(fab, cfg, pages, run, dev)
+    return out
+
+
+def _fabric_busy(fab, cfg, pages: int, run: dict, dev):
+    """Device busy share over one more segment (a trace of spill_interval
+    accesses from another seed, so no expander's share exceeds one
+    segment; an epoch it commits adds one), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.simx.trace import WORKLOADS, make_trace
+    tr = make_trace(WORKLOADS["mcf"], n_accesses=run["spill_interval"],
+                    n_pages=pages, seed=SEED + 5)
+    seg0 = fab.segments_replayed
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fab.replay(*tr)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"segments": fab.segments_replayed - seg0, "wall_s": wall,
+            "events": len(kern), "busy_s": _busy_us(kern) / 1e6 if kern
+            else None}
+
+
+def phase_fabric(dev, tag: str) -> dict:
+    """Phase 12: 12a the reference bench's recipe against the reference
+    file; 12b the payload fabric at pool main's OSPA size (B1's and B2's
+    steps on every expander, spill live, pipelined at depth 2); 12c the
+    same recipe on a 4,096-page space with the kernels and with the plain
+    versions, every leaf of every expander and the override table equal.
+    Returns 12b's launches of the demote and promote steps."""
+    from repro_torch import interop
+    from repro_torch.core.engine.invariants import first_violation
+    t_phase = time.perf_counter()
+    ref = _fabric_reference(dev, tag)
+    torch.cuda.empty_cache()
+
+    r = _fabric_payload(dev, FABRIC_POOL, FABRIC_PAGES, FABRIC_ACCESSES,
+                        FABRIC_RUN, profile=True)
+    fab, cfg = r["fab"], r["cfg"]
+    ss = fab.sync_stats()
+    viol = {e: first_violation(interop.pool_to_numpy(fab.pool(e)), cfg)
+            for e in range(FABRIC_N)}
+    free = fab.park_capacity().tolist()
+    busy = r["busy"]
+    share = (f"{busy['busy_s'] / busy['wall_s']:.4f}"
+             if busy["busy_s"] is not None else "not measured (no device "
+             "events recorded)")
+    print(f"phase 12b payload fabric: {FABRIC_N} expanders of "
+          f"{json.dumps(FABRIC_POOL)}, weights "
+          f"{[round(w, 4) for w in FABRIC_WEIGHTS]}, {json.dumps(FABRIC_RUN)} "
+          f"| population {FABRIC_PAGES} pages in {r['pop_s']:.3f} s = "
+          f"{FABRIC_PAGES / r['pop_s']:.3f} pages/s, "
+          f"{FABRIC_PAGES / r['pop_net_s']:.3f} pages/s without the "
+          f"read-back check ({r['pop_segments']} segments, "
+          f"{r['pop_epochs']} epochs) | replay {FABRIC_ACCESSES} "
+          f"accesses in {r['replay_s']:.3f} s = "
+          f"{FABRIC_ACCESSES / r['replay_s']:.3f} accesses/s, "
+          f"{FABRIC_ACCESSES / r['replay_net_s']:.3f} without the check | "
+          f"epochs {ss['epochs']}, pages moved "
+          f"{r['pages']} = {r['bytes']} compressed bytes, out "
+          f"{fab.spill_pages_out.tolist()} in {fab.spill_pages_in.tolist()}"
+          f" | fetches {ss['segment_syncs']} segment + {ss['epoch_syncs']} "
+          f"epoch for {ss['segments']} segments and {ss['epochs']} epochs, "
+          f"apply syncs {r['apply_syncs']} "
+          f"({r['apply_syncs'] / max(r['pages'], 1):.3f} a moved page) | "
+          f"launches demote-and-compact {r['demote']} promote "
+          f"{r['promote']} | free chunk units {free} | read-back of moved "
+          f"pages: {len(r['bad'])} differ; the check took "
+          f"{r['check_syncs']} syncs and {r['check_s']:.3f} s, left out "
+          f"of the apply syncs and the rates without it [{tag}]",
+          flush=True)
+    print(f"phase 12b busy: device busy share over {busy['segments']} "
+          f"segment(s) of a {FABRIC_RUN['spill_interval']}-access trace, "
+          f"{busy['events']} device events, wall {busy['wall_s']:.3f} s, "
+          f"busy share {share} [{tag}]", flush=True)
+    print(f"phase 12b invariants: {json.dumps(viol)}", flush=True)
+    check(not any(viol.values()), f"phase 12b: I1-I4 broken: {viol}")
+    check(ss["epochs"] >= FABRIC_MIN_EPOCHS and r["pages"] > 0,
+          f"phase 12b: spill committed {ss['epochs']} epochs (at least "
+          f"{FABRIC_MIN_EPOCHS} asked)")
+    check(not r["bad"], f"phase 12b: moved pages read back wrong: "
+          f"{r['bad'][:8]}")
+    check(r["demote"] > 0 and r["promote"] > 0,
+          f"phase 12b: a kernel was not launched: demote {r['demote']} "
+          f"promote {r['promote']}")
+    check(ss["segment_syncs"] == ss["segments"] and
+          ss["epoch_syncs"] == ss["epochs"],
+          f"phase 12b: fetches off budget: {ss}")
+    launches = {"demote": r["demote"], "promote": r["promote"]}
+    del fab, r
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for impl in ("kernel", "jnp"):
+        w = _fabric_payload(dev, FABRIC_WHOLE["pool"], FABRIC_WHOLE["pages"],
+                            FABRIC_WHOLE["accesses"], FABRIC_WHOLE["run"],
+                            impl=impl)
+        fab = w["fab"]
+        bad = [first_violation(interop.pool_to_numpy(fab.pool(e)), fab.cfg)
+               for e in range(FABRIC_N)]
+        runs[impl] = (interop.pool_stack_to_numpy(fab.pools),
+                      fab.placement.overrides.copy(), w["demote"],
+                      w["promote"], fab.epochs_applied, w["bad"] +
+                      [v for v in bad if v])
+        del fab, w
+    (ka, ko, kd, kp, ke, kb), (pa, po, pd, pp, pe, pb) = \
+        runs["kernel"], runs["jnp"]
+    diff = [k for k in ka if not np.array_equal(ka[k], pa[k])]
+    print(f"phase 12c whole fabric kernel vs plain: {FABRIC_N} expanders of "
+          f"{json.dumps(FABRIC_WHOLE['pool'])}, {FABRIC_WHOLE['pages']} "
+          f"pages, {FABRIC_WHOLE['accesses']} accesses, {ke} and {pe} "
+          f"epochs | {len(ka)} leaves, {len(diff)} differ {diff} | "
+          f"overrides equal {bool((ko == po).all())} | kernel run launches "
+          f"demote {kd} promote {kp}, plain run {pd} {pp}", flush=True)
+    check(not diff and (ko == po).all(),
+          f"phase 12c: leaves or overrides differ: {diff}")
+    check(kd > 0 and kp > 0 and pd == 0 and pp == 0 and ke > 0,
+          "phase 12c: the kernel run did not launch the kernels or migrate, "
+          "or the plain run launched them")
+    check(not kb and not pb, f"phase 12c: moved pages read back wrong or "
+          f"I1-I4 broken: kernel {kb[:4]}, plain {pb[:4]}")
+    print(f"phase 12 wall {time.perf_counter() - t_phase:.3f} s "
+          f"(12a {ref['wall_s']:.3f} s) [{tag}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2143,6 +2508,8 @@ def main() -> int:
     serve_times = phase_serve_times(dev, tag)
     torch.cuda.empty_cache()
     phase_simx(dev, tag)
+    torch.cuda.empty_cache()
+    fabric_launches = phase_fabric(dev, tag)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     extra = ("composition_ms", "composition_graph_ms", "events",
@@ -2154,13 +2521,16 @@ def main() -> int:
              "phase 2"),
             ("decode", 4, 305, "none since the promote step took the "
              "pool's promotion: the TPU kernel's contract, held in phase 2"),
-            ("demote", 8, 278, "pool main (phase 3)"),
-            ("promote", 1, 305, "pool main (phase 3)")):
+            ("demote", 8, 278, "pool main (phase 3) and the payload "
+             "fabric (phase 12b)"),
+            ("promote", 1, 305, "pool main (phase 3) and the payload "
+             "fabric (phase 12b)")):
         t = times[(kind, n)]
         kernels.append({
             "name": f"qpack_fused_{kind}", "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/qpack.py:{line}",
-            "launches": launches[kind], "max_abs_err": errs[kind]["err"],
+            "launches": launches[kind] + fabric_launches.get(kind, 0),
+            "max_abs_err": errs[kind]["err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "eager_ms": t["eager_ms"], "path": path,

@@ -53,6 +53,24 @@ def fetch(tree):
     return tree.detach().to("cpu", copy=True)
 
 
+def fetch_packed(tree: dict) -> dict:
+    """Host copies of a dict of tensors on one device in ONE device->host
+    copy, counted as one sync: their bytes are concatenated on the device
+    (widest dtype first, so every piece stays aligned) and split again on
+    the host."""
+    SYNCS.count += 1
+    items = sorted(((k, v.detach().contiguous()) for k, v in tree.items()),
+                   key=lambda kv: -kv[1].element_size())
+    flat = torch.cat([v.reshape(-1).view(torch.uint8) for _, v in items]) \
+        .to("cpu")
+    out, o = {}, 0
+    for k, v in items:
+        n = v.numel() * v.element_size()
+        out[k] = flat[o:o + n].view(v.dtype).reshape(v.shape)
+        o += n
+    return out
+
+
 @dataclass(frozen=True)
 class SyncContract:
     """Declared host-sync budget: at most ``fetches`` device->host fetch

@@ -24,6 +24,11 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (1 for n <= 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
 def get_bits(word, lo: int, width: int):
     """Extract ``width`` bits starting at bit ``lo`` from uint32 word(s)."""
     return (word >> lo) & ((1 << width) - 1)

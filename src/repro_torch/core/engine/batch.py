@@ -174,6 +174,57 @@ def new_stats() -> dict:
             "serial": 0, "serial_syncs": 0}
 
 
+def _replay_windows_masked(pool: Pool, cfg: PoolConfig, policy: Policy,
+                           ospns, writes, blocks, valid, pending=None,
+                           stats: Optional[dict] = None) -> Pool:
+    """Window walk over a *padded* trace, in place: the multi-expander
+    fabric's entry point (fabric/replay.py runs it on each expander's
+    slice of the stack).
+
+    ``ospns``/``writes``/``blocks``/``valid`` are host arrays [n_win, W]:
+    an expander's trace partition as a prefix of real accesses followed by
+    padding. Per window:
+
+      * all valid  -> ``_window_step``, as ``replay_trace``'s windows;
+      * part valid -> the serial per-access body over the valid accesses,
+                      in order, as ``replay_trace``'s tail;
+      * none valid -> nothing.
+
+    Padding sits at the end, so the walk is full windows, one partial
+    window, then no-ops, and the pool ends bit-identical to an unpadded
+    ``replay_trace`` of the real prefix. ``pending`` (host bool[n_pages],
+    the fabric's pages whose migration is in flight) turns an access to
+    such a page into a no-op; all False changes nothing. The masks live on
+    the host, so choosing a window's branch costs no sync."""
+    ospns = np.asarray(ospns, np.int64)
+    writes = np.asarray(writes, bool)
+    blocks = np.asarray(blocks, np.int64)
+    valid = np.asarray(valid, bool)
+    if pending is not None:
+        valid = valid & ~np.asarray(pending, bool)[ospns]
+    full = valid.all(axis=1)
+    if full.any():
+        dev = pool.meta.device
+        o_d = torch.from_numpy(ospns).to(dev).to(torch.int32)
+        w_d = torch.from_numpy(writes).to(dev)
+        b_d = torch.from_numpy(blocks).to(dev).to(torch.int32)
+    for i in range(ospns.shape[0]):
+        if full[i]:
+            _window_step(pool, cfg, policy,
+                         (ospns[i], writes[i], blocks[i]),
+                         (o_d[i], w_d[i], b_d[i]), stats)
+            continue
+        sel = np.nonzero(valid[i])[0]
+        s0 = contracts.SYNCS.count
+        for k in sel:
+            _serial_access(pool, cfg, policy, int(ospns[i, k]),
+                           bool(writes[i, k]), int(blocks[i, k]))
+        if stats is not None:
+            stats["serial"] += len(sel)
+            stats["serial_syncs"] += contracts.SYNCS.count - s0
+    return pool
+
+
 def replay_trace(pool: Pool, cfg: PoolConfig, policy: Policy, ospns, writes,
                  blocks, *, window: int = DEFAULT_WINDOW,
                  stats: Optional[dict] = None) -> Pool:

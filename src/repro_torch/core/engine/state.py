@@ -108,6 +108,67 @@ def bump(counters: torch.Tensor, idx: int, n=1) -> None:
     counters[idx] += n
 
 
+# ---------------------------------------------------------------------------
+# Stacked pools (multi-expander fabric, repro_torch.fabric): N pools as one
+# Pool whose every leaf carries a leading expander axis. ``pool_slice``
+# returns views along that axis (each contiguous), so the single-pool
+# mechanisms, which update a pool's tensors in place, advance expander e's
+# slice of the stack directly.
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, pool, *rest):
+    """``fn`` over the leaves of a pool (nested NamedTuples), with the
+    matching leaves of ``rest`` as further arguments."""
+    if isinstance(pool, tuple) and hasattr(pool, "_fields"):
+        return type(pool)(*(tree_map(fn, *xs) for xs in zip(pool, *rest)))
+    return fn(pool, *rest)
+
+
+def make_pool_stack(cfg: PoolConfig, n_expanders: int, seed: int = 0,
+                    rates_table=None, device=None) -> Pool:
+    """N identically configured pools stacked leaf-wise on ``device``
+    (CUDA unless the caller names one). Expander e's key is
+    ``fold_in(key(seed), e)``, the reference's derivation, so a fabric run
+    is reproducible from one seed and expanders share no randomness."""
+    base = make_pool(cfg, seed=seed, rates_table=rates_table, device=device)
+    stack = tree_map(lambda a: a.unsqueeze(0).expand(
+        (n_expanders,) + tuple(a.shape)).clone(), base)
+    keys = [prng.fold_in(prng.key(seed), e) for e in range(n_expanders)]
+    return stack._replace(rng=torch.tensor(keys, dtype=torch.int64,
+                                           device=base.meta.device))
+
+
+def pool_slice(stack: Pool, e: int) -> Pool:
+    """Expander ``e``'s pool: views into the stack, so in-place updates
+    through it reach the stack."""
+    return tree_map(lambda a: a[e], stack)
+
+
+def pool_unslice(stack: Pool, e: int, pool: Pool) -> Pool:
+    """Copy one pool into expander ``e``'s slice of the stack, in place;
+    returns the stack."""
+    tree_map(lambda s, a: s[e].copy_(a), stack, pool)
+    return stack
+
+
+def stacked_counters(stack: Pool) -> torch.Tensor:
+    """Summed counters across expanders: int32[NUM_COUNTERS]."""
+    return stack.counters.sum(dim=0, dtype=CTR_DTYPE)
+
+
+def stacked_counters_dict(stack: Pool) -> dict:
+    """Aggregate counters of a stacked state, ``counters_dict``'s keys
+    (one counted sync)."""
+    return dict(zip(COUNTER_NAMES, contracts.tolist(stacked_counters(stack))))
+
+
+def per_expander_counters(stack: Pool) -> list:
+    """One ``counters_dict`` per expander, in expander order (one counted
+    sync)."""
+    return [dict(zip(COUNTER_NAMES, row))
+            for row in contracts.tolist(stack.counters)]
+
+
 def compression_ratio(pool: Pool, cfg: PoolConfig) -> float:
     """Logical bytes of valid pages / physical bytes used (chunks + promoted
     duplicates)."""

@@ -6,7 +6,9 @@ reference ``Pool``'s field order ("meta", "activity", "hand",
 "cfree.items", "cfree.top", ..., "cache.tags", "cache.age", "counters",
 "rng", "c_store", "p_store", "rates_table"). The reference's uint32 leaves
 (metadata and activity words, the PRNG key) are int64 inside the port;
-this module is the only place that converts them.
+this module is the only place that converts them. A stacked pool (the
+fabric's, ``state.make_pool_stack``) has the same names, every leaf with a
+leading expander axis.
 
 Model params: the reference's ``init_params`` tree (layers stacked on a
 leading axis, f32 leaves) becomes the port's (a list of per-layer dicts, in
@@ -50,8 +52,31 @@ def pool_to_numpy(pool: Pool) -> dict:
 def pool_from_numpy(arrays: dict, cfg: PoolConfig, device=None) -> Pool:
     """Build the port's pool from reference leaves (``uint32`` words,
     ``int32`` freelists and cache, ``uint8`` stores) on ``device``."""
-    dev = resolve_device(device)
+    pool = _pool_from_arrays(arrays, resolve_device(device))
+    if pool.meta.shape != (cfg.n_pages, 8):
+        raise ValueError(f"meta {tuple(pool.meta.shape)} does not match "
+                         f"n_pages={cfg.n_pages}")
+    return pool
 
+
+def pool_stack_to_numpy(stack: Pool) -> dict:
+    """A snapshot of a stacked pool (``state.make_pool_stack``): the
+    reference stack's leaves, each with its leading expander axis."""
+    return pool_to_numpy(stack)
+
+
+def pool_stack_from_numpy(arrays: dict, cfg: PoolConfig, device=None) -> Pool:
+    """The port's stacked pool from a reference stack's leaves (every leaf
+    with a leading expander axis) on ``device``; ``pool_slice`` of the
+    result gives each expander's pool."""
+    stack = _pool_from_arrays(arrays, resolve_device(device))
+    if stack.meta.dim() != 3 or stack.meta.shape[1:] != (cfg.n_pages, 8):
+        raise ValueError(f"meta {tuple(stack.meta.shape)} is not a stack "
+                         f"of n_pages={cfg.n_pages} pools")
+    return stack
+
+
+def _pool_from_arrays(arrays: dict, dev: torch.device) -> Pool:
     def t(name):
         a = np.asarray(arrays[name])
         if name in _UINT32:
@@ -59,15 +84,11 @@ def pool_from_numpy(arrays: dict, cfg: PoolConfig, device=None) -> Pool:
         return torch.from_numpy(np.array(a)).to(dev)
 
     fl = lambda f: FreeList(t(f"{f}.items"), t(f"{f}.top"))
-    pool = Pool(meta=t("meta"), activity=t("activity"), hand=t("hand"),
+    return Pool(meta=t("meta"), activity=t("activity"), hand=t("hand"),
                 cfree=fl("cfree"), gfree=fl("gfree"), pfree=fl("pfree"),
                 cache=MCache(t("cache.tags"), t("cache.age")),
                 counters=t("counters"), rng=t("rng"), c_store=t("c_store"),
                 p_store=t("p_store"), rates_table=t("rates_table"))
-    if pool.meta.shape != (cfg.n_pages, 8):
-        raise ValueError(f"meta {tuple(pool.meta.shape)} does not match "
-                         f"n_pages={cfg.n_pages}")
-    return pool
 
 
 def params_from_numpy(tree: dict, cfg, device=None) -> dict:

@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.common import contracts
 from repro_torch.common.types import ModelConfig, ServeConfig
-from repro_torch.common.utils import resolve_device
+from repro_torch.common.utils import next_pow2, resolve_device
 from repro_torch.core.compressor import resolve_quantize_impl
 from repro_torch.core.engine.policy import SecondChanceLanes
 from repro_torch.kernels import qpack
@@ -55,10 +55,6 @@ WAITING, RUNNING, PREEMPTED, DONE = "waiting", "running", "preempted", "done"
 # bf16 hot-ring leaves: quantized into the codes region on demotion, zeroed
 # on resume; never parked, never moved
 HOT_KEYS = ("k_hot", "v_hot")
-
-
-def next_pow2(n: int) -> int:
-    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 @dataclass

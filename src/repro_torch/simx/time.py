@@ -167,10 +167,35 @@ def _maximum(xp):
     return xp.maximum
 
 
+def _fma_f32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` in float32 with one rounding, as a fused multiply-add.
+    The reference's float32 model runs jitted, and XLA:CPU contracts its
+    one multiply-add with a non-exact product (the latency's first two
+    terms) into a fused one; the unfused sum is 1 ulp off in about one
+    value of a hundred. The float64 product of two float32 values is
+    exact. The float64 sum is then rounded to odd: TwoSum gives its
+    rounding error, and an inexact sum whose last bit is even steps one
+    float64 ulp toward the exact value. A float64 rounded to odd rounds to
+    float32 as the exact value does (53 bits >= 24 + 2), so the result is
+    the fused one even where the float64 sum lands on a float32 midpoint,
+    which a plain float64 sum would round twice."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                    device=a.device).double()
+    p, c = f64(a) * f64(b), f64(c)
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)                 # TwoSum: s + err exact
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, float("inf")), err)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
+
+
 # ---------------------------------------------------------------------------
 # The model core, for python/numpy scalars and arrays (float64) and tensors
 # (float32). Its operation order is the reference's, so the float64 path is
-# bitwise the reference's.
+# bitwise the reference's, and the float32 path the reference's jitted one.
 # ---------------------------------------------------------------------------
 
 def _exec_time_core(host, internal, promotions, demotions_dirty,
@@ -187,7 +212,11 @@ def _exec_time_core(host, internal, promotions, demotions_dirty,
     zero_frac = zero_served / host1
     accesses_per_host = internal / host1
     decomp_lat_frac = promotions / host1
-    l_avg = dev.cxl_lat + (1 - zero_frac) * dev.dram_lat \
+    if xp is torch:
+        l_avg = _fma_f32(1 - zero_frac, dev.dram_lat, dev.cxl_lat)
+    else:
+        l_avg = dev.cxl_lat + (1 - zero_frac) * dev.dram_lat
+    l_avg = l_avg \
         + accesses_per_host * dev.dram_lat * 0.25 \
         + decomp_lat_frac * dev.decomp_cycles / dev.clock
     t_lat = host * l_avg / dev.mlp

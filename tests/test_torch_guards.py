@@ -84,3 +84,49 @@ def test_unported_arch_raises():
     assert get_config("llama3-8b").num_layers == 32
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         get_config("qwen3_moe_235b_a22b")
+
+
+def test_fabric_without_device_needs_cuda():
+    from repro_torch.common.types import PoolConfig
+    from repro_torch.core.engine import POLICIES
+    from repro_torch.fabric import Fabric, StaticInterleave
+    cfg = PoolConfig(n_pages=16, n_cchunks=64, n_pchunks=16,
+                     store_payload=False)
+    pl = StaticInterleave(2, cfg.n_pages)
+    if torch.cuda.is_available():
+        assert Fabric(cfg, POLICIES["ibex"], pl).pools.meta.device.type \
+            == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Fabric(cfg, POLICIES["ibex"], pl)
+    fab = Fabric(cfg, POLICIES["ibex"], pl, device="cpu")
+    assert fab.pools.meta.device.type == "cpu"
+    assert fab.lanes.ch_bw.device.type == "cpu"
+
+
+def test_fabric_launcher_without_device_needs_cuda(capsys):
+    from repro_torch.launch import fabric as LF
+    argv = ["--expanders", "2", "--accesses", "64", "--pages", "64"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LF.main(argv)
+    LF.main(argv + ["--device", "cpu", "--check-parity"])
+    assert "parity: summed fabric counters" in capsys.readouterr().out
+
+
+def test_unported_fabric_parts_raise_naming_roadmap():
+    from repro_torch.common.types import PoolConfig
+    from repro_torch.core.engine import POLICIES
+    from repro_torch.fabric import Fabric, StaticInterleave
+    from repro_torch.launch import fabric as LF
+    cfg = PoolConfig(n_pages=16, n_cchunks=64, n_pchunks=16,
+                     store_payload=False)
+    pl = StaticInterleave(2, cfg.n_pages)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        Fabric(cfg, POLICIES["ibex"], pl, shard_devices=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        Fabric(cfg, POLICIES["ibex"], pl, obs=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        LF.main(["--devices", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        LF.main(["--trace", "out.trace.json", "--device", "cpu"])

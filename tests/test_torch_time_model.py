@@ -3,13 +3,15 @@ and the counter helpers of ``core/engine/state.py`` against the
 reference's, on seeded counter arrays.
 
 The float64 numpy paths must be bitwise the reference's (same operation
-order); the float32 tensor path is held to the reference's jnp path within
-float32 rounding (rtol 1e-6: XLA may reassociate). ``Engine.modeled_time``
+order); the float32 tensor path is held to the reference's eager jnp path
+within float32 rounding (rtol 1e-6) and to its jitted path (the one the
+fabric prices segments with) bit for bit. ``Engine.modeled_time``
 is held to the JAX ``Engine``'s on the REDUCED llama3 serving recipe of
 ``test_torch_serve.py``.
 """
 import dataclasses
 import json
+from fractions import Fraction
 from types import SimpleNamespace
 
 import numpy as np
@@ -150,6 +152,75 @@ def test_exec_time_vec_torch_float32_matches_jnp():
             lambda x: JTM.exec_time_vec(x, j)))(jnp.asarray(c[0])))
         got = TM.exec_time_vec(torch.from_numpy(c[0]), t).numpy()
         np.testing.assert_allclose(got, want, rtol=RTOL_F32, atol=0)
+
+
+def test_exec_time_vec_float32_is_bitwise_the_jitted_reference():
+    """Segment times as the reference's fabric computes them (float32,
+    jitted, vmapped over a stacked fleet) equal the port's bit for bit
+    over 80,000 seeded counter vectors at four scales; the unfused
+    multiply-add of the latency's first two terms would not (XLA:CPU
+    contracts it, ``time._fma_f32``)."""
+    rng = np.random.default_rng(1)
+    jl = JTM.stack_devices([JTM.DEVICE_PROFILES[p] for p in PROFILES])
+    tl = TM.stack_devices([TM.DEVICE_PROFILES[p] for p in PROFILES])
+    jitted = jax.jit(jax.vmap(jax.vmap(JTM.exec_time_vec),
+                              in_axes=(0, None)))
+    unfused = 0
+    for scale in (100, 3000, 100000, 3000000):
+        c = rng.integers(0, scale, (5000, len(PROFILES), S.NUM_COUNTERS)) \
+            .astype(np.int32)
+        host = c[..., S.C_HOST_RD] + c[..., S.C_HOST_WR]
+        c[..., S.C_ZERO_SERVED] = (rng.random(host.shape) * host *
+                                   rng.random(host.shape)).astype(np.int32)
+        want = np.asarray(jitted(jnp.asarray(c), jl)).view(np.uint32)
+        got = TM.exec_time_vec(torch.from_numpy(c), tl)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TM, "_fma_f32", lambda a, b, c: torch.as_tensor(
+                c, dtype=torch.float32) + a * torch.as_tensor(
+                    b, dtype=torch.float32))
+            plain = TM.exec_time_vec(torch.from_numpy(c), tl)
+        unfused += int((plain.numpy().view(np.uint32) != want).sum())
+    assert unfused > 0
+
+
+def _fma_exact_f32(a, b, c) -> np.float32:
+    """``a * b + c`` computed exactly in rationals, rounded once to
+    float32 (nearest, ties to even)."""
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda y: (abs(Fraction(float(y)) - x),
+                                     int(np.float32(y).view(np.uint32)) & 1))
+
+
+def test_fma_f32_rounds_once_at_float32_midpoints():
+    """``_fma_f32`` equals the exactly rounded multiply-add where the
+    float64 sum lands on a float32 midpoint: a * b = ±2^-24 (1 - k^2
+    2^-46) with k < 256 puts c + a * b less than 2^-54 from the midpoint
+    next to c in [1, 2), so the float64 sum lands on the midpoint, and
+    rounding it again to float32 goes the wrong way in about half the
+    cases. Both crafted cases and seeded ones, all ==."""
+    rng = np.random.default_rng(7)
+    k = rng.integers(1, 256, 2000)
+    a = (2.0 ** -12 * (1 + k * 2.0 ** -23)).astype(np.float32)
+    b = (2.0 ** -12 * (1 - k * 2.0 ** -23)).astype(np.float32)
+    b = np.where(rng.random(2000) < 0.5, b, -b).astype(np.float32)
+    c = (1 + rng.integers(0, 1 << 23, 2000) * 2.0 ** -23).astype(np.float32)
+    # the two smallest: 1 + 2^-23 rounds up to 1 + 2^-22, -(1 + 2^-23)
+    # down to -1, when rounded twice
+    a = np.concatenate([[2.0 ** -12 * (1 + 2.0 ** -23)] * 2, a])
+    b = np.concatenate([[2.0 ** -12 * (1 - 2.0 ** -23)] * 2, b])
+    c = np.concatenate([[1 + 2.0 ** -23, -(1 + 2.0 ** -23)], c])
+    a, b, c = (x.astype(np.float32) for x in (a, b, c))
+    want = np.array([_fma_exact_f32(*t) for t in zip(a, b, c)], np.float32)
+    got = TM._fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                      torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    twice = (a.astype(np.float64) * b.astype(np.float64) +
+             c.astype(np.float64)).astype(np.float32)
+    assert (twice[:2] != want[:2]).all() and (twice != want).sum() > 500
 
 
 def test_stack_devices_matches_and_guards_field_drift(monkeypatch):
