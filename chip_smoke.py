@@ -90,6 +90,23 @@ exits non-zero:
              one segment (torch.profiler); (c) (b)'s recipe on a 4,096-page
              space with the kernels and with the plain versions: every
              leaf of every expander and the override table equal
+ 13 mla      serving minicpm3-4b (MLA) over the compressed latent cache:
+             (a) the MLA kernel forms at its widths against their plain
+             versions: the latent ring step, prefill fill and lane flush
+             and B4 at block 288 byte for byte, B5's latent form (40 heads
+             x 288, K = V) at its chunk boundaries within tolerance and
+             bit-identical on a second call, B6 at qk 96 / v 64 (bf16 on
+             the tensor cores, f32); (b) minicpm3-4b at its published
+             config (62 layers, bf16, random params from a seed) with
+             phase 7's recipe: rates, KV cache and peak memory, counters,
+             launches against the expectations (the latent ring step and
+             B5 one a layer a step, the fill and B6 one a layer a prefill
+             batch, the flush one a lane demotion, the GQA steps none),
+             the device busy share over 4 decode steps; (c) 2 layers at
+             its full widths, kernels against plain versions as phase 9,
+             and paper mode (B4 at block 288) against fused; (d) each MLA
+             form's kernel / eager / plain / library / bound times, and
+             B5 latent's working CTAs at (b)'s lengths above the SM count
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -971,7 +988,18 @@ def _launch_counts() -> dict:
             "qpack_lane_flush": qpack.lane_flush_launches,
             "kvc_decode_attention": KA.launches,
             "flash_attention": FA.launches,
-            "flash_attention_tc": FA.launches_tc}
+            "flash_attention_tc": FA.launches_tc,
+            "qpack_latent_ring_step": qpack.latent_ring_step_launches,
+            "qpack_latent_prefill_fill": qpack.latent_prefill_fill_launches,
+            "qpack_latent_lane_flush": qpack.latent_lane_flush_launches,
+            "kvc_latent_partial": KA.latent_launches}
+
+
+# the decode path's own steps, by attention kind: the other kind's stay at 0
+GQA_STEPS = ("qpack_ring_step", "qpack_prefill_fill", "qpack_lane_flush",
+             "kvc_decode_attention")
+MLA_STEPS = ("qpack_latent_ring_step", "qpack_latent_prefill_fill",
+             "qpack_latent_lane_flush", "kvc_latent_partial")
 
 
 def _reset_launches() -> None:
@@ -981,7 +1009,9 @@ def _reset_launches() -> None:
     qpack.encode_launches = qpack.decode_launches = 0
     qpack.ring_step_launches = 0
     qpack.prefill_fill_launches = qpack.lane_flush_launches = 0
-    KA.launches = FA.launches = FA.launches_tc = 0
+    qpack.latent_ring_step_launches = qpack.latent_prefill_fill_launches = 0
+    qpack.latent_lane_flush_launches = 0
+    KA.launches = FA.launches = FA.launches_tc = KA.latent_launches = 0
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1716,13 +1746,16 @@ def phase_paper(params, dev, tag: str) -> dict:
     return launches
 
 
-def _whole_run(cfg, params, tokens, lens, impl: str, feed=None):
+def _whole_run(cfg, params, tokens, lens, impl: str, feed=None,
+               paper: bool = False):
     """Prefill, then WHOLE_STEPS decode steps fed ``feed`` (or, when None,
-    this run's own greedy tokens). Returns (logits per call, the tokens
-    fed, launches in this run)."""
+    this run's own greedy tokens); ``paper`` reads the compressed prefix
+    promote-then-read. Returns (logits per call, the tokens fed, launches
+    in this run)."""
     from repro_torch.common.types import ServeConfig
     from repro_torch.models import decode as D
-    scfg = ServeConfig(**SERVE_CFG, **WHOLE_IMPLS[impl])
+    scfg = ServeConfig(**SERVE_CFG, **WHOLE_IMPLS[impl],
+                       fused_dequant_attention=not paper)
     _reset_launches()
     lg, cache = D.prefill(params, {"tokens": tokens}, cfg, scfg,
                           SERVE_MAX_LEN, lens=lens)
@@ -1738,18 +1771,22 @@ def _whole_run(cfg, params, tokens, lens, impl: str, feed=None):
     return out, toks, _launch_counts()
 
 
-def phase_serve_whole(dev) -> dict:
-    """2 layers at llama3-8b's widths, kernels against plain versions, in
-    bf16 (the main path's type) and in float32 (where the argmax has
-    margin): logits of a prefill and WHOLE_STEPS decode steps, both runs
-    fed the plain run's greedy tokens, then the same prompts served
-    through Engine both ways."""
+def phase_serve_whole(dev, model=None, label: str = "9") -> dict:
+    """2 layers at the widths of ``model`` (``_llama`` by default; phase
+    13c passes ``_minicpm``), kernels against plain versions, in bf16 (the
+    main path's type) and in float32 (where the argmax has margin): logits
+    of a prefill and WHOLE_STEPS decode steps, both runs fed the plain
+    run's greedy tokens, then the same prompts served through Engine both
+    ways."""
     from repro_torch.common.types import ServeConfig
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    model = model or _llama
     res = {}
     for dtype in ("bfloat16", "float32"):
-        cfg = dataclasses.replace(_llama(layers=2), dtype=dtype)
+        cfg = dataclasses.replace(model(layers=2), dtype=dtype)
+        # the other attention kind's steps stay at 0
+        other = GQA_STEPS if cfg.attn_kind == "mla" else MLA_STEPS
         tol = ATTN_TOL[L.DTYPES[dtype]]
         params = T.init_params(cfg, seed=SEED + 2, device=dev)
         prompts = _prompts(4, cfg.vocab_size, SEED + 2)
@@ -1775,8 +1812,8 @@ def phase_serve_whole(dev) -> dict:
             close = top2[:, 0] - top2[:, 1] <= 2 * bound
             same = a.argmax(-1) == b.argmax(-1)
             agree += int(same.sum())
-            check(bool((same | close).all()), f"phase 9 {dtype}: an argmax "
-                  "differs at a top-2 margin above the tolerance")
+            check(bool((same | close).all()), f"phase {label} {dtype}: an "
+                  "argmax differs at a top-2 margin above the tolerance")
         served = {}
         for name, kw in WHOLE_IMPLS.items():
             scfg = ServeConfig(**dict(SERVE_CFG, max_running=2), **kw)
@@ -1787,7 +1824,8 @@ def phase_serve_whole(dev) -> dict:
         same_gen = sum(x == y for x, y in zip(served["kernel"][0],
                                               served["plain"][0]))
         n = len(got) * got[0].shape[0]
-        print(f"phase 9 whole path {dtype}, 2 layers at full width, kernels "
+        print(f"phase {label} whole path {dtype}, {cfg.name} 2 layers at "
+              f"full width, kernels "
               f"vs plain: prefill + {WHOLE_STEPS} decode steps x 4 rows, "
               f"logits max abs err {err:.6f}, {bad}/{n} rows outside tol "
               f"{tol} * max|plain row| | argmax {agree}/{n} agree, "
@@ -1798,10 +1836,10 @@ def phase_serve_whole(dev) -> dict:
               f"{json.dumps(served['kernel'][1])}; plain runs "
               f"{json.dumps(pl)}, {json.dumps(served['plain'][1])}",
               flush=True)
-        check(bad == 0, f"phase 9 {dtype}: {bad} rows of logits outside "
-              "tolerance")
+        check(bad == 0, f"phase {label} {dtype}: {bad} rows of logits "
+              "outside tolerance")
         if dtype == "float32":
-            check(same_gen == 4, "phase 9 float32: Engine generations "
+            check(same_gen == 4, f"phase {label} float32: Engine generations "
                   "differ between the kernels and the plain versions")
         for run, counts in (("prefill and decode", kl),
                             ("Engine", served["kernel"][1])):
@@ -1810,14 +1848,19 @@ def phase_serve_whole(dev) -> dict:
                 # cores; B3 and B4 themselves are off the path, and only
                 # the Engine demotes lanes
                 idle = k in ("qpack_fixed_encode", "qpack_fixed_decode") or \
+                    k in other or \
                     (k == "flash_attention_tc" and dtype == "float32") or \
-                    (k == "qpack_lane_flush" and run != "Engine")
+                    (k in ("qpack_lane_flush", "qpack_latent_lane_flush") and
+                     run != "Engine")
                 check((v == 0) if idle else (v > 0),
-                      f"phase 9 {dtype}: {k} launched {v} times in the "
+                      f"phase {label} {dtype}: {k} launched {v} times in the "
                       f"kernel run's {run}")
         check(not any(pl.values()) and not any(served["plain"][1].values()),
-              f"phase 9 {dtype}: a plain run launched a kernel")
+              f"phase {label} {dtype}: a plain run launched a kernel")
         res[dtype] = {"err": err, "argmax_differ": n - agree}
+        if dtype == "bfloat16" and cfg.attn_kind == "mla":
+            res["paper"] = _whole_paper(cfg, params, tokens, lens, got, feed,
+                                        tol, label)
         del params
         torch.cuda.empty_cache()
     return res
@@ -1960,6 +2003,25 @@ def phase_serve_times(dev, tag: str) -> dict:
             lib=lambda q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, True),
             nbytes=2 * rows * Sp * D * (2 * Hq + 2 * Hkv),
             ops=4 * rows * Hq * D * Sp * (Sp + 1) // 2, reps=5)
+    res = _time_rows(out, "10", tag)
+
+    # B5: CTAs that do work at these lengths (one per chunk of a lane's
+    # length, per KV head) against the card's SMs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    working = Hkv * sum(len(KA.chunk_plan(int(n))) for n in lens_l)
+    grid = B * Hkv * len(KA.chunk_plan(S))
+    print(f"phase 10 kvc_decode_attention split: chunk {KA.CHUNK}, grid "
+          f"{grid} CTAs of which {working} do work, {sms} SMs [{tag}]",
+          flush=True)
+    check(working > sms, f"phase 10: only {working} B5 CTAs do work on "
+          f"{sms} SMs")
+    return res
+
+
+def _time_rows(out: dict, label: str, tag: str) -> dict:
+    """Each row of ``out``: kernel ms (CUDA graph replay), eager ms, plain
+    ms, library ms, bound ms, and for a step the composition it replaced;
+    one line a row."""
     res = {}
     for name, t in out.items():
         t_b = t["nbytes"] / HBM_BYTES_PER_S
@@ -1987,23 +2049,12 @@ def phase_serve_times(dev, tag: str) -> dict:
         res[name] = r
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.6f} ms"
-        print(f"phase 10 {name} [{r['shape']}]: kernel {r['ms']:.6f} ms "
+        print(f"phase {label} {name} [{r['shape']}]: kernel {r['ms']:.6f} ms "
               f"(graph replay), {r['eager_ms']:.6f} ms eager | plain "
               f"{r['plain_ms']:.6f} ms | library {lib} | bound "
               f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({t['nbytes']} B "
               f"at 3.35 TB/s, {t['ops']} flop at 989 TF/s){comp_txt} "
               f"[{tag}]", flush=True)
-
-    # B5: CTAs that do work at these lengths (one per chunk of a lane's
-    # length, per KV head) against the card's SMs
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    working = Hkv * sum(len(KA.chunk_plan(int(n))) for n in lens_l)
-    grid = B * Hkv * len(KA.chunk_plan(S))
-    print(f"phase 10 kvc_decode_attention split: chunk {KA.CHUNK}, grid "
-          f"{grid} CTAs of which {working} do work, {sms} SMs [{tag}]",
-          flush=True)
-    check(working > sms, f"phase 10: only {working} B5 CTAs do work on "
-          f"{sms} SMs")
     return res
 
 
@@ -2473,6 +2524,387 @@ def phase_fabric(dev, tag: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: serving MLA (minicpm3-4b) over the compressed latent cache.
+# ---------------------------------------------------------------------------
+
+MLA_R, MLA_H = 288, 40          # minicpm3-4b's latent row and query heads
+MLA_SM = 1.0 / 96 ** 0.5        # 1/sqrt(nope 64 + rope 32)
+
+
+def _minicpm(layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config("minicpm3_4b")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def _whole_paper(cfg, params, tokens, lens, fused, feed, tol, label):
+    """13c's paper mode: the kernel run again, the latent prefix read
+    promote-then-read (B4 at the latent's block of 288 once a layer a
+    decode step, B5's latent form never), its logits normwise per row
+    within ``tol`` of the fused kernel run's."""
+    got, _, kl = _whole_run(cfg, params, tokens, lens, "kernel", feed,
+                            paper=True)
+    bad = sum(int(((a - b).abs().amax(dim=-1) >
+                   tol * b.abs().amax(dim=-1)).sum())
+              for a, b in zip(got, fused))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, fused))
+    want_b4 = WHOLE_STEPS * cfg.num_layers
+    print(f"phase {label} paper mode bf16: logits vs the fused kernel run "
+          f"max abs err {err:.6f}, {bad} rows outside tol {tol} | B4 "
+          f"launches {kl['qpack_fixed_decode']} (expected {want_b4}), the "
+          f"latent partial {kl['kvc_latent_partial']} (0)", flush=True)
+    check(bad == 0 and kl["qpack_fixed_decode"] == want_b4 and
+          kl["kvc_latent_partial"] == 0,
+          f"phase {label}: paper mode off the fused run or its launches off")
+    return {"err": err, "b4_launches": kl["qpack_fixed_decode"]}
+
+
+def _latent_cases(res: dict, qpack, dev) -> None:
+    """13a, B3's latent steps and B4 at block 288, byte for byte against
+    their plain versions: the ring step over RING_LANES (ring bf16, new
+    bf16 and f32), the prefill fill at the path's 1 x 1,024 row and at
+    small rows of short prompts, the lane flush over FLUSH_LANES; 4 and 8
+    bits."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    bf = torch.bfloat16
+    for bits in (4, 8):
+        B, S, W, R = 8, SERVE_MAX_LEN, SERVE_CFG["hot_window"], MLA_R
+        for new in (bf, torch.float32):
+            codes, scales, hot, newv, pos, cold = ring_inputs(
+                B, 1, R, bits, bf, new, gen, dev)
+            out = []
+            for fn in (qpack.latent_ring_step, qpack.latent_ring_step_plain):
+                c, s_, h = (t[0].clone()[:, :, 0] for t in (codes, scales,
+                                                             hot))
+                fn(c, s_, h, newv[0][:, 0], pos, cold, bits)
+                out.append((c, s_, h))
+            _count_equal(res["qpack_latent_ring_step"], *out)
+        for Bf, Sf, L_, Wf, lens in ((1, 1024, S, W, [1000]),
+                                     (4, 40, 49, 8, [40, 5, 1, 23])):
+            for dtype in (bf, torch.float32):
+                kv, leaves, lens_t = fill_inputs(Bf, Sf, L_, Wf, 1, R, bits,
+                                                 dtype, lens, gen, dev)
+                out = []
+                for fn in (qpack.latent_prefill_fill,
+                           qpack.latent_prefill_fill_plain):
+                    ls = [t.clone()[:, :, 0] for t in leaves[:3]]
+                    fn(kv[0][:, :, 0], *ls, lens_t, bits)
+                    out.append(ls)
+                _count_equal(res["qpack_latent_prefill_fill"], *out)
+        leaves = flush_inputs(3, 3, S, W, 1, R, bits, gen, dev)[:3]
+        for posf, cl in FLUSH_LANES:
+            cold_len = torch.zeros((3, 3), dtype=torch.int32, device=dev)
+            cold_len[:, 1] = torch.tensor(cl, dtype=torch.int32, device=dev)
+            out = []
+            for fn in (qpack.latent_lane_flush, qpack.latent_lane_flush_plain):
+                ls = [t.clone()[..., 0, :] if t.dim() == 5 else
+                      t.clone()[..., 0] for t in leaves]
+                new = fn(*(t[:, 1] for t in ls), cold_len[:, 1], posf, bits)
+                out.append(ls + [new])
+            _count_equal(res["qpack_latent_lane_flush"], *out)
+        x = torch.randn((B, S, R), generator=gen, device=dev)
+        c, s_ = qpack.encode(x, bits, R)
+        for dt in (bf, torch.float32):
+            _count_equal(res["qpack_fixed_decode_288"],
+                         [qpack.decode(c, s_, bits, R, dt)],
+                         [qpack.decode_plain(c, s_, bits, R, dt)])
+    torch.cuda.synchronize()
+
+
+def _count_equal(r: dict, got, want) -> None:
+    """One case: every tensor of ``got`` bit for bit ``want``'s; a mismatch
+    is a leading row that differs."""
+    r["cases"] += 1
+    for a, b in zip(got, want):
+        r["mismatches"] += int((~_bits_equal(a, b)).sum())
+        r["err"] = max(r["err"], float((a.float() - b.float()).abs().max()))
+
+
+def phase_mla_kernels(dev) -> dict:
+    """13a: the MLA forms at minicpm3-4b's widths against their plain
+    versions: B3's latent steps and B4 at block 288 byte for byte; B5's
+    latent form within ATTN_TOL at lengths straddling its chunks, a second
+    call bit-identical; B6 at (96, 64) within ATTN_TOL and ATTN_NORM_TOL,
+    bf16 on the tensor cores."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.kernels import qpack
+    res = {k: {"cases": 0, "mismatches": 0, "err": 0.0}
+           for k in ("qpack_latent_ring_step", "qpack_latent_prefill_fill",
+                     "qpack_latent_lane_flush", "qpack_fixed_decode_288",
+                     "kvc_latent_partial", "flash_attention_mla")}
+    _latent_cases(res, qpack, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    c = KA.LATENT_CHUNK
+    r, repeats = res["kvc_latent_partial"], 0
+    for S, lens_l in ((SERVE_MAX_LEN, [0, 1, c - 1, c, c + 1, 700, 2047,
+                                       2048]), (c, [0, 1, c - 1, c])):
+        B = len(lens_l)
+        for bits in (4, 8):
+            codes, scales = qpack.encode(torch.randn(
+                (B, S, MLA_R), generator=gen, device=dev), bits, MLA_R)
+            scales = scales[..., 0].contiguous()
+            lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+            for dt in (torch.bfloat16, torch.float32):
+                q = torch.randn((B, MLA_H, MLA_R), generator=gen,
+                                device=dev).to(dt)
+                got = KA.kvc_latent_partial(q, codes, scales, lens, bits=bits,
+                                            sm_scale=MLA_SM)
+                again = KA.kvc_latent_partial(q, codes, scales, lens,
+                                              bits=bits, sm_scale=MLA_SM)
+                repeats += 1
+                check(all(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                          for a, b in zip(got, again)),
+                      f"phase 13a: B5's latent partials differ between two "
+                      f"calls (S {S}, bits {bits})")
+                want = KA.kvc_latent_partial_plain(q, codes, scales, lens,
+                                                   bits, MLA_SM)
+                for a, b in zip(got, want):
+                    r["cases"] += 1
+                    r["mismatches"] += int(((a - b).abs() > ATTN_TOL[
+                        torch.bfloat16] * (1 + b.abs())).sum())
+                    r["err"] = max(r["err"], float((a - b).abs().max()))
+    r = res["flash_attention_mla"]
+    tc0, tc_cases = FA.launches_tc, 0
+    for Sq, Sk, B in ((1, 1, 2), (8, 8, 2), (100, 100, 2), (24, 200, 2),
+                      (1000, 1000, 1), (1024, 1024, 2)):
+        for dt in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                q, k = (torch.randn((B, s, MLA_H, 96), generator=gen,
+                                    device=dev).to(dt) for s in (Sq, Sk))
+                v = torch.randn((B, Sk, MLA_H, 64), generator=gen,
+                                device=dev).to(dt)
+                tc_cases += dt == torch.bfloat16
+                _flash_case(r, FA, q, k, v, causal)
+    torch.cuda.synchronize()
+    check(FA.launches_tc - tc0 == tc_cases, f"phase 13a: {tc_cases} bf16 "
+          f"cases launched the tensor-core route {FA.launches_tc - tc0} "
+          "times")
+    print(f"phase 13a MLA kernels vs plain at minicpm3-4b's widths (latent "
+          f"{MLA_R}, {MLA_H} heads, B6 qk 96 / v 64): "
+          f"{json.dumps(res)} | B5 latent bit-identical on a second call in "
+          f"{repeats} configurations (chunk {c}); B6 {tc_cases} bf16 cases on "
+          f"the tensor cores | tolerance |kernel - plain| <= tol * (1 + "
+          f"|plain|), tol 2e-2 (bf16 query or B5) and 2e-3 (f32 B6); B6 also "
+          f"normwise 1e-2 / 1e-4; B3's steps and B4 byte for byte",
+          flush=True)
+    for k, v in res.items():
+        check(v["mismatches"] == 0, f"phase 13a: {k} disagrees with its "
+              f"plain version in {v['mismatches']} elements/rows")
+    check(res["flash_attention_mla"]["norm_fails"] == 0,
+          "phase 13a: B6 at (96, 64) is off its plain version normwise")
+    return res
+
+
+def phase_serve_mla(dev, tag: str) -> tuple:
+    """13b: minicpm3-4b at its published config (62 layers, bf16 params
+    from the seed) served through Engine with phase 7's recipe; launches
+    against the expectations (the latent ring step and B5's latent form
+    one a layer a step, the latent prefill fill and B6 one a layer a
+    prefill batch, the latent lane flush one a lane demotion, the GQA
+    steps and B3/B4 none); then torch.profiler over PROFILE_STEPS decode
+    steps of 8 lanes: the device busy share."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import describe
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    cfg = _minicpm()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    scfg = ServeConfig(**SERVE_CFG)
+    prompts = _prompts(SERVE_REQUESTS, cfg.vocab_size, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    timed = {}
+    eng, wall, t_pre, t_step, launches = _serve(
+        cfg, scfg, params, prompts, SERVE_NEW_TOKENS, dev,
+        hooks=[(FA, "flash_attention", "b6")], timed=timed)
+    c = eng.counters
+    n_prompt = sum(len(p) for p in prompts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 13b serve mla: {describe(cfg)} ({cfg.param_count()} "
+          f"params), bf16 params from seed {SEED} ({t_init:.3f} s) | "
+          f"{SERVE_REQUESTS} requests, prompts {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens, {SERVE_NEW_TOKENS} new each, "
+          f"{scfg.max_running} lanes, max_len {SERVE_MAX_LEN}, W "
+          f"{scfg.hot_window}, {scfg.kv_rate_bits}-bit latent | wall "
+          f"{wall:.3f} s | prefill {n_prompt} prompt tokens in {t_pre:.3f} s "
+          f"device = {n_prompt / t_pre:.3f} tokens/s | decode {c['tokens']} "
+          f"tokens in {c['steps']} steps, {t_step:.3f} s device = "
+          f"{c['tokens'] / t_step:.3f} tokens/s, "
+          f"{1e3 * t_step / c['steps']:.3f} ms per step | KV cache "
+          f"{D.cache_bytes(eng.cache) / 2**30:.6f} GiB "
+          f"({D.cache_bytes(eng.cache)} B), peak memory {peak:.3f} GiB "
+          f"[{tag}]", flush=True)
+    print(f"phase 13b counters: {json.dumps(c)}", flush=True)
+    t_b6, n_b6 = timed["b6"]
+    Lyr = cfg.num_layers
+    want = {"qpack_latent_ring_step": c["steps"] * Lyr,
+            "kvc_latent_partial": c["steps"] * Lyr,
+            "qpack_latent_prefill_fill": c["prefill_batches"] * Lyr,
+            "flash_attention": c["prefill_batches"] * Lyr,
+            "flash_attention_tc": c["prefill_batches"] * Lyr,
+            "qpack_latent_lane_flush": c["demotions"] -
+            c["shadow_repreempts"]}
+    want.update({k: 0 for k in launches if k not in want})
+    print(f"phase 13b launches: {json.dumps(launches)} | expected "
+          f"{json.dumps(want)} (the ring step and B5 one a layer a step, the "
+          f"fill and B6 one a layer a prefill batch, the flush one a lane "
+          f"demotion) | B6 in prefill: {n_b6} calls, {t_b6:.6f} s device = "
+          f"{t_b6 / t_pre:.4f} of prefill [{tag}]", flush=True)
+    check(c["demotions"] > 0 and c["promotions"] > 0,
+          "phase 13b: no demotion or promotion")
+    check(launches == want and n_b6 == want["flash_attention"] and
+          all(launches[k] > 0 for k in MLA_STEPS),
+          f"phase 13b: launches {launches} against {want}")
+
+    eng = Engine(cfg, scfg, params, max_len=SERVE_MAX_LEN)
+    for p in _prompts(SERVE_CFG["max_running"], cfg.vocab_size, SEED + 4):
+        eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+    for _ in range(3):                  # admission, prefill, warm steps
+        eng.step()
+    kern, pwall = _profile_steps(eng, PROFILE_STEPS)
+    busy = None
+    if not kern:
+        print(f"phase 13b profile: torch.profiler recorded no device events; "
+              f"device busy share not measured [{tag}]", flush=True)
+    else:
+        busy = _busy_us(kern) / (pwall * 1e6)
+        b5 = [e for e in kern if "kvc_latent_kernel" in e.name]
+        b5_us = sum(e.time_range.elapsed_us() for e in b5)
+        by_name: dict = {}
+        for e in kern:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"phase 13b profile: {PROFILE_STEPS} decode steps, 8 lanes, "
+              f"{1e3 * pwall / PROFILE_STEPS:.3f} ms per step (host wall, "
+              f"profiler on) | device busy {_busy_us(kern) / 1e3:.3f} ms = "
+              f"{busy:.4f} of the wall | {len(kern)} device events, "
+              f"{len(kern) / PROFILE_STEPS:.1f} per step | B5 latent "
+              f"{len(b5)} launches, {b5_us / 1e3 / PROFILE_STEPS:.6f} ms a "
+              f"step | top by device time: " + "; ".join(
+                  f"{n[:60]} x{k} {us / 1e3:.3f} ms" for n, (k, us) in top)
+              + f" [{tag}]", flush=True)
+    del eng, params
+    return launches, {"t_pre": t_pre, "t_step": t_step, "wall": wall,
+                      "counters": c, "busy": busy, "peak_gib": peak}
+
+
+def phase_mla_times(dev, tag: str, lens_l) -> dict:
+    """13d: the MLA forms at the main path's shapes (minicpm3-4b, 8 lanes):
+    kernel / eager / plain / library / bound ms."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.kernels import qpack
+    B, R, H = SERVE_CFG["max_running"], MLA_R, MLA_H
+    bits, W, S = SERVE_CFG["kv_rate_bits"], SERVE_CFG["hot_window"], \
+        SERVE_MAX_LEN
+    Rp, lyr = R * bits // 8, _minicpm().num_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    bf = torch.bfloat16
+    out = {}
+    # the latent ring step of one layer, 8 lanes, every lane evicting
+    ring = ring_inputs(B, 1, R, bits, bf, bf, gen, dev, W=W, S=S)
+    pos = torch.tensor(lens_l + W, dtype=torch.int32, device=dev)
+    rargs = [ring[0][0][:, :, 0], ring[1][0][:, :, 0], ring[2][0][:, :, 0],
+             ring[3][0][:, 0], pos, pos - W, bits]
+    out["qpack_latent_ring_step"] = dict(
+        shape=f"{B} lanes x latent {R}, bf16 ring of {W}, {bits}-bit codes "
+              f"of {S}, every lane evicting",
+        kern=lambda: qpack.latent_ring_step(*rargs),
+        plain=lambda: qpack.latent_ring_step_plain(*rargs), lib=None,
+        nbytes=B * (6 * R + Rp + 4) + 8 * B, ops=0, reps=200)
+    # the latent prefill fill of one layer of a 1-row batch of the 1,024
+    # bucket (a 1,000-token prompt)
+    kvf, leaves, lens1 = fill_inputs(1, 1024, S, W, 1, R, bits, bf, [1000],
+                                     gen, dev)
+    fargs = [kvf[0][:, :, 0]] + [t[:, :, 0] for t in leaves[:3]] + \
+        [lens1, bits]
+    out["qpack_latent_prefill_fill"] = dict(
+        shape=f"1x1024 latent {R} bf16 -> {bits}-bit codes of {S} and a "
+              f"ring of {W} (a prefill layer)",
+        kern=lambda: qpack.latent_prefill_fill(*fargs),
+        plain=lambda: qpack.latent_prefill_fill_plain(*fargs), lib=None,
+        nbytes=1024 * (2 * R + Rp + 4) + W * 2 * R + 4, ops=0, reps=200)
+    # the latent lane flush of lane 1 of 8, 62 layers, a live ring of W
+    fl = flush_inputs(lyr, B, S, W, 1, R, bits, gen, dev)[:3]
+    lane = [t[:, 1, ..., 0, :] if t.dim() == 5 else t[:, 1, ..., 0]
+            for t in fl]
+    cold_f = torch.full((lyr, B), 1000 - W, dtype=torch.int32, device=dev)
+    out["qpack_latent_lane_flush"] = dict(
+        shape=f"lane 1 of {B}: {lyr} layers, a live ring of {W} x {R} bf16 "
+              f"-> {bits}-bit codes of {S}",
+        kern=lambda: qpack.latent_lane_flush(*lane, cold_f[:, 1], 1000, bits),
+        plain=lambda: qpack.latent_lane_flush_plain(*lane, cold_f[:, 1], 1000,
+                                               bits), lib=None,
+        nbytes=lyr * (W * (2 * R + Rp + 4) + 8), ops=0, reps=50)
+    # B4 at block 288: the paper path's whole latent prefix of 8 lanes
+    lc, ls = qpack.encode(torch.randn((B, S, R), generator=gen, device=dev),
+                          bits, R)
+    out["qpack_fixed_decode_288"] = dict(
+        shape=f"{B}x{S}x{R} -> bf16 (paper-mode latent prefix)",
+        kern=lambda: qpack.decode(lc, ls, bits, R, bf),
+        plain=lambda: qpack.decode_plain(lc, ls, bits, R, bf), lib=None,
+        nbytes=B * S * (Rp + 4 + 2 * R), ops=0, reps=20)
+    # B5's latent form: the decode step's compressed-prefix read
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, R), generator=gen, device=dev).to(bf)
+    ls1 = ls[..., 0].contiguous()
+    ldq = qpack.decode(lc, ls, bits, R, bf)[:, :, None]
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[
+        :, None, None, :]
+    tok = int(lens.sum())
+    out["kvc_latent_partial"] = dict(
+        shape=f"q {B}x{H}x{R} bf16, {bits}-bit latent {B}x{S}, lengths "
+              f"{lens_l.tolist()}",
+        kern=lambda: KA.kvc_latent_partial(q, lc, ls1, lens, bits=bits,
+                                           sm_scale=MLA_SM),
+        plain=lambda: KA.kvc_latent_partial_plain(q, lc, ls1, lens, bits,
+                                                  MLA_SM),
+        lib=lambda: _sdpa(q[:, None], ldq, ldq, False, mask),
+        nbytes=tok * (Rp + 4) + B * H * R * 2 + B * 4 + B * H * (R + 2) * 4,
+        ops=4 * tok * H * R, reps=50)
+    # B6 at (96, 64): the prefill's attention at the 1024 bucket, causal, 8
+    # rows, then the path's 4- and 1-row batches
+    Sp = 1024
+    qf, kf = (torch.randn((B, Sp, H, 96), generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    vf = torch.randn((B, Sp, H, 64), generator=gen, device=dev).to(bf)
+    for rows in (B, 4, 1):
+        q_, k_, v_ = qf[:rows], kf[:rows], vf[:rows]
+        out["flash_attention_mla" + ("" if rows == B else f"_{rows}x{Sp}")] = \
+            dict(shape=f"q {rows}x{Sp}x{H}x96, k {rows}x{Sp}x{H}x96, v "
+                       f"{rows}x{Sp}x{H}x64 bf16 causal",
+                 kern=lambda q_=q_, k_=k_, v_=v_: FA.flash_attention(
+                     q_, k_, v_, causal=True),
+                 plain=lambda q_=q_, k_=k_, v_=v_: FA.flash_attention_plain(
+                     q_, k_, v_, causal=True),
+                 lib=lambda q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, True),
+                 nbytes=2 * rows * Sp * H * (96 * 2 + 64 * 2),
+                 ops=2 * rows * H * (96 + 64) * Sp * (Sp + 1) // 2, reps=5)
+    res = _time_rows(out, "13d", tag)
+
+    # B5's latent form: CTAs that do work at 13b's lengths (a cluster of
+    # LATENT_CLUSTER a chunk of a lane's length) against the card's SMs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    working = KA.latent_working_ctas(lens_l)
+    grid = B * KA.LATENT_CLUSTER * -(-S // KA.LATENT_CHUNK)
+    print(f"phase 13d kvc_latent_partial split: chunk {KA.LATENT_CHUNK}, "
+          f"clusters of {KA.LATENT_CLUSTER} CTAs ({H // KA.LATENT_CLUSTER} "
+          f"heads each), grid {grid} CTAs of which {working} do work, {sms} "
+          f"SMs [{tag}]", flush=True)
+    check(working > sms, f"phase 13d: only {working} latent B5 CTAs do work "
+          f"on {sms} SMs")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2510,6 +2942,19 @@ def main() -> int:
     phase_simx(dev, tag)
     torch.cuda.empty_cache()
     fabric_launches = phase_fabric(dev, tag)
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    mla_errs = phase_mla_kernels(dev)
+    mla_launches, _ = phase_serve_mla(dev, tag)
+    torch.cuda.empty_cache()
+    mla_whole = phase_serve_whole(dev, _minicpm, "13c")
+    torch.cuda.empty_cache()
+    lens_l = np.random.default_rng(SEED).integers(
+        *PROMPT_LENS, size=SERVE_CFG["max_running"]) + \
+        SERVE_NEW_TOKENS // 2 - SERVE_CFG["hot_window"]
+    mla_times = phase_mla_times(dev, tag, lens_l)
+    print(f"phase 13 wall {time.perf_counter() - t13:.3f} s [{tag}]",
+          flush=True)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     extra = ("composition_ms", "composition_graph_ms", "events",
@@ -2573,6 +3018,36 @@ def main() -> int:
         k.split("_")[-1]: {f: t[f] for f in ("ms", "eager_ms", "library_ms",
                                               "bound_ms")}
         for k, t in serve_times.items() if k.startswith("flash_attention_")}
+    # the MLA forms (phase 13): launches on serve mla (13b), B4 at block
+    # 288 on 13c's paper-mode run
+    mla_path = dict(mla_launches, flash_attention_mla=mla_launches[
+        "flash_attention"], qpack_fixed_decode_288=mla_whole["paper"][
+            "b4_launches"])
+    for name_, source, replaces in (
+            ("qpack_latent_ring_step", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_latent_prefill_fill", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_latent_lane_flush", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_fixed_decode_288", "qpack_fixed.cu", "qpack.py:148"),
+            ("kvc_latent_partial", "kvc_attn.cu", "kvc_attn.py:96"),
+            ("flash_attention_mla", "flash_attn.cu", "flash_attn.py:72")):
+        t, e = mla_times[name_], mla_errs[name_]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": mla_path[name_], "max_abs_err": e["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "path": ("serve mla paper mode (phase 13c)"
+                     if name_ == "qpack_fixed_decode_288"
+                     else "serve mla (phase 13b)"),
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"]})
+    kernels[-1]["path_shapes"] = {
+        k.split("_")[-1]: {f: t[f] for f in ("ms", "eager_ms", "library_ms",
+                                              "bound_ms")}
+        for k, t in mla_times.items() if k.startswith("flash_attention_mla_")}
     print(f"total {time.perf_counter() - t_start:.3f} s [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -70,9 +70,9 @@ class PoolConfig:
 
 
 # ---------------------------------------------------------------------------
-# Model architecture. MoE, MLA and SSM sub-configs are carried as field
-# types only: the port serves the dense family (the others wait for their
-# slices, ROADMAP A.6).
+# Model architecture. The port serves the dense family with GQA/MHA or MLA
+# attention; the MoE and SSM sub-configs are carried as field types only
+# (their families wait for their slices, ROADMAP A.6).
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -137,19 +137,27 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     def param_count(self) -> int:
-        """Parameter count of the dense GQA family (the reference's
-        ``ModelConfig.param_count`` for it)."""
+        """Parameter count of the dense family, GQA or MLA attention (the
+        reference's ``ModelConfig.param_count`` for it)."""
         if self.family not in ("dense", "vlm", "audio") or \
-                self.attn_kind != "gqa":
+                self.attn_kind not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"param_count of family {self.family!r} / attention "
-                f"{self.attn_kind!r}: the port has the dense GQA family "
-                "only (ROADMAP A.6)")
+                f"{self.attn_kind!r}: the port has the dense family only "
+                "(ROADMAP A.6)")
         d, v, L = self.d_model, self.vocab_size, self.num_layers
         hd = self.resolved_head_dim
         n = v * d * (1 if self.tie_embeddings else 2)
-        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
-            + self.num_heads * hd * d
+        if self.attn_kind == "mla" and self.mla is not None:
+            m, h = self.mla, self.num_heads
+            attn = d * m.q_lora_rank + \
+                m.q_lora_rank * h * (m.qk_nope_head_dim + m.qk_rope_head_dim) \
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim) + \
+                m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim) + \
+                h * m.v_head_dim * d
+        else:
+            attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+                + self.num_heads * hd * d
         return n + L * (attn + 3 * d * self.d_ff)
 
 

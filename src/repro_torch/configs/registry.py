@@ -1,8 +1,8 @@
 """Architecture registry: the reference's ten arch ids and their CLI
 aliases. Each ported arch has a module exporting ``CONFIG`` (the published
 configuration) and ``REDUCED`` (a same-family miniature for CPU tests).
-The port serves the dense GQA family; the other ids raise
-``NotImplementedError`` naming the ROADMAP item that ports them."""
+The port serves the dense family, GQA/MHA and MLA attention; the other ids
+raise ``NotImplementedError`` naming the ROADMAP item that ports them."""
 from __future__ import annotations
 
 import importlib
@@ -29,7 +29,7 @@ ALIASES: Dict[str, str] = {
     "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
-PORTED = ("llama3_8b",)
+PORTED = ("llama3_8b", "minicpm3_4b", "codeqwen15_7b", "deepseek_7b")
 
 
 def _module(arch: str):
@@ -39,7 +39,7 @@ def _module(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet: ROADMAP A.6 (serving) queues "
-            f"the other configs and the MoE, MLA, SSM and hybrid families; "
+            f"the MoE, SSM and hybrid families and the frontend models; "
             f"ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 

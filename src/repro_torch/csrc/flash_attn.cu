@@ -4,8 +4,11 @@
 // (_flash_kernel) of the JAX package, whose serving path computes the same
 // attention with layers.chunked_attention (models/decode.py::prefill).
 //
-//   q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (all bf16, or all f32) ->
-//   o [B, Sq, Hq, D] in q's type; query head h reads KV head h / (Hq/Hkv).
+//   q [B, Sq, Hq, D], k [B, Sk, Hkv, D], v [B, Sk, Hkv, DV] (all bf16, or
+//   all f32) -> o [B, Sq, Hq, DV] in q's type; query head h reads KV head
+//   h / (Hq/Hkv). (D, DV) is (64, 64), (128, 128) or (96, 64): the last is
+//   MLA's expanded prefill (minicpm3-4b: 40 heads, q/k nope 64 + rope 32, v
+//   64), run by the same two kernels with the qk and v widths apart.
 //   Causal: query row i sees key columns c <= i + (Sk - Sq), the mask of
 //   chunked_attention and mha_ref (the TPU kernel's c <= i is the case
 //   Sq == Sk); masked scores are -1e30 as in the reference.
@@ -43,7 +46,16 @@
 //     the other's products.
 //   A consumer skips the key tiles past its rows' causal limit. Shared
 //   memory: Q (128 x D) plus NS K and NS V stages of BK x D, 176 KB at
-//   D = 128, BK = 96, NS = 3 (tc::Tile). Rounding P to bf16 before the second product
+//   D = 128, BK = 96, NS = 3 (tc::Tile). At D = 96 a Q or K row is two
+//   64-wide boxes, the second half past the tensor's 96 columns, which TMA
+//   fills with zeros: the smem rows are 128 wide (a third of the Q and K
+//   stages idle), but the Q K^T issues only the 6 k16 steps of the 96
+//   real columns and global memory moves only those, so neither product
+//   does padded work; V (64 wide) is one box. 176 KB at (96, 64), BK 128.
+//   (96, 64) takes this tensor-core tile rather than the CUDA cores
+//   because MLA's prefill is operation-bound like GQA's (40 heads, 54
+//   GFLOP a layer at 8 x 1,024) and the tile needed only the two widths
+//   apart: its registers are the D = 64 tile's. Rounding P to bf16 before the second product
 //   is the one rounding the plain version does not have (a few 1e-3 on
 //   unit-scale outputs).
 //   What it still lacks: a 128-key tile (its registers do not fit, see
@@ -99,22 +111,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * D + kBK * (D + 4) + kBK * D);
+  return sizeof(float) * (kBQ * D + kBK * (D + 4) + kBK * DV);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
                  int Hq, int Hkv, float sm_scale, int causal) {
   constexpr int KS = D + 4;
-  constexpr int DL = D / 32;
+  constexpr int DL = DV / 32;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                    // [kBQ][D], pre-scaled
   float* k_s = q_s + kBQ * D;           // [kBK][KS]
-  float* v_s = k_s + kBK * KS;          // [kBK][D]
+  float* v_s = k_s + kBK * KS;          // [kBK][DV]
 
   const int i0 = blockIdx.x * kBQ, hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (Hq / Hkv);
@@ -141,14 +153,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                    // the previous tile is consumed
     for (int i = tid; i < kBK * D; i += kWarps * 32) {
       const int r = i / D, d = i % D, c = j0 + r;
-      float kv = 0.0f, vv = 0.0f;
-      if (c < Sk) {
-        const int64_t idx = ((static_cast<int64_t>(b) * Sk + c) * Hkv + hk) * D + d;
-        kv = k[idx];
-        vv = v[idx];
-      }
-      k_s[r * KS + d] = kv;
-      v_s[r * D + d] = vv;
+      k_s[r * KS + d] =
+          c < Sk ? k[((static_cast<int64_t>(b) * Sk + c) * Hkv + hk) * D + d] : 0.0f;
+    }
+    for (int i = tid; i < kBK * DV; i += kWarps * 32) {
+      const int r = i / DV, d = i % DV, c = j0 + r;
+      v_s[r * DV + d] =
+          c < Sk ? v[((static_cast<int64_t>(b) * Sk + c) * Hkv + hk) * DV + d] : 0.0f;
     }
     __syncthreads();
 
@@ -186,7 +197,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kBK; ++j) {
       float vj[DL];
 #pragma unroll
-      for (int dl = 0; dl < DL; ++dl) vj[dl] = v_s[j * D + lane + 32 * dl];
+      for (int dl = 0; dl < DL; ++dl) vj[dl] = v_s[j * DV + lane + 32 * dl];
 #pragma unroll
       for (int rr = 0; rr < kRPW; ++rr) {
         const float pj = __shfl_sync(kFull, p[rr], j);
@@ -201,27 +212,27 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = i0 + warp * kRPW + rr;
     if (row >= Sq) continue;
     const float den = fmaxf(l[rr], 1e-30f);
-    float* out = o + ((static_cast<int64_t>(b) * Sq + row) * Hq + hq) * D + lane;
+    float* out = o + ((static_cast<int64_t>(b) * Sq + row) * Hq + hq) * DV + lane;
 #pragma unroll
     for (int dl = 0; dl < DL; ++dl) out[32 * dl] = acc[rr][dl] / den;
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch_cc(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int Hq, int Hkv, float sm_scale, int causal,
            cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D, DV>();
   static bool attr_set = false;         // above 48 KB needs the opt-in
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_kernel<D><<<grid, kWarps * 32, smem, s>>>(
+  flash_fwd_kernel<D, DV><<<grid, kWarps * 32, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq, Hkv,
       sm_scale, causal);
@@ -257,7 +268,7 @@ constexpr int kBox = 64;               // bf16 values in one 128-byte swizzled r
 #ifndef FLASH_TC_STAGES
 #define FLASH_TC_STAGES 3
 #endif
-template <int D>
+template <int D, int DV = D>
 struct Tile;
 template <>
 struct Tile<128> {
@@ -267,18 +278,28 @@ template <>
 struct Tile<64> {
   static constexpr int kBK = 128, kNS = 3;
 };
+// MLA's (96, 64): the registers of the D = 64 tile (sc 64, acc 32)
+template <>
+struct Tile<96, 64> {
+  static constexpr int kBK = 128, kNS = 3;
+};
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Byte offsets from the 1024-aligned base of dynamic shared memory (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes). A tile of R rows
-// stores its D/64 boxes one after the other, R x 128 bytes each.
-template <int D, int BK, int NS>
+// stores its ceil(D/64) boxes one after the other, R x 128 bytes each: Q
+// and K rows are QW = 64 * ceil(D/64) values wide, V rows DV.
+template <int D>
+constexpr int boxed() { return (D + 63) / 64 * 64; }
+
+template <int D, int DV, int BK, int NS>
 struct Smem {
+  static constexpr int QW = boxed<D>();
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBQ * D * 2;
-  static constexpr int kV = kK + NS * BK * D * 2;
-  static constexpr int kBar = kV + NS * BK * D * 2;   // q_full, q_empty, full[NS], empty[NS]
+  static constexpr int kK = kQ + kBQ * QW * 2;
+  static constexpr int kV = kK + NS * BK * QW * 2;
+  static constexpr int kBar = kV + NS * BK * DV * 2;   // q_full, q_empty, full[NS], empty[NS]
   static constexpr int kBytes = kBar + 8 * (2 + 2 * NS);
   static constexpr int kAlloc = kBytes + 1024;         // room to align the base
 };
@@ -550,8 +571,9 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_tile,
   wg_commit();
 }
 
-// O (64 x D) += P V for one key tile, issued and committed, not waited:
-// 16 keys a step, V's rows 16 kk.., its D boxes LBO = BK * 128 bytes apart.
+// O (64 x D) += P V for one key tile, issued and committed, not waited
+// (D here is V's width): 16 keys a step, V's rows 16 kk.., its D boxes
+// LBO = BK * 128 bytes apart.
 template <int D, int BK>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
                                          const uint32_t (&pa)[BK / 16][4],
@@ -649,14 +671,15 @@ struct Work {
   }
 };
 
-template <int D, int BK, int NS>
+template <int D, int DV, int BK, int NS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ o, int B, int Sq, int Sk, int Hq,
                 int Hkv, float scale_log2, int causal) {
-  using L = Smem<D, BK, NS>;
+  using L = Smem<D, DV, BK, NS>;
+  constexpr int QW = L::QW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
@@ -697,21 +720,24 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         work.decode(w, qt, hq, b);
         const int q0 = qt * kBQ, hk = hq / group, n_tiles = tiles_of(q0);
         mbar_wait(q_empty, (n & 1) ^ 1);   // the last work tile's Q is done
-        mbar_expect_tx(q_full, kBQ * D * 2);
+        // whole boxes: the columns of a box past D arrive as zeros and
+        // count in the transaction bytes
+        mbar_expect_tx(q_full, kBQ * QW * 2);
 #pragma unroll
-        for (int c = 0; c < D / kBox; ++c)
+        for (int c = 0; c < QW / kBox; ++c)
           tma_load(base + L::kQ + c * kBQ * 128, &tm_q, q_full, c * kBox, hq, q0, b);
         for (int it = 0; it < n_tiles; ++it, ++ring) {
           const int s = ring % NS;
           mbar_wait(empty0 + 8 * s, ((ring / NS) & 1) ^ 1);
-          mbar_expect_tx(full0 + 8 * s, 2 * BK * D * 2);
+          mbar_expect_tx(full0 + 8 * s, BK * (QW + DV) * 2);
 #pragma unroll
-          for (int c = 0; c < D / kBox; ++c) {
-            tma_load(base + L::kK + s * BK * D * 2 + c * BK * 128, &tm_k,
+          for (int c = 0; c < QW / kBox; ++c)
+            tma_load(base + L::kK + s * BK * QW * 2 + c * BK * 128, &tm_k,
                      full0 + 8 * s, c * kBox, hk, it * BK, b);
-            tma_load(base + L::kV + s * BK * D * 2 + c * BK * 128, &tm_v,
+#pragma unroll
+          for (int c = 0; c < DV / kBox; ++c)
+            tma_load(base + L::kV + s * BK * DV * 2 + c * BK * 128, &tm_v,
                      full0 + 8 * s, c * kBox, hk, it * BK, b);
-          }
         }
       }
     }
@@ -719,8 +745,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- consumer: 64 query rows of each work tile ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
     const int warp = t / 32, lane = t % 32;
-    auto k_tile = [&](int r) { return base + L::kK + (r % NS) * BK * D * 2; };
-    auto v_tile = [&](int r) { return base + L::kV + (r % NS) * BK * D * 2; };
+    auto k_tile = [&](int r) { return base + L::kK + (r % NS) * BK * QW * 2; };
+    auto v_tile = [&](int r) { return base + L::kV + (r % NS) * BK * DV * 2; };
     auto full = [&](int r) { mbar_wait(full0 + 8 * (r % NS), (r / NS) & 1); };
     auto release = [&](int r) { mbar_arrive(empty0 + 8 * (r % NS)); };
     const uint32_t q_tile = base + L::kQ + wg * kWGRows * 128;
@@ -750,9 +776,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         return (causal && (it + 1) * BK - 1 > qw + off) || (it + 1) * BK > Sk;
       };
 
-      float acc[D / 2], sc[BK / 2];
+      float acc[DV / 2], sc[BK / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
       uint32_t pa[BK / 16][4];
@@ -772,7 +798,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           full(ring + it);
           turn([&] {
             issue_qk<D, BK>(sc, q_tile, k_tile(ring + it));
-            issue_pv<D, BK>(acc, pa, v_tile(ring + it - 1));
+            issue_pv<DV, BK>(acc, pa, v_tile(ring + it - 1));
           });
           wg_wait<1>();
           fence_regs(sc);
@@ -782,11 +808,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           fence_frags<BK / 16>(pa);
           release(ring + it - 1);
 #pragma unroll
-          for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+          for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
           to_bf16<BK>(sc, pa);
         }
         mbar_arrive(q_empty);            // the last Q K^T is done
-        turn([&] { issue_pv<D, BK>(acc, pa, v_tile(ring + n_mine - 1)); });
+        turn([&] { issue_pv<DV, BK>(acc, pa, v_tile(ring + n_mine - 1)); });
         wg_wait<0>();
         fence_regs(acc);
         fence_frags<BK / 16>(pa);
@@ -814,9 +840,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (row >= Sq) continue;
         const float den = fmaxf(l[h], 1e-30f);
         __nv_bfloat16* out =
-            o + ((static_cast<int64_t>(b) * Sq + row) * Hq + hq) * D + (lane % 4) * 2;
+            o + ((static_cast<int64_t>(b) * Sq + row) * Hq + hq) * DV + (lane % 4) * 2;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DV / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
               __floats2bfloat162_rn(acc[4 * j + 2 * h] / den,
                                     acc[4 * j + 2 * h + 1] / den);
@@ -869,16 +895,16 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
               int Sq, int Sk, int Hq, int Hkv, float sm_scale, int causal,
               cudaStream_t s) {
-  constexpr int BK = Tile<D>::kBK, NS = Tile<D>::kNS;
-  constexpr int smem = Smem<D, BK, NS>::kAlloc;
+  constexpr int BK = Tile<D, DV>::kBK, NS = Tile<D, DV>::kNS;
+  constexpr int smem = Smem<D, DV, BK, NS>::kAlloc;
   static bool attr_set = false;         // above 48 KB needs the opt-in
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_tc_kernel<D, BK, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_tc_kernel<D, DV, BK, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
@@ -888,7 +914,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(enc, &tm_q, q, B, Sq, Hq, D, kBQ) ||
       !make_map(enc, &tm_k, k, B, Sk, Hkv, D, BK) ||
-      !make_map(enc, &tm_v, v, B, Sk, Hkv, D, BK))
+      !make_map(enc, &tm_v, v, B, Sk, Hkv, DV, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0;                 // one persistent CTA an SM
   cudaError_t e = cudaGetDevice(&dev);
@@ -897,7 +923,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long n_work = static_cast<long long>((Sq + kBQ - 1) / kBQ) * Hq * B;
   const unsigned grid = static_cast<unsigned>(n_work < sms ? n_work : sms);
-  flash_tc_kernel<D, BK, NS><<<grid, kThreads, smem, s>>>(
+  flash_tc_kernel<D, DV, BK, NS><<<grid, kThreads, smem, s>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B, Sq, Sk, Hq, Hkv,
       sm_scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
@@ -908,22 +934,26 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 bf16 -> the tensor-core kernel; 1 f32 -> the CUDA-core kernel.
-// Returns a cudaError_t: cudaErrorInvalidValue for a case neither route
-// takes (another dtype code, D other than 64/128, Hq not a multiple of Hkv).
+// D is q's and k's head dim, DV v's. Returns a cudaError_t:
+// cudaErrorInvalidValue for a case neither route takes (another dtype code,
+// (D, DV) other than (64, 64), (128, 128) and (96, 64), Hq not a multiple of
+// Hkv).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int dtype, int B, int Sq, int Sk,
-                              int Hq, int Hkv, int D, float sm_scale,
+                              int Hq, int Hkv, int D, int DV, float sm_scale,
                               int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || Hq % Hkv || B <= 0 || Sq <= 0 || Sk <= 0)
     return cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (D == 128) return cc::launch_cc<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
-    if (D == 64) return cc::launch_cc<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
+    if (D == 128 && DV == 128) return cc::launch_cc<128, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
+    if (D == 64 && DV == 64) return cc::launch_cc<64, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
+    if (D == 96 && DV == 64) return cc::launch_cc<96, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
     return cudaErrorInvalidValue;
   }
   if (dtype != 0) return cudaErrorInvalidValue;
-  if (D == 128) return tc::launch_tc<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
-  if (D == 64) return tc::launch_tc<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
+  if (D == 128 && DV == 128) return tc::launch_tc<128, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
+  if (D == 64 && DV == 64) return tc::launch_tc<64, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
+  if (D == 96 && DV == 64) return tc::launch_tc<96, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,7 @@
 // One-token GQA decode attention over the KV cache's compressed region,
-// dequantizing int4/int8 K/V inside the kernel, for Hopper (sm_90a).
+// dequantizing int4/int8 K/V inside the kernel, for Hopper (sm_90a); and
+// its MLA form over the compressed latent cache (kvc_latent_partial, at
+// the end of the file).
 //
 // Replaces the TPU kernel kernels/kvc_attn.py::kvc_decode_attention
 // (_kvc_kernel) of the JAX package. The JAX serving path computes the same
@@ -58,9 +60,12 @@
 // with a merge at the serving shape, against a 1.7 us launch (PERF.md); at
 // S = 2048 most of the ~1,000 CTAs exit at once.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -411,6 +416,345 @@ int launch(const void* q, int q_f32, const void* kc, const void* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// MLA's latent decode partial: one code stream, K = V.
+// ---------------------------------------------------------------------------
+//
+// The absorbed MLA decode (models/decode.py::mla_decode_layer) attends H
+// query heads of R values (minicpm3-4b: 40 heads, R = kv_lora_rank 256 +
+// rope 32 = 288; q_nope folded through W_uk) over one latent row a token,
+// shared by every head: a single KV head, and the key and the value are
+// the same codes. The GQA kernel above holds a (lane, KV head)'s G <= 8
+// heads' accumulators in one CTA, D <= 128; here 40 heads x 288 f32 is 46
+// KB, and one CTA for each 64 tokens of 8 lanes of a few hundred tokens
+// (~43 CTAs) would leave most of the 132 SMs idle. So the design differs:
+//   - grid (CL * n_split, B) in clusters of CL CTAs (2), with n_split =
+//     ceil(S / kLatChunk) fixed by S (the host reads no length). A cluster
+//     owns kLatChunk (32) tokens of one lane; its CTA of rank r owns heads
+//     [r H/CL, (r + 1) H/CL) (20), with R threads, one latent column each.
+//     At the main path's lengths that is ~160 working CTAs, 3 a SM by
+//     shared memory (63 KB): one wave. More CTAs a chunk (clusters of 4)
+//     fill more SMs at short lengths but need a second wave at long ones,
+//     and each CTA adds a q load, a tile copy and a merge input
+//     (tools/sweep_attn.py times the candidates; PERF.md has the times).
+//   - the chunk's codes are read with 16-byte loads and dequantized ONCE for
+//     all H heads: 16-byte unit u by the CTA of rank u % CL, into its
+//     shared memory as f32 rows (padded to R + 4 so that float4 reads of 8
+//     rows by 8 lanes hit distinct banks). After a cluster barrier each CTA
+//     copies the other ranks' units out of their shared memory (Hopper's
+//     distributed shared memory); a second barrier lets every CTA reuse its
+//     tile and exit.
+//   - scores: warp w takes heads w, w + R/32, .. of the CTA's group, lane l
+//     tokens l + 32 i, an R-long dot with q in shared memory (float4
+//     broadcasts); the head's max, exp and sum are a warp reduction.
+//   - p.v: thread r accumulates column r of the CTA's heads over the
+//     chunk's tokens, four tokens a step.
+//   - a lane of one split writes its partial directly; otherwise each CTA
+//     writes (acc, m, l) of its heads to scratch [B, n_split, H, R + 2] and
+//     counts itself on its (lane, rank)'s counter (acq_rel, as above); the
+//     last CTA of a (lane, rank) merges its heads: their max M and weights
+//     exp(m_s - M) per split (a warp a head, a lane a split), then each
+//     thread sums its column over the splits in index order (repeated calls
+//     agree bit for bit), and resets the counter.
+// Bound: operations. A token costs 4 * 40 * 288 flops (scores and p.v)
+// against its 148 code bytes (4-bit): 311 flops a byte, above the f32 CUDA
+// cores' 20 flops a byte (67 TFLOP/s over 3.35 TB/s): 8 lanes of ~450
+// tokens are 166 MFLOP, 2.5 us at the f32 peak, against 0.16 us for their
+// bytes (PERF.md has the measured time). Kept on the CUDA cores in f32, as
+// the reference's jnp partial computes it; a tensor-core (bf16 wgmma) form
+// is a later PR's. The shape (H, R, CL) is a template: another MLA config
+// needs an instantiation in kvc_latent_partial, H % CL == 0, R % 32 == 0.
+
+// Tokens a cluster and CTAs a cluster: kernels/kvc_attn.py's LATENT_CHUNK
+// and LATENT_CLUSTER, which size the scratch and the counters, hold the
+// same. -DKVC_LAT_CHUNK / -DKVC_LAT_CLUSTER override them for
+// tools/sweep_attn.py's sweep only.
+#ifndef KVC_LAT_CHUNK
+#define KVC_LAT_CHUNK 32
+#endif
+#ifndef KVC_LAT_CLUSTER
+#define KVC_LAT_CLUSTER 2
+#endif
+constexpr int kLatChunk = KVC_LAT_CHUNK;
+static_assert(kLatChunk % 32 == 0, "a chunk is whole warps of tokens");
+
+template <int H, int R, int CL>
+struct LatShape {
+  static constexpr int HC = H / CL;         // heads a CTA
+  static constexpr int RS = R + 4;          // padded row of the f32 latent tile
+  static constexpr int Threads = R;
+  static constexpr int Warps = R / 32;
+  static constexpr int HPW = (HC + Warps - 1) / Warps;
+  static constexpr int TPL = kLatChunk / 32;
+  static constexpr size_t Smem =
+      sizeof(float) * (HC * R + kLatChunk * RS + HC * kLatChunk + 2 * HC);
+  static_assert(H % CL == 0 && R % 32 == 0 && CL >= 1 && CL <= 8,
+                "latent shape");
+};
+
+template <int H, int R, int CL, int BITS>
+__global__ void __launch_bounds__(R)
+kvc_latent_kernel(const void* __restrict__ q, int q_f32,
+                  const uint8_t* __restrict__ codes,
+                  const float* __restrict__ scales,
+                  const int* __restrict__ lengths, float* __restrict__ m_out,
+                  float* __restrict__ l_out, float* __restrict__ acc_out,
+                  float* __restrict__ scratch, int* __restrict__ counters,
+                  int S, int n_split, float sm_scale) {
+  using Sh = LatShape<H, R, CL>;
+  constexpr int HC = Sh::HC, RS = Sh::RS, T = Sh::Threads, NW = Sh::Warps;
+  constexpr int RP = R * BITS / 8;      // code bytes a token
+  constexpr int U = RP / 16;            // 16-byte units a token
+  constexpr int VPW = 32 / BITS;        // values a 32-bit word
+  constexpr int UF4 = VPW;              // float4s a unit (4 words x VPW / 4)
+  constexpr int PR = R + 2;             // a head's partial: acc, m, l
+  static_assert(RP % 16 == 0, "16-byte code rows");
+  extern __shared__ __align__(16) float lsm[];
+  float* q_s = lsm;                               // [HC][R]
+  float* lat_s = q_s + HC * R;                    // [chunk][RS]
+  float* p_s = lat_s + kLatChunk * RS;            // [HC][chunk]
+  float* m_s = p_s + HC * kLatChunk;              // [HC]
+  float* l_s = m_s + HC;                          // [HC]
+  __shared__ int last_s;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = blockIdx.x / CL, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int len = min(max(lengths[b], 0), S);
+  const int n_active = (len + kLatChunk - 1) / kLatChunk;
+  const int64_t row0 = static_cast<int64_t>(b) * H + rank * HC;
+  if (split >= n_active) {              // the whole cluster (one lane, split)
+    if (split == 0) {                   // length 0: the empty partial
+      for (int i = tid; i < HC * R; i += T) acc_out[row0 * R + i] = 0.0f;
+      if (tid < HC) {
+        m_out[row0 + tid] = kNegInf;
+        l_out[row0 + tid] = 0.0f;
+      }
+    }
+    return;
+  }
+  const int c0 = split * kLatChunk;
+  const int n = min(kLatChunk, len - c0);
+  const int n4 = (n + 3) & ~3;
+
+  // this rank's units of the chunk's codes -> f32 latent rows
+  for (int u = rank + CL * tid; u < n * U; u += CL * T) {
+    const int t = u / U, c = u % U;
+    const int64_t tok = static_cast<int64_t>(b) * S + c0 + t;
+    const uint4 w4 = *reinterpret_cast<const uint4*>(codes + tok * RP + c * 16);
+    const float sc = scales[tok];
+    const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+    float* dst = lat_s + t * RS + c * 4 * VPW;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v[VPW];
+      dequant_word<BITS>(w[i], sc, v);
+#pragma unroll
+      for (int e = 0; e < VPW; e += 4)
+        *reinterpret_cast<float4*>(dst + i * VPW + e) =
+            make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+    }
+  }
+  for (int i = tid; i < (n4 - n) * R; i += T)  // p.v's tail
+    lat_s[(n + i / R) * RS + i % R] = 0.0f;
+  for (int i = tid; i < HC * R; i += T) {
+    const int64_t qi = row0 * R + i;
+    q_s[i] = q_f32 ? static_cast<const float*>(q)[qi]
+                   : __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qi]);
+  }
+  cluster.sync();
+  // the other ranks' units, float4 by float4 out of their shared memory
+  for (int i = tid; i < n * U * UF4; i += T) {
+    const int u = i / UF4, p = u % CL;
+    if (p == rank) continue;
+    const int off = (u / U) * RS + (u % U) * 4 * VPW + (i % UF4) * 4;
+    *reinterpret_cast<float4*>(lat_s + off) =
+        *reinterpret_cast<const float4*>(cluster.map_shared_rank(lat_s, p) + off);
+  }
+  cluster.sync();
+
+  // scores of this warp's heads for tokens lane + 32 tt, then the heads'
+  // max, p and sum inside the warp
+  float sv[Sh::HPW][Sh::TPL];
+#pragma unroll
+  for (int i = 0; i < Sh::HPW; ++i)
+#pragma unroll
+    for (int tt = 0; tt < Sh::TPL; ++tt) sv[i][tt] = 0.0f;
+#pragma unroll 4
+  for (int d4 = 0; d4 < R / 4; ++d4) {
+    float4 kv[Sh::TPL];
+#pragma unroll
+    for (int tt = 0; tt < Sh::TPL; ++tt)
+      kv[tt] = *reinterpret_cast<const float4*>(
+          lat_s + (lane + 32 * tt) * RS + 4 * d4);
+#pragma unroll
+    for (int i = 0; i < Sh::HPW; ++i) {
+      const int h = warp + NW * i;
+      if (h >= HC) break;
+      const float4 a = *reinterpret_cast<const float4*>(q_s + h * R + 4 * d4);
+#pragma unroll
+      for (int tt = 0; tt < Sh::TPL; ++tt)
+        sv[i][tt] += a.x * kv[tt].x + a.y * kv[tt].y + a.z * kv[tt].z +
+                     a.w * kv[tt].w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Sh::HPW; ++i) {
+    const int h = warp + NW * i;
+    if (h >= HC) break;
+    float x[Sh::TPL], mx = kNegInf;
+#pragma unroll
+    for (int tt = 0; tt < Sh::TPL; ++tt) {
+      x[tt] = lane + 32 * tt < n ? sv[i][tt] * sm_scale : kNegInf;
+      mx = fmaxf(mx, x[tt]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int tt = 0; tt < Sh::TPL; ++tt) {
+      const int t = lane + 32 * tt;
+      const float p = t < n ? expf(x[tt] - mx) : 0.0f;
+      p_s[h * kLatChunk + t] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      m_s[h] = mx;
+      l_s[h] = sum;
+    }
+  }
+  __syncthreads();
+
+  // p.v: column tid of the CTA's heads, four tokens a step (p is 0 past n)
+  float acc[HC];
+#pragma unroll
+  for (int h = 0; h < HC; ++h) acc[h] = 0.0f;
+  for (int t = 0; t < n4; t += 4) {
+    const float v0 = lat_s[t * RS + tid], v1 = lat_s[(t + 1) * RS + tid];
+    const float v2 = lat_s[(t + 2) * RS + tid], v3 = lat_s[(t + 3) * RS + tid];
+#pragma unroll
+    for (int h = 0; h < HC; ++h) {
+      const float4 p = *reinterpret_cast<const float4*>(p_s + h * kLatChunk + t);
+      acc[h] += p.x * v0 + p.y * v1 + p.z * v2 + p.w * v3;
+    }
+  }
+
+  if (n_active == 1) {                  // the lane's only split
+#pragma unroll
+    for (int h = 0; h < HC; ++h) acc_out[(row0 + h) * R + tid] = acc[h];
+    if (tid < HC) {
+      m_out[row0 + tid] = m_s[tid];
+      l_out[row0 + tid] = l_s[tid];
+    }
+    return;
+  }
+  float* part = scratch +
+      ((static_cast<int64_t>(b) * n_split + split) * H + rank * HC) * PR;
+#pragma unroll
+  for (int h = 0; h < HC; ++h) part[h * PR + tid] = acc[h];
+  if (tid < HC) {
+    part[tid * PR + R] = m_s[tid];
+    part[tid * PR + R + 1] = l_s[tid];
+  }
+  __syncthreads();
+  int* counter = counters + b * CL + rank;
+  if (tid == 0) {
+    int prev;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;"
+                 : "=r"(prev)
+                 : "l"(counter)
+                 : "memory");
+    last_s = prev == n_active - 1;
+  }
+  __syncthreads();
+  if (!last_s) return;
+
+  // the merge of this rank's heads: per head (a warp each, a lane per
+  // split) M = max m, w = exp(m - M) per split (in the latent tile, free
+  // now), L = sum w l in a fixed reduction order; then the columns, in
+  // split order
+  const float* parts =
+      scratch + (static_cast<int64_t>(b) * n_split * H + rank * HC) * PR;
+  float* w_s = lat_s;                   // [n_active][HC]
+  for (int h = warp; h < HC; h += NW) {
+    float M = kNegInf;
+    for (int sp = lane; sp < n_active; sp += 32)
+      M = fmaxf(M, __ldcg(parts + (static_cast<int64_t>(sp) * H + h) * PR + R));
+    M = warp_max(M);
+    float L = 0.0f;
+    for (int sp = lane; sp < n_active; sp += 32) {
+      const float* pp = parts + (static_cast<int64_t>(sp) * H + h) * PR;
+      const float w = expf(__ldcg(pp + R) - M);
+      w_s[sp * HC + h] = w;
+      L += w * __ldcg(pp + R + 1);
+    }
+    L = warp_sum(L);
+    if (lane == 0) {
+      m_s[h] = M;
+      l_s[h] = L;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < HC; ++h) acc[h] = 0.0f;
+  for (int sp = 0; sp < n_active; ++sp) {
+    const float* pp = parts + static_cast<int64_t>(sp) * H * PR + tid;
+    float a[HC];
+#pragma unroll
+    for (int h = 0; h < HC; ++h) a[h] = __ldcg(pp + h * PR);
+#pragma unroll
+    for (int h = 0; h < HC; ++h) acc[h] += w_s[sp * HC + h] * a[h];
+  }
+#pragma unroll
+  for (int h = 0; h < HC; ++h) acc_out[(row0 + h) * R + tid] = acc[h];
+  if (tid < HC) {
+    m_out[row0 + tid] = m_s[tid];
+    l_out[row0 + tid] = l_s[tid];
+  }
+  if (tid == 0) *counter = 0;
+}
+
+template <int H, int R, int CL, int BITS>
+int launch_latent(const void* q, int q_f32, const void* codes,
+                  const void* scales, const void* lengths, void* m, void* l,
+                  void* acc, void* scratch, void* counters, int B, int S,
+                  float sm_scale, cudaStream_t s) {
+  using Sh = LatShape<H, R, CL>;
+  const int n_split = (S + kLatChunk - 1) / kLatChunk;
+  if (static_cast<int64_t>(n_split) * Sh::HC > kLatChunk * Sh::RS)
+    return cudaErrorInvalidValue;       // the merge's weights: past the tile
+  auto kern = kvc_latent_kernel<H, R, CL, BITS>;
+  static bool attr_set = false;         // above 48 KB needs the opt-in
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Sh::Smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * n_split, B);
+  cfg.blockDim = dim3(Sh::Threads);
+  cfg.dynamicSmemBytes = Sh::Smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, q, q_f32, static_cast<const uint8_t*>(codes),
+      static_cast<const float*>(scales), static_cast<const int*>(lengths),
+      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
+      static_cast<float*>(scratch), static_cast<int*>(counters), S, n_split,
+      sm_scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a shape the kernel does
@@ -435,5 +779,26 @@ extern "C" int kvc_attn_partial(const void* q, int q_f32, const void* kc,
     return launch<64, 4>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
   if (D == 64 && bits == 8)
     return launch<64, 8>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
+  return cudaErrorInvalidValue;
+}
+
+// MLA's latent partial: q [B, H, R] (bf16, or f32 when q_f32), codes [B,
+// S, R*bits/8] u8, scales [B, S] f32, lengths [B] -> m, l [B, H], acc [B,
+// H, R] f32. Returns cudaErrorInvalidValue for a shape the kernel does not
+// take ((H, R) other than minicpm3-4b's (40, 288), bits other than 4/8, S
+// past what the merge's weights fit in shared memory). scratch holds
+// B*ceil(S/kLatChunk)*H*(R+2) floats; counters B*KVC_LAT_CLUSTER int32 (a
+// lane's cluster of CTAs), 0 between calls.
+extern "C" int kvc_latent_partial(const void* q, int q_f32, const void* codes,
+                                  const void* scales, const void* lengths,
+                                  void* m, void* l, void* acc, void* scratch,
+                                  void* counters, int B, int S, int H, int R,
+                                  int bits, float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0) return cudaErrorInvalidValue;
+  if (H == 40 && R == 288 && bits == 4)
+    return launch_latent<40, 288, KVC_LAT_CLUSTER, 4>(q, q_f32, codes, scales, lengths, m, l, acc, scratch, counters, B, S, sm_scale, s);
+  if (H == 40 && R == 288 && bits == 8)
+    return launch_latent<40, 288, KVC_LAT_CLUSTER, 8>(q, q_f32, codes, scales, lengths, m, l, acc, scratch, counters, B, S, sm_scale, s);
   return cudaErrorInvalidValue;
 }

@@ -65,6 +65,17 @@
 // and writes 8.9 MB of codes and scales at llama3-8b's widths, some 13 us.
 // One group of D/8 threads a (layer, K or V, position, head) block, as in
 // the ring step.
+//
+// MLA's latent cache (models/decode.py, minicpm3-4b) is one stream of rows
+// of R = kv_lora_rank + rope = 288 values with no head axis, which is both
+// the key and the value of all 40 heads. The three steps take it as a
+// stream count of 1 (streams; the V pointers are then unused) and H = 1: a
+// warp owns a 288-value row (36 chunks of 8 values, one or two a thread),
+// its codes 144 (4-bit) or 288 bytes, 16-byte multiples.
+// Bound at minicpm3's widths: the latent ring step moves about 8 * (3 *
+// 576 + 148) bytes, under 5 ns at 3.35 TB/s, so it costs one launch; a
+// 1,024-token prefill row's latent fill about 1.0 MB, 0.3 us; a lane flush
+// of a live ring of 256 tokens in 62 layers 11.5 MB, 3.4 us.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -256,8 +267,8 @@ decode_kernel(const uint8_t* __restrict__ codes,
   store_vals<VPC>(out + blk * block + c * VPC, v);
 }
 
-// The ring step: block blk = (b * H + h) * 2 + kind (kind 1 = V), groups of
-// (1 << tpb_log2) threads, 8 values a chunk (D % 8 == 0).
+// The ring step: block blk = (b * H + h) * streams + kind (kind 1 = V),
+// groups of (1 << tpb_log2) threads, 8 values a chunk (D % 8 == 0).
 template <typename THot, typename TNew>
 __global__ void __launch_bounds__(kThreads)
 ring_step_kernel(uint8_t* __restrict__ k_codes, float* __restrict__ k_scales,
@@ -267,17 +278,17 @@ ring_step_kernel(uint8_t* __restrict__ k_codes, float* __restrict__ k_scales,
                  const TNew* __restrict__ v_new,
                  const int32_t* __restrict__ pos,
                  const int32_t* __restrict__ cold_len, int B, int S, int W,
-                 int H, int D, int bits, int tpb_log2) {
+                 int H, int D, int bits, int streams, int tpb_log2) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int tpb = 1 << tpb_log2;
-  const int nblk = 2 * B * H;
+  const int nblk = streams * B * H;
   int64_t blk = g >> tpb_log2;
   const int sub = static_cast<int>(g & (tpb - 1));
   const bool live = blk < nblk;
   if (!live) blk = nblk - 1;           // still joins the group's shuffles
-  const bool is_v = blk & 1;
-  const int h = static_cast<int>((blk >> 1) % H);
-  const int b = static_cast<int>((blk >> 1) / H);
+  const bool is_v = blk % streams == 1;
+  const int h = static_cast<int>((blk / streams) % H);
+  const int b = static_cast<int>((blk / streams) / H);
   const int p = pos[b];
   const int slot = ((p % W) + W) % W;  // floor mod, as torch's %
   const int e = p - W;                 // the position aging out
@@ -300,7 +311,8 @@ ring_step_kernel(uint8_t* __restrict__ k_codes, float* __restrict__ k_scales,
   }
 }
 
-// The prefill fill of one layer, K and V: CTAs [0, enc_ctas) quantize the
+// The prefill fill of one layer, K and V (or the one stream K when streams
+// is 1): CTAs [0, enc_ctas) quantize the
 // blocks of t[B, S, H, D] (block blk = ((kind * B + b) * S + s) * H + h,
 // groups of (1 << tpb_log2) threads) into codes [B, L, H, D*bits/8] and
 // scales [B, L, H] at position s < S <= L; the CTAs after them copy the
@@ -318,7 +330,7 @@ prefill_fill_kernel(const TIn* __restrict__ k, const TIn* __restrict__ v,
                     float* __restrict__ v_scales,
                     __nv_bfloat16* __restrict__ v_hot,
                     const int32_t* __restrict__ lens, int B, int S, int L,
-                    int W, int H, int D, int bits, int tpb_log2,
+                    int W, int H, int D, int bits, int streams, int tpb_log2,
                     int enc_ctas) {
   const int tpb = 1 << tpb_log2;
   const int sub = static_cast<int>(threadIdx.x & (tpb - 1));
@@ -326,8 +338,8 @@ prefill_fill_kernel(const TIn* __restrict__ k, const TIn* __restrict__ v,
     const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
     const int64_t per = static_cast<int64_t>(B) * S * H;
     int64_t blk = g >> tpb_log2;
-    const bool live = blk < 2 * per;
-    if (!live) blk = 2 * per - 1;      // still joins the group's shuffles
+    const bool live = blk < streams * per;
+    if (!live) blk = streams * per - 1;   // still joins the group's shuffles
     const bool is_v = blk >= per;
     const int64_t r = is_v ? blk - per : blk;   // (b * S + s) * H + h
     const int64_t bs = r / H;
@@ -342,7 +354,7 @@ prefill_fill_kernel(const TIn* __restrict__ k, const TIn* __restrict__ v,
                     threadIdx.x;
   const int64_t per = static_cast<int64_t>(B) * W * H;
   const int64_t row = g >> tpb_log2;
-  if (row >= 2 * per) return;
+  if (row >= streams * per) return;
   const bool is_v = row >= per;
   const int64_t r = is_v ? row - per : row;     // (b * W + w) * H + h
   const int h = static_cast<int>(r % H);
@@ -360,8 +372,9 @@ prefill_fill_kernel(const TIn* __restrict__ k, const TIn* __restrict__ v,
   }
 }
 
-// The device half of a lane demotion, K and V of every layer, in place:
-// block blk = ((l * 2 + kind) * W + j) * H + h quantizes the ring slot of
+// The device half of a lane demotion, K and V (or the one stream K when
+// streams is 1) of every layer, in place:
+// block blk = ((l * streams + kind) * W + j) * H + h quantizes the ring slot of
 // position p = pos - W + j into codes/scales at p when p >= 0, p >=
 // cold_len[l] and p < T (the live ring tokens, [max(cold_len, pos - W),
 // pos)); the bf16 ring converts to f32 exactly, so the codes are those of
@@ -377,18 +390,18 @@ lane_flush_kernel(uint8_t* __restrict__ k_codes, float* __restrict__ k_scales,
                   int32_t* __restrict__ cold_out, int64_t codes_ls,
                   int64_t scales_ls, int64_t hot_ls, int64_t cold_ls,
                   int Lyr, int T, int W, int H, int D, int bits, int pos,
-                  int tpb_log2) {
+                  int streams, int tpb_log2) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int tpb = 1 << tpb_log2;
-  const int64_t nblk = static_cast<int64_t>(Lyr) * 2 * W * H;
+  const int64_t nblk = static_cast<int64_t>(Lyr) * streams * W * H;
   int64_t blk = g >> tpb_log2;
   const int sub = static_cast<int>(g & (tpb - 1));
   const bool live = blk < nblk;
   if (!live) blk = nblk - 1;           // still joins the group's shuffles
   const int h = static_cast<int>(blk % H);
   const int j = static_cast<int>((blk / H) % W);
-  const bool is_v = (blk / H / W) & 1;
-  const int l = static_cast<int>(blk / H / W / 2);
+  const bool is_v = (blk / H / W) % streams == 1;
+  const int l = static_cast<int>(blk / H / W / streams);
   const int cl = cold_len[l * cold_ls];
   const int p = pos - W + j;
   const bool flush = live && p >= 0 && p >= cl && p < T;
@@ -405,9 +418,9 @@ lane_flush_kernel(uint8_t* __restrict__ k_codes, float* __restrict__ k_scales,
 
 int tpb_log2_for(int nchunks) {
   int t = 0;                            // largest power of two <= 32
-  while (t < 5 && nchunks % (2 << t) == 0) ++t;   // that divides nchunks
-  return t;
-}
+  while (t < 5 && (2 << t) <= nchunks) ++t;   // and <= nchunks: a group
+  return t;                             // may hold threads with one chunk
+}                                       // more than others
 
 }  // namespace
 
@@ -461,19 +474,21 @@ extern "C" int qpack_fixed_decode(const void* codes, const void* scales,
 // The ring step of one layer, in place: codes [B, S, H, D*bits/8] u8,
 // scales [B, S, H] f32, hot [B, W, H, D] (bf16, or f32 when hot_f32), new
 // [B, H, D] (bf16, or f32 when new_f32), pos and cold_len [B] int32. D a
-// multiple of 8, every pointer 16-byte aligned.
+// multiple of 8, every pointer 16-byte aligned. streams 2: K and V; 1: the
+// K pointers only (MLA's latent stream), the V pointers unused.
 extern "C" int qpack_ring_step(void* k_codes, void* k_scales, void* k_hot,
                                void* v_codes, void* v_scales, void* v_hot,
                                const void* k_new, const void* v_new,
                                const void* pos, const void* cold_len,
                                int hot_f32, int new_f32, int b, int s_len,
-                               int w, int h, int d, int bits, void* stream) {
+                               int w, int h, int d, int bits, int streams,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b < 1 || w < 1 || h < 1 || d % 8 != 0 || d < 8 ||
-      (bits != 4 && bits != 8))
+      (bits != 4 && bits != 8) || (streams != 1 && streams != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tl = tpb_log2_for(d / 8);
-  const int64_t threads = static_cast<int64_t>(2) * b * h << tl;
+  const int64_t threads = static_cast<int64_t>(streams) * b * h << tl;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
   uint8_t* kc = static_cast<uint8_t*>(k_codes);
   uint8_t* vc = static_cast<uint8_t*>(v_codes);
@@ -485,7 +500,7 @@ extern "C" int qpack_ring_step(void* k_codes, void* k_scales, void* k_hot,
   ring_step_kernel<THOT, TNEW><<<grid, kThreads, 0, s>>>(                  \
       kc, ks, static_cast<THOT*>(k_hot), vc, vs, static_cast<THOT*>(v_hot), \
       static_cast<const TNEW*>(k_new), static_cast<const TNEW*>(v_new), p,  \
-      cl, b, s_len, w, h, d, bits, tl)
+      cl, b, s_len, w, h, d, bits, streams, tl)
   if (hot_f32 && new_f32) RING(float, float);
   else if (hot_f32) RING(float, __nv_bfloat16);
   else if (new_f32) RING(__nv_bfloat16, float);
@@ -498,19 +513,20 @@ extern "C" int qpack_ring_step(void* k_codes, void* k_scales, void* k_hot,
 // D] (bf16, or f32 when x_f32), codes [B, L, H, D*bits/8] u8, scales [B,
 // L, H] f32, hot [B, W, H, D] bf16, lens [B] int32; S <= L, D a multiple of
 // 8, k/v/hot 16-byte aligned, codes aligned to their 4- or 8-byte stores.
+// streams 2: K and V; 1: the K pointers only (MLA's latent stream).
 extern "C" int qpack_prefill_fill(const void* k, const void* v, int x_f32,
                                   void* k_codes, void* k_scales, void* k_hot,
                                   void* v_codes, void* v_scales, void* v_hot,
                                   const void* lens, int b, int s_len,
                                   int l_len, int w, int h, int d, int bits,
-                                  void* stream) {
+                                  int streams, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b < 1 || s_len < 1 || s_len > l_len || w < 1 || h < 1 || d % 8 != 0 ||
-      d < 8 || (bits != 4 && bits != 8))
+      d < 8 || (bits != 4 && bits != 8) || (streams != 1 && streams != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tl = tpb_log2_for(d / 8);
-  const int64_t enc = (static_cast<int64_t>(2) * b * s_len * h) << tl;
-  const int64_t hot = (static_cast<int64_t>(2) * b * w * h) << tl;
+  const int64_t enc = (static_cast<int64_t>(streams) * b * s_len * h) << tl;
+  const int64_t hot = (static_cast<int64_t>(streams) * b * w * h) << tl;
   const int enc_ctas = static_cast<int>((enc + kThreads - 1) / kThreads);
   const dim3 grid(static_cast<unsigned>(enc_ctas + (hot + kThreads - 1) / kThreads));
 #define FILL(TIN)                                                            \
@@ -519,8 +535,8 @@ extern "C" int qpack_prefill_fill(const void* k, const void* v, int x_f32,
       static_cast<uint8_t*>(k_codes), static_cast<float*>(k_scales),        \
       static_cast<__nv_bfloat16*>(k_hot), static_cast<uint8_t*>(v_codes),   \
       static_cast<float*>(v_scales), static_cast<__nv_bfloat16*>(v_hot),    \
-      static_cast<const int32_t*>(lens), b, s_len, l_len, w, h, d, bits, tl, \
-      enc_ctas)
+      static_cast<const int32_t*>(lens), b, s_len, l_len, w, h, d, bits,    \
+      streams, tl, enc_ctas)
   if (x_f32) FILL(float);
   else FILL(__nv_bfloat16);
 #undef FILL
@@ -529,7 +545,8 @@ extern "C" int qpack_prefill_fill(const void* k, const void* v, int x_f32,
 
 // The lane flush (see lane_flush_kernel): codes [Lyr, T, H, D*bits/8] u8,
 // scales [Lyr, T, H] f32, hot [Lyr, W, H, D] bf16, cold_len [Lyr] int32,
-// each with its own layer stride (elements); cold_out int32[Lyr].
+// each with its own layer stride (elements); cold_out int32[Lyr]. streams
+// 2: K and V; 1: the K pointers only (MLA's latent stream).
 extern "C" int qpack_lane_flush(void* k_codes, void* k_scales,
                                 const void* k_hot, void* v_codes,
                                 void* v_scales, const void* v_hot,
@@ -537,13 +554,13 @@ extern "C" int qpack_lane_flush(void* k_codes, void* k_scales,
                                 long long codes_ls, long long scales_ls,
                                 long long hot_ls, long long cold_ls, int lyr,
                                 int t_len, int w, int h, int d, int bits,
-                                int pos, void* stream) {
+                                int pos, int streams, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lyr < 1 || t_len < 1 || w < 1 || h < 1 || d % 8 != 0 || d < 8 ||
-      (bits != 4 && bits != 8))
+      (bits != 4 && bits != 8) || (streams != 1 && streams != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tl = tpb_log2_for(d / 8);
-  const int64_t threads = (static_cast<int64_t>(lyr) * 2 * w * h) << tl;
+  const int64_t threads = (static_cast<int64_t>(lyr) * streams * w * h) << tl;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
   lane_flush_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<uint8_t*>(k_codes), static_cast<float*>(k_scales),
@@ -551,6 +568,6 @@ extern "C" int qpack_lane_flush(void* k_codes, void* k_scales,
       static_cast<float*>(v_scales), static_cast<const __nv_bfloat16*>(v_hot),
       static_cast<const int32_t*>(cold_len), static_cast<int32_t*>(cold_out),
       codes_ls, scales_ls, hot_ls, cold_ls, lyr, t_len, w, h, d, bits, pos,
-      tl);
+      streams, tl);
   return static_cast<int>(cudaGetLastError());
 }

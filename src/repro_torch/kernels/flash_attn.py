@@ -14,6 +14,10 @@ input type alone picks the route (``ROUTES``): bf16 runs on the tensor
 cores (wgmma fed by TMA), f32 on the CUDA cores; nothing gives way to
 another route at run time. ``launches`` counts every kernel launch,
 ``launches_tc`` those of the tensor-core route.
+
+Head dims: q and k share D, and v's dim equals it (``HEAD_DIMS``) except at
+the pairs of ``SPLIT_HEAD_DIMS``: MLA's expanded prefill, 96-wide q/k
+(nope 64 + rope 32) against 64-wide v (minicpm3-4b).
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ launches_tc = 0
 ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (64, 128)
+# (qk, v) head-dim pairs with qk != v that both routes take
+SPLIT_HEAD_DIMS = ((96, 64),)
 # keys per tile of the tensor-core route, per head dim (csrc/flash_attn.cu's
 # tc::Tile): at D 128 the widest tile whose registers fit
 TC_KEYS = {128: 96, 64: 128}
@@ -42,7 +48,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           sm_scale: Optional[float] = None,
                           chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over key chunks (the reference's
-    ``layers.chunked_attention``). q [B,Sq,Hq,D]; k,v [B,Sk,Hkv,D]."""
+    ``layers.chunked_attention``). q [B,Sq,Hq,D]; k [B,Sk,Hkv,D]; v
+    [B,Sk,Hkv,Dv] (MLA: Dv may differ from D) -> [B,Sq,Hq,Dv]."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -79,27 +86,40 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.load("flash_attn", {
-        "flash_attn_fwd": [P, P, P, P, I, I, I, I, I, I, I, F, I, P]})
+        "flash_attn_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P]})
 
 
 def _check_gqa(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("q [B,Sq,Hq,D], k and v [B,Sk,Hkv,D] expected")
+    """q [B,Sq,Hq,D], k [B,Sk,Hkv,D], v [B,Sk,Hkv,Dv]: Dv == D, or (D, Dv)
+    one of ``SPLIT_HEAD_DIMS``."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            v.shape[:3] != k.shape[:3]:
+        raise ValueError("q [B,Sq,Hq,D], k [B,Sk,Hkv,D] and v "
+                         "[B,Sk,Hkv,Dv] expected")
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "form a GQA attention")
+    if v.shape[3] != D and (D, v.shape[3]) not in SPLIT_HEAD_DIMS:
+        raise ValueError(f"head dims qk {D}, v {v.shape[3]}: the kernels "
+                         f"take v's equal to qk's or the pairs "
+                         f"{SPLIT_HEAD_DIMS}")
 
 
-def route_for(dtype: torch.dtype, head_dim: int) -> str:
-    """The route on the card for this input type and head dim, or a
-    ValueError where no kernel takes them."""
+def route_for(dtype: torch.dtype, head_dim: int,
+              v_dim: Optional[int] = None) -> str:
+    """The route on the card for this input type and (qk, v) head dims
+    (v_dim defaults to head_dim), or a ValueError where no kernel takes
+    them."""
     if dtype not in ROUTES:
         raise ValueError(f"no flash attention kernel for {dtype}: q, k, v "
                          "must all be bf16 or all float32")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"head dim {head_dim}: the kernels take {HEAD_DIMS}")
+    v_dim = head_dim if v_dim is None else v_dim
+    if not (v_dim == head_dim and head_dim in HEAD_DIMS) and \
+            (head_dim, v_dim) not in SPLIT_HEAD_DIMS:
+        raise ValueError(f"head dims qk {head_dim}, v {v_dim}: the kernels "
+                         f"take {HEAD_DIMS} (v equal) and {SPLIT_HEAD_DIMS}")
     return ROUTES[dtype]
 
 
@@ -111,7 +131,7 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    path = route_for(q.dtype, q.shape[3])
+    path = route_for(q.dtype, q.shape[3], v.shape[3])
     Sq, Sk = q.shape[1], k.shape[1]
     if causal and Sq > Sk:
         raise ValueError(f"causal attention with Sq {Sq} > Sk {Sk} leaves "
@@ -130,14 +150,14 @@ def _launch(q, k, v, causal: bool, sm_scale: float):
     global launches, launches_tc
     path = route(q, k, v, causal=causal)
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k, v must be 16-byte aligned")
-    out = torch.empty_like(q)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     err = _lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, Sq, Sk, Hq, Hkv, D, float(sm_scale),
+        _DTYPE_CODE[q.dtype], B, Sq, Sk, Hq, Hkv, D, Dv, float(sm_scale),
         int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(err, "flash_attn_fwd")
     launches += 1
@@ -148,9 +168,9 @@ def _launch(q, k, v, causal: bool, sm_scale: float):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
-    """GQA attention forward, ``flash_attention_plain``'s contract: a CUDA
-    kernel for CUDA tensors (``route``), the plain version for CPU
-    tensors."""
+    """GQA attention forward, ``flash_attention_plain``'s contract (at the
+    head dims ``_check_gqa`` takes): a CUDA kernel for CUDA tensors
+    (``route``), the plain version for CPU tensors."""
     _check_gqa(q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)

@@ -15,6 +15,14 @@ mask and an online softmax. Two entry points:
     kernel's normalised output, including its quirk: a length-0 row is the
     uniform average of V over all S tokens (ROADMAP C).
 
+MLA's absorbed decode (minicpm3-4b) reads one latent code stream that is
+both K and V of all 40 heads: ``kvc_latent_partial`` (its own kernel in
+the same source, ``latent_launches``) gives each ``LATENT_CHUNK`` tokens
+of a lane a cluster of ``LATENT_CLUSTER`` CTAs, one group of heads each,
+that dequantize each token once for every head and share it through
+distributed shared memory; its plain version is the GQA partial with one
+KV head and K = V. ``latent_working_ctas`` counts the CTAs that do work.
+
 The wrappers dispatch on the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version. ``launches``
 counts kernel launches.
@@ -39,8 +47,14 @@ from repro_torch.kernels import qpack
 
 NEG_INF = -1e30
 launches = 0
+latent_launches = 0
 # tokens per CTA on the card (csrc/kvc_attn.cu's kChunk)
 CHUNK = 128
+# the latent kernel's one instantiation (csrc/kvc_attn.cu's H, R): minicpm3-4b
+LATENT_HEADS, LATENT_DIM = 40, 288
+# tokens a cluster (kLatChunk) and CTAs a cluster, each a group of heads
+# (KVC_LAT_CLUSTER)
+LATENT_CHUNK, LATENT_CLUSTER = 32, 2
 _counters: dict = {}
 
 
@@ -50,6 +64,13 @@ def chunk_plan(S: int, chunk: Optional[int] = None) -> list:
     takes no part."""
     chunk = chunk or CHUNK
     return [(c, min(c + chunk, S)) for c in range(0, S, chunk)]
+
+
+def latent_working_ctas(lengths) -> int:
+    """The latent kernel's CTAs that do work at these lane lengths: a
+    cluster for each chunk a lane's length reaches."""
+    return LATENT_CLUSTER * sum(-(-max(int(n), 0) // LATENT_CHUNK)
+                                for n in lengths)
 
 
 def _dequant(codes, scales, bits: int, d: int) -> torch.Tensor:
@@ -97,11 +118,21 @@ def kvc_decode_attention_plain(q, k_codes, k_scales, v_codes, v_scales,
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
+def kvc_latent_partial_plain(q, codes, scales, lengths, bits: int,
+                             sm_scale: float):
+    """``kvc_latent_partial``'s function in plain PyTorch: the GQA partial
+    with one KV head whose K and V are both the latent codes."""
+    c, s = codes[:, :, None], scales[:, :, None]
+    return kvc_decode_partial_plain(q, c, s, c, s, lengths, bits, sm_scale)
+
+
 def _lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.load("kvc_attn", {
         "kvc_attn_partial": [P, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
-                             I, I, F, I, P]})
+                             I, I, F, I, P],
+        "kvc_latent_partial": [P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                               F, P]})
 
 
 def _counter_buffer(device, n: int) -> torch.Tensor:
@@ -194,3 +225,58 @@ def kvc_decode_attention(q, k_codes, k_scales, v_codes, v_scales, lengths,
     m, l, acc = _launch(q, k_codes, k_scales, v_codes, v_scales, lengths,
                         bits, sm_scale, empty_uniform=True)
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def _launch_latent(q, codes, scales, lengths, bits, sm_scale):
+    global latent_launches
+    B, H, R = q.shape
+    if (H, R) != (LATENT_HEADS, LATENT_DIM) or bits not in (4, 8):
+        raise ValueError(f"q {tuple(q.shape)}, bits {bits}: the latent kernel "
+                         f"takes {LATENT_HEADS} heads of {LATENT_DIM} and "
+                         "bits 4/8")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q must be bf16/f32, got {q.dtype}")
+    if codes.dim() != 3 or codes.shape[0] != B or codes.shape[1] < 1:
+        raise ValueError(f"codes {tuple(codes.shape)} must be [B,S,Rp]")
+    S = codes.shape[1]
+    if -(-S // LATENT_CHUNK) * (H // LATENT_CLUSTER) > \
+            LATENT_CHUNK * (LATENT_DIM + 4):
+        raise ValueError(f"S {S}: past the latent kernel's merge")
+    for name, t, shape, dt in (
+            ("codes", codes, (B, S, R * bits // 8), torch.uint8),
+            ("scales", scales, (B, S), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != q.device \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous {dt} {shape} on "
+                             f"{q.device}, 16-byte aligned")
+    q = q.contiguous()
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    if lengths.shape != (B,):
+        raise ValueError("lengths must be [B]")
+    m = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((B, H, R), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((B, -(-S // LATENT_CHUNK), H, R + 2),
+                          dtype=torch.float32, device=q.device)
+    counters = _counter_buffer(q.device, B * LATENT_CLUSTER)
+    err = _lib().kvc_latent_partial(
+        q.data_ptr(), int(q.dtype == torch.float32), codes.data_ptr(),
+        scales.data_ptr(), lengths.data_ptr(), m.data_ptr(), l.data_ptr(),
+        acc.data_ptr(), scratch.data_ptr(), counters.data_ptr(), B, S, H, R,
+        bits, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch(err, "kvc_latent_partial")
+    latent_launches += 1
+    return m, l, acc
+
+
+def kvc_latent_partial(q, codes, scales, lengths, *, bits: int,
+                       sm_scale: float):
+    """MLA's absorbed decode over the compressed latent: q [B,H,R]; codes
+    uint8 [B,S,R*bits/8] (the key and the value of every head); scales f32
+    [B,S]; lengths int32 [B] -> (m [B,H,1], l [B,H,1], acc [B,H,R]) over
+    tokens t < lengths[b]. The kernel for CUDA tensors (H 40, R 288), the
+    plain version for CPU tensors."""
+    if _device_of(q) == "cpu":
+        return kvc_latent_partial_plain(q, codes, scales, lengths, bits,
+                                        sm_scale)
+    return _launch_latent(q, codes, scales, lengths, bits, sm_scale)

@@ -24,6 +24,10 @@ and the wrappers the compressor calls.
     the codes region, the ring copied) and ``lane_flush`` a lane demotion's
     device half (the live ring tokens of every layer quantized into the
     lane's codes), each one launch with the same quantize.
+  * ``latent_ring_step``, ``latent_prefill_fill`` and ``latent_lane_flush``
+    are the same three steps on MLA's latent cache (one stream of rows of
+    kv_lora_rank + rope values, no head axis): the same kernels launched
+    with one stream instead of K and V.
 
 All are memory-bound single passes; the source notes in the ``.cu`` files
 give the bound and the design.
@@ -54,6 +58,10 @@ ring_step_launches = 0
 fused_promote_launches = 0
 prefill_fill_launches = 0
 lane_flush_launches = 0
+# MLA's latent stream through the same three kernels (one stream a launch)
+latent_ring_step_launches = 0
+latent_prefill_fill_launches = 0
+latent_lane_flush_launches = 0
 
 QUANTUM = 128                   # bytes of a compaction quantum
 
@@ -268,11 +276,11 @@ def _fixed_lib() -> ctypes.CDLL:
         "qpack_fixed_encode": [P, I, P, P, I, I, I, I, P],
         "qpack_fixed_decode": [P, P, P, I, I, I, I, I, P],
         "qpack_ring_step": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                            I, P],
+                            I, I, P],
         "qpack_prefill_fill": [P, P, I, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                               I, P],
+                               I, I, P],
         "qpack_lane_flush": [P, P, P, P, P, P, P, P, L, L, L, L, I, I, I, I,
-                             I, I, I, P]})
+                             I, I, I, I, P]})
 
 
 def _check_cuda(t: torch.Tensor, name: str) -> None:
@@ -636,6 +644,54 @@ def ring_step_plain(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot,
     _hot_insert_plain(v_hot, v_new, pos)
 
 
+def latent_ring_step_plain(codes, scales, hot, new, pos, cold_len,
+                           bits: int, *, quantize=encode_plain) -> None:
+    """``latent_ring_step``'s plain version: the reference's
+    ``_evict_latent`` and ``_hot_insert`` on the single latent stream (the
+    GQA step's eviction with a head axis of 1)."""
+    _evict_plain(codes[:, :, None], scales[:, :, None], hot[:, :, None], pos,
+                 cold_len, bits, quantize)
+    _hot_insert_plain(hot, new, pos)
+
+
+def _ring_step_launch(k, v, pos, cold_len, bits: int) -> None:
+    """One ring-step launch over the streams k and, unless None, v: each
+    (codes [B,S,H,D*bits/8], scales [B,S,H], hot [B,W,H,D], new [B,H,D])."""
+    k_codes, k_scales, k_hot, k_new = k
+    B, W, H, D = k_hot.shape
+    S = k_codes.shape[1]
+    if bits not in (4, 8) or D % 8:
+        raise ValueError(f"bits={bits}, D={D}: the ring step takes 4 or 8 "
+                         "bits and D a multiple of 8")
+    streams = [(k_codes, k_scales, k_hot, _aligned(k_new))]
+    if v is not None:
+        streams.append((*v[:3], _aligned(v[3])))
+    hot_t, new_t = k_hot.dtype, streams[0][3].dtype
+    if hot_t not in (torch.bfloat16, torch.float32) or \
+            new_t not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"hot {hot_t}, new {new_t}: the ring step takes "
+                         "bf16 or f32")
+    for codes, scales, hot, new in streams:
+        for t, shape, dtype, name in (
+                (codes, (B, S, H, D * bits // 8), torch.uint8, "codes"),
+                (scales, (B, S, H), torch.float32, "scales"),
+                (hot, (B, W, H, D), hot_t, "hot"),
+                (new, (B, H, D), new_t, "new")):
+            _check_rows(t, name, shape, (dtype,), k_hot.device, 16)
+    pos, cold_len = (t.to(torch.int32).contiguous() for t in (pos, cold_len))
+    if pos.shape != (B,) or cold_len.shape != (B,):
+        raise ValueError("pos and cold_len must be [B]")
+    ptrs = [t.data_ptr() for t in streams[0]]
+    vptrs = [t.data_ptr() for t in streams[1]] if v is not None else [None] * 4
+    err = _fixed_lib().qpack_ring_step(
+        ptrs[0], ptrs[1], ptrs[2], vptrs[0], vptrs[1], vptrs[2], ptrs[3],
+        vptrs[3], pos.data_ptr(), cold_len.data_ptr(),
+        int(hot_t == torch.float32), int(new_t == torch.float32), B, S, W,
+        H, D, bits,
+        len(streams), torch.cuda.current_stream(k_hot.device).cuda_stream)
+    _build.check_launch(err, "qpack_ring_step")
+
+
 def ring_step(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, k_new,
               v_new, pos, cold_len, bits: int) -> None:
     """One decode step's hot-window update of one layer, in place: for each
@@ -651,35 +707,28 @@ def ring_step(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, k_new,
                                v_hot, k_new, v_new, pos, cold_len, bits)
     if k_hot.device.type != "cuda":
         raise ValueError(f"no ring step for device {k_hot.device}")
-    B, W, H, D = k_hot.shape
-    S = k_codes.shape[1]
-    if bits not in (4, 8) or D % 8:
-        raise ValueError(f"bits={bits}, D={D}: the ring step takes 4 or 8 "
-                         "bits and D a multiple of 8")
-    ftypes = (torch.bfloat16, torch.float32)
-    k_new, v_new = _aligned(k_new), _aligned(v_new)
-    for t, shape, dtypes, name in (
-            (k_codes, (B, S, H, D * bits // 8), (torch.uint8,), "codes"),
-            (v_codes, (B, S, H, D * bits // 8), (torch.uint8,), "codes"),
-            (k_scales, (B, S, H), (torch.float32,), "scales"),
-            (v_scales, (B, S, H), (torch.float32,), "scales"),
-            (k_hot, (B, W, H, D), ftypes, "hot"),
-            (v_hot, (B, W, H, D), (k_hot.dtype,), "hot"),
-            (k_new, (B, H, D), ftypes, "new"),
-            (v_new, (B, H, D), (k_new.dtype,), "new")):
-        _check_rows(t, name, shape, dtypes, k_hot.device, 16)
-    pos, cold_len = (t.to(torch.int32).contiguous() for t in (pos, cold_len))
-    if pos.shape != (B,) or cold_len.shape != (B,):
-        raise ValueError("pos and cold_len must be [B]")
-    err = _fixed_lib().qpack_ring_step(
-        k_codes.data_ptr(), k_scales.data_ptr(), k_hot.data_ptr(),
-        v_codes.data_ptr(), v_scales.data_ptr(), v_hot.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), pos.data_ptr(),
-        cold_len.data_ptr(), int(k_hot.dtype == torch.float32),
-        int(k_new.dtype == torch.float32), B, S, W, H, D, bits,
-        torch.cuda.current_stream(k_hot.device).cuda_stream)
-    _build.check_launch(err, "qpack_ring_step")
+    _ring_step_launch((k_codes, k_scales, k_hot, k_new),
+                      (v_codes, v_scales, v_hot, v_new), pos, cold_len, bits)
     ring_step_launches += 1
+
+
+def latent_ring_step(codes, scales, hot, new, pos, cold_len,
+                     bits: int) -> None:
+    """``ring_step`` on MLA's single latent stream (the key and the value
+    of every head), in place: codes [B, S, R*bits/8] uint8, scales [B, S]
+    f32, hot [B, W, R] bf16/f32, new [B, R], pos and cold_len [B]. One
+    launch of the ring-step kernel with one stream for CUDA tensors; the
+    plain version for CPU tensors."""
+    global latent_ring_step_launches
+    if hot.device.type == "cpu":
+        return latent_ring_step_plain(codes, scales, hot, new, pos, cold_len,
+                                      bits)
+    if hot.device.type != "cuda":
+        raise ValueError(f"no ring step for device {hot.device}")
+    _ring_step_launch((codes[:, :, None], scales[:, :, None],
+                       hot[:, :, None], new[:, None]), None, pos, cold_len,
+                      bits)
+    latent_ring_step_launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -721,6 +770,48 @@ def prefill_fill_plain(k, v, k_codes, k_scales, k_hot, v_codes, v_scales,
         fill_plain(t, codes, scales, hot, where, bits, quantize)
 
 
+def latent_prefill_fill_plain(lat, codes, scales, hot, lens, bits: int, *,
+                      quantize=encode_plain) -> None:
+    """``latent_prefill_fill``'s plain version: the reference MLA prefill's
+    latent quantize and ring gather (``fill_plain`` on the one stream)."""
+    B, S = lat.shape[:2]
+    where = (torch.arange(B, device=lat.device)[:, None],
+             ring_sources(lens, S, hot.shape[1]))
+    fill_plain(lat, codes, scales, hot, where, bits, quantize)
+
+
+def _fill_launch(k, v, lens, bits: int) -> None:
+    """One prefill-fill launch over the streams k and, unless None, v: each
+    (t [B,S,H,D], codes [B,L,H,D*bits/8], scales [B,L,H], hot [B,W,H,D])."""
+    t0 = k[0]
+    B, S, H, D = t0.shape
+    L, W = k[1].shape[1], k[3].shape[1]
+    if bits not in (4, 8) or D % 8 or S > L:
+        raise ValueError(f"bits={bits}, D={D}, S={S}, L={L}: the prefill "
+                         "fill takes 4 or 8 bits, D a multiple of 8, S <= L")
+    dev, x_t = t0.device, t0.dtype
+    if x_t not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{x_t}: the prefill fill takes bf16 or f32")
+    streams = [(_aligned(k[0]), *k[1:])]
+    if v is not None:
+        streams.append((_aligned(v[0]), *v[1:]))
+    for t, codes, scales, hot in streams:
+        for x, shape, dtype, name, align in (
+                (t, (B, S, H, D), x_t, "k/v", 16),
+                (codes, (B, L, H, D * bits // 8), torch.uint8, "codes", bits),
+                (scales, (B, L, H), torch.float32, "scales", 4),
+                (hot, (B, W, H, D), torch.bfloat16, "hot", 16)):
+            _check_rows(x, name, shape, (dtype,), dev, align)
+    _check_rows(lens, "lens", (B,), (torch.int32,), dev, 4)
+    kp = [x.data_ptr() for x in streams[0]]
+    vp = [x.data_ptr() for x in streams[1]] if v is not None else [None] * 4
+    err = _fixed_lib().qpack_prefill_fill(
+        kp[0], vp[0], int(x_t == torch.float32), kp[1],
+        kp[2], kp[3], vp[1], vp[2], vp[3], lens.data_ptr(), B, S, L, W, H, D,
+        bits, len(streams), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(err, "qpack_prefill_fill")
+
+
 def prefill_fill(k, v, k_codes, k_scales, k_hot, v_codes, v_scales, v_hot,
                  lens, bits: int) -> None:
     """A prefill layer's cache fill, in place: k, v [B, S, Hkv, D]
@@ -735,34 +826,26 @@ def prefill_fill(k, v, k_codes, k_scales, k_hot, v_codes, v_scales, v_hot,
                                   v_scales, v_hot, lens, bits)
     if k.device.type != "cuda":
         raise ValueError(f"no prefill fill for device {k.device}")
-    B, S, H, D = k.shape
-    L, W = k_codes.shape[1], k_hot.shape[1]
-    if bits not in (4, 8) or D % 8 or S > L:
-        raise ValueError(f"bits={bits}, D={D}, S={S}, L={L}: the prefill "
-                         "fill takes 4 or 8 bits, D a multiple of 8, S <= L")
-    dev, ftypes = k.device, (torch.bfloat16, torch.float32)
-    k, v = _aligned(k), _aligned(v)
-    for t, shape, dtypes, name, align in (
-            (k, (B, S, H, D), ftypes, "k", 16),
-            (v, (B, S, H, D), (k.dtype,), "v", 16),
-            (k_codes, (B, L, H, D * bits // 8), (torch.uint8,), "codes",
-             bits),
-            (v_codes, (B, L, H, D * bits // 8), (torch.uint8,), "codes",
-             bits),
-            (k_scales, (B, L, H), (torch.float32,), "scales", 4),
-            (v_scales, (B, L, H), (torch.float32,), "scales", 4),
-            (k_hot, (B, W, H, D), (torch.bfloat16,), "hot", 16),
-            (v_hot, (B, W, H, D), (torch.bfloat16,), "hot", 16),
-            (lens, (B,), (torch.int32,), "lens", 4)):
-        _check_rows(t, name, shape, dtypes, dev, align)
-    err = _fixed_lib().qpack_prefill_fill(
-        k.data_ptr(), v.data_ptr(), int(k.dtype == torch.float32),
-        k_codes.data_ptr(), k_scales.data_ptr(), k_hot.data_ptr(),
-        v_codes.data_ptr(), v_scales.data_ptr(), v_hot.data_ptr(),
-        lens.data_ptr(), B, S, L, W, H, D, bits,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(err, "qpack_prefill_fill")
+    _fill_launch((k, k_codes, k_scales, k_hot), (v, v_codes, v_scales, v_hot),
+                 lens, bits)
     prefill_fill_launches += 1
+    return None
+
+
+def latent_prefill_fill(lat, codes, scales, hot, lens, bits: int) -> None:
+    """``prefill_fill`` on MLA's latent stream, in place: lat [B, S, R]
+    (bf16/f32) quantized into codes [B, L, R*bits/8] and scales [B, L] at
+    [0, S), the ring hot [B, W, R] bf16 filled from the latest real tokens.
+    One launch of the prefill-fill kernel with one stream for CUDA tensors;
+    the plain version for CPU tensors."""
+    global latent_prefill_fill_launches
+    if lat.device.type == "cpu":
+        return latent_prefill_fill_plain(lat, codes, scales, hot, lens, bits)
+    if lat.device.type != "cuda":
+        raise ValueError(f"no prefill fill for device {lat.device}")
+    _fill_launch((lat[:, :, None], codes[:, :, None], scales[:, :, None],
+                  hot[:, :, None]), None, lens, bits)
+    latent_prefill_fill_launches += 1
     return None
 
 
@@ -800,6 +883,52 @@ def lane_flush_plain(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot,
     return torch.clamp(cold_len, min=pos)
 
 
+def latent_lane_flush_plain(codes, scales, hot, cold_len, pos: int, bits: int,
+                       *, quantize=encode_plain) -> torch.Tensor:
+    """``latent_lane_flush``'s plain version: the reference's
+    ``_ring_to_codes`` on ``lat_*``, copied into codes and scales in place;
+    returns max(cold_len, pos)."""
+    c, s = ring_to_codes_plain(codes, scales, hot, cold_len, pos, bits,
+                               quantize)
+    codes.copy_(c)
+    scales.copy_(s)
+    return torch.clamp(cold_len, min=pos)
+
+
+def _flush_launch(k, v, cold_len, pos: int, bits: int) -> torch.Tensor:
+    """One lane-flush launch over the streams k and, unless None, v: each
+    (codes [Lyr,T,H,D*bits/8], scales [Lyr,T,H], hot [Lyr,W,H,D]), any
+    layer strides, shared by the two streams."""
+    Lyr, W, H, D = k[2].shape
+    T_ = k[0].shape[1]
+    if bits not in (4, 8) or D % 8:
+        raise ValueError(f"bits={bits}, D={D}: the lane flush takes 4 or 8 "
+                         "bits and D a multiple of 8")
+    dev = k[2].device
+    streams = [k] if v is None else [k, v]
+    for codes, scales, hot in streams:
+        for t, shape, dtype, name, align in (
+                (codes, (Lyr, T_, H, D * bits // 8), torch.uint8, "codes",
+                 bits),
+                (scales, (Lyr, T_, H), torch.float32, "scales", 4),
+                (hot, (Lyr, W, H, D), torch.bfloat16, "hot", 16)):
+            _check_rows(t, name, shape, (dtype,), dev, align, lead=1)
+    _check_rows(cold_len, "cold_len", (Lyr,), (torch.int32,), dev, 4, lead=1)
+    strides = [t.stride(0) for t in (*k, cold_len)]
+    if v is not None and any(t.stride(0) != st
+                             for t, st in zip(v, strides)):
+        raise ValueError("K and V must share their layer strides")
+    cold_out = torch.empty((Lyr,), dtype=torch.int32, device=dev)
+    kp = [t.data_ptr() for t in k]
+    vp = [t.data_ptr() for t in v] if v is not None else [None] * 3
+    err = _fixed_lib().qpack_lane_flush(
+        kp[0], kp[1], kp[2], vp[0], vp[1], vp[2], cold_len.data_ptr(),
+        cold_out.data_ptr(), *strides, Lyr, T_, W, H, D, bits, int(pos),
+        len(streams), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(err, "qpack_lane_flush")
+    return cold_out
+
+
 def lane_flush(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, cold_len,
                pos: int, bits: int) -> torch.Tensor:
     """A lane demotion's device half, in place: the live ring tokens of
@@ -816,34 +945,25 @@ def lane_flush(k_codes, k_scales, k_hot, v_codes, v_scales, v_hot, cold_len,
                                 v_hot, cold_len, pos, bits)
     if k_hot.device.type != "cuda":
         raise ValueError(f"no lane flush for device {k_hot.device}")
-    Lyr, W, H, D = k_hot.shape
-    T_ = k_codes.shape[1]
-    if bits not in (4, 8) or D % 8:
-        raise ValueError(f"bits={bits}, D={D}: the lane flush takes 4 or 8 "
-                         "bits and D a multiple of 8")
-    dev = k_hot.device
-    for t, shape, dtype, name, align in (
-            (k_codes, (Lyr, T_, H, D * bits // 8), torch.uint8, "codes",
-             bits),
-            (v_codes, (Lyr, T_, H, D * bits // 8), torch.uint8, "codes",
-             bits),
-            (k_scales, (Lyr, T_, H), torch.float32, "scales", 4),
-            (v_scales, (Lyr, T_, H), torch.float32, "scales", 4),
-            (k_hot, (Lyr, W, H, D), torch.bfloat16, "hot", 16),
-            (v_hot, (Lyr, W, H, D), torch.bfloat16, "hot", 16),
-            (cold_len, (Lyr,), torch.int32, "cold_len", 4)):
-        _check_rows(t, name, shape, (dtype,), dev, align, lead=1)
-    strides = [t.stride(0) for t in (k_codes, k_scales, k_hot, cold_len)]
-    if any(t.stride(0) != st for t, st in ((v_codes, strides[0]),
-                                           (v_scales, strides[1]),
-                                           (v_hot, strides[2]))):
-        raise ValueError("K and V must share their layer strides")
-    cold_out = torch.empty((Lyr,), dtype=torch.int32, device=dev)
-    err = _fixed_lib().qpack_lane_flush(
-        k_codes.data_ptr(), k_scales.data_ptr(), k_hot.data_ptr(),
-        v_codes.data_ptr(), v_scales.data_ptr(), v_hot.data_ptr(),
-        cold_len.data_ptr(), cold_out.data_ptr(), *strides, Lyr, T_, W, H, D,
-        bits, int(pos), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(err, "qpack_lane_flush")
+    out = _flush_launch((k_codes, k_scales, k_hot), (v_codes, v_scales, v_hot),
+                        cold_len, pos, bits)
     lane_flush_launches += 1
-    return cold_out
+    return out
+
+
+def latent_lane_flush(codes, scales, hot, cold_len, pos: int,
+                      bits: int) -> torch.Tensor:
+    """``lane_flush`` on MLA's latent stream: codes [Lyr, T, R*bits/8],
+    scales [Lyr, T], hot [Lyr, W, R] bf16, cold_len int32[Lyr], any layer
+    strides. Returns max(cold_len, pos). One launch of the lane-flush
+    kernel with one stream for CUDA tensors; the plain version for CPU
+    tensors."""
+    global latent_lane_flush_launches
+    if hot.device.type == "cpu":
+        return latent_lane_flush_plain(codes, scales, hot, cold_len, pos, bits)
+    if hot.device.type != "cuda":
+        raise ValueError(f"no lane flush for device {hot.device}")
+    out = _flush_launch((codes[:, :, None], scales[:, :, None],
+                         hot[:, :, None]), None, cold_len, pos, bits)
+    latent_lane_flush_launches += 1
+    return out

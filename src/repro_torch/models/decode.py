@@ -1,5 +1,6 @@
-"""Serving decode path of the port (``repro.models.decode``, dense GQA):
-the IBEX-compressed KV cache and the one-token step.
+"""Serving decode path of the port (``repro.models.decode``, dense family,
+GQA/MHA and MLA attention): the IBEX-compressed KV cache and the one-token
+step.
 
 The KV cache is an IBEX pool specialized for append-only data:
 
@@ -22,6 +23,14 @@ Prefill attention is the flash kernel (B6). ``ServeConfig.quantize_impl``
 and ``attn_impl`` choose kernels or plain versions ("auto": kernels for
 CUDA tensors).
 
+MLA (minicpm3-4b) caches one latent row a token (kv_lora_rank + rope
+values, shared by every head) instead of K and V: the same ring, codes
+region and ``cold_len``, one stream (``lat_*``), through the latent forms
+of the ring step, the prefill fill and the lane flush. Decode is the
+absorbed form: q_nope folded through W_uk into the latent space, attention
+over the latent (key = value) through the latent decode kernel (B5's MLA
+form) and the ring, then W_uv and W_o.
+
 Unlike the reference, whose arrays are immutable, the port updates the
 cache **in place**: ``decode_step`` writes each layer's codes, scales, ring
 and ``cold_len`` into the tensors it was given (and returns the same dict).
@@ -32,7 +41,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.common.types import ModelConfig, ServeConfig
+from repro_torch.common.types import MLAConfig, ModelConfig, ServeConfig
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.compressor import (dequantize_blocks,
                                          resolve_quantize_impl)
@@ -113,6 +122,31 @@ def quantized_attention_partial(q, k_codes, k_scales, v_codes, v_scales,
         q, k_codes, k_scales, v_codes, v_scales, length, bits, sm_scale))
 
 
+def latent_attention_partial(q, codes, scales, length: torch.Tensor, *,
+                             bits: int, sm_scale: float,
+                             paper_mode: bool = False,
+                             attn_impl: str = "auto",
+                             quantize_impl: str = "auto") -> Partial:
+    """MLA's partial over the compressed latent prefix (tokens < length):
+    q [B,H,R], codes [B,S,R*bits/8], scales [B,S], the latent both key and
+    value (the reference's ``quantized_attention_partial`` with
+    ``lc[:, :, None, :]`` as K and as V). fused: the latent decode kernel
+    (or its plain version); paper: the prefix dequantized to bf16 once (B4
+    at the latent's block), then attended."""
+    if paper_mode:
+        lat = dequantize_blocks(codes, scales[..., None], bits, q.shape[-1],
+                                torch.bfloat16, impl=quantize_impl)
+        valid = torch.arange(codes.shape[1], device=q.device)[None, :] < \
+            length[:, None]
+        latf = lat.to(torch.float32)[:, :, None]
+        return _attend_partial(q, latf, latf, valid, sm_scale)
+    if L.resolve_attn_impl(attn_impl, q.device) == "kernel":
+        return Partial(*KA.kvc_latent_partial(q, codes, scales, length,
+                                              bits=bits, sm_scale=sm_scale))
+    return Partial(*KA.kvc_latent_partial_plain(q, codes, scales, length,
+                                                bits, sm_scale))
+
+
 # ---------------------------------------------------------------------------
 # Cache containers (stacked on a leading layer axis)
 # ---------------------------------------------------------------------------
@@ -141,10 +175,30 @@ def init_gqa_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
     }
 
 
+def init_mla_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
+                   max_len: int, device=None) -> Dict[str, torch.Tensor]:
+    """MLA's latent cache: one row of kv_lora_rank + rope values a token."""
+    dev = resolve_device(device)
+    m = cfg.mla or MLAConfig()
+    R = m.kv_lora_rank + m.qk_rope_head_dim
+    W, bits, Lyr = scfg.hot_window, scfg.kv_rate_bits, cfg.num_layers
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {"lat_codes": z((Lyr, batch, max_len, R * bits // 8), torch.uint8),
+            "lat_scales": z((Lyr, batch, max_len), torch.float32),
+            "lat_hot": z((Lyr, batch, W, R), torch.bfloat16),
+            "cold_len": z((Lyr, batch), torch.int32)}
+
+
 def init_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
                max_len: int, device=None) -> Dict[str, torch.Tensor]:
-    """Decode cache of the dense GQA family. Leading axis = layer."""
+    """Decode cache of the dense family (GQA/MHA K and V, or MLA's
+    latent). Leading axis = layer."""
     T.check_supported(cfg)
+    if cfg.attn_kind == "mla":
+        return init_mla_cache(cfg, scfg, batch, max_len, device)
     return init_gqa_cache(cfg, scfg, batch, max_len, cfg.num_layers, device)
 
 
@@ -204,6 +258,58 @@ def gqa_decode_layer(lp: Params, x: torch.Tensor,
     return x
 
 
+# ---------------------------------------------------------------------------
+# Per-layer decode: MLA (absorbed latent attention over the compressed
+# latent)
+# ---------------------------------------------------------------------------
+
+def mla_decode_layer(lp: Params, x: torch.Tensor,
+                     cache_l: Dict[str, torch.Tensor], pos: torch.Tensor,
+                     cfg: ModelConfig, scfg: ServeConfig) -> torch.Tensor:
+    """x [B,1,d]; pos [B]; cache_l this layer's latent slices, updated in
+    place."""
+    m = cfg.mla or MLAConfig()
+    W, bits = scfg.hot_window, scfg.kv_rate_bits
+    B, hD, Rc = x.shape[0], cfg.num_heads, m.kv_lora_rank
+    p = lp["attn"]
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    lat_new = L.mla_latent(p, h, pos[:, None], cfg)[:, 0]          # [B,R]
+
+    # evict the latent aging out of the ring, insert the new one: the
+    # latent ring step (one launch on the card)
+    cold_len = cache_l["cold_len"]
+    step = qpack.latent_ring_step if resolve_quantize_impl(
+        scfg.quantize_impl, x.device) == "kernel" \
+        else qpack.latent_ring_step_plain
+    step(cache_l["lat_codes"], cache_l["lat_scales"], cache_l["lat_hot"],
+         lat_new, pos, cold_len, bits)
+    new_cold = torch.maximum(cold_len, torch.clamp(pos - W + 1, min=0))
+
+    # absorbed query: q_lat [B,H,Rc] = q_nope W_uk, then [q_lat, q_rope]
+    q_nope, q_rope = L.mla_project_q(p, h, pos[:, None], cfg)
+    wkv_b = p["wkv_b"].to(h.dtype).reshape(Rc, hD,
+                                            m.qk_nope_head_dim + m.v_head_dim)
+    w_uk, w_uv = wkv_b.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+    q_eff = torch.cat([q_lat, q_rope[:, 0]], dim=-1)               # [B,H,R]
+    sm = L.mla_sm_scale(cfg)
+
+    cold = latent_attention_partial(
+        q_eff, cache_l["lat_codes"], cache_l["lat_scales"], new_cold,
+        bits=bits, sm_scale=sm, paper_mode=not scfg.fused_dequant_attention,
+        attn_impl=scfg.attn_impl, quantize_impl=scfg.quantize_impl)
+    hot_valid = _ring_positions(pos, W) >= new_cold[:, None]
+    latf = cache_l["lat_hot"].to(torch.float32)[:, :, None, :]     # [B,W,1,R]
+    hot = _attend_partial(q_eff, latf, latf, hot_valid, sm)
+    ctx = finish(merge_partials(cold, hot), torch.float32)         # [B,H,R]
+    o = torch.einsum("bhr,rhv->bhv", ctx[..., :Rc], w_uv.to(torch.float32))
+    o = o.reshape(B, 1, hD * m.v_head_dim).to(x.dtype)
+    x = x + o @ p["wo"].to(x.dtype)
+    x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    cold_len.copy_(new_cold)
+    return x
+
+
 def decode_step(params: Params, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
                 scfg: ServeConfig, embeds: Optional[torch.Tensor] = None
@@ -216,9 +322,9 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
         x = embeds[:, None].to(dtype)
     else:
         x = params["tok_embed"].to(dtype)[tokens.long()][:, None]
+    layer = mla_decode_layer if cfg.attn_kind == "mla" else gqa_decode_layer
     for i, lp in enumerate(params["layers"]):
-        x = gqa_decode_layer(lp, x, {k: v[i] for k, v in cache.items()},
-                             pos, cfg, scfg)
+        x = layer(lp, x, {k: v[i] for k, v in cache.items()}, pos, cfg, scfg)
     return T.unembed(params, x, cfg)[:, 0], cache
 
 
@@ -238,7 +344,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     1); the last W real tokens populate the ring. ``lens`` [B] gives each
     row's true length for right-padded batches: the ring holds the last W
     real tokens, ``cold_len`` is the real compressed length, and the
-    returned logits are each row's last real token's."""
+    returned logits are each row's last real token's. MLA fills its latent
+    (the latent prefill fill) instead of K and V."""
     T.check_supported(cfg)
     x = T.embed(params, batch, cfg)
     B, S, _ = x.shape
@@ -247,15 +354,27 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     pos = torch.arange(S, device=dev)[None, :]
     lens_arr = (torch.full((B,), S, dtype=torch.int32, device=dev)
                 if lens is None else lens.to(device=dev, dtype=torch.int32))
-    cache = init_gqa_cache(cfg, scfg, B, max_len, cfg.num_layers, dev)
-    cache["k_scales"][:, :, S:] = 1.0
-    cache["v_scales"][:, :, S:] = 1.0
+    mla = cfg.attn_kind == "mla"
+    cache = init_cache(cfg, scfg, B, max_len, dev)
+    for k in ("lat_scales",) if mla else ("k_scales", "v_scales"):
+        cache[k][:, :, S:] = 1.0
     cache["cold_len"][:] = torch.clamp(lens_arr - W, min=0)
-    fill = qpack.prefill_fill if resolve_quantize_impl(
-        scfg.quantize_impl, dev) == "kernel" else qpack.prefill_fill_plain
+    kernel = resolve_quantize_impl(scfg.quantize_impl, dev) == "kernel"
+    fill = qpack.prefill_fill if kernel else qpack.prefill_fill_plain
+    lfill = qpack.latent_prefill_fill if kernel else \
+        qpack.latent_prefill_fill_plain
 
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if mla:
+            lat = L.mla_latent(lp["attn"], h, pos, cfg)            # [B,S,R]
+            x = x + L.mla_attend(lp["attn"], h, lat, pos, cfg, causal=True,
+                                 attn_impl=scfg.attn_impl)
+            x = x + L.mlp_apply(lp["mlp"],
+                                L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+            lfill(lat, cache["lat_codes"][i], cache["lat_scales"][i],
+                  cache["lat_hot"][i], lens_arr, bits)
+            continue
         k, v = L.gqa_project_kv(lp["attn"], h, pos, cfg)
         q = L.gqa_project_q(lp["attn"], h, pos, cfg)
         o = L.attention(q, k, v, causal=True, impl=scfg.attn_impl)

@@ -1,6 +1,7 @@
-"""Transformer layers of the port (``repro.models.layers``, dense GQA):
-RMSNorm, RoPE, GQA attention projections, SwiGLU MLP, and the attention
-switch between the CUDA kernels and their plain versions.
+"""Transformer layers of the port (``repro.models.layers``, dense family):
+RMSNorm, RoPE, GQA attention projections, MLA (multi-head latent
+attention) projections, SwiGLU MLP, and the attention switch between the
+CUDA kernels and their plain versions.
 
 Parameters are plain dicts of tensors stored in the model's dtype. The
 reference keeps f32 params and casts each to the activation dtype at its
@@ -16,7 +17,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common.types import ModelConfig
+from repro_torch.common.types import MLAConfig, ModelConfig
 from repro_torch.kernels import flash_attn as FA
 
 Params = Dict[str, torch.Tensor]
@@ -125,6 +126,95 @@ def gqa_apply_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
     k, v = gqa_project_kv(p, x, pos, cfg)
     o = attention(q, k, v, causal=True, impl=attn_impl)
     return gqa_output(p, o, cfg)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (MiniCPM3 / DeepSeek-V2 style latent KV)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg: ModelConfig, dtype, device) -> Params:
+    d, h = cfg.d_model, cfg.num_heads
+    m = cfg.mla or MLAConfig()
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+
+    return {"wq_a": init_dense((d, m.q_lora_rank), gen, dtype, device),
+            "wq_b": init_dense((m.q_lora_rank, h * qk), gen, dtype, device),
+            "wkv_a": init_dense((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                                gen, dtype, device),
+            "wkv_b": init_dense((m.kv_lora_rank,
+                                 h * (m.qk_nope_head_dim + m.v_head_dim)),
+                                gen, dtype, device),
+            "wo": init_dense((h * m.v_head_dim, d), gen, dtype, device,
+                             scale=1.0 / ((h * m.v_head_dim) ** 0.5)),
+            "q_norm": ones(m.q_lora_rank), "kv_norm": ones(m.kv_lora_rank)}
+
+
+def mla_sm_scale(cfg: ModelConfig) -> float:
+    """1/sqrt(qk head dim) for the absorbed decode, whose query is R wide;
+    the prefill's query is nope + rope wide, so B6's default is the same."""
+    m = cfg.mla or MLAConfig()
+    return 1.0 / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+
+
+def mla_latent(p: Params, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Latent KV of new tokens, [B, T, kv_lora_rank + rope_dim]: the cached
+    quantity (a learned KV compression, which IBEX block-compresses)."""
+    m = cfg.mla or MLAConfig()
+    ckv = x @ p["wkv_a"].to(x.dtype)
+    c, k_rope = ckv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return torch.cat([c, k_rope], dim=-1)
+
+
+def mla_project_q(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig):
+    """Queries of x [B,T,d]: (q_nope [B,T,H,nope], q_rope [B,T,H,rope],
+    rotated)."""
+    m = cfg.mla or MLAConfig()
+    B, T, _ = x.shape
+    q = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = (q @ p["wq_b"].to(x.dtype)).reshape(
+        B, T, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
+                             dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_attend(p: Params, x: torch.Tensor, latent: torch.Tensor,
+               positions: torch.Tensor, cfg: ModelConfig, *, causal: bool,
+               attn_impl: str = "auto") -> torch.Tensor:
+    """Attention of x's queries over the latent cache, expanded per head:
+    MHA over H heads with a qk dim of nope + rope and a v dim of v_head_dim
+    (B6 at that pair on the card), the rope key broadcast to every head."""
+    m = cfg.mla or MLAConfig()
+    h = cfg.num_heads
+    B, T, _ = x.shape
+    S = latent.shape[1]
+    q_nope, q_rope = mla_project_q(p, x, positions, cfg)
+    c, k_rope = latent.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    kv = (c @ p["wkv_b"].to(x.dtype)).reshape(
+        B, S, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, h, m.qk_rope_head_dim)], dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    o = attention(qq, k, v, causal=causal, impl=attn_impl)
+    return o.reshape(B, T, h * m.v_head_dim) @ p["wo"].to(x.dtype)
+
+
+def mla_apply_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    attn_impl: str = "auto") -> torch.Tensor:
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None, :]
+    latent = mla_latent(p, x, pos, cfg)
+    return mla_attend(p, x, latent, pos, cfg, causal=True,
+                      attn_impl=attn_impl)
 
 
 def mlp_init(gen, d: int, f: int, dtype, device) -> Params:

@@ -1,9 +1,10 @@
 """The language model of the port (``repro.models.transformer``), dense
-family: init, embedding, unembedding and the full-sequence forward.
+family with GQA/MHA or MLA attention: init, embedding, unembedding and the
+full-sequence forward.
 
 The reference stacks layers and walks them with ``lax.scan``; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python loop.
-Other families (MoE, MLA, SSM, hybrid) wait for their slices (ROADMAP A.6).
+Other families (MoE, SSM, hybrid) wait for their slices (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -19,10 +20,10 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
+    if cfg.family != "dense" or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attn_kind!r}: the port "
-            "serves the dense GQA family only (ROADMAP A.6)")
+            "serves the dense family, GQA or MLA attention (ROADMAP A.6)")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
@@ -41,7 +42,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
         params["lm_head"] = L.init_dense((d, cfg.vocab_size), gen, dtype, dev,
                                          scale=0.02)
     params["layers"] = [
-        {"attn": L.gqa_init(gen, cfg, dtype, dev),
+        {"attn": (L.mla_init if cfg.attn_kind == "mla" else L.gqa_init)(
+            gen, cfg, dtype, dev),
          "mlp": L.mlp_init(gen, d, cfg.d_ff, dtype, dev),
          "ln1": torch.ones((d,), dtype=dtype, device=dev),
          "ln2": torch.ones((d,), dtype=dtype, device=dev)}
@@ -68,9 +70,10 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Full-sequence forward. Returns (logits [B,S,V], aux_loss 0)."""
     check_supported(cfg)
     x = embed(params, batch, cfg)
+    attn = L.mla_apply_train if cfg.attn_kind == "mla" else L.gqa_apply_train
     for lp in params["layers"]:
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + L.gqa_apply_train(lp["attn"], h, cfg, attn_impl)
+        x = x + attn(lp["attn"], h, cfg, attn_impl)
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(lp["mlp"], h)
     return unembed(params, x, cfg), torch.zeros((), dtype=torch.float32)

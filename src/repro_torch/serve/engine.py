@@ -1,13 +1,15 @@
 """Continuous-batching serving engine with IBEX-managed KV residency
-(PyTorch port of ``repro.serve.engine``, dense GQA models).
+(PyTorch port of ``repro.serve.engine``, dense models: GQA/MHA K and V, or
+MLA's latent cache).
 
   * running requests occupy decode *lanes* (batch slots of ``decode_step``):
     their recent tokens sit uncompressed in the hot ring (promoted region),
     older tokens in the quantized region;
   * a **preempted** request is *demoted*: its live ring tokens are
     quantized into the codes region on the card, in place (the lane flush,
-    one launch for every layer's K and V; always a clean demotion, KV is
-    append-only) and only the codes + scales are parked on the host;
+    one launch for every layer's K and V, or for MLA's latent; always a
+    clean demotion, KV is append-only) and only the codes + scales are
+    parked on the host;
   * **resume** is a promotion: the lane adopts the parked codes (cold_len =
     full length, empty ring) and decode reads them through the fused
     dequantizing attention: no KV byte is dequantized on promotion;
@@ -54,7 +56,7 @@ WAITING, RUNNING, PREEMPTED, DONE = "waiting", "running", "preempted", "done"
 
 # bf16 hot-ring leaves: quantized into the codes region on demotion, zeroed
 # on resume; never parked, never moved
-HOT_KEYS = ("k_hot", "v_hot")
+HOT_KEYS = ("k_hot", "v_hot", "lat_hot")
 
 
 @dataclass
@@ -107,14 +109,20 @@ def _demote_lane_impl(lane_cache, pos: int, *, scfg: ServeConfig):
     """Clean-demote one lane's cache slice: its live ring tokens are
     quantized into the codes region, in place (the lane flush; the lane's
     slice is parked right after and rewritten whole before it is read
-    again), and cold_len advances to ``pos`` (a new tensor)."""
+    again), and cold_len advances to ``pos`` (a new tensor). An MLA cache
+    flushes its one latent stream (the latent lane flush)."""
     out = dict(lane_cache)
-    flush = qpack.lane_flush if resolve_quantize_impl(
-        scfg.quantize_impl, out["k_hot"].device) == "kernel" \
-        else qpack.lane_flush_plain
-    out["cold_len"] = flush(*(out[n] for n in (
-        "k_codes", "k_scales", "k_hot", "v_codes", "v_scales", "v_hot",
-        "cold_len")), pos, scfg.kv_rate_bits)
+    kernel = resolve_quantize_impl(scfg.quantize_impl,
+                                   out["cold_len"].device) == "kernel"
+    if "lat_hot" in out:
+        flush = qpack.latent_lane_flush if kernel else \
+            qpack.latent_lane_flush_plain
+        names = ("lat_codes", "lat_scales", "lat_hot", "cold_len")
+    else:
+        flush = qpack.lane_flush if kernel else qpack.lane_flush_plain
+        names = ("k_codes", "k_scales", "k_hot", "v_codes", "v_scales",
+                 "v_hot", "cold_len")
+    out["cold_len"] = flush(*(out[n] for n in names), pos, scfg.kv_rate_bits)
     return out
 
 

@@ -1,8 +1,10 @@
 """The CUDA kernels on the card: each against its plain PyTorch version
 (byte for byte for the compression kernels and the fused steps: demote,
-promote, ring step, prefill fill and lane flush; within the reference's
-tolerance for attention), the payload pool's whole path with the kernels
-against the plain compressor, and a small llama3 served with the kernels
+promote, ring step, prefill fill and lane flush, and the latter three's
+MLA latent forms; within the reference's tolerance for attention,
+including B5's latent form and B6 at MLA's head dims 96/64), the payload
+pool's whole path with the kernels against the plain compressor, and a
+small llama3 and a 2-layer minicpm3 at full width served with the kernels
 against the plain versions. Needs no JAX; every test carries the ``gpu``
 marker and skips where no card is present:
 
@@ -424,7 +426,7 @@ def test_lane_flush_vs_plain(cuda, bits, H, D, T, W, pos, cold):
 # -- fixed-rate quantize/pack (B3/B4) ----------------------------------------
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("block", [64, 128, 512, 6])
+@pytest.mark.parametrize("block", [64, 128, 512, 6, 288])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fixed_rate_vs_plain(cuda, bits, block, dtype):
     """Byte for byte, over the edge classes (zeros, +-0, .5 ties,
@@ -574,3 +576,187 @@ def test_small_llama_serves_alike_with_kernels_and_plain(cuda):
     assert all(n > 0 for n in out["kernel"][1][:-1])
     assert out["kernel"][1][-1] == 0
     assert out["plain"][1] == [0] * 6
+
+
+# -- MLA: the latent forms of B3's steps, B5's latent form, B6 at 96/64 ------
+
+def _iv(t):
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                   torch.uint8: torch.uint8, torch.int32: torch.int32}[
+                       t.dtype])
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("new", [torch.bfloat16, torch.float32])
+def test_latent_ring_step_vs_plain(cuda, bits, new):
+    """minicpm3's latent (R 288) over 8 lanes of RING_SCENARIOS' kinds
+    (before the window fills, resumed, evicting), byte for byte."""
+    from repro_torch.kernels import qpack as Q
+    B, S, W, R = 8, 2048, 256, 288
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    codes = torch.randint(0, 256, (B, S, R * bits // 8), generator=g,
+                          device=cuda, dtype=torch.uint8)
+    scales = torch.randn((B, S), generator=g, device=cuda)
+    hot = (torch.randn((B, W, R), generator=g, device=cuda) * 0.7)
+    hot[:, 1] = 0.0
+    hot[:, 3] = torch.randint(-7, 7, (B, R), generator=g, device=cuda) + 0.5
+    hot = hot.to(torch.bfloat16)
+    newv = (torch.randn((B, R), generator=g, device=cuda) * 3).to(new)
+    pos = torch.tensor([100, 256, 600, 700, 1500, 2303, 257, 2000],
+                       dtype=torch.int32, device=cuda)
+    cold = torch.tensor([0, 0, 500, 0, 1244, 0, 2, 100], dtype=torch.int32,
+                        device=cuda)
+    out = []
+    n0 = Q.latent_ring_step_launches
+    for fn in (Q.latent_ring_step, Q.latent_ring_step_plain):
+        c, s_, h = codes.clone(), scales.clone(), hot.clone()
+        fn(c, s_, h, newv, pos, cold, bits)
+        out.append((c, s_, h))
+    torch.cuda.synchronize()
+    assert Q.latent_ring_step_launches == n0 + 1
+    assert all(torch.equal(_iv(a), _iv(b)) for a, b in zip(*out))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,L,W,lens", [(1024, 2048, 256, [1000, 37]),
+                                        (40, 49, 8, [40, 5, 1, 23])])
+def test_latent_fill_vs_plain(cuda, bits, dtype, S, L, W, lens):
+    from repro_torch.kernels import qpack as Q
+    B, R = len(lens), 288
+    g = torch.Generator(device=cuda).manual_seed(bits + S)
+    lat = torch.randn((B, S, R), generator=g, device=cuda) * 2
+    lat[:, 0] = 0.0
+    lat = lat.to(dtype)
+    leaves = [torch.randint(0, 256, (3, B, L, R * bits // 8), generator=g,
+                            device=cuda, dtype=torch.uint8)[1],
+              torch.randn((3, B, L), generator=g, device=cuda)[1],
+              torch.randn((3, B, W, R), generator=g, device=cuda)
+              .to(torch.bfloat16)[1]]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = []
+    for fn in (Q.latent_prefill_fill, Q.latent_prefill_fill_plain):
+        ls = [t.clone() for t in leaves]
+        fn(lat, *ls, lens_t, bits)
+        out.append(ls)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_iv(a), _iv(b)) for a, b in zip(*out))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("pos,cold", [(1000, [0, 744, 900]),
+                                      (100, [0, 0, 60]),
+                                      (2048, [1792, 2000, 0]),
+                                      (500, [500, 500, 500])])
+def test_latent_flush_vs_plain(cuda, bits, pos, cold):
+    """Lane 1 of a 3-lane latent cache of 3 layers, byte for byte in every
+    lane and the clamped cold_len."""
+    from repro_torch.kernels import qpack as Q
+    Lyr, B, T, W, R = 3, 3, 2048, 256, 288
+    g = torch.Generator(device=cuda).manual_seed(bits + pos)
+    leaves = [torch.randint(0, 256, (Lyr, B, T, R * bits // 8), generator=g,
+                            device=cuda, dtype=torch.uint8),
+              torch.randn((Lyr, B, T), generator=g, device=cuda),
+              torch.randn((Lyr, B, W, R), generator=g, device=cuda)
+              .to(torch.bfloat16)]
+    cold_len = torch.zeros((Lyr, B), dtype=torch.int32, device=cuda)
+    cold_len[:, 1] = torch.tensor(cold, dtype=torch.int32, device=cuda)
+    out = []
+    for fn in (Q.latent_lane_flush, Q.latent_lane_flush_plain):
+        ls = [t.clone() for t in leaves]
+        new = fn(*(t[:, 1] for t in ls), cold_len[:, 1], pos, bits)
+        out.append(ls + [new])
+    torch.cuda.synchronize()
+    assert all(torch.equal(_iv(a), _iv(b)) for a, b in zip(*out))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_kvc_latent_vs_plain(cuda, bits):
+    """B5's latent form (40 heads of 288, K = V) at lengths around its chunk
+    and at S, S 2048 (many splits) and 64 (one), bf16 and f32 queries:
+    within 2e-2 of the plain version, a second call bit-identical."""
+    from repro_torch.kernels import kvc_attn as KA
+    c = KA.LATENT_CHUNK
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    sm = 1.0 / 96 ** 0.5
+    for S, lengths in ((2048, [0, 1, c - 1, c, c + 1, 700, 2047, 2048]),
+                       (64, [0, 1, 63, 64])):
+        B = len(lengths)
+        codes, scales = qpack.encode(torch.randn((B, S, 288), generator=g,
+                                                 device=cuda), bits, 288)
+        scales = scales[..., 0].contiguous()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, 40, 288), generator=g, device=cuda).to(dt)
+            n0 = KA.latent_launches
+            got = KA.kvc_latent_partial(q, codes, scales, lens, bits=bits,
+                                        sm_scale=sm)
+            again = KA.kvc_latent_partial(q, codes, scales, lens, bits=bits,
+                                          sm_scale=sm)
+            want = KA.kvc_latent_partial_plain(q, codes, scales, lens, bits,
+                                               sm)
+            torch.cuda.synchronize()
+            assert KA.latent_launches == n0 + 2
+            for a, b, w in zip(got, again, want):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+                torch.testing.assert_close(a, w, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,B", [(1, 1, 2), (100, 100, 2), (24, 200, 2),
+                                     (1024, 1024, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_mla_dims_vs_plain(cuda, causal, Sq, Sk, B, dtype):
+    """B6 at MLA's expanded prefill: 40 heads, q/k 96, v 64, scale
+    1/sqrt(96); the tolerances of test_flash_attn_vs_plain."""
+    from repro_torch.kernels import flash_attn as FA
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    q, k = (torch.randn((B, s, 40, 96), generator=g, device=cuda).to(dtype)
+            for s in (Sq, Sk))
+    v = torch.randn((B, Sk, 40, 64), generator=g, device=cuda).to(dtype)
+    sm = 1.0 / 96 ** 0.5
+    tc0 = FA.launches_tc
+    got = FA.flash_attention(q, k, v, causal=causal, sm_scale=sm)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, sm_scale=sm)
+    assert got.shape == (B, Sq, 40, 64)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    norm_tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (got.float() - want.float()).norm() <= \
+        norm_tol * want.float().norm()
+    assert FA.launches_tc == tc0 + (dtype == torch.bfloat16)
+
+
+def test_small_minicpm_serves_alike_with_kernels_and_plain(cuda):
+    """minicpm3-4b at its full widths, 2 layers, float32, served with the
+    kernels and with the plain versions (5 requests over 2 lanes): the same
+    generations, each MLA kernel launched in the kernel run only."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(get_config("minicpm3_4b"), num_layers=2,
+                              dtype="float32")
+    params = T.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (40, 12, 70, 20, 33)]
+    out = {}
+    for impl, q_impl in (("kernel", "kernel"), ("plain", "jnp")):
+        scfg = ServeConfig(max_running=2, hot_window=16, kv_rate_bits=4,
+                           attn_impl=impl, quantize_impl=q_impl)
+        launches = lambda: (  # noqa: E731
+            qpack.latent_prefill_fill_launches,
+            qpack.latent_lane_flush_launches, KA.latent_launches,
+            FA.launches, qpack.latent_ring_step_launches)
+        n0 = launches()
+        eng = Engine(cfg, scfg, params, max_len=256)
+        rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run_until_done(max_steps=400)
+        out[impl] = ([eng.result(r) for r in rids],
+                     [b - a for a, b in zip(n0, launches())])
+    assert out["kernel"][0] == out["plain"][0]
+    assert all(n > 0 for n in out["kernel"][1])
+    assert out["plain"][1] == [0] * 5

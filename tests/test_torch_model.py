@@ -1,5 +1,7 @@
-"""The port's llama3 model against the reference on REDUCED llama3-8b
-(2 layers, d 256, 4 heads, 2 KV heads, vocab 512), params made by the
+"""The port's dense models against the reference on REDUCED llama3-8b
+(2 layers, d 256, 4 heads, 2 KV heads, vocab 512), and on REDUCED
+codeqwen1.5-7b and deepseek-7b (the dense MHA configs: 4 heads, 4 KV
+heads, group 1), params made by the
 reference's ``init_params(PRNGKey(0))`` and carried across with
 ``interop.params_from_numpy``: ``forward``, ``prefill`` (right-padded, with
 ``lens``) and three ``decode_step``s.
@@ -45,11 +47,15 @@ TOLS = {"bfloat16": 2e-2, "float32": 1e-4}
 MAX_FLIPS = 1e-2
 
 
-@pytest.fixture(scope="module", params=["bfloat16", "float32"])
+@pytest.fixture(scope="module", params=[
+    pytest.param(("llama3_8b", "bfloat16"), id="bfloat16"),
+    pytest.param(("llama3_8b", "float32"), id="float32"),
+    pytest.param(("codeqwen15_7b", "bfloat16"), id="codeqwen15_7b-bfloat16"),
+    pytest.param(("deepseek_7b", "float32"), id="deepseek_7b-float32")])
 def setup(request):
-    dtype = request.param
-    jcfg = dataclasses.replace(jget_reduced("llama3_8b"), dtype=dtype)
-    cfg = dataclasses.replace(get_reduced("llama3_8b"), dtype=dtype)
+    arch, dtype = request.param
+    jcfg = dataclasses.replace(jget_reduced(arch), dtype=dtype)
+    cfg = dataclasses.replace(get_reduced(arch), dtype=dtype)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)[0]
     params = interop.params_from_numpy(

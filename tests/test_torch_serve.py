@@ -92,6 +92,25 @@ def test_engine_matches_reference(reference, params, name, engine_cls):
                                        c["step_syncs"])
 
 
+@pytest.mark.parametrize("arch", ["codeqwen15_7b", "deepseek_7b"])
+def test_dense_mha_engine_matches_reference(arch):
+    """The dense MHA configs (Hq = Hkv, group 1) on the same dense path:
+    the batched engine's generations and counters equal to the reference
+    engine's, with preemption."""
+    jcfg = dataclasses.replace(jget_reduced(arch), dtype="float32")
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    assert cfg.num_heads == cfg.num_kv_heads
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)[0]
+    p = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                  cfg, device="cpu")
+    ref = JEngine(jcfg, JSCFG, jp, max_len=MAX_LEN)
+    want = _serve(ref)
+    eng = Engine(cfg, SCFG, p, max_len=MAX_LEN, device="cpu")
+    assert _serve(eng) == want
+    assert eng.counters == dict(ref.counters)
+    assert eng.counters["demotions"] >= 1
+
+
 def test_shadow_repreempt_moves_zero_bytes(params):
     """§4.5 at request granularity: re-preempting an untouched resumed
     request moves zero bytes; after two new tokens a preempt moves only

@@ -6,15 +6,20 @@ candidate as its own library, all nvcc processes started together:
 
   * B6's tensor-core route at D 128 with every (keys per tile, ring stages)
     of ``TILES`` (-DFLASH_TC_BK, -DFLASH_TC_STAGES);
-  * B5 with every chunk of ``CHUNKS`` (-DKVC_CHUNK).
+  * B5 with every chunk of ``CHUNKS`` (-DKVC_CHUNK);
+  * B5's latent form with every (tokens a cluster, CTAs a cluster) of
+    ``LATENT`` (-DKVC_LAT_CHUNK, -DKVC_LAT_CLUSTER).
 
 It prints each candidate's ptxas lines (registers, spills, serialized
 wgmmas), checks it against the plain version (B6 element-wise 2e-2 and
 normwise 1e-2, B5 2e-2), and times it at ``chip_smoke.py``'s phase 10
 shapes: B6 on 8 x 1,024 causal, 32/8 heads x 128 bf16; B5 on 8 lanes of a
-4-bit cache of 2,048 positions at phase 10's lengths. Times are the median
-ms a call of CUDA-graph replays. The last line is one JSON object of the
-times, the line before it the card's name and power limit.
+4-bit cache of 2,048 positions at phase 10's lengths; B5 latent on
+minicpm3-4b's 8 lanes (40 heads x 288, 4-bit) at phase 13d's lengths (the
+same as phase 10's) and at phase 13b's profiled lanes (its prompts four
+decode steps in, longer). Times are the median ms a call of CUDA-graph
+replays. The last line is one JSON object of the times, the line before it
+the card's name and power limit.
 
     python3 tools/sweep_attn.py      # needs a card and nvcc
 """
@@ -40,15 +45,21 @@ from repro_torch.kernels import qpack                          # noqa: E402
 
 TILES = ((96, 3), (96, 2), (64, 3), (128, 2), (128, 3))
 CHUNKS = (64, 128, 256)
-ENTRY = {"flash_attn": "flash_attn_fwd", "kvc_attn": "kvc_attn_partial"}
+LATENT = ((64, 1), (64, 2), (64, 4), (32, 1), (32, 2), (32, 4))
+ENTRY = {"flash_attn": ("flash_attn_fwd",),
+         "kvc_attn": ("kvc_attn_partial", "kvc_latent_partial")}
 
 
 def candidates() -> list:
-    """(source, label, -D macros, chunk) for every candidate."""
+    """(source, label, -D macros, chunk) for every candidate; a latent
+    candidate's chunk is (tokens, CTAs) a cluster."""
     return [("flash_attn", f"{bk}x{ns}",
              {"FLASH_TC_BK": bk, "FLASH_TC_STAGES": ns}, None)
             for bk, ns in TILES] + \
-        [("kvc_attn", str(c), {"KVC_CHUNK": c}, c) for c in CHUNKS]
+        [("kvc_attn", str(c), {"KVC_CHUNK": c}, c) for c in CHUNKS] + \
+        [("kvc_attn", f"latent_{c}x{cl}",
+          {"KVC_LAT_CHUNK": c, "KVC_LAT_CLUSTER": cl}, (c, cl))
+         for c, cl in LATENT]
 
 
 def build_all(cands: list) -> list:
@@ -77,10 +88,12 @@ def build_all(cands: list) -> list:
 
 def use(name: str, path: Path) -> None:
     """Make the wrapper of ``name`` launch the library at ``path``."""
-    real = getattr(build.load(name, {}), ENTRY[name])
+    shipped = build.load(name, {})
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, ENTRY[name])
-    fn.argtypes, fn.restype = real.argtypes, ctypes.c_int
+    for entry in ENTRY[name]:
+        fn = getattr(lib, entry)
+        fn.argtypes = getattr(shipped, entry).argtypes
+        fn.restype = ctypes.c_int
     build._libs[name] = lib
 
 
@@ -116,9 +129,27 @@ def main() -> int:
     ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
     want_k = KA.kvc_decode_partial_plain(q, kc, ks, vc, vs, lens, bits,
                                          1.0 / D ** 0.5)
+    # B5 latent: minicpm3-4b's 8 lanes at 13d's lengths and at 13b's
+    # profiled lanes (seed + 4 prompts, 4 decode steps in)
+    mla = smoke._minicpm()
+    lat_lens = {"13d": lens_l.tolist(), "13b_profile": [
+        len(p) - W + 4 for p in smoke._prompts(B, mla.vocab_size,
+                                               smoke.SEED + 4)]}
+    lc, lsc = qpack.encode(torch.randn((B, S, smoke.MLA_R), generator=gen,
+                                       device=dev), bits, smoke.MLA_R)
+    lsc = lsc[..., 0].contiguous()
+    lq = torch.randn((B, smoke.MLA_H, smoke.MLA_R), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    lat_in = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+              for k, v in lat_lens.items()}
+    want_l = {k: KA.kvc_latent_partial_plain(lq, lc, lsc, v, bits,
+                                             smoke.MLA_SM)
+              for k, v in lat_in.items()}
 
-    times = {"flash_attention_8x1024_causal": {}, "kvc_decode_attention": {}}
+    times = {"flash_attention_8x1024_causal": {}, "kvc_decode_attention": {},
+             **{f"kvc_latent_partial_{k}": {} for k in lat_lens}}
     shipped_chunk = KA.CHUNK
+    shipped_lat = KA.LATENT_CHUNK, KA.LATENT_CLUSTER
     for (name, label, _, chunk), path in zip(cands, paths):
         use(name, path)
         if name == "flash_attn":
@@ -131,6 +162,23 @@ def main() -> int:
             ms = smoke.time_graph(
                 lambda: FA.flash_attention(qf, kf, vf, causal=True), 5)
             times["flash_attention_8x1024_causal"][label] = ms
+        elif label.startswith("latent"):
+            # the scratch and the counters follow the candidate
+            KA.LATENT_CHUNK, KA.LATENT_CLUSTER = chunk
+            ms = []
+            for k, ln in lat_in.items():
+                got = KA.kvc_latent_partial(lq, lc, lsc, ln, bits=bits,
+                                            sm_scale=smoke.MLA_SM)
+                smoke.check(all(torch.allclose(a, b, atol=2e-2, rtol=2e-2)
+                                for a, b in zip(got, want_l[k])),
+                            f"sweep: B5 latent {label} disagrees with the "
+                            f"plain version at {k}'s lengths")
+                t = smoke.time_graph(lambda ln=ln: KA.kvc_latent_partial(
+                    lq, lc, lsc, ln, bits=bits, sm_scale=smoke.MLA_SM), 50)
+                times[f"kvc_latent_partial_{k}"][label] = t
+                ms.append(t)
+            ms = ms[0]
+            KA.LATENT_CHUNK, KA.LATENT_CLUSTER = shipped_lat
         else:
             KA.CHUNK = chunk              # the scratch follows the chunk
             got = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
@@ -143,12 +191,16 @@ def main() -> int:
             times["kvc_decode_attention"][label] = ms
             KA.CHUNK = shipped_chunk
         build._libs.update(shipped)
-        print(f"sweep {name} {label}: {ms:.6f} ms (graph replay) [{smi}]",
-              flush=True)
+        extra = "".join(f", {k} {v[label]:.6f} ms" for k, v in times.items()
+                        if k.startswith("kvc_latent") and label in v)
+        print(f"sweep {name} {label}: {ms:.6f} ms (graph replay){extra} "
+              f"[{smi}]", flush=True)
     print(f"shapes: B6 q {B}x{Sp}x{Hq}x{D} causal; B5 q {B}x{Hq}x{D}, "
           f"{bits}-bit KV {B}x{S}x{Hkv}, lengths {lens_l.tolist()}; shipped "
           f"tiles: B6 {FA.TC_KEYS[D]} keys x 3 stages, B5 chunk "
-          f"{shipped_chunk}")
+          f"{shipped_chunk}; B5 latent q {B}x{smoke.MLA_H}x{smoke.MLA_R}, "
+          f"{bits}-bit latent {B}x{S}, lengths {lat_lens}, shipped "
+          f"{shipped_lat[0]} tokens x {shipped_lat[1]} CTAs a cluster")
     print(smi)
     print(json.dumps(times))
     return 0
