@@ -9,7 +9,8 @@ exits non-zero:
   0 device   the card, its power limit, torch and CUDA versions
   1 build    nvcc builds the four kernel sources (sm_90a), all at once;
              ptxas registers and spills, HGMMA/UTMALDG counts in the
-             flash library's SASS
+             flash library's SASS and HGMMA/UTMALDG/LDGSTS in B5 latent's
+             tensor-core kernel
   2 kernels  the fused demote/promote kernels (B1/B2), the demote-and-
              compact kernel (B1's redesign) and the promote step (B2's)
              against their plain PyTorch versions on the card, byte for
@@ -94,19 +95,24 @@ exits non-zero:
              (a) the MLA kernel forms at its widths against their plain
              versions: the latent ring step, prefill fill and lane flush
              and B4 at block 288 byte for byte, B5's latent form (40 heads
-             x 288, K = V) at its chunk boundaries within tolerance and
-             bit-identical on a second call, B6 at qk 96 / v 64 (bf16 on
-             the tensor cores, f32); (b) minicpm3-4b at its published
+             x 288, K = V) at both routes' tile boundaries within
+             tolerance and bit-identical on a second call, bf16 on the
+             tensor cores and within its rounding model's tolerance, B6 at
+             qk 96 / v 64 (bf16 on the tensor cores, f32); (b) minicpm3-4b at its published
              config (62 layers, bf16, random params from a seed) with
              phase 7's recipe: rates, KV cache and peak memory, counters,
              launches against the expectations (the latent ring step and
              B5 one a layer a step, the fill and B6 one a layer a prefill
-             batch, the flush one a lane demotion, the GQA steps none),
-             the device busy share over 4 decode steps; (c) 2 layers at
-             its full widths, kernels against plain versions as phase 9,
-             and paper mode (B4 at block 288) against fused; (d) each MLA
-             form's kernel / eager / plain / library / bound times, and
-             B5 latent's working CTAs at (b)'s lengths above the SM count
+             batch, the flush one a lane demotion, the GQA steps none,
+             every B5 latent launch on the tensor cores), the device busy
+             share over 4 decode steps and B5 latent's device time a step
+             (found by kernel name); (c) 2 layers at its full widths,
+             kernels against plain versions as phase 9, and paper mode (B4
+             at block 288) against fused; (d) each MLA form's kernel /
+             eager / plain / library / bound times (B5 latent on both
+             routes: bf16 q on the tensor cores, the path's, and f32 q on
+             the CUDA cores, in the same process), and B5 latent's working
+             CTAs at (b)'s lengths above the SM count
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -260,20 +266,37 @@ def phase_build(tag: str) -> None:
             if "registers" in ln or "spill" in ln or "Compiling" in ln or \
                     "C7512" in ln:
                 print(f"    ptxas: {ln.strip()}")
-    flash = next(i["path"] for i in infos if i["name"] == "flash_attn")
+    path = {i["name"]: i["path"] for i in infos}
     tool = Path(build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         print(f"phase 1 sass: {tool} absent; HGMMA/UTMALDG not counted",
               flush=True)
         return
-    sass = subprocess.run([str(tool), "-sass", flash], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass))
-              for op in ("HGMMA", "UTMALDG")}
-    print(f"phase 1 sass of {Path(flash).name}: {json.dumps(counts)}",
-          flush=True)
+    ops = ("HGMMA", "UTMALDG", "LDGSTS")
+
+    def sass(lib: str) -> str:
+        return subprocess.run([str(tool), "-sass", path[lib]],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+
+    counts = {op: len(re.findall(rf"\b{op}\b", sass("flash_attn")))
+              for op in ops[:2]}
+    print(f"phase 1 sass of {Path(path['flash_attn']).name}: "
+          f"{json.dumps(counts)}", flush=True)
     check(all(counts.values()), f"phase 1: the flash library has no "
           f"tensor-core or TMA instructions: {counts}")
+    # B5 latent's tensor-core kernel, one count per instantiation (bits):
+    # its copies are cp.async (LDGSTS), not TMA
+    lat = {}
+    for fn in re.split(r"\n\s*Function : ", sass("kvc_attn"))[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "kvc_latent_tc_kernel" in name:     # keyed by its template args
+            key = name[name.index("kvc_latent_tc_kernel"):][:38]
+            lat[key] = {op: len(re.findall(rf"\b{op}\b", fn)) for op in ops}
+    print(f"phase 1 sass of {Path(path['kvc_attn']).name}, "
+          f"kvc_latent_tc_kernel: {json.dumps(lat)}", flush=True)
+    check(len(lat) == 2 and all(c["HGMMA"] for c in lat.values()),
+          f"phase 1: the latent tensor-core kernel has no HGMMA: {lat}")
 
 
 def phase_kernels(qpack, comp, dev) -> dict:
@@ -963,13 +986,13 @@ def device_events(fn, calls: int = 4) -> dict:
 
 
 def _port_launch_counts() -> dict:
-    """Every launch counter of the port's kernels (B6's tensor-core count
-    is part of its total, so it is left out)."""
+    """Every launch counter of the port's kernels (B6's and B5 latent's
+    tensor-core counts are parts of their totals, so they are left out)."""
     from repro_torch.kernels import qpack
     counts = {f"qpack_fused_{k}": getattr(qpack, f"fused_{k}_launches")
               for k in ("encode", "decode", "demote", "promote")}
     counts.update(_launch_counts())
-    del counts["flash_attention_tc"]
+    del counts["flash_attention_tc"], counts["kvc_latent_partial_tc"]
     return counts
 
 
@@ -992,14 +1015,16 @@ def _launch_counts() -> dict:
             "qpack_latent_ring_step": qpack.latent_ring_step_launches,
             "qpack_latent_prefill_fill": qpack.latent_prefill_fill_launches,
             "qpack_latent_lane_flush": qpack.latent_lane_flush_launches,
-            "kvc_latent_partial": KA.latent_launches}
+            "kvc_latent_partial": KA.latent_launches,
+            "kvc_latent_partial_tc": KA.latent_launches_tc}
 
 
 # the decode path's own steps, by attention kind: the other kind's stay at 0
 GQA_STEPS = ("qpack_ring_step", "qpack_prefill_fill", "qpack_lane_flush",
              "kvc_decode_attention")
 MLA_STEPS = ("qpack_latent_ring_step", "qpack_latent_prefill_fill",
-             "qpack_latent_lane_flush", "kvc_latent_partial")
+             "qpack_latent_lane_flush", "kvc_latent_partial",
+             "kvc_latent_partial_tc")
 
 
 def _reset_launches() -> None:
@@ -1012,6 +1037,7 @@ def _reset_launches() -> None:
     qpack.latent_ring_step_launches = qpack.latent_prefill_fill_launches = 0
     qpack.latent_lane_flush_launches = 0
     KA.launches = FA.launches = FA.launches_tc = KA.latent_launches = 0
+    KA.latent_launches_tc = 0
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1844,12 +1870,13 @@ def phase_serve_whole(dev, model=None, label: str = "9") -> dict:
         for run, counts in (("prefill and decode", kl),
                             ("Engine", served["kernel"][1])):
             for k, v in counts.items():
-                # float32 prefill takes the CUDA-core route, bf16 the tensor
-                # cores; B3 and B4 themselves are off the path, and only
-                # the Engine demotes lanes
+                # float32 prefill and latent decode take the CUDA-core
+                # routes, bf16 the tensor cores; B3 and B4 themselves are
+                # off the path, and only the Engine demotes lanes
                 idle = k in ("qpack_fixed_encode", "qpack_fixed_decode") or \
                     k in other or \
-                    (k == "flash_attention_tc" and dtype == "float32") or \
+                    (k in ("flash_attention_tc", "kvc_latent_partial_tc") and
+                     dtype == "float32") or \
                     (k in ("qpack_lane_flush", "qpack_latent_lane_flush") and
                      run != "Engine")
                 check((v == 0) if idle else (v > 0),
@@ -2024,8 +2051,9 @@ def _time_rows(out: dict, label: str, tag: str) -> dict:
     one line a row."""
     res = {}
     for name, t in out.items():
+        rate = t.get("ops_rate", BF16_OPS_PER_S)
         t_b = t["nbytes"] / HBM_BYTES_PER_S
-        t_o = t["ops"] / BF16_OPS_PER_S
+        t_o = t["ops"] / rate
         r = {"shape": t["shape"], "ms": time_graph(t["kern"], t["reps"]),
              "eager_ms": time_eager(t["kern"], t["reps"]),
              "plain_ms": time_eager(t["plain"], max(t["reps"] // 10, 2)),
@@ -2053,7 +2081,8 @@ def _time_rows(out: dict, label: str, tag: str) -> dict:
               f"(graph replay), {r['eager_ms']:.6f} ms eager | plain "
               f"{r['plain_ms']:.6f} ms | library {lib} | bound "
               f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({t['nbytes']} B "
-              f"at 3.35 TB/s, {t['ops']} flop at 989 TF/s){comp_txt} "
+              f"at 3.35 TB/s, {t['ops']} flop at {rate / 1e12:g} TF/s)"
+              f"{comp_txt} "
               f"[{tag}]", flush=True)
     return res
 
@@ -2625,22 +2654,27 @@ def _count_equal(r: dict, got, want) -> None:
 def phase_mla_kernels(dev) -> dict:
     """13a: the MLA forms at minicpm3-4b's widths against their plain
     versions: B3's latent steps and B4 at block 288 byte for byte; B5's
-    latent form within ATTN_TOL at lengths straddling its chunks, a second
-    call bit-identical; B6 at (96, 64) within ATTN_TOL and ATTN_NORM_TOL,
-    bf16 on the tensor cores."""
+    latent form within ATTN_TOL at lengths straddling both routes' tiles, a
+    second call bit-identical, bf16 on the tensor cores and within
+    ``LATENT_TC_MODEL_TOL`` of its rounding model, f32 on the CUDA cores;
+    B6 at (96, 64) within ATTN_TOL and ATTN_NORM_TOL, bf16 on the tensor
+    cores."""
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import kvc_attn as KA
     from repro_torch.kernels import qpack
     res = {k: {"cases": 0, "mismatches": 0, "err": 0.0}
            for k in ("qpack_latent_ring_step", "qpack_latent_prefill_fill",
                      "qpack_latent_lane_flush", "qpack_fixed_decode_288",
-                     "kvc_latent_partial", "flash_attention_mla")}
+                     "kvc_latent_partial", "kvc_latent_partial_f32",
+                     "flash_attention_mla")}
     _latent_cases(res, qpack, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    c = KA.LATENT_CHUNK
-    r, repeats = res["kvc_latent_partial"], 0
-    for S, lens_l in ((SERVE_MAX_LEN, [0, 1, c - 1, c, c + 1, 700, 2047,
-                                       2048]), (c, [0, 1, c - 1, c])):
+    c, t = KA.LATENT_CHUNK, KA.LATENT_TC_TOKENS
+    repeats, lat_tc0, bf_cases = 0, KA.latent_launches_tc, 0
+    model = {"ml_err": 0.0, "acc_norm": 0.0, "plain_acc_norm": 0.0}
+    for S, lens_l in ((SERVE_MAX_LEN, [0, 1, c - 1, c, c + 1, t - 1, t + 1,
+                                       2 * t, 2 * t + 1, 700, 2047, 2048]),
+                      (c, [0, 1, c - 1, c])):
         B = len(lens_l)
         for bits in (4, 8):
             codes, scales = qpack.encode(torch.randn(
@@ -2648,6 +2682,8 @@ def phase_mla_kernels(dev) -> dict:
             scales = scales[..., 0].contiguous()
             lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
             for dt in (torch.bfloat16, torch.float32):
+                r = res["kvc_latent_partial" if dt == torch.bfloat16 else
+                        "kvc_latent_partial_f32"]
                 q = torch.randn((B, MLA_H, MLA_R), generator=gen,
                                 device=dev).to(dt)
                 got = KA.kvc_latent_partial(q, codes, scales, lens, bits=bits,
@@ -2655,11 +2691,12 @@ def phase_mla_kernels(dev) -> dict:
                 again = KA.kvc_latent_partial(q, codes, scales, lens,
                                               bits=bits, sm_scale=MLA_SM)
                 repeats += 1
+                bf_cases += 2 * (dt == torch.bfloat16)
                 check(all(torch.equal(a.view(torch.int32),
                                       b.view(torch.int32))
                           for a, b in zip(got, again)),
                       f"phase 13a: B5's latent partials differ between two "
-                      f"calls (S {S}, bits {bits})")
+                      f"calls (S {S}, bits {bits}, {dt})")
                 want = KA.kvc_latent_partial_plain(q, codes, scales, lens,
                                                    bits, MLA_SM)
                 for a, b in zip(got, want):
@@ -2667,6 +2704,27 @@ def phase_mla_kernels(dev) -> dict:
                     r["mismatches"] += int(((a - b).abs() > ATTN_TOL[
                         torch.bfloat16] * (1 + b.abs())).sum())
                     r["err"] = max(r["err"], float((a - b).abs().max()))
+                if dt == torch.bfloat16:
+                    # the tensor-core route's own rounding, tighter
+                    tm = KA.kvc_latent_partial_tc_model(q, codes, scales,
+                                                        lens, bits, MLA_SM)
+                    model["ml_err"] = max(model["ml_err"], *(
+                        float(((a - b).abs() / (1 + b.abs())).max())
+                        for a, b in zip(got[:2], tm[:2])))
+                    norm = float(tm[2].norm())
+                    model["acc_norm"] = max(model["acc_norm"], float(
+                        (got[2] - tm[2]).norm()) / norm)
+                    model["plain_acc_norm"] = max(
+                        model["plain_acc_norm"],
+                        float((got[2] - want[2]).norm()) / norm)
+    check(KA.latent_launches_tc - lat_tc0 == bf_cases, f"phase 13a: "
+          f"{bf_cases} bf16 B5 latent calls launched the tensor-core route "
+          f"{KA.latent_launches_tc - lat_tc0} times")
+    tol = KA.LATENT_TC_MODEL_TOL
+    check(model["ml_err"] <= tol["ml"] and
+          model["acc_norm"] <= tol["acc_norm"],
+          f"phase 13a: B5 latent's tensor-core route is off its rounding "
+          f"model: {model} against {tol}")
     r = res["flash_attention_mla"]
     tc0, tc_cases = FA.launches_tc, 0
     for Sq, Sk, B in ((1, 1, 2), (8, 8, 2), (100, 100, 2), (24, 200, 2),
@@ -2686,11 +2744,17 @@ def phase_mla_kernels(dev) -> dict:
     print(f"phase 13a MLA kernels vs plain at minicpm3-4b's widths (latent "
           f"{MLA_R}, {MLA_H} heads, B6 qk 96 / v 64): "
           f"{json.dumps(res)} | B5 latent bit-identical on a second call in "
-          f"{repeats} configurations (chunk {c}); B6 {tc_cases} bf16 cases on "
-          f"the tensor cores | tolerance |kernel - plain| <= tol * (1 + "
-          f"|plain|), tol 2e-2 (bf16 query or B5) and 2e-3 (f32 B6); B6 also "
-          f"normwise 1e-2 / 1e-4; B3's steps and B4 byte for byte",
-          flush=True)
+          f"{repeats} configurations, {bf_cases} bf16 calls on the tensor "
+          f"cores (spans of {t} tokens, {KA.LATENT_TC_BOXES} column boxes), "
+          f"f32 on the CUDA cores (chunk {c}); the tensor-core route against "
+          f"its "
+          f"rounding model {json.dumps(model)} (tolerance {json.dumps(tol)}: "
+          f"m and l |kernel - model| / (1 + |model|), acc normwise; "
+          f"plain_acc_norm the same against the plain version); B6 "
+          f"{tc_cases} bf16 cases on the tensor cores | tolerance |kernel - "
+          f"plain| <= tol * (1 + |plain|), tol 2e-2 (bf16 query or B5) and "
+          f"2e-3 (f32 B6); B6 also normwise 1e-2 / 1e-4; B3's steps and B4 "
+          f"byte for byte", flush=True)
     for k, v in res.items():
         check(v["mismatches"] == 0, f"phase 13a: {k} disagrees with its "
               f"plain version in {v['mismatches']} elements/rows")
@@ -2747,6 +2811,7 @@ def phase_serve_mla(dev, tag: str) -> tuple:
     Lyr = cfg.num_layers
     want = {"qpack_latent_ring_step": c["steps"] * Lyr,
             "kvc_latent_partial": c["steps"] * Lyr,
+            "kvc_latent_partial_tc": c["steps"] * Lyr,
             "qpack_latent_prefill_fill": c["prefill_batches"] * Lyr,
             "flash_attention": c["prefill_batches"] * Lyr,
             "flash_attention_tc": c["prefill_batches"] * Lyr,
@@ -2754,9 +2819,10 @@ def phase_serve_mla(dev, tag: str) -> tuple:
             c["shadow_repreempts"]}
     want.update({k: 0 for k in launches if k not in want})
     print(f"phase 13b launches: {json.dumps(launches)} | expected "
-          f"{json.dumps(want)} (the ring step and B5 one a layer a step, the "
-          f"fill and B6 one a layer a prefill batch, the flush one a lane "
-          f"demotion) | B6 in prefill: {n_b6} calls, {t_b6:.6f} s device = "
+          f"{json.dumps(want)} (the ring step and B5 one a layer a step, "
+          f"every B5 on the tensor cores, the fill and B6 one a layer a "
+          f"prefill batch, the flush one a lane demotion) | B6 in prefill: "
+          f"{n_b6} calls, {t_b6:.6f} s device = "
           f"{t_b6 / t_pre:.4f} of prefill [{tag}]", flush=True)
     check(c["demotions"] > 0 and c["promotions"] > 0,
           "phase 13b: no demotion or promotion")
@@ -2776,7 +2842,7 @@ def phase_serve_mla(dev, tag: str) -> tuple:
               f"device busy share not measured [{tag}]", flush=True)
     else:
         busy = _busy_us(kern) / (pwall * 1e6)
-        b5 = [e for e in kern if "kvc_latent_kernel" in e.name]
+        b5 = [e for e in kern if "kvc_latent_tc_kernel" in e.name]
         b5_us = sum(e.time_range.elapsed_us() for e in b5)
         by_name: dict = {}
         for e in kern:
@@ -2792,6 +2858,9 @@ def phase_serve_mla(dev, tag: str) -> tuple:
               f"step | top by device time: " + "; ".join(
                   f"{n[:60]} x{k} {us / 1e3:.3f} ms" for n, (k, us) in top)
               + f" [{tag}]", flush=True)
+        check(len(b5) == PROFILE_STEPS * cfg.num_layers, f"phase 13b: the "
+              f"profile found {len(b5)} tensor-core B5 latent launches, not "
+              f"{PROFILE_STEPS * cfg.num_layers}")
     del eng, params
     return launches, {"t_pre": t_pre, "t_step": t_step, "wall": wall,
                       "counters": c, "busy": busy, "peak_gib": peak}
@@ -2862,8 +2931,8 @@ def phase_mla_times(dev, tag: str, lens_l) -> dict:
         :, None, None, :]
     tok = int(lens.sum())
     out["kvc_latent_partial"] = dict(
-        shape=f"q {B}x{H}x{R} bf16, {bits}-bit latent {B}x{S}, lengths "
-              f"{lens_l.tolist()}",
+        shape=f"q {B}x{H}x{R} bf16 (tensor cores), {bits}-bit latent "
+              f"{B}x{S}, lengths {lens_l.tolist()}",
         kern=lambda: KA.kvc_latent_partial(q, lc, ls1, lens, bits=bits,
                                            sm_scale=MLA_SM),
         plain=lambda: KA.kvc_latent_partial_plain(q, lc, ls1, lens, bits,
@@ -2871,6 +2940,19 @@ def phase_mla_times(dev, tag: str, lens_l) -> dict:
         lib=lambda: _sdpa(q[:, None], ldq, ldq, False, mask),
         nbytes=tok * (Rp + 4) + B * H * R * 2 + B * 4 + B * H * (R + 2) * 4,
         ops=4 * tok * H * R, reps=50)
+    # the CUDA-core route (f32 q) at the same shapes, timed in the same
+    # process: its operations are f32 ones
+    q32, ldq32 = q.float(), ldq.float()
+    out["kvc_latent_partial_f32"] = dict(
+        shape=f"q {B}x{H}x{R} f32 (CUDA cores), {bits}-bit latent {B}x{S}, "
+              f"lengths {lens_l.tolist()}",
+        kern=lambda: KA.kvc_latent_partial(q32, lc, ls1, lens, bits=bits,
+                                           sm_scale=MLA_SM),
+        plain=lambda: KA.kvc_latent_partial_plain(q32, lc, ls1, lens, bits,
+                                                  MLA_SM),
+        lib=lambda: _sdpa(q32[:, None], ldq32, ldq32, False, mask),
+        nbytes=tok * (Rp + 4) + B * H * R * 4 + B * 4 + B * H * (R + 2) * 4,
+        ops=4 * tok * H * R, ops_rate=F32_OPS_PER_S, reps=50)
     # B6 at (96, 64): the prefill's attention at the 1024 bucket, causal, 8
     # rows, then the path's 4- and 1-row batches
     Sp = 1024
@@ -2891,14 +2973,19 @@ def phase_mla_times(dev, tag: str, lens_l) -> dict:
                  ops=2 * rows * H * (96 + 64) * Sp * (Sp + 1) // 2, reps=5)
     res = _time_rows(out, "13d", tag)
 
-    # B5's latent form: CTAs that do work at 13b's lengths (a cluster of
-    # LATENT_CLUSTER a chunk of a lane's length) against the card's SMs
+    # B5's latent form: CTAs that do work at 13b's lengths on the path's
+    # route (bf16: a CTA a span of LATENT_TC_TOKENS tokens and a column
+    # box) against the card's SMs; the CUDA-core route's beside it
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     working = KA.latent_working_ctas(lens_l)
-    grid = B * KA.LATENT_CLUSTER * -(-S // KA.LATENT_CHUNK)
-    print(f"phase 13d kvc_latent_partial split: chunk {KA.LATENT_CHUNK}, "
-          f"clusters of {KA.LATENT_CLUSTER} CTAs ({H // KA.LATENT_CLUSTER} "
-          f"heads each), grid {grid} CTAs of which {working} do work, {sms} "
+    grid = B * KA.LATENT_TC_BOXES * -(-S // KA.LATENT_TC_TOKENS)
+    print(f"phase 13d kvc_latent_partial split: tensor cores "
+          f"{KA.LATENT_TC_TOKENS} tokens and one of {KA.LATENT_TC_BOXES} "
+          f"64-wide column boxes a CTA "
+          f"(all {H} heads each), grid {grid} CTAs of which {working} do "
+          f"work; CUDA cores (f32) chunk {KA.LATENT_CHUNK}, clusters of "
+          f"{KA.LATENT_CLUSTER}, "
+          f"{KA.latent_working_ctas(lens_l, torch.float32)} working; {sms} "
           f"SMs [{tag}]", flush=True)
     check(working > sms, f"phase 13d: only {working} latent B5 CTAs do work "
           f"on {sms} SMs")
@@ -3022,13 +3109,15 @@ def main() -> int:
     # 288 on 13c's paper-mode run
     mla_path = dict(mla_launches, flash_attention_mla=mla_launches[
         "flash_attention"], qpack_fixed_decode_288=mla_whole["paper"][
-            "b4_launches"])
+            "b4_launches"], kvc_latent_partial_f32=mla_launches[
+                "kvc_latent_partial"] - mla_launches["kvc_latent_partial_tc"])
     for name_, source, replaces in (
             ("qpack_latent_ring_step", "qpack_fixed.cu", "qpack.py:122"),
             ("qpack_latent_prefill_fill", "qpack_fixed.cu", "qpack.py:122"),
             ("qpack_latent_lane_flush", "qpack_fixed.cu", "qpack.py:122"),
             ("qpack_fixed_decode_288", "qpack_fixed.cu", "qpack.py:148"),
             ("kvc_latent_partial", "kvc_attn.cu", "kvc_attn.py:96"),
+            ("kvc_latent_partial_f32", "kvc_attn.cu", "kvc_attn.py:96"),
             ("flash_attention_mla", "flash_attn.cu", "flash_attn.py:72")):
         t, e = mla_times[name_], mla_errs[name_]
         kernels.append({
@@ -3041,6 +3130,11 @@ def main() -> int:
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": ("serve mla paper mode (phase 13c)"
                      if name_ == "qpack_fixed_decode_288"
+                     else "none on serve mla's bf16 path: f32 queries (13a, "
+                     "13c's float32 run)"
+                     if name_ == "kvc_latent_partial_f32"
+                     else "serve mla (phase 13b), the tensor cores"
+                     if name_ == "kvc_latent_partial"
                      else "serve mla (phase 13b)"),
             "shape": t["shape"], "cases": e["cases"],
             "mismatches": e["mismatches"]})

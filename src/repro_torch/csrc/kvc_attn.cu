@@ -1,7 +1,8 @@
 // One-token GQA decode attention over the KV cache's compressed region,
 // dequantizing int4/int8 K/V inside the kernel, for Hopper (sm_90a); and
-// its MLA form over the compressed latent cache (kvc_latent_partial, at
-// the end of the file).
+// its MLA form over the compressed latent cache, at the end of the file: on
+// the CUDA cores for f32 queries (kvc_latent_partial) and on the tensor
+// cores for bf16 ones (kvc_latent_partial_tc).
 //
 // Replaces the TPU kernel kernels/kvc_attn.py::kvc_decode_attention
 // (_kvc_kernel) of the JAX package. The JAX serving path computes the same
@@ -64,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -417,26 +420,28 @@ int launch(const void* q, int q_f32, const void* kc, const void* ks,
 }
 
 // ---------------------------------------------------------------------------
-// MLA's latent decode partial: one code stream, K = V.
+// MLA's latent decode partial: one code stream, K = V. f32 queries: the
+// CUDA cores.
 // ---------------------------------------------------------------------------
 //
 // The absorbed MLA decode (models/decode.py::mla_decode_layer) attends H
 // query heads of R values (minicpm3-4b: 40 heads, R = kv_lora_rank 256 +
 // rope 32 = 288; q_nope folded through W_uk) over one latent row a token,
 // shared by every head: a single KV head, and the key and the value are
-// the same codes. The GQA kernel above holds a (lane, KV head)'s G <= 8
-// heads' accumulators in one CTA, D <= 128; here 40 heads x 288 f32 is 46
-// KB, and one CTA for each 64 tokens of 8 lanes of a few hundred tokens
-// (~43 CTAs) would leave most of the 132 SMs idle. So the design differs:
+// the same codes. Two routes, chosen by q's type alone (the wrapper, never
+// one giving way to the other): bf16 queries, the serving path's, go to the
+// tensor cores (lat_tc below); f32 queries, the f32 checks' and the f32
+// model's, to this kernel, which keeps every product in f32 as the
+// reference's jnp partial does. The GQA kernel above holds a (lane, KV
+// head)'s G <= 8 heads' accumulators in one CTA, D <= 128; here 40 heads x
+// 288 f32 is 46 KB, and one CTA for each 64 tokens of 8 lanes of a few
+// hundred tokens (~43 CTAs) would leave most of the 132 SMs idle. So:
 //   - grid (CL * n_split, B) in clusters of CL CTAs (2), with n_split =
 //     ceil(S / kLatChunk) fixed by S (the host reads no length). A cluster
 //     owns kLatChunk (32) tokens of one lane; its CTA of rank r owns heads
 //     [r H/CL, (r + 1) H/CL) (20), with R threads, one latent column each.
 //     At the main path's lengths that is ~160 working CTAs, 3 a SM by
-//     shared memory (63 KB): one wave. More CTAs a chunk (clusters of 4)
-//     fill more SMs at short lengths but need a second wave at long ones,
-//     and each CTA adds a q load, a tile copy and a merge input
-//     (tools/sweep_attn.py times the candidates; PERF.md has the times).
+//     shared memory (63 KB): one wave.
 //   - the chunk's codes are read with 16-byte loads and dequantized ONCE for
 //     all H heads: 16-byte unit u by the CTA of rank u % CL, into its
 //     shared memory as f32 rows (padded to R + 4 so that float4 reads of 8
@@ -456,14 +461,13 @@ int launch(const void* q, int q_f32, const void* kc, const void* ks,
 //     exp(m_s - M) per split (a warp a head, a lane a split), then each
 //     thread sums its column over the splits in index order (repeated calls
 //     agree bit for bit), and resets the counter.
-// Bound: operations. A token costs 4 * 40 * 288 flops (scores and p.v)
-// against its 148 code bytes (4-bit): 311 flops a byte, above the f32 CUDA
-// cores' 20 flops a byte (67 TFLOP/s over 3.35 TB/s): 8 lanes of ~450
-// tokens are 166 MFLOP, 2.5 us at the f32 peak, against 0.16 us for their
-// bytes (PERF.md has the measured time). Kept on the CUDA cores in f32, as
-// the reference's jnp partial computes it; a tensor-core (bf16 wgmma) form
-// is a later PR's. The shape (H, R, CL) is a template: another MLA config
-// needs an instantiation in kvc_latent_partial, H % CL == 0, R % 32 == 0.
+// Bound: operations. A token costs 4 * H * R flops (scores and p.v) against
+// its R * bits / 8 + 4 code bytes, all of them f32 operations here: at 13d's
+// lengths (8 lanes, 2,503 tokens) 115 MFLOP at the f32 CUDA cores' 67
+// TFLOP/s is 0.0017 ms, against 0.00033 ms for the bytes (f32 q) at 3.35
+// TB/s (PERF.md has the measured time). The shape (H, R, CL) is a template:
+// another MLA config needs an instantiation in kvc_latent_partial, H % CL
+// == 0, R % 32 == 0.
 
 // Tokens a cluster and CTAs a cluster: kernels/kvc_attn.py's LATENT_CHUNK
 // and LATENT_CLUSTER, which size the scratch and the counters, hold the
@@ -494,7 +498,7 @@ struct LatShape {
 
 template <int H, int R, int CL, int BITS>
 __global__ void __launch_bounds__(R)
-kvc_latent_kernel(const void* __restrict__ q, int q_f32,
+kvc_latent_kernel(const float* __restrict__ q,
                   const uint8_t* __restrict__ codes,
                   const float* __restrict__ scales,
                   const int* __restrict__ lengths, float* __restrict__ m_out,
@@ -558,11 +562,7 @@ kvc_latent_kernel(const void* __restrict__ q, int q_f32,
   }
   for (int i = tid; i < (n4 - n) * R; i += T)  // p.v's tail
     lat_s[(n + i / R) * RS + i % R] = 0.0f;
-  for (int i = tid; i < HC * R; i += T) {
-    const int64_t qi = row0 * R + i;
-    q_s[i] = q_f32 ? static_cast<const float*>(q)[qi]
-                   : __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qi]);
-  }
+  for (int i = tid; i < HC * R; i += T) q_s[i] = q[row0 * R + i];
   cluster.sync();
   // the other ranks' units, float4 by float4 out of their shared memory
   for (int i = tid; i < n * U * UF4; i += T) {
@@ -716,7 +716,7 @@ kvc_latent_kernel(const void* __restrict__ q, int q_f32,
 }
 
 template <int H, int R, int CL, int BITS>
-int launch_latent(const void* q, int q_f32, const void* codes,
+int launch_latent(const void* q, const void* codes,
                   const void* scales, const void* lengths, void* m, void* l,
                   void* acc, void* scratch, void* counters, int B, int S,
                   float sm_scale, cudaStream_t s) {
@@ -746,7 +746,8 @@ int launch_latent(const void* q, int q_f32, const void* codes,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kern, q, q_f32, static_cast<const uint8_t*>(codes),
+      &cfg, kern, static_cast<const float*>(q),
+      static_cast<const uint8_t*>(codes),
       static_cast<const float*>(scales), static_cast<const int*>(lengths),
       static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
       static_cast<float*>(scratch), static_cast<int*>(counters), S, n_split,
@@ -754,6 +755,496 @@ int launch_latent(const void* q, int q_f32, const void* codes,
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// MLA's latent decode partial on the tensor cores: bf16 queries.
+// ---------------------------------------------------------------------------
+//
+// The same function as kvc_latent_kernel (q [B, H, R] bf16 against one
+// code stream that is K and V of every head) with both products on wgmma:
+//   - heads as rows: all H heads of a lane are the rows of one m64 tile, so
+//     a code tile is read and converted once for every head. q is copied
+//     once a CTA, as bf16 (cp.async, 16 bytes a copy), into a 128-byte-
+//     swizzled tile of ceil(R / 64) boxes (wgmma.cuh) of H rows each, the
+//     boxes H rows apart: rows H..63 of a box are the next box's first rows
+//     (finite values that reach only output rows past H, which are never
+//     stored), which saves 24 rows a box of shared memory. At R = 288 the
+//     last box is half used, and Q C^T issues only the R / 16 (18) k16
+//     steps of the real columns.
+//   - codes as exact bf16 integers: every 4-bit code (-8..7) and 8-bit code
+//     (-128..127) is exact in bf16, so the code tile holds the codes
+//     themselves (codes_bf16) and the per-token f32 scale stays outside
+//     both products:
+//       S[h, t] = (Q C^T)[h, t] * (scale[t] * sm_scale)   (f32, after the MMA)
+//       p = exp(S - m) (ex2.approx, about 2 ulp),  l = sum p  (f32),
+//       P = p * scale[t] = hi + lo,  hi = bf16(P),  lo = bf16(P - hi),
+//       O += hi C + lo C            (f32 accumulator).
+//     Q C^T is wgmma m64n{kTok}k16, both operands K-major; P C takes hi and
+//     lo from registers in the score accumulator's own fragment layout and
+//     C as the MN-major operand. hi + lo is P to about 2^-17 (exact in f32):
+//     the partial is not normalized, so a single bf16 P (flash attention's
+//     rounding, 2^-9) leaves an error that grows with l, and on long lanes
+//     of nearly flat scores it passed the reference's 2e-2 on a few
+//     elements (tests/test_torch_mla_hopper.py); the second product costs a
+//     few HGMMA of a chain bound by latency.
+//   - the output columns split over CTAs: wgmma's n stops at 256 < 288, and
+//     all 288 columns of 40 heads in f32 are 160 registers a thread. So a
+//     CTA owns one (lane, span of kTok tokens, 64-wide column box): it
+//     computes the span's scores (the same in each of the ceil(R / 64)
+//     boxes' CTAs, bit for bit) and P C for its box only, m64n64k16, 32
+//     accumulator registers. The box CTAs of a span share nothing, so no
+//     partial crosses shared memory between CTAs (a cluster that merged
+//     its CTAs' 46 KB partials through distributed shared memory spent
+//     ~5 us a CTA doing so, PERF.md) and no CTA waits for another before
+//     its last merge.
+//   - one tile a CTA, no ring: a CTA issues its q copies, its code loads
+//     and its scale loads at once; at the main path's lengths a lane's
+//     tokens are spread over ~19 a SM, so a second tile a CTA would only
+//     lengthen the chain that bounds the call. A CTA is two warpgroups:
+//     the first runs the products; both copy and convert the tiles (4-bit
+//     codes through bf16's own mantissa, codes_bf16) and both run the last
+//     merge, the two steps of the chain that a thread's serial work sets.
+//   - grid (RB * B, n_span), n_span = ceil(S / kTok) fixed by S (the host
+//     reads no length): a lane's spans lie along y, so the spans with
+//     tokens are dispatched before those past the lanes' lengths, which exit
+//     at once (span 0 of a lane of length 0 writes the empty partial: m =
+//     -1e30, l = 0, acc = 0). kTok = 96: at 13d's lengths 30 spans x 5
+//     boxes = 150 CTAs work, 2 a SM (90 KB of shared memory, 128 registers
+//     a thread), one wave;
+//     longer spans mean fewer records a merge reads but fewer CTAs than
+//     SMs (128 tokens: 120 at 13d's lengths), shorter ones more records
+//     (tools/sweep_attn.py, PERF.md).
+//   - the merge, in span order (repeated calls agree bit for bit): a lane of
+//     one span writes its partial; otherwise each CTA writes its box's
+//     (acc, m, l) to scratch [B, n_span, RB, H * 64 + 2 H] and counts itself
+//     on the (lane, box) counter (acq_rel, as above), and the last CTA of a
+//     (lane, box) stages the spans' (m, l), weighs them, sums its columns
+//     over the spans with 16 spans' loads in flight a thread, and resets
+//     the counter (the merge is bound by the latency of its loads: staging
+//     the records with cp.async, or batching a thread's items, was slower,
+//     PERF.md). At 13d's lengths the records are 1.5 MB against the
+//     CUDA-core route's 3.8 MB of scratch, and the longest lane's five last
+//     merges read 7 records of 10.6 KB each, in parallel. The scratch is a
+//     buffer the wrapper keeps across calls.
+// Bound: bytes. At 13d's lengths (8 lanes, 2,503 tokens of 148 B at 4
+// bits, q 8 x 40 x 288 bf16, the f32 partial out) 926 KB at 3.35 TB/s is
+// 0.000276 ms; the 115 MFLOP of bf16 operations at 989 TFLOP/s, 0.000117
+// ms. Both are far under a launch: the call is bound by the longest chain
+// of one CTA (the length, q and codes in, the two products, the record and
+// its counter, the last merge), and the design keeps that chain to those
+// steps: no f32 copy of q, no exchange between CTAs before the record,
+// merges spread over the boxes. The price: each of a span's 5 box CTAs
+// computes its scores (4 x 58 MFLOP more) and reads its q and codes (3.5 MB
+// and 1.9 MB from L2 at 13d's lengths).
+// The kernel is a template on (H, R): H <= 64 (the m64 tile), R % 16 == 0
+// (the k16 steps); kvc_latent_partial_tc instantiates minicpm3-4b's (40,
+// 288).
+
+namespace lat_tc {
+
+using namespace hopper;
+
+// Tokens a CTA: kernels/kvc_attn.py's LATENT_TC_TOKENS, which sizes the
+// scratch, holds the same. -DKVC_TC_TOKENS overrides it for
+// tools/sweep_attn.py's sweep only.
+#ifndef KVC_TC_TOKENS
+#define KVC_TC_TOKENS 96
+#endif
+constexpr int kTok = KVC_TC_TOKENS;
+// Two warpgroups: the first runs the products, both copy and convert the
+// tiles and both run the last merge (each bound by latency: twice the
+// threads, half the serial steps).
+constexpr int kThreads = 256;
+constexpr int kRows = 64;               // wgmma's m: the heads
+constexpr int kBox = 64;                // output columns a CTA
+static_assert(kTok == 64 || kTok == 96 || kTok == 128,
+              "tokens a CTA: a wgmma n of the score tile");
+
+template <int H, int R>
+struct Shape {
+  static constexpr int RB = (R + 63) / 64;        // 64-wide boxes a row
+  static constexpr int REC = H * kBox + 2 * H;    // a merge record
+  // Q: RB boxes of H rows (a box is read as 64 rows, into the next one)
+  static constexpr int kQBox = (H + 7) / 8 * 1024;
+  static constexpr int kQ = 0;
+  static constexpr int kC = kQ + (RB - 1) * kQBox + kRows * 128;  // codes: RB boxes of kTok rows
+  static constexpr int kTiles = kC + RB * kTok * 128;
+  static constexpr int kSmem = kTiles + 4 * kTok + 1024;  // scales; the base's alignment
+  // the last merge's (m, l) and weights, [n_span][3][H], over the tiles
+  static constexpr int kMaxSpans = kTiles / 4 / (3 * H);
+  static_assert(H <= kRows && R % 16 == 0, "latent shape: H <= 64, R % 16 == 0");
+};
+
+// The 16-byte unit j of row r of the swizzled box at `box`.
+__device__ __forceinline__ uint32_t swz(uint32_t box, int r, int j) {
+  return box + r * 128 + ((j ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(dst), "r"(a),
+               "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// One 32-bit word of codes -> its 32 / BITS codes as exact bf16, in pairs.
+// 4-bit: a code c with its sign bit flipped is the mantissa of the bf16
+// 128 + c + 8 (0x4300 | nibble), exactly; nibbles i and i + 4 go as a pair
+// through one subtraction of 136, then the pairs are put in order. 8-bit:
+// dequant_word's f32 form with scale 1, then bf16.
+template <int BITS>
+__device__ __forceinline__ void codes_bf16(uint32_t w,
+                                           uint32_t (&out)[16 / BITS]) {
+  if constexpr (BITS == 4) {
+    const uint32_t x = w ^ 0x88888888u;
+    const __nv_bfloat162 k = __float2bfloat162_rn(136.0f);
+    uint32_t p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t t = ((x >> (4 * i)) & 0x000F000Fu) | 0x43004300u;
+      const __nv_bfloat162 v =
+          __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&t), k);
+      p[i] = *reinterpret_cast<const uint32_t*>(&v);   // codes i, i + 4
+    }
+    out[0] = __byte_perm(p[0], p[1], 0x5410);          // codes 0, 1
+    out[1] = __byte_perm(p[2], p[3], 0x5410);          // 2, 3
+    out[2] = __byte_perm(p[0], p[1], 0x7632);          // 4, 5
+    out[3] = __byte_perm(p[2], p[3], 0x7632);          // 6, 7
+  } else {
+    float v[32 / BITS];
+    dequant_word<BITS>(w, 1.0f, v);
+#pragma unroll
+    for (int i = 0; i < 16 / BITS; ++i) out[i] = pack_bf16(v[2 * i], v[2 * i + 1]);
+  }
+}
+
+// P (the score accumulator's fragment, f32) -> hi = bf16(P) and lo =
+// bf16(P - hi) as A fragments, the layout of hopper::to_bf16.
+template <int BK>
+__device__ __forceinline__ void to_bf16_split(const float (&p)[BK / 2],
+                                              uint32_t (&hi)[BK / 16][4],
+                                              uint32_t (&lo)[BK / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; i += 2) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(p[i], p[i + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i / 8][(i % 8) / 2] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i / 8][(i % 8) / 2] = pack_bf16(p[i] - hf.x, p[i + 1] - hf.y);
+  }
+}
+
+// e^x as 2^(x log2 e) on the special-function unit (about 2 ulp; what
+// flash attention's tensor-core route uses).
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+__device__ __forceinline__ float4 fma4(float w, float4 v, float4 o) {
+  return make_float4(o.x + w * v.x, o.y + w * v.y, o.z + w * v.z,
+                     o.w + w * v.w);
+}
+
+template <int H, int R, int BITS>
+__global__ void __launch_bounds__(kThreads, 2)
+kvc_latent_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                     const uint8_t* __restrict__ codes,
+                     const float* __restrict__ scales,
+                     const int* __restrict__ lengths, float* __restrict__ m_out,
+                     float* __restrict__ l_out, float* __restrict__ acc_out,
+                     float* __restrict__ scratch, int* __restrict__ counters,
+                     int S, int n_span, float sm_scale) {
+  using Sh = Shape<H, R>;
+  constexpr int RB = Sh::RB, REC = Sh::REC;
+  constexpr int RP = R * BITS / 8;      // code bytes a token
+  constexpr int U = RP / 16;            // 16-byte units a token
+  constexpr int VU = 128 / BITS;        // codes a unit
+  constexpr int QU = R / 8;             // 16-byte units of a q row
+  static_assert(RP % 16 == 0, "16-byte code rows");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle's alignment
+  float* const tiles_s = reinterpret_cast<float*>(smem_raw + (base - raw));
+  float* const sc_s = tiles_s + Sh::kTiles / 4;   // [kTok]
+  __shared__ int last_s;
+
+  const int b = blockIdx.x / RB, box = blockIdx.x % RB, g = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int len = min(max(lengths[b], 0), S);
+  const int n_act = (len + kTok - 1) / kTok;      // spans with tokens
+  const int c0 = box * kBox;                      // this CTA's columns
+  const int ncol = min(kBox, R - c0);
+  if (g >= n_act) {
+    if (g == 0) {                       // length 0: the empty partial
+      for (int i = tid; i < H * ncol; i += kThreads)
+        acc_out[(static_cast<int64_t>(b) * H + i / ncol) * R + c0 + i % ncol] = 0.0f;
+      if (box == 0 && tid < H) {
+        m_out[b * H + tid] = kNegInf;
+        l_out[b * H + tid] = 0.0f;
+      }
+    }
+    return;
+  }
+  const int t0 = g * kTok;
+  const int n = min(len - t0, kTok);    // this span's tokens, >= 1
+
+  // q rows into the Q tile; the codes into the code tile as bf16 integers
+  // (rows past n and the columns past R zero); the scales
+  const __nv_bfloat16* qb = q + static_cast<int64_t>(b) * H * R;
+  for (int i = tid; i < H * QU; i += kThreads) {
+    const int h = i / QU, j = i % QU;
+    cp_async16(swz(base + Sh::kQ + (j / 8) * Sh::kQBox, h, j % 8),
+               qb + h * R + 8 * j);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  // every code unit and scale of this thread in flight at once (the
+  // stores below would otherwise hold each load back to the one before)
+  constexpr int NU = (kTok * U + kThreads - 1) / kThreads;
+  uint4 w[NU];
+#pragma unroll
+  for (int k = 0; k < NU; ++k) {
+    const int i = tid + k * kThreads, t = i / U;
+    w[k] = make_uint4(0u, 0u, 0u, 0u);
+    if (i < kTok * U && t < n)
+      w[k] = *reinterpret_cast<const uint4*>(
+          codes + (static_cast<int64_t>(b) * S + t0 + t) * RP + 16 * (i % U));
+  }
+  const float sc_t = tid < n ? scales[static_cast<int64_t>(b) * S + t0 + tid] : 0.0f;
+  // the last Q box's rows past H: read by the products, zero
+  for (int i = tid; i < (kRows - H) * 8; i += kThreads)
+    st_shared16(swz(base + Sh::kQ + (RB - 1) * Sh::kQBox, H + i / 8, i % 8), 0u,
+                0u, 0u, 0u);
+#pragma unroll
+  for (int k = 0; k < NU; ++k) {
+    const int i = tid + k * kThreads, t = i / U, col = (i % U) * VU;
+    if (i >= kTok * U) break;
+    const uint32_t ws[4] = {w[k].x, w[k].y, w[k].z, w[k].w};
+    uint32_t pk[4 * (16 / BITS)];
+#pragma unroll
+    for (int wi = 0; wi < 4; ++wi) {
+      uint32_t o[16 / BITS];
+      codes_bf16<BITS>(ws[wi], o);
+#pragma unroll
+      for (int e = 0; e < 16 / BITS; ++e) pk[wi * (16 / BITS) + e] = o[e];
+    }
+    const uint32_t cbox = base + Sh::kC + (col / 64) * kTok * 128;
+#pragma unroll
+    for (int c = 0; c < 16 / BITS; ++c)
+      st_shared16(swz(cbox, t, (col % 64) / 8 + c), pk[4 * c], pk[4 * c + 1],
+                  pk[4 * c + 2], pk[4 * c + 3]);
+  }
+  if constexpr (R % 64 != 0) {
+    constexpr int J0 = (R % 64) / 8;    // the last box's first unused unit
+    for (int i = tid; i < kTok * (8 - J0); i += kThreads)
+      st_shared16(swz(base + Sh::kC + (RB - 1) * kTok * 128, i / (8 - J0),
+                      J0 + i % (8 - J0)),
+                  0u, 0u, 0u, 0u);
+  }
+  if (tid < kTok) sc_s[tid] = sc_t;
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  // the tiles were written through the generic proxy; wgmma reads them
+  // through the async one
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  const bool alone = n_act == 1;
+  if (warp < 4) {                       // warpgroup 0: the products
+    // S = Q C^T: R / 16 k16 steps, box kk / 4, 32 bytes into its rows
+    float sc[kTok / 2];
+#pragma unroll
+    for (int i = 0; i < kTok / 2; ++i) sc[i] = 0.0f;
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      mma_ss<kTok>(sc,
+                   desc_b128(base + Sh::kQ + (kk / 4) * Sh::kQBox + (kk % 4) * 32,
+                             16, 1024),
+                   desc_b128(base + Sh::kC + (kk / 4) * kTok * 128 + (kk % 4) * 32,
+                             16, 1024),
+                   1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+
+    // the softmax of the span, rows r0 and r0 + 8 (a quad shares a row); then
+    // P = p * scale as two bf16 A fragments, hi and lo
+    const int r0 = warp * 16 + lane / 4;
+    float mx[2] = {kNegInf, kNegInf}, rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < kTok / 2; ++i) {
+      const int t = (i / 4) * 8 + (lane % 4) * 2 + (i % 2);
+      const float x = t < n ? sc[i] * (sc_s[t] * sm_scale) : kNegInf;
+      sc[i] = x;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(kFull, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(kFull, mx[hh], 2));
+    }
+#pragma unroll
+    for (int i = 0; i < kTok / 2; ++i) {
+      const int t = (i / 4) * 8 + (lane % 4) * 2 + (i % 2);
+      const float p = t < n ? exp_sfu(sc[i] - mx[(i / 2) % 2]) : 0.0f;
+      rs[(i / 2) % 2] += p;
+      sc[i] = p * sc_s[t];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rs[hh] += __shfl_xor_sync(kFull, rs[hh], 1);
+      rs[hh] += __shfl_xor_sync(kFull, rs[hh], 2);
+    }
+    uint32_t pa[kTok / 16][4], pl[kTok / 16][4];
+    to_bf16_split<kTok>(sc, pa, pl);
+
+    // O = hi C + lo C over this CTA's box: kTok / 16 k16 steps each
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTok / 16; ++kk) {
+      const uint64_t dc = desc_b128(base + Sh::kC + box * kTok * 128 + kk * 16 * 128,
+                                    kTok * 128, 1024);
+      mma_rs_n64(acc, pa[kk], dc, 1);
+      mma_rs_n64(acc, pl[kk], dc, 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_frags<kTok / 16>(pa);
+    fence_frags<kTok / 16>(pl);
+
+    // the span's partial of this box: straight to the output for a lane of
+    // one span, else to its record
+    float* const rec = scratch + ((static_cast<int64_t>(b) * n_span + g) * RB + box) * REC;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh, col = 8 * j + 2 * (lane % 4);
+        if (row < H && col < ncol) {
+          const float2 v = make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+          if (alone)
+            *reinterpret_cast<float2*>(acc_out + (static_cast<int64_t>(b) * H + row) * R +
+                                       c0 + col) = v;
+          else
+            *reinterpret_cast<float2*>(rec + row * kBox + col) = v;
+        }
+      }
+    if (lane % 4 == 0)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        if (row >= H) continue;
+        if (!alone) {
+          rec[H * kBox + row] = mx[hh];
+          rec[H * kBox + H + row] = rs[hh];
+        } else if (box == 0) {
+          m_out[b * H + row] = mx[hh];
+          l_out[b * H + row] = rs[hh];
+        }
+      }
+  }
+  if (alone) return;
+
+  // the last CTA of this (lane, box) merges the spans' records of its
+  // columns in span order (the counter's add as in the GQA kernel)
+  __syncthreads();
+  int* counter = counters + b * RB + box;
+  if (tid == 0) {
+    int prev;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;"
+                 : "=r"(prev)
+                 : "l"(counter)
+                 : "memory");
+    last_s = prev == n_act - 1;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  const float* recs = scratch + (static_cast<int64_t>(b) * n_span * RB + box) * REC;
+  constexpr int kStride = RB * REC;     // one span's record to the next
+  // the spans' (m, l) [n_act][2][H] and weights [n_act][H], over the tiles:
+  // every load at once, then a thread a head
+  float* const gml_s = tiles_s;
+  float* const gw_s = tiles_s + n_act * 2 * H;
+  for (int i = tid; i < n_act * 2 * H; i += kThreads)
+    gml_s[i] = __ldcg(recs + (i / (2 * H)) * kStride + H * kBox + i % (2 * H));
+  __syncthreads();
+  if (tid < H) {
+    float M = kNegInf;
+    for (int gg = 0; gg < n_act; ++gg) M = fmaxf(M, gml_s[gg * 2 * H + tid]);
+    float L = 0.0f;
+    for (int gg = 0; gg < n_act; ++gg) {
+      const float w = expf(gml_s[gg * 2 * H + tid] - M);
+      gw_s[gg * H + tid] = w;
+      L += w * gml_s[gg * 2 * H + H + tid];
+    }
+    if (box == 0) {
+      m_out[b * H + tid] = M;
+      l_out[b * H + tid] = L;
+    }
+  }
+  __syncthreads();
+  // the columns, kBatch spans' loads in flight at once, summed in span order
+  constexpr int kBatch = 16;
+  const int n4 = ncol / 4;
+  for (int i = tid; i < H * n4; i += kThreads) {
+    const int h = i / n4, c = 4 * (i % n4);
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int g0 = 0; g0 < n_act; g0 += kBatch) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        v[j] = g0 + j < n_act
+                   ? __ldcg(reinterpret_cast<const float4*>(
+                         recs + (g0 + j) * kStride + h * kBox + c))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (g0 + j < n_act) o = fma4(gw_s[(g0 + j) * H + h], v[j], o);
+    }
+    *reinterpret_cast<float4*>(acc_out + (static_cast<int64_t>(b) * H + h) * R +
+                               c0 + c) = o;
+  }
+  if (tid == 0) *counter = 0;
+}
+
+template <int H, int R, int BITS>
+int launch(const void* q, const void* codes, const void* scales,
+           const void* lengths, void* m, void* l, void* acc, void* scratch,
+           void* counters, int B, int S, float sm_scale, cudaStream_t s) {
+  using Sh = Shape<H, R>;
+  const int n_span = (S + kTok - 1) / kTok;
+  if (n_span > Sh::kMaxSpans)
+    return cudaErrorInvalidValue;       // the last merge's weights: past the tiles
+  auto kern = kvc_latent_tc_kernel<H, R, BITS>;
+  static bool attr_set = false;         // above 48 KB needs the opt-in
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  kern<<<dim3(Sh::RB * B, n_span), kThreads, Sh::kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(codes),
+      static_cast<const float*>(scales), static_cast<const int*>(lengths),
+      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
+      static_cast<float*>(scratch), static_cast<int*>(counters), S, n_span,
+      sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace lat_tc
 
 }  // namespace
 
@@ -782,14 +1273,14 @@ extern "C" int kvc_attn_partial(const void* q, int q_f32, const void* kc,
   return cudaErrorInvalidValue;
 }
 
-// MLA's latent partial: q [B, H, R] (bf16, or f32 when q_f32), codes [B,
-// S, R*bits/8] u8, scales [B, S] f32, lengths [B] -> m, l [B, H], acc [B,
-// H, R] f32. Returns cudaErrorInvalidValue for a shape the kernel does not
-// take ((H, R) other than minicpm3-4b's (40, 288), bits other than 4/8, S
-// past what the merge's weights fit in shared memory). scratch holds
+// MLA's latent partial, f32 queries (the CUDA cores): q [B, H, R] f32,
+// codes [B, S, R*bits/8] u8, scales [B, S] f32, lengths [B] -> m, l [B, H],
+// acc [B, H, R] f32. Returns cudaErrorInvalidValue for a shape the kernel
+// does not take ((H, R) other than minicpm3-4b's (40, 288), bits other than
+// 4/8, S past what the merge's weights fit in shared memory). scratch holds
 // B*ceil(S/kLatChunk)*H*(R+2) floats; counters B*KVC_LAT_CLUSTER int32 (a
 // lane's cluster of CTAs), 0 between calls.
-extern "C" int kvc_latent_partial(const void* q, int q_f32, const void* codes,
+extern "C" int kvc_latent_partial(const void* q, const void* codes,
                                   const void* scales, const void* lengths,
                                   void* m, void* l, void* acc, void* scratch,
                                   void* counters, int B, int S, int H, int R,
@@ -797,8 +1288,29 @@ extern "C" int kvc_latent_partial(const void* q, int q_f32, const void* codes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return cudaErrorInvalidValue;
   if (H == 40 && R == 288 && bits == 4)
-    return launch_latent<40, 288, KVC_LAT_CLUSTER, 4>(q, q_f32, codes, scales, lengths, m, l, acc, scratch, counters, B, S, sm_scale, s);
+    return launch_latent<40, 288, KVC_LAT_CLUSTER, 4>(q, codes, scales, lengths, m, l, acc, scratch, counters, B, S, sm_scale, s);
   if (H == 40 && R == 288 && bits == 8)
-    return launch_latent<40, 288, KVC_LAT_CLUSTER, 8>(q, q_f32, codes, scales, lengths, m, l, acc, scratch, counters, B, S, sm_scale, s);
+    return launch_latent<40, 288, KVC_LAT_CLUSTER, 8>(q, codes, scales, lengths, m, l, acc, scratch, counters, B, S, sm_scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// MLA's latent partial, bf16 queries (the tensor cores): q [B, H, R] bf16,
+// the rest as kvc_latent_partial. Returns cudaErrorInvalidValue for a shape
+// the kernel does not take ((H, R) other than (40, 288), bits other than
+// 4/8, S past what the last merge's weights fit in shared memory). scratch
+// holds B*ceil(S/KVC_TC_TOKENS)*ceil(R/64)*(64H+2H) floats; counters
+// B*ceil(R/64) int32 (a lane's column boxes), 0 between calls.
+extern "C" int kvc_latent_partial_tc(const void* q, const void* codes,
+                                     const void* scales, const void* lengths,
+                                     void* m, void* l, void* acc,
+                                     void* scratch, void* counters, int B,
+                                     int S, int H, int R, int bits,
+                                     float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0) return cudaErrorInvalidValue;
+  if (H == 40 && R == 288 && bits == 4)
+    return lat_tc::launch<40, 288, 4>(q, codes, scales, lengths, m, l, acc, scratch, counters, B, S, sm_scale, s);
+  if (H == 40 && R == 288 && bits == 8)
+    return lat_tc::launch<40, 288, 8>(q, codes, scales, lengths, m, l, acc, scratch, counters, B, S, sm_scale, s);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels: nvcc compiles each source in
 ``csrc/`` for sm_90a into a shared library with a plain C interface, cached
-under ``build/repro_torch/`` by a hash of the source and the flags, and
+under ``build/repro_torch/`` by a hash of the source, the shared headers
+and the flags, and
 ``ctypes`` loads it. Nothing is built when a module is imported; a wrapper
 builds its library at its first launch, and ``build_all`` starts one nvcc
 per source at once (what ``chip_smoke.py`` does first).
@@ -46,8 +47,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode()) \
+    """The library's path, named by a hash of the source, the headers in
+    ``csrc/`` (``wgmma.cuh``) and the flags."""
+    text = b"".join(p.read_bytes() for p in
+                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(flags(name)).encode()) \
         .hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -672,14 +672,17 @@ def test_latent_flush_vs_plain(cuda, bits, pos, cold):
 
 @pytest.mark.parametrize("bits", [4, 8])
 def test_kvc_latent_vs_plain(cuda, bits):
-    """B5's latent form (40 heads of 288, K = V) at lengths around its chunk
-    and at S, S 2048 (many splits) and 64 (one), bf16 and f32 queries:
-    within 2e-2 of the plain version, a second call bit-identical."""
+    """B5's latent form (40 heads of 288, K = V) at lengths around both
+    routes' tiles (the CUDA cores' chunk, the tensor cores' span) and at
+    S, S 2048 (many splits) and 64 (one), bf16 queries on the tensor cores
+    and f32 on the CUDA cores: within 2e-2 of the plain version, a second
+    call bit-identical."""
     from repro_torch.kernels import kvc_attn as KA
-    c = KA.LATENT_CHUNK
+    c, t = KA.LATENT_CHUNK, KA.LATENT_TC_TOKENS
     g = torch.Generator(device=cuda).manual_seed(bits)
     sm = 1.0 / 96 ** 0.5
-    for S, lengths in ((2048, [0, 1, c - 1, c, c + 1, 700, 2047, 2048]),
+    for S, lengths in ((2048, [0, 1, c - 1, c, c + 1, t - 1, t + 1, 2 * t,
+                               2 * t + 1, 700, 2047, 2048]),
                        (64, [0, 1, 63, 64])):
         B = len(lengths)
         codes, scales = qpack.encode(torch.randn((B, S, 288), generator=g,
@@ -688,7 +691,7 @@ def test_kvc_latent_vs_plain(cuda, bits):
         lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
         for dt in (torch.bfloat16, torch.float32):
             q = torch.randn((B, 40, 288), generator=g, device=cuda).to(dt)
-            n0 = KA.latent_launches
+            n0, tc0 = KA.latent_launches, KA.latent_launches_tc
             got = KA.kvc_latent_partial(q, codes, scales, lens, bits=bits,
                                         sm_scale=sm)
             again = KA.kvc_latent_partial(q, codes, scales, lens, bits=bits,
@@ -697,9 +700,40 @@ def test_kvc_latent_vs_plain(cuda, bits):
                                                sm)
             torch.cuda.synchronize()
             assert KA.latent_launches == n0 + 2
+            assert KA.latent_launches_tc == tc0 + 2 * (dt == torch.bfloat16)
             for a, b, w in zip(got, again, want):
                 assert torch.equal(a.view(torch.int32), b.view(torch.int32))
                 torch.testing.assert_close(a, w, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_kvc_latent_tc_vs_rounding_model(cuda, bits):
+    """The tensor-core route against ``kvc_latent_partial_tc_model`` on the
+    card, at lengths around a CTA's span of tokens and of many spans,
+    within ``LATENT_TC_MODEL_TOL`` (1e-4 normwise, 2e-5 for m and l): far
+    more tightly than the plain version's 2e-2, so that a layout error
+    cannot hide inside it."""
+    from repro_torch.kernels import kvc_attn as KA
+    t = KA.LATENT_TC_TOKENS
+    S = 2048
+    lengths = [0, 1, t - 1, t, t + 1, 2 * t - 1, 2 * t + 1, 672, 1500, S]
+    B = len(lengths)
+    g = torch.Generator(device=cuda).manual_seed(10 + bits)
+    sm = 1.0 / 96 ** 0.5
+    codes, scales = qpack.encode(torch.randn((B, S, 288), generator=g,
+                                             device=cuda), bits, 288)
+    scales = scales[..., 0].contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn((B, 40, 288), generator=g, device=cuda).to(torch.bfloat16)
+    got = KA.kvc_latent_partial(q, codes, scales, lens, bits=bits,
+                                sm_scale=sm)
+    model = KA.kvc_latent_partial_tc_model(q, codes, scales, lens, bits, sm)
+    torch.cuda.synchronize()
+    tol = KA.LATENT_TC_MODEL_TOL
+    for a, w in zip(got[:2], model[:2]):
+        assert float(((a - w).abs() / (1 + w.abs())).max()) <= tol["ml"]
+    assert float((got[2] - model[2]).norm()) <= \
+        tol["acc_norm"] * float(model[2].norm())
 
 
 @pytest.mark.parametrize("causal", [True, False])

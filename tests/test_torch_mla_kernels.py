@@ -309,7 +309,19 @@ def test_split_head_dim_dispatch_without_a_card():
     # 13b's kind of lengths: 8 lanes of a few hundred tokens fill 132 SMs
     ([87, 672, 300, 450, 128, 200, 500, 640], 2 * 96)])
 def test_latent_working_ctas(lengths, want):
-    """The latent kernel's CTAs that do work: a cluster of LATENT_CLUSTER
-    for each LATENT_CHUNK tokens a lane's length reaches."""
+    """The CUDA-core latent kernel's (f32 q) CTAs that do work: a cluster of
+    LATENT_CLUSTER for each LATENT_CHUNK tokens a lane's length reaches."""
     assert (KA.LATENT_CHUNK, KA.LATENT_CLUSTER) == (32, 2)
+    assert KA.latent_working_ctas(np.array(lengths), torch.float32) == want
+
+
+@pytest.mark.parametrize("lengths,want", [
+    ([0, 1, 96, 97], 5 * (0 + 1 + 1 + 2)),
+    # phase 13d's lengths: above the H100's 132 SMs
+    ([672, 522, 434, 265, 291, 104, 128, 87], 5 * 30)])
+def test_latent_tc_working_ctas(lengths, want):
+    """The tensor-core latent kernel's (bf16 q) CTAs that do work: one a
+    64-wide column box (LATENT_TC_BOXES) for each span of LATENT_TC_TOKENS
+    tokens a lane's length reaches."""
+    assert (KA.LATENT_TC_TOKENS, KA.LATENT_TC_BOXES) == (96, 5)
     assert KA.latent_working_ctas(np.array(lengths)) == want

@@ -7,24 +7,28 @@ candidate as its own library, all nvcc processes started together:
   * B6's tensor-core route at D 128 with every (keys per tile, ring stages)
     of ``TILES`` (-DFLASH_TC_BK, -DFLASH_TC_STAGES);
   * B5 with every chunk of ``CHUNKS`` (-DKVC_CHUNK);
-  * B5's latent form with every (tokens a cluster, CTAs a cluster) of
-    ``LATENT`` (-DKVC_LAT_CHUNK, -DKVC_LAT_CLUSTER).
+  * B5's latent form on the tensor cores (bf16 q, the serving path's
+    route) with every span of tokens a CTA of ``LATENT``
+    (-DKVC_TC_TOKENS).
 
 It prints each candidate's ptxas lines (registers, spills, serialized
 wgmmas), checks it against the plain version (B6 element-wise 2e-2 and
 normwise 1e-2, B5 2e-2), and times it at ``chip_smoke.py``'s phase 10
 shapes: B6 on 8 x 1,024 causal, 32/8 heads x 128 bf16; B5 on 8 lanes of a
 4-bit cache of 2,048 positions at phase 10's lengths; B5 latent on
-minicpm3-4b's 8 lanes (40 heads x 288, 4-bit) at phase 13d's lengths (the
-same as phase 10's) and at phase 13b's profiled lanes (its prompts four
-decode steps in, longer). Times are the median ms a call of CUDA-graph
-replays. The last line is one JSON object of the times, the line before it
-the card's name and power limit.
+minicpm3-4b's 8 lanes (40 heads x 288, 4-bit, bf16 q) at phase 13d's
+lengths (the same as phase 10's) and at phase 13b's profiled lanes (its
+prompts four decode steps in, longer), with each candidate's working CTAs
+and the shipped candidate's distance from the best. Times are the median
+ms a call of CUDA-graph replays. The last line is one JSON object of the
+times, the line before it the card's name and power limit.
 
-    python3 tools/sweep_attn.py      # needs a card and nvcc
+    python3 tools/sweep_attn.py                  # needs a card and nvcc
+    python3 tools/sweep_attn.py --only latent    # one kernel's candidates
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -45,21 +49,24 @@ from repro_torch.kernels import qpack                          # noqa: E402
 
 TILES = ((96, 3), (96, 2), (64, 3), (128, 2), (128, 3))
 CHUNKS = (64, 128, 256)
-LATENT = ((64, 1), (64, 2), (64, 4), (32, 1), (32, 2), (32, 4))
+LATENT = (64, 96, 128)
 ENTRY = {"flash_attn": ("flash_attn_fwd",),
-         "kvc_attn": ("kvc_attn_partial", "kvc_latent_partial")}
+         "kvc_attn": ("kvc_attn_partial", "kvc_latent_partial",
+                      "kvc_latent_partial_tc")}
 
 
-def candidates() -> list:
-    """(source, label, -D macros, chunk) for every candidate; a latent
-    candidate's chunk is (tokens, CTAs) a cluster."""
-    return [("flash_attn", f"{bk}x{ns}",
-             {"FLASH_TC_BK": bk, "FLASH_TC_STAGES": ns}, None)
-            for bk, ns in TILES] + \
-        [("kvc_attn", str(c), {"KVC_CHUNK": c}, c) for c in CHUNKS] + \
-        [("kvc_attn", f"latent_{c}x{cl}",
-          {"KVC_LAT_CHUNK": c, "KVC_LAT_CLUSTER": cl}, (c, cl))
-         for c, cl in LATENT]
+def candidates(only=None) -> list:
+    """(source, label, -D macros, chunk) for every candidate of the kernels
+    ``only`` names (all when None); a latent candidate's chunk is its
+    tokens a CTA."""
+    kinds = {
+        "b6": [("flash_attn", f"{bk}x{ns}",
+                {"FLASH_TC_BK": bk, "FLASH_TC_STAGES": ns}, None)
+               for bk, ns in TILES],
+        "b5": [("kvc_attn", str(c), {"KVC_CHUNK": c}, c) for c in CHUNKS],
+        "latent": [("kvc_attn", f"latent_{t}", {"KVC_TC_TOKENS": t}, t)
+                   for t in LATENT]}
+    return [c for k, cs in kinds.items() if only in (None, k) for c in cs]
 
 
 def build_all(cands: list) -> list:
@@ -98,6 +105,10 @@ def use(name: str, path: Path) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("b6", "b5", "latent"),
+                    help="sweep one kernel's candidates")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("sweep_attn: no CUDA device", file=sys.stderr)
         return 2
@@ -106,7 +117,7 @@ def main() -> int:
     _, smi = smoke.phase_device()
     FA._lib(), KA._lib()                  # the shipped builds, for argtypes
     shipped = dict(build._libs)
-    cands = candidates()
+    cands = candidates(args.only)
     paths = build_all(cands)
 
     cfg = smoke._llama()
@@ -149,7 +160,8 @@ def main() -> int:
     times = {"flash_attention_8x1024_causal": {}, "kvc_decode_attention": {},
              **{f"kvc_latent_partial_{k}": {} for k in lat_lens}}
     shipped_chunk = KA.CHUNK
-    shipped_lat = KA.LATENT_CHUNK, KA.LATENT_CLUSTER
+    shipped_lat = KA.LATENT_TC_TOKENS
+    working = {}
     for (name, label, _, chunk), path in zip(cands, paths):
         use(name, path)
         if name == "flash_attn":
@@ -163,8 +175,10 @@ def main() -> int:
                 lambda: FA.flash_attention(qf, kf, vf, causal=True), 5)
             times["flash_attention_8x1024_causal"][label] = ms
         elif label.startswith("latent"):
-            # the scratch and the counters follow the candidate
-            KA.LATENT_CHUNK, KA.LATENT_CLUSTER = chunk
+            # the scratch follows the candidate
+            KA.LATENT_TC_TOKENS = chunk
+            working[label] = {k: KA.latent_working_ctas(v)
+                              for k, v in lat_lens.items()}
             ms = []
             for k, ln in lat_in.items():
                 got = KA.kvc_latent_partial(lq, lc, lsc, ln, bits=bits,
@@ -178,7 +192,7 @@ def main() -> int:
                 times[f"kvc_latent_partial_{k}"][label] = t
                 ms.append(t)
             ms = ms[0]
-            KA.LATENT_CHUNK, KA.LATENT_CLUSTER = shipped_lat
+            KA.LATENT_TC_TOKENS = shipped_lat
         else:
             KA.CHUNK = chunk              # the scratch follows the chunk
             got = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
@@ -198,9 +212,18 @@ def main() -> int:
     print(f"shapes: B6 q {B}x{Sp}x{Hq}x{D} causal; B5 q {B}x{Hq}x{D}, "
           f"{bits}-bit KV {B}x{S}x{Hkv}, lengths {lens_l.tolist()}; shipped "
           f"tiles: B6 {FA.TC_KEYS[D]} keys x 3 stages, B5 chunk "
-          f"{shipped_chunk}; B5 latent q {B}x{smoke.MLA_H}x{smoke.MLA_R}, "
-          f"{bits}-bit latent {B}x{S}, lengths {lat_lens}, shipped "
-          f"{shipped_lat[0]} tokens x {shipped_lat[1]} CTAs a cluster")
+          f"{shipped_chunk}; B5 latent q {B}x{smoke.MLA_H}x{smoke.MLA_R} "
+          f"bf16 (tensor cores), {bits}-bit latent {B}x{S}, lengths "
+          f"{lat_lens}, shipped {shipped_lat} tokens a CTA")
+    shipped_label = f"latent_{shipped_lat}"
+    for k in lat_lens:
+        row = times[f"kvc_latent_partial_{k}"]
+        if shipped_label in row:
+            best = min(row, key=row.get)
+            print(f"latent at {k}'s lengths: best {best} {row[best]:.6f} ms, "
+                  f"shipped {shipped_label} {row[shipped_label]:.6f} ms = "
+                  f"{row[shipped_label] / row[best] - 1:+.4f} off the best; "
+                  f"working CTAs {json.dumps({c: w[k] for c, w in working.items()})}")
     print(smi)
     print(json.dumps(times))
     return 0
