@@ -70,9 +70,9 @@ class PoolConfig:
 
 
 # ---------------------------------------------------------------------------
-# Model architecture. The port serves the dense family with GQA/MHA or MLA
-# attention; the MoE and SSM sub-configs are carried as field types only
-# (their families wait for their slices, ROADMAP A.6).
+# Model architecture. The port serves the dense and MoE families with
+# GQA/MHA or MLA attention; the SSM sub-config is carried as a field type
+# only (its family waits for its slice, ROADMAP A.6).
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -137,14 +137,14 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     def param_count(self) -> int:
-        """Parameter count of the dense family, GQA or MLA attention (the
-        reference's ``ModelConfig.param_count`` for it)."""
-        if self.family not in ("dense", "vlm", "audio") or \
+        """Parameter count of the dense and MoE families, GQA or MLA
+        attention (the reference's ``ModelConfig.param_count`` for them)."""
+        if self.family not in ("dense", "moe", "vlm", "audio") or \
                 self.attn_kind not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"param_count of family {self.family!r} / attention "
-                f"{self.attn_kind!r}: the port has the dense family only "
-                "(ROADMAP A.6)")
+                f"{self.attn_kind!r}: the port has the dense and MoE "
+                "families only (ROADMAP A.6)")
         d, v, L = self.d_model, self.vocab_size, self.num_layers
         hd = self.resolved_head_dim
         n = v * d * (1 if self.tie_embeddings else 2)
@@ -158,7 +158,23 @@ class ModelConfig:
         else:
             attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
                 + self.num_heads * hd * d
-        return n + L * (attn + 3 * d * self.d_ff)
+        if self.family == "moe" and self.moe is not None:
+            mo = self.moe
+            mlp = mo.num_experts * 3 * d * mo.expert_d_ff + d * mo.num_experts
+            if mo.dense_residual:
+                mlp += 3 * d * mo.dense_d_ff
+        else:
+            mlp = 3 * d * self.d_ff
+        return n + L * (attn + mlp)
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses (MoE: only its top-k experts count)."""
+        if self.family != "moe" or self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        per_expert = 3 * self.d_model * mo.expert_d_ff
+        return self.param_count() - \
+            self.num_layers * (mo.num_experts - mo.top_k) * per_expert
 
 
 @dataclass(frozen=True)

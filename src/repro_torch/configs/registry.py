@@ -1,8 +1,9 @@
 """Architecture registry: the reference's ten arch ids and their CLI
 aliases. Each ported arch has a module exporting ``CONFIG`` (the published
 configuration) and ``REDUCED`` (a same-family miniature for CPU tests).
-The port serves the dense family, GQA/MHA and MLA attention; the other ids
-raise ``NotImplementedError`` naming the ROADMAP item that ports them."""
+The port serves the dense family (GQA/MHA and MLA attention) and the MoE
+family (GQA); the other ids raise ``NotImplementedError`` naming the
+ROADMAP item that ports them."""
 from __future__ import annotations
 
 import importlib
@@ -29,7 +30,8 @@ ALIASES: Dict[str, str] = {
     "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
-PORTED = ("llama3_8b", "minicpm3_4b", "codeqwen15_7b", "deepseek_7b")
+PORTED = ("llama3_8b", "minicpm3_4b", "codeqwen15_7b", "deepseek_7b",
+          "qwen3_moe_235b_a22b", "arctic_480b")
 
 
 def _module(arch: str):
@@ -39,7 +41,7 @@ def _module(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet: ROADMAP A.6 (serving) queues "
-            f"the MoE, SSM and hybrid families and the frontend models; "
+            f"the SSM and hybrid families and the frontend models; "
             f"ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
@@ -54,5 +56,7 @@ def get_reduced(arch: str) -> ModelConfig:
 
 def describe(cfg: ModelConfig) -> str:
     n = cfg.param_count()
+    na = cfg.active_param_count()
+    extra = f", active {na/1e9:.1f}B" if na != n else ""
     return (f"{cfg.name}: {cfg.family} {cfg.num_layers}L d={cfg.d_model} "
-            f"{n/1e9:.1f}B params")
+            f"{n/1e9:.1f}B params{extra}")

@@ -31,11 +31,16 @@
 //
 // The design splits the sequence across the card's SMs (flash-decoding)
 // and merges in the same launch:
-//   - grid (Hkv, B, n_split), n_split = ceil(S / CHUNK) fixed by S, so the
-//     host reads no length. A CTA whose chunk starts at or past its lane's
-//     span exits at once; a lane whose span is 0 has its split-0 CTA write
-//     the empty partial straight to the output.
-//   - a CTA of eight warps owns CHUNK (128) tokens of one (lane, KV head). All its
+//   - grid (Hkv * n_slices, B, n_split), n_split = ceil(S / CHUNK) fixed by
+//     S, so the host reads no length; n_slices = ceil(G / 8) head slices
+//     (two for qwen3-moe's G = 16): slice s owns query heads [8s, 8s + 8)
+//     of its KV head's group and reads the KV head's codes itself (a group
+//     of 16 reads them twice, from L2 the second time; device-memory bytes
+//     stay the same). A CTA whose chunk starts at or past its lane's span
+//     exits at once; a lane whose span is 0 has its split-0 CTAs write the
+//     empty partial straight to the output.
+//   - a CTA of eight warps owns CHUNK (128) tokens of one (lane, KV head,
+//     slice). All its
 //     K and V codes are loaded at once into registers (16-byte reads for K;
 //     4 or 8 bytes, 8 values, for V) and dequantized there without the
 //     quarter-rate int-to-float convert (no shared-memory round trip for K
@@ -46,15 +51,15 @@
 //     tokens, and the token groups are summed in a fixed order (shuffles,
 //     then shared memory).
 //   - a CTA that is its lane's only split writes the output directly.
-//     Otherwise it writes (acc, m, l) for its G heads to scratch
-//     [B, Hkv, n_split, G, D + 2] f32 and adds one to a per-(lane, KV head)
-//     counter with an acq_rel atomic (the threadfence reduction, the fence
-//     folded into the atomic); the CTA that brings it to the number of
-//     splits merges splits 0..n-1 in index order, every output loading its
-//     splits' (m, acc) in one round (so repeated calls give bit-identical
-//     partials), and resets the counter to 0. The wrapper keeps the int32
-//     counters per device, zeroed once: the kernel assumes one stream at a
-//     time per counter buffer.
+//     Otherwise it writes (acc, m, l) for its slice's heads to scratch
+//     [B, Hkv, n_split, G, D + 2] f32 and adds one to a per-(lane, KV head,
+//     slice) counter with an acq_rel atomic (the threadfence reduction,
+//     the fence folded into the atomic); the CTA that brings it to the
+//     number of splits merges splits 0..n-1 in index order, every output
+//     loading its splits' (m, acc) in one round (so repeated calls give
+//     bit-identical partials), and resets the counter to 0. The wrapper
+//     keeps the int32 counters per device, zeroed once: the kernel assumes
+//     one stream at a time per counter buffer.
 // Online softmax in f32 with expf; no fast math. What it still lacks: the
 // chain of one CTA (lengths -> codes -> scores -> max -> p.v -> partial ->
 // atomic -> merge) is serial, about 7 us for a lane of one chunk and 11 us
@@ -74,7 +79,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;        // query heads per KV head
+constexpr int kMaxG = 8;        // query heads a CTA (a head slice)
+constexpr int kMaxGroup = 16;   // query heads per KV head: two slices
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 // Tokens per CTA (CHUNK above); kernels/kvc_attn.py::CHUNK, which sizes
@@ -168,17 +174,22 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
   __shared__ float m_s[kMaxG], l_s[kMaxG];
   __shared__ int last_s;
 
-  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int G = Hq / Hkv;
+  const int G = Hq / Hkv;                 // the KV head's whole group
+  const int n_slices = (G + kMaxG - 1) / kMaxG;
+  const int h = blockIdx.x / n_slices, sl = blockIdx.x % n_slices;
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int g0 = sl * kMaxG;             // this slice: heads [g0, g0 + Gs)
+  const int Gs = min(kMaxG, G - g0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = min(max(lengths[b], 0), S);
   const int span = (len == 0 && empty_uniform) ? S : len;
   const int n_active = (span + CHUNK - 1) / CHUNK;
-  const int64_t row0 = static_cast<int64_t>(b) * Hq + h * G;
+  const int64_t row0 = static_cast<int64_t>(b) * Hq + h * G + g0;
   if (split >= n_active) {
     if (split == 0) {                   // span 0: the empty partial
-      for (int i = tid; i < G * D; i += kThreads) acc_out[row0 * D + i] = 0.0f;
-      if (tid < G) {
+      for (int i = tid; i < Gs * D; i += kThreads)
+        acc_out[row0 * D + i] = 0.0f;
+      if (tid < Gs) {
         m_out[row0 + tid] = kNegInf;
         l_out[row0 + tid] = 0.0f;
       }
@@ -214,7 +225,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
       vsc[j] = vs[row];
     }
   }
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = tid; i < Gs * D; i += kThreads) {
     const int64_t qi = row0 * D + i;
     q_s[i] = q_f32 ? static_cast<const float*>(q)[qi]
                    : __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qi]);
@@ -233,7 +244,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
       const int d0 = part * (D / TPT) + w * VPW;
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
-        if (g >= G) break;
+        if (g >= Gs) break;
         const float4* qrow = reinterpret_cast<const float4*>(q_s + g * D + d0);
 #pragma unroll
         for (int i4 = 0; i4 < VPW / 4; ++i4) {
@@ -248,7 +259,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
   for (int o = 1; o < TPT; o <<= 1) {
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
+      if (g >= Gs) break;
       s[g] += __shfl_xor_sync(kFull, s[g], o);
     }
   }
@@ -256,14 +267,14 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
     const bool valid = c0 + tk < len;
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
+      if (g >= Gs) break;
       p_s[g][tk] = valid ? s[g] * sm_scale : kNegInf;
     }
   }
   __syncthreads();
 
   // per head (a warp each): the chunk's max, p = exp(s - m) in place, l
-  if (warp < G) {
+  if (warp < Gs) {
     const int g = warp;
     float mx = kNegInf;
     for (int tt = lane; tt < n; tt += 32) mx = fmaxf(mx, p_s[g][tt]);
@@ -297,7 +308,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
       dequant_word<BITS>(vw[j][w], vsc[j], val + w * VPW);
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
+      if (g >= Gs) break;
       const float p = p_s[g][tt];     // 0 past the chunk's tokens
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[g][e] += p * val[e];
@@ -308,7 +319,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
   for (int o = DG; o < 32; o <<= 1) {
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
+      if (g >= Gs) break;
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         acc[g][e] += __shfl_xor_sync(kFull, acc[g][e], o);
@@ -317,7 +328,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
   if (lane < DG) {
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
+      if (g >= Gs) break;
 #pragma unroll
       for (int e = 0; e < 8; ++e) red_s[warp][g * D + dg * 8 + e] = acc[g][e];
     }
@@ -326,8 +337,9 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
 
   const bool alone = n_active == 1;
   float* part_out = scratch +
-      ((static_cast<int64_t>(b) * Hkv + h) * n_split + split) * G * (D + 2);
-  for (int i = tid; i < G * D; i += kThreads) {
+      (((static_cast<int64_t>(b) * Hkv + h) * n_split + split) * G + g0) *
+          (D + 2);
+  for (int i = tid; i < Gs * D; i += kThreads) {
     float a = red_s[0][i];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) a += red_s[w][i];
@@ -335,7 +347,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
     if (alone) acc_out[row0 * D + i] = a;
     else part_out[g * (D + 2) + d] = a;
   }
-  if (tid < G) {
+  if (tid < Gs) {
     if (alone) {
       m_out[row0 + tid] = m_s[tid];
       l_out[row0 + tid] = l_s[tid];
@@ -346,13 +358,14 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
   }
   if (alone) return;
 
-  // The last CTA of this (lane, KV head) merges the splits. The counter's
-  // add is acq_rel at gpu scope: after the barrier it releases this CTA's
-  // partial, and the last adder acquires all of them. Every output then
-  // loads its splits' (m, acc) together, kMerge at a time, and merges them
-  // online in index order (fixed: repeated calls agree bit for bit).
+  // The last CTA of this (lane, KV head, slice) merges the splits. The
+  // counter's add is acq_rel at gpu scope: after the barrier it releases
+  // this CTA's partial, and the last adder acquires all of them. Every
+  // output then loads its splits' (m, acc) together, kMerge at a time, and
+  // merges them online in index order (fixed: repeated calls agree bit for
+  // bit).
   __syncthreads();
-  int* counter = counters + b * Hkv + h;
+  int* counter = counters + (b * Hkv + h) * n_slices + sl;
   if (tid == 0) {
     int prev;
     asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;"
@@ -366,7 +379,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
   constexpr int kMerge = 8;
   const float* parts =
       scratch + (static_cast<int64_t>(b) * Hkv + h) * n_split * G * (D + 2);
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = tid; i < Gs * D; i += kThreads) {
     const int g = i / D, d = i % D;
     float mx = kNegInf, l = 0.0f, a = 0.0f;
     for (int sp0 = 0; sp0 < n_active; sp0 += kMerge) {
@@ -374,7 +387,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
 #pragma unroll
       for (int j = 0; j < kMerge; ++j) {
         const bool in = sp0 + j < n_active;
-        const float* pp = parts + ((sp0 + j) * G + g) * (D + 2);
+        const float* pp = parts + ((sp0 + j) * G + g0 + g) * (D + 2);
         mv[j] = in ? __ldcg(pp + D) : kNegInf;
         av[j] = in ? __ldcg(pp + d) : 0.0f;
         lv[j] = in && d == 0 ? __ldcg(pp + D + 1) : 0.0f;
@@ -409,7 +422,9 @@ int launch(const void* q, int q_f32, const void* kc, const void* ks,
            int Hq, int Hkv, float sm_scale, int empty_uniform,
            cudaStream_t s) {
   const int n_split = (S + kChunk - 1) / kChunk;
-  kvc_split_kernel<D, BITS, kChunk><<<dim3(Hkv, B, n_split), kThreads, 0, s>>>(
+  const int n_slices = (Hq / Hkv + kMaxG - 1) / kMaxG;
+  kvc_split_kernel<D, BITS, kChunk>
+      <<<dim3(Hkv * n_slices, B, n_split), kThreads, 0, s>>>(
       q, q_f32, static_cast<const uint8_t*>(kc), static_cast<const float*>(ks),
       static_cast<const uint8_t*>(vc), static_cast<const float*>(vs),
       static_cast<const int*>(lengths), static_cast<float*>(m),
@@ -1249,9 +1264,10 @@ int launch(const void* q, const void* codes, const void* scales,
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a shape the kernel does
-// not take (D other than 64/128, bits other than 4/8, G = Hq/Hkv > 8).
-// scratch holds B*Hkv*ceil(S/kChunk)*G*(D+2) floats; counters B*Hkv int32,
-// all 0 between calls.
+// not take (D other than 64/128, bits other than 4/8, G = Hq/Hkv > 16).
+// scratch holds B*Hkv*ceil(S/kChunk)*G*(D+2) floats; counters
+// B*Hkv*ceil(G/8) int32 (a (lane, KV head, head slice) each), all 0 between
+// calls.
 extern "C" int kvc_attn_partial(const void* q, int q_f32, const void* kc,
                                 const void* ks, const void* vc,
                                 const void* vs, const void* lengths, void* m,
@@ -1260,7 +1276,7 @@ extern "C" int kvc_attn_partial(const void* q, int q_f32, const void* kc,
                                 int D, int bits, float sm_scale,
                                 int empty_uniform, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxG || S <= 0)
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxGroup || S <= 0)
     return cudaErrorInvalidValue;
   if (D == 128 && bits == 4)
     return launch<128, 4>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);

@@ -39,14 +39,17 @@ picks its route (``LATENT_ROUTES``), neither giving way to the other:
 
 The wrappers dispatch on the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version. ``launches``
-counts the GQA kernel's launches.
+counts the GQA kernel's launches, ``group_launches`` the same launches by
+group size G = Hq/Hkv.
 
 On the card one launch splits each lane's sequence into chunks of
-``CHUNK`` tokens (``chunk_plan``), one CTA each, and the last CTA of a
-(lane, KV head) merges the chunks' partials in index order, as
-``models/decode.py::merge_partials`` would. The GQA wrapper allocates the
-per-call scratch; the latent one takes it from a per-device buffer that
-lives across calls. Both keep per-device int32 counters the CTAs count
+``CHUNK`` tokens (``chunk_plan``) and each KV head's group of query heads
+into slices of ``SLICE_HEADS`` (``head_slices``: two for qwen3-moe's 16,
+one for a group of 8 or fewer), one CTA a (chunk, slice), and the last CTA
+of a (lane, KV head, slice) merges the chunks' partials in index order, as
+``models/decode.py::merge_partials`` would. A group above ``MAX_GROUP``
+raises. The GQA wrapper allocates the per-call scratch; the latent one
+takes it from a per-device buffer that lives across calls. Both keep per-device int32 counters the CTAs count
 themselves on (zeroed once; the kernels leave them at 0): one stream at a
 time per device.
 """
@@ -62,10 +65,13 @@ from repro_torch.kernels import qpack
 
 NEG_INF = -1e30
 launches = 0
+group_launches: dict = {}
 latent_launches = 0
 latent_launches_tc = 0
 # tokens per CTA on the card (csrc/kvc_attn.cu's kChunk)
 CHUNK = 128
+# query heads a CTA (kSliceHeads) and a KV head's group at most (kMaxGroup)
+SLICE_HEADS, MAX_GROUP = 8, 16
 # the latent kernels' one instantiation (csrc/kvc_attn.cu's H, R):
 # minicpm3-4b
 LATENT_HEADS, LATENT_DIM = 40, 288
@@ -88,6 +94,16 @@ def chunk_plan(S: int, chunk: Optional[int] = None) -> list:
     takes no part."""
     chunk = chunk or CHUNK
     return [(c, min(c + chunk, S)) for c in range(0, S, chunk)]
+
+
+def head_slices(group: int) -> int:
+    """CTAs that share a (lane, KV head, chunk) on the card, each
+    ``SLICE_HEADS`` of its ``group`` query heads; a ValueError for a group
+    the kernel does not take."""
+    if not 1 <= group <= MAX_GROUP:
+        raise ValueError(f"a group of {group} query heads: the kernel takes "
+                         f"up to {MAX_GROUP} query heads per KV head")
+    return -(-group // SLICE_HEADS)
 
 
 def latent_working_ctas(lengths, dtype=torch.bfloat16) -> int:
@@ -283,8 +299,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _counter_buffer(device, n: int) -> torch.Tensor:
-    """int32 counters for n (lane, KV head) pairs on ``device``, zeroed when
-    allocated; the kernel returns each to 0 after its merge."""
+    """int32 counters for n (lane, KV head, slice) triples (or a latent
+    route's pairs) on ``device``, zeroed when allocated; the kernel returns
+    each to 0 after its merge."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
@@ -314,9 +331,9 @@ def _launch(q, k_codes, k_scales, v_codes, v_scales, lengths, bits,
     if bits not in (4, 8) or D not in (64, 128):
         raise ValueError(f"bits {bits}, head dim {D}: the kernel takes bits "
                          "4/8 and D 64/128")
-    if Hkv < 1 or Hq % Hkv or Hq // Hkv > 8:
-        raise ValueError(f"Hq {Hq}, Hkv {Hkv}: the kernel takes up to 8 "
-                         "query heads per KV head")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"Hq {Hq}, Hkv {Hkv}: not a whole group a KV head")
+    n_slices = head_slices(Hq // Hkv)
     for name, t, shape, dt in (
             ("k_codes", k_codes, (B, S, Hkv, D * bits // 8), torch.uint8),
             ("v_codes", v_codes, (B, S, Hkv, D * bits // 8), torch.uint8),
@@ -338,7 +355,7 @@ def _launch(q, k_codes, k_scales, v_codes, v_scales, lengths, bits,
     acc = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     scratch = torch.empty((B, Hkv, len(chunk_plan(S)), Hq // Hkv,
                            D + 2), dtype=torch.float32, device=q.device)
-    counters = _counter_buffer(q.device, B * Hkv)
+    counters = _counter_buffer(q.device, B * Hkv * n_slices)
     err = _lib().kvc_attn_partial(
         q.data_ptr(), int(q.dtype == torch.float32), k_codes.data_ptr(),
         k_scales.data_ptr(), v_codes.data_ptr(), v_scales.data_ptr(),
@@ -348,6 +365,7 @@ def _launch(q, k_codes, k_scales, v_codes, v_scales, lengths, bits,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(err, "kvc_attn_partial")
     launches += 1
+    group_launches[Hq // Hkv] = group_launches.get(Hq // Hkv, 0) + 1
     return m, l, acc
 
 

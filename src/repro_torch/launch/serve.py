@@ -5,18 +5,35 @@ from a seeded generator.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
       --reduced --requests 8 --new-tokens 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3_moe_235b_a22b --reduced --device cpu
+
+A config whose params do not fit in the device's memory (the published
+qwen3-moe and arctic on one card) is refused before anything is
+allocated.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.common.types import ServeConfig
+from repro_torch.common.utils import resolve_device
 from repro_torch.configs import describe, get_config, get_reduced
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve import Engine, SerialEngine
+
+
+def device_memory_bytes(dev: torch.device) -> int:
+    """The card's memory, or the host's physical memory for the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 def main(argv=None) -> None:
@@ -42,6 +59,12 @@ def main(argv=None) -> None:
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     print(describe(cfg))
+    dev = resolve_device(args.device)
+    need = cfg.param_count() * torch.finfo(L.torch_dtype(cfg)).bits // 8
+    have = device_memory_bytes(dev)
+    if need > have:
+        raise SystemExit(f"{cfg.name}: {need} B of {cfg.dtype} params "
+                         f"exceed the {have} B of {dev}")
     scfg = ServeConfig(max_running=args.lanes, hot_window=16, attn_chunk=32,
                        kv_rate_bits=args.kv_bits,
                        fused_dequant_attention=not args.paper_mode)

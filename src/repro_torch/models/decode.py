@@ -1,6 +1,6 @@
-"""Serving decode path of the port (``repro.models.decode``, dense family,
-GQA/MHA and MLA attention): the IBEX-compressed KV cache and the one-token
-step.
+"""Serving decode path of the port (``repro.models.decode``; the dense
+family with GQA/MHA or MLA attention, the MoE family with GQA attention):
+the IBEX-compressed KV cache and the one-token step.
 
 The KV cache is an IBEX pool specialized for append-only data:
 
@@ -30,6 +30,10 @@ of the ring step, the prefill fill and the lane flush. Decode is the
 absorbed form: q_nope folded through W_uk into the latent space, attention
 over the latent (key = value) through the latent decode kernel (B5's MLA
 form) and the ring, then W_uv and W_o.
+
+The MoE family (qwen3-moe, arctic) is the GQA path with the experts in
+place of the MLP (``transformer.mlp``): a decode step routes every lane's
+token as one batch, idle lanes included, as the reference does.
 
 Unlike the reference, whose arrays are immutable, the port updates the
 cache **in place**: ``decode_step`` writes each layer's codes, scales, ring
@@ -194,8 +198,8 @@ def init_mla_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
 
 def init_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
                max_len: int, device=None) -> Dict[str, torch.Tensor]:
-    """Decode cache of the dense family (GQA/MHA K and V, or MLA's
-    latent). Leading axis = layer."""
+    """Decode cache (GQA/MHA K and V, or MLA's latent). Leading axis =
+    layer."""
     T.check_supported(cfg)
     if cfg.attn_kind == "mla":
         return init_mla_cache(cfg, scfg, batch, max_len, device)
@@ -253,7 +257,7 @@ def gqa_decode_layer(lp: Params, x: torch.Tensor,
                           cache_l["v_hot"].to(torch.float32), hot_valid, sm)
     o = finish(merge_partials(cold, hot), x.dtype)[:, None]       # [B,1,Hq,D]
     x = x + L.gqa_output(lp["attn"], o, cfg)
-    x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    x = x + T.mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
     cold_len.copy_(new_cold)
     return x
 
@@ -379,7 +383,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         q = L.gqa_project_q(lp["attn"], h, pos, cfg)
         o = L.attention(q, k, v, causal=True, impl=scfg.attn_impl)
         x = x + L.gqa_output(lp["attn"], o, cfg)
-        x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + T.mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
         # codes, scales and ring of K and V (the ring: slot s holds the
         # largest real position p = s mod W; p < 0 is no real token, masked
         # out by decode's ring test)

@@ -81,7 +81,7 @@ def init_dense(shape, gen: torch.Generator, dtype, device, scale=None):
     if scale is None:
         scale = 1.0 / (shape[0] ** 0.5)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)      # in place: one f32 copy at a time
 
 
 def gqa_init(gen, cfg: ModelConfig, dtype, device) -> Params:

@@ -1,10 +1,11 @@
-"""The language model of the port (``repro.models.transformer``), dense
-family with GQA/MHA or MLA attention: init, embedding, unembedding and the
-full-sequence forward.
+"""The language model of the port (``repro.models.transformer``): the
+dense family with GQA/MHA or MLA attention and the MoE family with GQA
+attention (``models/moe.py`` in place of the MLP): init, embedding,
+unembedding and the full-sequence forward.
 
 The reference stacks layers and walks them with ``lax.scan``; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python loop.
-Other families (MoE, SSM, hybrid) wait for their slices (ROADMAP A.6).
+The SSM and hybrid families wait for their slices (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -15,15 +16,26 @@ import torch
 from repro_torch.common.types import ModelConfig
 from repro_torch.common.utils import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attn_kind not in ("gqa", "mla"):
+    if (cfg.family, cfg.attn_kind) not in (("dense", "gqa"), ("dense", "mla"),
+                                           ("moe", "gqa")):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attn_kind!r}: the port "
-            "serves the dense family, GQA or MLA attention (ROADMAP A.6)")
+            "serves the dense family, GQA or MLA attention, and the MoE "
+            "family with GQA attention (ROADMAP A.6)")
+
+
+def mlp(lp: Params, h: torch.Tensor, cfg: ModelConfig):
+    """A layer's MLP: (out, aux loss), the experts for the MoE family (the
+    dense MLP's aux is the number 0: no launch on the decode path)."""
+    if cfg.family == "moe":
+        return MOE.moe_apply(lp["mlp"], h, cfg)
+    return L.mlp_apply(lp["mlp"], h), 0.0
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
@@ -44,7 +56,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     params["layers"] = [
         {"attn": (L.mla_init if cfg.attn_kind == "mla" else L.gqa_init)(
             gen, cfg, dtype, dev),
-         "mlp": L.mlp_init(gen, d, cfg.d_ff, dtype, dev),
+         "mlp": (MOE.moe_init(gen, cfg, dtype, dev) if cfg.family == "moe"
+                 else L.mlp_init(gen, d, cfg.d_ff, dtype, dev)),
          "ln1": torch.ones((d,), dtype=dtype, device=dev),
          "ln2": torch.ones((d,), dtype=dtype, device=dev)}
         for _ in range(cfg.num_layers)]
@@ -67,14 +80,17 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             attn_impl: str = "auto"):
-    """Full-sequence forward. Returns (logits [B,S,V], aux_loss 0)."""
+    """Full-sequence forward. Returns (logits [B,S,V], aux loss: the sum of
+    the MoE layers' load-balance losses, 0 for the dense family)."""
     check_supported(cfg)
     x = embed(params, batch, cfg)
     attn = L.mla_apply_train if cfg.attn_kind == "mla" else L.gqa_apply_train
+    aux = 0.0
     for lp in params["layers"]:
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attn(lp["attn"], h, cfg, attn_impl)
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h)
-    return unembed(params, x, cfg), torch.zeros((), dtype=torch.float32)
+        y, a = mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        x = x + y
+        aux = aux + a
+    return unembed(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32)
 

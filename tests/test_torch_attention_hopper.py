@@ -236,7 +236,7 @@ def test_dispatch_tables_without_a_card():
         KA._launch(qq, codes[:, :0], scales[:, :0], codes[:, :0],
                    scales[:, :0], lens, 4, 0.125, False)
     with pytest.raises(ValueError, match="query heads"):
-        KA._launch(torch.zeros((2, 32, 64), **bf), codes, scales, codes,
+        KA._launch(torch.zeros((2, 34, 64), **bf), codes, scales, codes,
                    scales, lens, 4, 0.125, False)
 
 
@@ -252,4 +252,8 @@ def test_wrapper_tiles_match_kernel_sources():
                          r"(\d+)", fa).group(1)) == FA.TC_KEYS[64]
     assert int(re.search(r"#define KVC_CHUNK (\d+)", kv).group(1)) == \
         KA.CHUNK
+    assert int(re.search(r"constexpr int kMaxG = (\d+);", kv).group(1)) == \
+        KA.SLICE_HEADS
+    assert int(re.search(r"constexpr int kMaxGroup = (\d+);", kv)
+               .group(1)) == KA.MAX_GROUP
     assert set(FA.TC_KEYS) == set(FA.HEAD_DIMS)

@@ -457,7 +457,8 @@ def test_fixed_rate_vs_plain(cuda, bits, block, dtype):
 # -- decode attention over compressed KV (B5) and prefill attention (B6) -----
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("D,G", [(64, 2), (128, 4), (128, 1), (64, 8)])
+@pytest.mark.parametrize("D,G", [(64, 2), (128, 4), (128, 1), (64, 8),
+                                 (128, 16), (128, 7), (64, 12)])
 def test_kvc_attn_vs_plain(cuda, bits, D, G):
     from repro_torch.kernels import kvc_attn as KA
     B, S, Hkv = 4, 300, 2
@@ -508,7 +509,8 @@ def test_flash_attn_vs_plain(cuda, causal, Sq, Sk, Hq, Hkv, D, dtype):
     assert FA.launches_tc == tc0 + (dtype == torch.bfloat16)
 
 
-@pytest.mark.parametrize("bits,D,G", [(4, 128, 4), (8, 64, 8)])
+@pytest.mark.parametrize("bits,D,G", [(4, 128, 4), (8, 64, 8), (4, 128, 16),
+                                    (8, 128, 16), (4, 128, 7)])
 def test_kvc_attn_split_boundaries_and_repeats(cuda, bits, D, G):
     """The split kernel at lengths around its chunk and at S, with S 2048
     (many splits) and 8 (one): both forms within 2e-2 of the plain
@@ -540,6 +542,47 @@ def test_kvc_attn_split_boundaries_and_repeats(cuda, bits, D, G):
                                              sm)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+def test_kvc_attn_refuses_groups_past_sixteen(cuda):
+    """A group of 17 query heads a KV head raises before any launch: the
+    CUDA tensor never takes the plain version."""
+    from repro_torch.kernels import kvc_attn as KA
+    kc, ks = qpack.encode(torch.randn((1, 8, 1, 128), device=cuda), 4, 128)
+    ks = ks[..., 0].contiguous()
+    q = torch.randn((1, 17, 128), device=cuda, dtype=torch.bfloat16)
+    n = KA.launches
+    with pytest.raises(ValueError, match="up to 16"):
+        KA.kvc_decode_partial(q, kc, ks, kc, ks,
+                              torch.tensor([8], device=cuda), bits=4)
+    assert KA.launches == n
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "arctic_480b"])
+@pytest.mark.parametrize("tokens", [(8, 1), (3, 200), (2, 512)])
+def test_moe_on_the_card_matches_the_cpu(cuda, arch, tokens):
+    """The MoE layer (REDUCED, float32) on the card against the same code
+    on the CPU: the card's stable sorts and scatters choose, drop and
+    place the same pairs (choices equal, outputs within 1e-5), repeated
+    rows included so that pairs are dropped."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32",
+                              num_layers=1)
+    p = TT.init_params(cfg, seed=5, device="cpu")["layers"][0]["mlp"]
+    x = torch.from_numpy(np.random.default_rng(sum(tokens)).standard_normal(
+        tokens + (cfg.d_model,)).astype(np.float32))
+    x[:, ::3] = x[0, 0]
+    pc = {k: ({kk: vv.to(cuda) for kk, vv in v.items()} if isinstance(v, dict)
+              else v.to(cuda)) for k, v in p.items()}
+    want, waux = TM.moe_apply(p, x, cfg)
+    got, gaux = TM.moe_apply(pc, x.to(cuda), cfg)
+    k = cfg.moe.top_k
+    assert torch.equal(TM.route(pc["router"], x.to(cuda), k)[2].cpu(),
+                       TM.route(p["router"], x, k)[2])
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gaux.cpu(), waux, atol=1e-6, rtol=1e-6)
 
 
 def test_small_llama_serves_alike_with_kernels_and_plain(cuda):

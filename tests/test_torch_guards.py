@@ -83,7 +83,33 @@ def test_unported_arch_raises():
     assert len(ARCH_IDS) == 10
     assert get_config("llama3-8b").num_layers == 32
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        get_config("qwen3_moe_235b_a22b")
+        get_config("falcon_mamba_7b")
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "arctic_480b"])
+def test_moe_param_counts_match_reference(arch):
+    """The MoE configs and their parameter counts (all and active) are the
+    reference's, published and REDUCED."""
+    import dataclasses
+    from repro import configs as JC
+    from repro_torch import configs as TC
+    for get in ("get_config", "get_reduced"):
+        want, got = getattr(JC, get)(arch), getattr(TC, get)(arch)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.param_count() == want.param_count()
+        assert got.active_param_count() == want.active_param_count()
+        assert TC.describe(got) == JC.describe(want)
+
+
+def test_serve_launcher_refuses_params_past_the_device(monkeypatch):
+    """The full qwen3-moe (235B params, 470 GB in bf16) is refused before
+    anything is allocated when its params exceed the device's memory, and
+    the message states both byte counts."""
+    from repro_torch.launch import serve as LS
+    monkeypatch.setattr(LS, "device_memory_bytes", lambda dev: 80 * 2**30)
+    with pytest.raises(SystemExit, match="470185672704 B of bfloat16 params "
+                       "exceed the 85899345920 B"):
+        LS.main(["--arch", "qwen3_moe_235b_a22b", "--device", "cpu"])
 
 
 def test_fabric_without_device_needs_cuda():
