@@ -99,7 +99,8 @@ exits non-zero:
              tolerance and bit-identical on a second call, bf16 on the
              tensor cores and within its rounding model's tolerance, B6 at
              qk 96 / v 64 (bf16 on the tensor cores, f32); (b) minicpm3-4b at its published
-             config (62 layers, bf16, random params from a seed) with
+             widths, 31 of its 62 layers (the script's time; bf16,
+             random params from a seed) with
              phase 7's recipe: rates, KV cache and peak memory, counters,
              launches against the expectations (the latent ring step and
              B5 one a layer a step, the fill and B6 one a layer a prefill
@@ -133,6 +134,32 @@ exits non-zero:
              against fused; (d) kernel / eager / plain / library / bound
              times of B5 at G 16 and G 7, B6 at 64/4 x 8, 4 and 1 rows and
              B3's steps at 4 KV heads
+ 15 frontends and ssm
+             serving chameleon-34b and musicgen-medium (the frontend
+             backbones, fed zero embeddings as the reference's engine
+             feeds them) over the compressed KV cache, and falcon-mamba-7b
+             (the SSM family, Mamba1), which has no KV cache: (a) the
+             kernels at the backbones' shapes against their plain
+             versions: B3's ring step, prefill fill and lane flush at 24
+             KV heads of 64 byte for byte, B5 at 24/24 x 64 (a group of 1)
+             and 64/8 x 128 (8) at lengths around its chunk within
+             tolerance and bit-identical on a second call, B6 at both;
+             (b) chameleon-34b and (c) musicgen-medium at their published
+             configs (48 layers each, seeded bf16 params made on the
+             card) with phase 7's engine and 16 requests of 32 new tokens:
+             rates, KV cache and peak memory (under 72 GiB), counters,
+             launches against the expectations, the device busy share and
+             the top kernels over 4 decode steps; (d) falcon-mamba-7b at
+             its published config (64 layers, bf16), prompts seeded
+             multiples of 128 (the reference refuses other lengths past
+             its scan chunk): no B3-B6 launch, every park and resume the
+             raw state in full (36,700,160 B a lane), exact-length
+             prefill groups, rates, peak memory and the busy share; (e) 2
+             layers at each model's full widths: chameleon and musicgen
+             kernels against plain versions as phase 9, falcon-mamba in
+             float32 on the card against the CPU (logits, generations);
+             (f) kernel / eager / plain / library / bound times of the
+             kernels at (a)'s shapes; each sub-phase's wall
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -1600,12 +1627,16 @@ def _busy_us(events) -> float:
 
 def _profile_steps(eng, n: int):
     """(device events, host wall s) of ``n`` engine steps under
-    torch.profiler."""
+    torch.profiler, recording the card's activity only: the same device
+    events as with the CPU's operators recorded too, without their cost in
+    the steps' wall and in the trace's processing (PERF.md §6). A CPU
+    rehearsal records the CPU and finds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    act = ProfilerActivity.CUDA if torch.cuda.is_available() else \
+        ProfilerActivity.CPU
+    with profile(activities=[act]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             eng.step()
@@ -1613,6 +1644,43 @@ def _profile_steps(eng, n: int):
         wall = time.perf_counter() - t0
     return ([e for e in prof.events() if e.device_type == DeviceType.CUDA],
             wall)
+
+
+def _profile_line(eng, label: str, tag: str, b5_per_step: int = 0):
+    """torch.profiler over PROFILE_STEPS steps of a warm engine: the
+    device busy share, events a step and the top kernels by device time
+    (with B5's launches and device time a step where it runs). Returns the
+    busy share, or None where the profiler saw no device event."""
+    t0 = time.perf_counter()
+    kern, pwall = _profile_steps(eng, PROFILE_STEPS)
+    t_prof = time.perf_counter() - t0
+    if not kern:
+        print(f"phase {label} profile: torch.profiler recorded no device "
+              f"events; device busy share not measured [{tag}]", flush=True)
+        return None
+    busy = _busy_us(kern) / (pwall * 1e6)
+    b5 = [e for e in kern if "kvc_split_kernel" in e.name]
+    b5_us = sum(e.time_range.elapsed_us() for e in b5)
+    by_name: dict = {}
+    for e in kern:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"phase {label} profile: {PROFILE_STEPS} decode steps, "
+          f"{eng.lanes} lanes, {1e3 * pwall / PROFILE_STEPS:.3f} ms per step "
+          f"(host wall, profiler on) | device busy "
+          f"{_busy_us(kern) / 1e3:.3f} ms = {busy:.4f} of the wall | "
+          f"{len(kern)} device events, {len(kern) / PROFILE_STEPS:.1f} per "
+          f"step | B5 {len(b5)} launches, "
+          f"{b5_us / 1e3 / PROFILE_STEPS:.6f} ms a step | top by device "
+          f"time: " + "; ".join(f"{n[:60]} x{k} {us / 1e3:.3f} ms"
+                                for n, (k, us) in top) + f" | the profiled "
+          f"steps and the trace's processing {t_prof:.3f} s [{tag}]",
+          flush=True)
+    check(len(b5) == PROFILE_STEPS * b5_per_step, f"phase {label}: the "
+          f"profile found {len(b5)} B5 launches, not "
+          f"{PROFILE_STEPS * b5_per_step}")
+    return busy
 
 
 def phase_serve_profile(params, dev, tag: str) -> None:
@@ -2857,9 +2925,15 @@ def phase_mla_kernels(dev) -> dict:
     return res
 
 
+# 13b's depth: 31 of minicpm3-4b's 62 layers, the script's time (phase 15
+# took the longest of the serving phases 7, 13b and 14b to half depth)
+MLA_SERVE_LAYERS = 31
+
+
 def phase_serve_mla(dev, tag: str) -> tuple:
-    """13b: minicpm3-4b at its published config (62 layers, bf16 params
-    from the seed) served through Engine with phase 7's recipe; launches
+    """13b: minicpm3-4b at its published widths, MLA_SERVE_LAYERS of its
+    62 layers (bf16 params from the seed), served through Engine with
+    phase 7's recipe; launches
     against the expectations (the latent ring step and B5's latent form
     one a layer a step, the latent prefill fill and B6 one a layer a
     prefill batch, the latent lane flush one a lane demotion, the GQA
@@ -2871,7 +2945,7 @@ def phase_serve_mla(dev, tag: str) -> tuple:
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
     from repro_torch.serve import Engine
-    cfg = _minicpm()
+    cfg = _minicpm(MLA_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -3313,32 +3387,7 @@ def phase_serve_moe(dev, tag: str) -> tuple:
         eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
     for _ in range(3):                  # admission, prefill, warm steps
         eng.step()
-    kern, pwall = _profile_steps(eng, PROFILE_STEPS)
-    busy = None
-    if not kern:
-        print(f"phase 14b profile: torch.profiler recorded no device events; "
-              f"device busy share not measured [{tag}]", flush=True)
-    else:
-        busy = _busy_us(kern) / (pwall * 1e6)
-        b5 = [e for e in kern if "kvc_split_kernel" in e.name]
-        b5_us = sum(e.time_range.elapsed_us() for e in b5)
-        by_name: dict = {}
-        for e in kern:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        print(f"phase 14b profile: {PROFILE_STEPS} decode steps, {lanes} "
-              f"lanes, {1e3 * pwall / PROFILE_STEPS:.3f} ms per step (host "
-              f"wall, profiler on) | device busy {_busy_us(kern) / 1e3:.3f} "
-              f"ms = {busy:.4f} of the wall | {len(kern)} device events, "
-              f"{len(kern) / PROFILE_STEPS:.1f} per step | B5 {len(b5)} "
-              f"launches, {b5_us / 1e3 / PROFILE_STEPS:.6f} ms a step | top "
-              f"by device time: " + "; ".join(
-                  f"{n[:60]} x{k} {us / 1e3:.3f} ms" for n, (k, us) in top)
-              + f" [{tag}]", flush=True)
-        check(len(b5) == PROFILE_STEPS * cfg.num_layers, f"phase 14b: the "
-              f"profile found {len(b5)} B5 launches, not "
-              f"{PROFILE_STEPS * cfg.num_layers}")
+    busy = _profile_line(eng, "14b", tag, b5_per_step=cfg.num_layers)
     del eng, params
     launches["kvc_decode_attention_g16"] = groups.get(16, 0)
     return launches, {"t_pre": t_pre, "t_step": t_step, "wall": wall,
@@ -3446,6 +3495,582 @@ def phase_moe_times(dev, tag: str, lens_l) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the frontend backbones (chameleon-34b, musicgen-medium) over the
+# compressed KV cache, and the SSM family (falcon-mamba-7b, Mamba1), which
+# has no KV cache.
+# ---------------------------------------------------------------------------
+
+FRONT_PEAK_GIB = MOE_PEAK_GIB
+FRONT_NEW_TOKENS = 32
+# (Hq, Hkv, D) of the frontend backbones: chameleon-34b (a group of 8) and
+# musicgen-medium (MHA at D 64, a group of 1)
+FRONT_HEADS = {"chameleon": (64, 8, 128), "musicgen": (24, 24, 64)}
+# falcon-mamba's prompts: seeded multiples of its scan chunk (128) in
+# [384, 1024], since the reference refuses a longer prompt that is not a
+# multiple of the chunk (ROADMAP C10); 15e's are 128 or 256
+SSM_PROMPT_CHUNKS = (3, 9)
+SSM_WHOLE_CHUNKS = (1, 3)
+# bytes of one parked falcon-mamba lane: 64 layers of h (8192 x 16 f32)
+# and the conv tail (3 x 8192 bf16)
+SSM_PARK_BYTES = 64 * (8192 * 16 * 4 + 3 * 8192 * 2)
+# 15e's falcon-mamba, card against CPU in float32: logits normwise per row
+# (test_torch_model.py's float32 bound)
+SSM_WHOLE_TOL = 1e-4
+
+
+def _chameleon(layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config("chameleon_34b")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def _musicgen(layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config("musicgen_medium")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def _falcon(layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config("falcon_mamba_7b")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def _ssm_prompts(n: int, vocab: int, seed: int, chunk: int,
+                 chunks=SSM_PROMPT_CHUNKS):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(*chunks, size=n) * chunk
+    return [rng.integers(1, vocab, size=int(L)).tolist() for L in lens]
+
+
+def phase_frontend_kernels(dev) -> dict:
+    """15a: the kernels at the frontend backbones' shapes against their
+    plain versions: B3's ring step, prefill fill and lane flush at
+    musicgen's 24 KV heads of 64 byte for byte (chameleon's 8 x 128 is
+    phase 6's shape); B5 at musicgen's 24/24 x 64 (a group of 1) and
+    chameleon's 64/8 x 128 (8), 4 and 8 bits, lengths 0, 1, CHUNK - 1,
+    CHUNK, CHUNK + 1 and 2,048 of S 2,048, within ATTN_TOL and
+    bit-identical on a second call, every launch counted at its group; B6
+    at both (bf16 on the tensor cores, f32), within ATTN_TOL and
+    ATTN_NORM_TOL."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.kernels import qpack
+    t0 = time.perf_counter()
+    res = {k: {"cases": 0, "mismatches": 0, "err": 0.0}
+           for k in ("qpack_ring_step_musicgen", "qpack_prefill_fill_musicgen",
+                     "qpack_lane_flush_musicgen", "kvc_decode_attention_g1",
+                     "kvc_decode_attention_g8", "flash_attention_musicgen",
+                     "flash_attention_chameleon")}
+    W, S = SERVE_CFG["hot_window"], SERVE_MAX_LEN
+    _ring_cases(res["qpack_ring_step_musicgen"], qpack, dev,
+                shapes=((8, 24, 64),))
+    _fill_cases(res["qpack_prefill_fill_musicgen"], qpack, dev, shapes=[
+        (1, 1024, S, W, 24, 64, [1000]),
+        (4, 1024, S, W, 24, 64, [1024, 700, 513, 300]),
+        (4, 40, 49, 8, 24, 64, [40, 5, 1, 23])])
+    _flush_cases(res["qpack_lane_flush_musicgen"], qpack, dev,
+                 shapes=((24, 64),))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    c = KA.CHUNK
+    lens_l = [0, 1, c - 1, c, c + 1, S]
+    B = len(lens_l)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    KA.group_launches.clear()
+    calls = {}
+    for hq, hkv, D in FRONT_HEADS.values():
+        G, sm = hq // hkv, 1.0 / D ** 0.5
+        r = res[f"kvc_decode_attention_g{G}"]
+        for bits in (4, 8):
+            q = torch.randn((B, hq, D), generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            (kc, ks), (vc, vs) = [
+                (c_, s_[..., 0].contiguous()) for c_, s_ in (
+                    qpack.encode(torch.randn((B, S, hkv, D), generator=gen,
+                                             device=dev), bits, D)
+                    for _ in range(2))]
+            got = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
+            again = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
+            gotn = KA.kvc_decode_attention(q, kc, ks, vc, vs, lens,
+                                           bits=bits)
+            calls[G] = calls.get(G, 0) + 3
+            check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(got, again)),
+                  f"phase 15a: B5 partials differ between two calls (G {G}, "
+                  f"bits {bits})")
+            want = KA.kvc_decode_partial_plain(q, kc, ks, vc, vs, lens, bits,
+                                               sm)
+            wantn = KA.kvc_decode_attention_plain(q, kc, ks, vc, vs, lens,
+                                                  bits, sm)
+            for a, b in list(zip(got, want)) + [(gotn, wantn)]:
+                a, b = a.float(), b.float()
+                r["cases"] += 1
+                r["mismatches"] += int(((a - b).abs() > ATTN_TOL[
+                    torch.bfloat16] * (1 + b.abs())).sum())
+                r["err"] = max(r["err"], float((a - b).abs().max()))
+    groups = dict(KA.group_launches)
+    check(groups == calls, f"phase 15a: B5 launches by group {groups}, "
+          f"{calls} expected")
+    tc0, tc_cases = FA.launches_tc, 0
+    for name, (hq, hkv, D) in FRONT_HEADS.items():
+        r = res[f"flash_attention_{name}"]
+        for Sq, Sk, Bf in ((1, 1, 2), (8, 8, 2), (100, 100, 2), (24, 200, 2),
+                           (1000, 1000, 1), (1024, 1024, 2)):
+            for dt in (torch.bfloat16, torch.float32):
+                for causal in (True, False):
+                    q = torch.randn((Bf, Sq, hq, D), generator=gen,
+                                    device=dev).to(dt)
+                    k, v = (torch.randn((Bf, Sk, hkv, D), generator=gen,
+                                        device=dev).to(dt) for _ in range(2))
+                    tc_cases += dt == torch.bfloat16
+                    _flash_case(r, FA, q, k, v, causal)
+    torch.cuda.synchronize()
+    check(FA.launches_tc - tc0 == tc_cases, f"phase 15a: {tc_cases} bf16 "
+          f"cases launched the tensor-core route {FA.launches_tc - tc0} "
+          "times")
+    print(f"phase 15a frontend kernels vs plain (B3's steps at 24 KV heads x "
+          f"64; B5 at 24/24 x 64 and 64/8 x 128, lengths {lens_l} of {S}; "
+          f"B6 at both): {json.dumps(res)} | B5 launches by group "
+          f"{json.dumps(groups)}, bit-identical on a second call; B6 "
+          f"{tc_cases} bf16 cases on the tensor cores | tolerance |kernel - "
+          f"plain| <= tol * (1 + |plain|), tol 2e-2 (bf16 q or B6) and 2e-3 "
+          f"(f32 B6); B6 also normwise 1e-2 / 1e-4; B3's steps byte for "
+          f"byte | wall {time.perf_counter() - t0:.3f} s", flush=True)
+    for k, v in res.items():
+        check(v["mismatches"] == 0, f"phase 15a: {k} disagrees with its "
+              f"plain version in {v['mismatches']} elements/rows")
+        check(v.get("norm_fails", 0) == 0, f"phase 15a: {k} is off its "
+              "plain version normwise")
+    return res
+
+
+def phase_serve_frontend(dev, model, label: str, tag: str) -> tuple:
+    """15b/15c: a frontend backbone at its published config (bf16 params
+    from the seed, made on the card; the engine feeds the frontend stub
+    zero embeddings, as the reference's does) served through Engine with
+    phase 7's engine, 16 requests of FRONT_NEW_TOKENS new tokens; peak
+    memory under FRONT_PEAK_GIB; launches against the expectations (the
+    ring step and B5 one a layer a step, every B5 at the model's group;
+    the prefill fill and B6 one a layer a prefill batch, all bf16 B6 on
+    the tensor cores; the lane flush one a lane demotion; the MLA forms
+    and B3/B4 none); then torch.profiler over PROFILE_STEPS decode steps
+    of 8 lanes."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import describe
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    cfg = model()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    p_bytes = _tree_bytes(params)
+    scfg = ServeConfig(**SERVE_CFG)
+    prompts = _prompts(SERVE_REQUESTS, cfg.vocab_size, SEED)
+    timed = {}
+    eng, wall, t_pre, t_step, launches = _serve(
+        cfg, scfg, params, prompts, FRONT_NEW_TOKENS, dev,
+        hooks=[(FA, "flash_attention", "b6")], timed=timed)
+    groups = dict(KA.group_launches)
+    c = eng.counters
+    n_prompt = sum(len(p) for p in prompts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kv = D.cache_bytes(eng.cache)
+    print(f"phase {label} serve {cfg.name}: {describe(cfg)} "
+          f"({cfg.param_count()} params, {p_bytes} B = "
+          f"{p_bytes / 2**30:.3f} GiB of bf16 params from seed {SEED}, "
+          f"{t_init:.3f} s; frontend {cfg.frontend} fed zero embeddings) | "
+          f"{SERVE_REQUESTS} requests, prompts {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens, {FRONT_NEW_TOKENS} new each, "
+          f"{scfg.max_running} lanes, max_len {SERVE_MAX_LEN}, W "
+          f"{scfg.hot_window}, {scfg.kv_rate_bits}-bit KV | wall {wall:.3f} "
+          f"s | prefill {n_prompt} prompt tokens in {t_pre:.3f} s device = "
+          f"{n_prompt / t_pre:.3f} tokens/s | decode {c['tokens']} tokens in "
+          f"{c['steps']} steps, {t_step:.3f} s device = "
+          f"{c['tokens'] / t_step:.3f} tokens/s, "
+          f"{1e3 * t_step / c['steps']:.3f} ms per step | KV cache "
+          f"{kv / 2**30:.6f} GiB ({kv} B), peak memory {peak:.3f} GiB "
+          f"(limit {FRONT_PEAK_GIB}) [{tag}]", flush=True)
+    print(f"phase {label} counters: {json.dumps(c)} | preempt "
+          f"{c['preempt_bytes']} B, resume {c['resume_bytes']} B", flush=True)
+    t_b6, n_b6 = timed["b6"]
+    Lyr = cfg.num_layers
+    want = {"qpack_ring_step": c["steps"] * Lyr,
+            "kvc_decode_attention": c["steps"] * Lyr,
+            "qpack_prefill_fill": c["prefill_batches"] * Lyr,
+            "flash_attention": c["prefill_batches"] * Lyr,
+            "flash_attention_tc": c["prefill_batches"] * Lyr,
+            "qpack_lane_flush": c["demotions"] - c["shadow_repreempts"]}
+    want.update({k: 0 for k in launches if k not in want})
+    G = cfg.num_heads // cfg.num_kv_heads
+    print(f"phase {label} launches: {json.dumps(launches)} | expected "
+          f"{json.dumps(want)} (the ring step and B5 one a layer a step, the "
+          f"fill and B6 one a layer a prefill batch, the flush one a lane "
+          f"demotion) | B5 by group {json.dumps(groups)} | B6 in prefill: "
+          f"{n_b6} calls, {t_b6:.6f} s device = {t_b6 / t_pre:.4f} of "
+          f"prefill [{tag}]", flush=True)
+    check(c["demotions"] > 0 and c["promotions"] > 0,
+          f"phase {label}: no demotion or promotion")
+    check(launches == want and n_b6 == want["flash_attention"] and
+          all(launches[k] > 0 for k in GQA_STEPS),
+          f"phase {label}: launches {launches} against {want}")
+    check(groups == {G: want["kvc_decode_attention"]},
+          f"phase {label}: B5 launched at groups {groups}, not all at {G}")
+    check(peak < FRONT_PEAK_GIB, f"phase {label}: peak memory {peak:.3f} "
+          "GiB")
+    del eng
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, scfg, params, max_len=SERVE_MAX_LEN)
+    for p in _prompts(scfg.max_running, cfg.vocab_size, SEED + 4):
+        eng.submit(p, max_new_tokens=FRONT_NEW_TOKENS)
+    for _ in range(3):                  # admission, prefill, warm steps
+        eng.step()
+    busy = _profile_line(eng, label, tag, b5_per_step=Lyr)
+    del eng, params
+    launches[f"kvc_decode_attention_g{G}"] = groups.get(G, 0)
+    print(f"phase {label} wall {time.perf_counter() - t0:.3f} s [{tag}]",
+          flush=True)
+    return launches, {"t_pre": t_pre, "t_step": t_step, "wall": wall,
+                      "counters": c, "busy": busy, "peak_gib": peak}
+
+
+class _PrefillRecorder:
+    """Records the (tokens, lens) of every ``serve.engine._prefill_impl``
+    call while it is entered (tensors kept on the card, read afterwards:
+    no sync added)."""
+
+    def __init__(self):
+        from repro_torch.serve import engine as engine_mod
+        self.mod, self.calls = engine_mod, []
+
+    def __enter__(self):
+        self.orig = self.mod._prefill_impl
+
+        def prefill(params, batch, lens, **kw):
+            self.calls.append((batch["tokens"].shape, lens))
+            return self.orig(params, batch, lens, **kw)
+        self.mod._prefill_impl = prefill
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._prefill_impl = self.orig
+
+
+def phase_serve_ssm(dev, tag: str) -> dict:
+    """15d: falcon-mamba-7b at its published config (64 layers, bf16
+    params from the seed, made on the card) served through Engine with
+    phase 7's engine, 16 requests of FRONT_NEW_TOKENS new tokens, prompts
+    seeded multiples of 128 (C10): no B3-B6 launch (no KV cache), every
+    park and resume moving the raw state in full (SSM_PARK_BYTES a lane),
+    every prefill batch an exact-length group; then torch.profiler over
+    PROFILE_STEPS decode steps of 8 lanes."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import describe
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    cfg = _falcon()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    p_bytes = _tree_bytes(params)
+    scfg = ServeConfig(**SERVE_CFG)
+    ssm = cfg.ssm
+    d_in = ssm.expand * cfg.d_model
+    park = cfg.num_layers * (d_in * ssm.d_state * 4 +
+                             (ssm.d_conv - 1) * d_in * 2)
+    check(park == SSM_PARK_BYTES, f"phase 15d: a lane's state is {park} B")
+    prompts = _ssm_prompts(SERVE_REQUESTS, cfg.vocab_size, SEED, ssm.chunk)
+    with _PrefillRecorder() as rec:
+        eng, wall, t_pre, t_step, launches = _serve(
+            cfg, scfg, params, prompts, FRONT_NEW_TOKENS, dev)
+    c = eng.counters
+    n_prompt = sum(len(p) for p in prompts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = D.cache_bytes(eng.cache)
+    groups = []
+    for shape, lens in rec.calls:
+        ln = lens.tolist()
+        real = [n for n in ln if n != 1]        # pad rows have length 1
+        groups.append((shape[1], len(real), shape[0]))
+        check(len(real) >= 1 and all(n == shape[1] for n in real) and
+              shape[0] == 1 << (len(ln) - 1).bit_length(),
+              f"phase 15d: prefill batch {tuple(shape)} with lengths {ln} "
+              "is not an exact-length group of power-of-two rows")
+    resumes = c["promotions"] - SERVE_REQUESTS
+    print(f"phase 15d serve {cfg.name}: {describe(cfg)} ({cfg.param_count()} "
+          f"params, {p_bytes} B = {p_bytes / 2**30:.3f} GiB of bf16 params "
+          f"from seed {SEED}, {t_init:.3f} s) | {SERVE_REQUESTS} requests, "
+          f"prompts {sorted(set(map(len, prompts)))} tokens (multiples of "
+          f"the scan chunk {ssm.chunk}: C10), {FRONT_NEW_TOKENS} new each, "
+          f"{scfg.max_running} lanes, max_len {SERVE_MAX_LEN} | wall "
+          f"{wall:.3f} s | prefill {n_prompt} prompt tokens in {t_pre:.3f} s "
+          f"device = {n_prompt / t_pre:.3f} tokens/s | decode {c['tokens']} "
+          f"tokens in {c['steps']} steps, {t_step:.3f} s device = "
+          f"{c['tokens'] / t_step:.3f} tokens/s, "
+          f"{1e3 * t_step / c['steps']:.3f} ms per step | recurrent state "
+          f"{state / 2**30:.6f} GiB ({state} B, {park} B a lane), peak "
+          f"memory {peak:.3f} GiB [{tag}]", flush=True)
+    print(f"phase 15d counters: {json.dumps(c)} | preempt "
+          f"{c['preempt_bytes']} B = {c['demotions']} demotions x {park}, "
+          f"resume {c['resume_bytes']} B = {resumes} resumes x {park} | "
+          f"prefill batches (length, rows, padded rows): {groups} | "
+          f"launches {json.dumps(launches)} (none expected: no KV cache)",
+          flush=True)
+    check(not any(launches.values()), f"phase 15d: a kernel launched on "
+          f"the SSM path: {launches}")
+    check(c["demotions"] > 0 and resumes > 0 and
+          c["shadow_repreempts"] == 0, "phase 15d: no park or resume")
+    check(c["preempt_bytes"] == c["demotions"] * park and
+          c["resume_bytes"] == resumes * park,
+          f"phase 15d: preempt {c['preempt_bytes']} B and resume "
+          f"{c['resume_bytes']} B are not whole states")
+    check(len(groups) == c["prefill_batches"] and
+          sum(g[1] for g in groups) == SERVE_REQUESTS,
+          f"phase 15d: {len(groups)} prefill batches recorded")
+    del eng
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, scfg, params, max_len=SERVE_MAX_LEN)
+    # a decode step's cost does not depend on the prompt's length (an O(1)
+    # state): one-chunk prompts keep the warm-up prefill short
+    for p in _ssm_prompts(scfg.max_running, cfg.vocab_size, SEED + 4,
+                          ssm.chunk, (1, 2)):
+        eng.submit(p, max_new_tokens=FRONT_NEW_TOKENS)
+    for _ in range(3):
+        eng.step()
+    busy = _profile_line(eng, "15d", tag)
+    del eng, params
+    print(f"phase 15d wall {time.perf_counter() - t0:.3f} s [{tag}]",
+          flush=True)
+    return {"t_pre": t_pre, "t_step": t_step, "wall": wall, "counters": c,
+            "busy": busy, "peak_gib": peak}
+
+
+def _params_to(params, dev):
+    """A copy of a params tree on ``dev``."""
+    if isinstance(params, dict):
+        return {k: _params_to(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_params_to(v, dev) for v in params]
+    return params.to(dev)
+
+
+def phase_ssm_whole(dev, layers: int = 2) -> dict:
+    """15e falcon-mamba: ``layers`` layers at its full widths in float32
+    (TF32 off), the same params on the card and on the CPU: a prefill of
+    two 256-token rows, then WHOLE_STEPS decode steps fed the CPU's greedy
+    tokens. Each card step is fed the CPU's state before it (the conv
+    tail is bf16 in every dtype, as the reference keeps it, so an input
+    within rounding of a bf16 boundary may round either way and move
+    every later step): the prefill's and these steps' logits normwise per
+    row within SSM_WHOLE_TOL. The card's own chained steps are reported
+    beside them (logits error, argmax agreement, conv values one bf16
+    step apart). Then 4 requests (prompts of 128 or 256 tokens) through
+    Engine on each device, 2 lanes, 8 new each: identical generations and
+    counters, no kernel launched."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_falcon(layers), dtype="float32")
+    cpu = torch.device("cpu")
+    params = T.init_params(cfg, seed=SEED + 2, device=cpu)
+    pc = _params_to(params, dev)
+    scfg = ServeConfig(**dict(SERVE_CFG, max_running=2))
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        1, cfg.vocab_size, (2, 2 * cfg.ssm.chunk)).astype(np.int32))
+    _reset_launches()
+    pos = torch.full((2,), tokens.shape[1], dtype=torch.int32)
+
+    def run(p, d, feed=None, states=None):
+        """Logits of the prefill and each step; each step from
+        ``states[t]`` where given, else from the run's own state."""
+        lg, cache = D.prefill(p, {"tokens": tokens.to(d)}, cfg, scfg,
+                              SERVE_MAX_LEN)
+        out, snaps = [lg.float().cpu()], []
+        for t in range(WHOLE_STEPS):
+            if states is not None:
+                for k, v in states[t].items():
+                    cache[k].copy_(v)
+            snaps.append({k: v.clone() for k, v in cache.items()})
+            tok = out[-1].argmax(-1).to(torch.int32) if feed is None \
+                else feed[t]
+            lg, _ = D.decode_step(p, cache, tok.to(d), (pos + t).to(d), cfg,
+                                  scfg)
+            out.append(lg.float().cpu())
+        return out, snaps, cache
+
+    want, snaps, cpu_cache = run(params, cpu)
+    feed = [w.argmax(-1).to(torch.int32) for w in want[:-1]]
+    fed, _, _ = run(pc, dev, feed, snaps)
+    chained, _, card_cache = run(pc, dev, feed)
+
+    def compare(got):
+        err, bad, agree, n = 0.0, 0, 0, 0
+        for a, b in zip(got, want):
+            bound = SSM_WHOLE_TOL * b.abs().amax(dim=-1)
+            diff = (a - b).abs().amax(dim=-1)
+            err = max(err, float(diff.max()))
+            bad += int((diff > bound).sum())
+            agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+            n += b.shape[0]
+        return err, bad, agree, n
+
+    err, bad, agree, n = compare(fed)
+    c_err, c_bad, c_agree, _ = compare(chained)
+    conv_c, conv_w = card_cache["ssm.conv"].cpu().float(), \
+        cpu_cache["ssm.conv"].float()
+    flips = int((conv_c != conv_w).sum())
+    h_err = float((card_cache["ssm.h"].cpu() - cpu_cache["ssm.h"])
+                  .abs().max())
+    prompts = _ssm_prompts(4, cfg.vocab_size, SEED + 2, cfg.ssm.chunk,
+                           SSM_WHOLE_CHUNKS)
+    served = {}
+    for name, p, d in (("cpu", params, cpu), ("card", pc, dev)):
+        eng = Engine(cfg, scfg, p, max_len=SERVE_MAX_LEN, device=d)
+        rids = [eng.submit(q, max_new_tokens=8) for q in prompts]
+        eng.run_until_done(max_steps=400)
+        served[name] = ([eng.result(r) for r in rids], dict(eng.counters))
+        del eng
+    launches = _launch_counts()
+    same_gen = sum(x == y for x, y in zip(served["card"][0],
+                                          served["cpu"][0]))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"phase 15e whole path float32, {cfg.name} {layers} layers at full "
+          f"width, the card vs the CPU (TF32 off): prefill of 2 x "
+          f"{tokens.shape[1]} + {WHOLE_STEPS} decode steps each fed the "
+          f"CPU's state: logits max abs err {err:.8f}, {bad}/{n} rows "
+          f"outside tol {SSM_WHOLE_TOL} * max|CPU row|, argmax {agree}/{n} "
+          f"agree | the card's own chained steps: logits max abs err "
+          f"{c_err:.8f}, {c_bad}/{n} rows outside, argmax {c_agree}/{n} "
+          f"agree, h max abs err {h_err:.8f}, conv values differing "
+          f"{flips} of {conv_w.numel()} | Engine (4 requests of "
+          f"{[len(q) for q in prompts]} tokens, 2 lanes, 8 new): "
+          f"{same_gen}/4 generations identical, counters equal: "
+          f"{served['card'][1] == served['cpu'][1]} "
+          f"({json.dumps(served['card'][1])}) | launches "
+          f"{json.dumps(launches)} | wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    check(bad == 0, f"phase 15e falcon-mamba: {bad} rows of logits outside "
+          "tolerance")
+    check(same_gen == 4 and served["card"][1] == served["cpu"][1],
+          "phase 15e falcon-mamba: Engine on the card differs from the CPU")
+    check(not any(launches.values()), "phase 15e falcon-mamba: a kernel "
+          "launched on the SSM path")
+    del params, pc
+    return {"err": err, "chained_err": c_err, "same_gen": same_gen}
+
+
+def phase_frontend_times(dev, tag: str, lens_l) -> dict:
+    """15f: the kernels at the frontend backbones' shapes (8 lanes): B3's
+    three steps at musicgen's 24 KV heads of 64 (the flush over its 48
+    layers), B5 at musicgen's 24/24 x 64 and chameleon's 64/8 x 128, B6 at
+    both x 8, 4 and 1 rows of 1,024: kernel / eager / plain / library /
+    bound ms."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.kernels import qpack
+    t0 = time.perf_counter()
+    B = SERVE_CFG["max_running"]
+    bits, W, S = SERVE_CFG["kv_rate_bits"], SERVE_CFG["hot_window"], \
+        SERVE_MAX_LEN
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    out = {}
+    _, Hkv, D = FRONT_HEADS["musicgen"]
+    Dp = D * bits // 8
+    pos = torch.tensor(lens_l + W, dtype=torch.int32, device=dev)
+    ring = ring_inputs(B, Hkv, D, bits, bf, bf, gen, dev, W=W, S=S)[:4]
+    ring_args = [ring[0][0], ring[1][0], ring[2][0], ring[0][1], ring[1][1],
+                 ring[2][1], ring[3][0], ring[3][1], pos, pos - W, bits]
+    out["qpack_ring_step_musicgen"] = dict(
+        shape=f"{B} lanes x {Hkv} KV heads x {D}, bf16 ring of {W}, "
+              f"{bits}-bit codes of {S}, every lane evicting",
+        kern=lambda: qpack.ring_step(*ring_args),
+        plain=lambda: qpack.ring_step_plain(*ring_args), lib=None,
+        nbytes=2 * B * Hkv * (6 * D + Dp + 4) + 8 * B, ops=0, reps=200)
+    kvf, leaves, lens1 = fill_inputs(1, 1024, S, W, Hkv, D, bits, bf, [1000],
+                                     gen, dev)
+    out["qpack_prefill_fill_musicgen"] = dict(
+        shape=f"1x1024x{Hkv}x{D} K and V bf16 -> {bits}-bit codes of {S} "
+              f"and a ring of {W} (a prefill layer)",
+        kern=lambda: qpack.prefill_fill(kvf[0], kvf[1], *leaves, lens1, bits),
+        plain=lambda: qpack.prefill_fill_plain(kvf[0], kvf[1], *leaves,
+                                               lens1, bits), lib=None,
+        nbytes=2 * (1024 * Hkv * (2 * D + Dp + 4) + W * Hkv * 2 * D) + 4,
+        ops=0, reps=200)
+    lyr, posf = _musicgen().num_layers, 1000
+    fl = flush_inputs(lyr, B, S, W, Hkv, D, bits, gen, dev)
+    lane = [t[:, 1] for t in fl]
+    cold_f = torch.full((lyr, B), posf - W, dtype=torch.int32, device=dev)
+    out["qpack_lane_flush_musicgen"] = dict(
+        shape=f"lane 1 of {B}: {lyr} layers, a live ring of {W} x {Hkv} x "
+              f"{D} bf16 -> {bits}-bit codes of {S}",
+        kern=lambda: qpack.lane_flush(*lane, cold_f[:, 1], posf, bits),
+        plain=lambda: qpack.lane_flush_plain(*lane, cold_f[:, 1], posf,
+                                             bits), lib=None,
+        nbytes=lyr * (W * Hkv * 2 * (2 * D + Dp + 4) + 8), ops=0, reps=50)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[
+        :, None, None, :]
+    tok = int(lens.sum())
+    Sp = 1024
+    for name, (hq, hkv, D) in FRONT_HEADS.items():
+        G, Dp = hq // hkv, D * bits // 8
+        q = torch.randn((B, hq, D), generator=gen, device=dev).to(bf)
+        (kc, ks), (vc, vs) = (qpack.encode(torch.randn(
+            (B, S, hkv, D), generator=gen, device=dev), bits, D)
+            for _ in range(2))
+        kdq = qpack.decode(kc, ks, bits, D, bf)
+        vdq = qpack.decode(vc, vs, bits, D, bf)
+        ks1, vs1 = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+        out[f"kvc_decode_attention_g{G}"] = dict(
+            shape=f"q {B}x{hq}x{D} bf16 (G {G}, {name}), {bits}-bit KV "
+                  f"{B}x{S}x{hkv}, lengths {lens_l.tolist()}",
+            kern=lambda q=q, a=(kc, ks1, vc, vs1): KA.kvc_decode_partial(
+                q, *a, lens, bits=bits),
+            plain=lambda q=q, a=(kc, ks1, vc, vs1), D=D:
+                KA.kvc_decode_partial_plain(q, *a, lens, bits,
+                                            1.0 / D ** 0.5),
+            lib=lambda q=q, k=kdq, v=vdq: _sdpa(q[:, None], k, v, False,
+                                                mask),
+            nbytes=tok * hkv * 2 * (Dp + 4) + B * hq * D * 2 + B * 4
+            + B * hq * (D + 2) * 4,
+            ops=4 * tok * hq * D, reps=50)
+        qf, kf, vf = (torch.randn((B, Sp, h, D), generator=gen, device=dev)
+                      .to(bf) for h in (hq, hkv, hkv))
+        for rows in (B, 4, 1):
+            q_, k_, v_ = qf[:rows], kf[:rows], vf[:rows]
+            out[f"flash_attention_{name}" +
+                ("" if rows == B else f"_{rows}x{Sp}")] = dict(
+                shape=f"q {rows}x{Sp}x{hq}x{D}, kv {rows}x{Sp}x{hkv}x{D} "
+                      f"bf16 causal",
+                kern=lambda q_=q_, k_=k_, v_=v_: FA.flash_attention(
+                    q_, k_, v_, causal=True),
+                plain=lambda q_=q_, k_=k_, v_=v_: FA.flash_attention_plain(
+                    q_, k_, v_, causal=True),
+                lib=lambda q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, True),
+                nbytes=2 * rows * Sp * D * (2 * hq + 2 * hkv),
+                ops=4 * rows * hq * D * Sp * (Sp + 1) // 2, reps=5)
+    res = _time_rows(out, "15f", tag)
+    print(f"phase 15f wall {time.perf_counter() - t0:.3f} s [{tag}]",
+          flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3508,6 +4133,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_times = phase_moe_times(dev, tag, lens_l)
     print(f"phase 14 wall {time.perf_counter() - t14:.3f} s [{tag}]",
+          flush=True)
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    front_errs = phase_frontend_kernels(dev)
+    torch.cuda.empty_cache()
+    cham_launches, _ = phase_serve_frontend(dev, _chameleon, "15b", tag)
+    torch.cuda.empty_cache()
+    music_launches, _ = phase_serve_frontend(dev, _musicgen, "15c", tag)
+    torch.cuda.empty_cache()
+    phase_serve_ssm(dev, tag)
+    torch.cuda.empty_cache()
+    t15e = time.perf_counter()
+    phase_serve_whole(dev, _chameleon, "15e chameleon")
+    torch.cuda.empty_cache()
+    phase_serve_whole(dev, _musicgen, "15e musicgen")
+    torch.cuda.empty_cache()
+    phase_ssm_whole(dev)
+    torch.cuda.empty_cache()
+    print(f"phase 15e wall {time.perf_counter() - t15e:.3f} s [{tag}]",
+          flush=True)
+    front_lens = np.random.default_rng(SEED).integers(
+        *PROMPT_LENS, size=SERVE_CFG["max_running"]) + \
+        FRONT_NEW_TOKENS // 2 - SERVE_CFG["hot_window"]
+    front_times = phase_frontend_times(dev, tag, front_lens)
+    print(f"phase 15 wall {time.perf_counter() - t15:.3f} s [{tag}]",
           flush=True)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
@@ -3646,6 +4296,48 @@ def main() -> int:
         k.split("_")[-1]: {f: t[f] for f in ("ms", "eager_ms", "library_ms",
                                               "bound_ms")}
         for k, t in moe_times.items() if k.startswith("flash_attention_moe_")}
+    # the frontend backbones (phase 15): launches on serve chameleon (15b)
+    # and serve musicgen (15c); falcon-mamba's path (15d) launches none
+    front_path = {"qpack_ring_step_musicgen": music_launches["qpack_ring_step"],
+                  "qpack_prefill_fill_musicgen":
+                      music_launches["qpack_prefill_fill"],
+                  "qpack_lane_flush_musicgen":
+                      music_launches["qpack_lane_flush"],
+                  "kvc_decode_attention_g1":
+                      music_launches["kvc_decode_attention_g1"],
+                  "kvc_decode_attention_g8":
+                      cham_launches["kvc_decode_attention_g8"],
+                  "flash_attention_musicgen": music_launches["flash_attention"],
+                  "flash_attention_chameleon":
+                      cham_launches["flash_attention"]}
+    for name_, source, replaces in (
+            ("qpack_ring_step_musicgen", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_prefill_fill_musicgen", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_lane_flush_musicgen", "qpack_fixed.cu", "qpack.py:122"),
+            ("kvc_decode_attention_g1", "kvc_attn.cu", "kvc_attn.py:96"),
+            ("kvc_decode_attention_g8", "kvc_attn.cu", "kvc_attn.py:96"),
+            ("flash_attention_musicgen", "flash_attn.cu", "flash_attn.py:72"),
+            ("flash_attention_chameleon", "flash_attn.cu",
+             "flash_attn.py:72")):
+        t, e = front_times[name_], front_errs[name_]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": front_path[name_], "max_abs_err": e["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "path": ("serve chameleon (phase 15b)" if name_.endswith(
+                ("_g8", "_chameleon")) else "serve musicgen (phase 15c)"),
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"]})
+        if name_.startswith("flash_attention_"):
+            kernels[-1]["path_shapes"] = {
+                k.split("_")[-1]: {f: tt[f] for f in (
+                    "ms", "eager_ms", "library_ms", "bound_ms")}
+                for k, tt in front_times.items()
+                if k.startswith(name_ + "_")}
     print(f"total {time.perf_counter() - t_start:.3f} s [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -71,8 +71,8 @@ class PoolConfig:
 
 # ---------------------------------------------------------------------------
 # Model architecture. The port serves the dense and MoE families with
-# GQA/MHA or MLA attention; the SSM sub-config is carried as a field type
-# only (its family waits for its slice, ROADMAP A.6).
+# GQA/MHA or MLA attention and the SSM family (Mamba1); the hybrid family
+# waits for its slice (ROADMAP A.6).
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -137,17 +137,28 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     def param_count(self) -> int:
-        """Parameter count of the dense and MoE families, GQA or MLA
-        attention (the reference's ``ModelConfig.param_count`` for them)."""
-        if self.family not in ("dense", "moe", "vlm", "audio") or \
-                self.attn_kind not in ("gqa", "mla"):
+        """Parameter count of the dense, MoE and SSM families (the
+        reference's ``ModelConfig.param_count`` for them, its approximate
+        Mamba1 count included: the dt rank taken as d_in // 16, no conv
+        or dt bias)."""
+        if self.family == "hybrid" or (self.family != "ssm" and
+                                       self.attn_kind not in ("gqa", "mla")):
             raise NotImplementedError(
                 f"param_count of family {self.family!r} / attention "
-                f"{self.attn_kind!r}: the port has the dense and MoE "
+                f"{self.attn_kind!r}: the port has the dense, MoE and SSM "
                 "families only (ROADMAP A.6)")
         d, v, L = self.d_model, self.vocab_size, self.num_layers
         hd = self.resolved_head_dim
         n = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            ssm = self.ssm or SSMConfig()
+            d_in = ssm.expand * d
+            # in_proj (x, z), conv, x_proj (dt, B, C), dt_proj, out_proj,
+            # A, D
+            return n + L * (d * 2 * d_in + d_in * ssm.d_conv +
+                            d_in * (2 * ssm.d_state + d_in // 16) +
+                            (d_in // 16) * d_in + d_in * d +
+                            d_in * ssm.d_state + d_in)
         if self.attn_kind == "mla" and self.mla is not None:
             m, h = self.mla, self.num_heads
             attn = d * m.q_lora_rank + \

@@ -1,9 +1,10 @@
 """Architecture registry: the reference's ten arch ids and their CLI
 aliases. Each ported arch has a module exporting ``CONFIG`` (the published
 configuration) and ``REDUCED`` (a same-family miniature for CPU tests).
-The port serves the dense family (GQA/MHA and MLA attention) and the MoE
-family (GQA); the other ids raise ``NotImplementedError`` naming the
-ROADMAP item that ports them."""
+The port serves the dense family (GQA/MHA and MLA attention, and the
+frontend backbones chameleon-34b and musicgen-medium), the MoE family
+(GQA) and the SSM family (Mamba1); the hybrid id raises
+``NotImplementedError`` naming the ROADMAP item that ports it."""
 from __future__ import annotations
 
 import importlib
@@ -31,7 +32,8 @@ ALIASES: Dict[str, str] = {
 }
 
 PORTED = ("llama3_8b", "minicpm3_4b", "codeqwen15_7b", "deepseek_7b",
-          "qwen3_moe_235b_a22b", "arctic_480b")
+          "qwen3_moe_235b_a22b", "arctic_480b", "chameleon_34b",
+          "musicgen_medium", "falcon_mamba_7b")
 
 
 def _module(arch: str):
@@ -41,7 +43,7 @@ def _module(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet: ROADMAP A.6 (serving) queues "
-            f"the SSM and hybrid families and the frontend models; "
+            f"the hybrid family; "
             f"ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 

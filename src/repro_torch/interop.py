@@ -12,8 +12,10 @@ leading expander axis.
 
 Model params: the reference's ``init_params`` tree (layers stacked on a
 leading axis, f32 leaves) becomes the port's (a list of per-layer dicts, in
-the model's dtype). Caches: the port's stacked cache as numpy, bf16 leaves
-as float32 (exact).
+the model's dtype; the Mamba1 leaves the reference uses in float32 stay
+float32). Caches: the port's stacked cache as numpy, bf16 leaves as
+float32 (exact); the SSM family's dotted leaves ``ssm.h``/``ssm.conv`` as
+the reference's ``{"ssm": {"h", "conv"}}`` subtree.
 """
 from __future__ import annotations
 
@@ -94,16 +96,21 @@ def _pool_from_arrays(arrays: dict, dev: torch.device) -> Pool:
 def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     """The port's params from the reference ``init_params`` tree (any
     array-likes: numpy, or JAX arrays), cast to ``cfg.dtype`` on
-    ``device``: the same rounding the reference applies at each use."""
+    ``device``: the same rounding the reference applies at each use. A
+    Mamba1 mixer's ``ssm.F32_PARAMS``, which the reference uses in float32
+    without a cast, stay float32."""
     from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.ssm import F32_PARAMS
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
 
-    def t(a):
-        return torch.from_numpy(np.array(a, np.float32)).to(dev).to(dtype)
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev).to(dt)
 
-    def per_layer(sub, i):
-        return {k: per_layer(v, i) if isinstance(v, dict) else t(np.asarray(v)[i])
+    def per_layer(sub, i, keep=frozenset()):
+        return {k: per_layer(v, i, F32_PARAMS if k == "mixer" else keep)
+                if isinstance(v, dict) else
+                t(np.asarray(v)[i], torch.float32 if k in keep else dtype)
                 for k, v in sub.items()}
 
     out = {k: t(v) for k, v in tree.items() if k != "layers"}
@@ -113,26 +120,42 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
 
 
 def cache_to_numpy(cache: dict) -> dict:
-    """A snapshot of a stacked KV cache (copies; bf16 leaves as f32)."""
+    """A snapshot of a stacked cache (copies; bf16 leaves as f32), in the
+    reference's tree: dotted leaves ("ssm.h") nest ({"ssm": {"h": ...}})."""
     out = {}
     for k, v in cache.items():
         v = v.detach().cpu()
         if v.dtype == torch.bfloat16:
             v = v.to(torch.float32)
-        out[k] = v.numpy().copy()
+        *outer, leaf = k.split(".")
+        sub = out
+        for o in outer:
+            sub = sub.setdefault(o, {})
+        sub[leaf] = v.numpy().copy()
     return out
 
 
+# cache leaves held in bf16 (the rings and the SSM conv tail)
+_BF16_LEAVES = ("k_hot", "v_hot", "lat_hot", "ssm.conv")
+
+
 def cache_from_numpy(arrays: dict, device=None) -> dict:
-    """A stacked KV cache from numpy (the reference's leaves, or
-    ``cache_to_numpy``'s): ring leaves become bf16, the rest keep their
-    dtype."""
+    """A stacked cache from numpy (the reference's tree, or
+    ``cache_to_numpy``'s): nested leaves get dotted names, ring leaves and
+    the SSM conv tail become bf16, the rest keep their dtype."""
     dev = resolve_device(device)
     out = {}
-    for k, a in arrays.items():
-        if k.endswith("_hot"):
-            t = torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16)
+
+    def put(name, a):
+        if isinstance(a, dict):
+            for k, v in a.items():
+                put(f"{name}.{k}", v)
+        elif name in _BF16_LEAVES:
+            out[name] = torch.from_numpy(np.array(a, np.float32)).to(
+                torch.bfloat16).to(dev)
         else:
-            t = torch.from_numpy(np.array(a))
-        out[k] = t.to(dev)
+            out[name] = torch.from_numpy(np.array(a)).to(dev)
+
+    for k, a in arrays.items():
+        put(k, a)
     return out

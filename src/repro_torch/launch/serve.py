@@ -7,6 +7,14 @@ from a seeded generator.
       --reduced --requests 8 --new-tokens 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3_moe_235b_a22b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch falcon_mamba_7b --reduced --device cpu
+
+Every arch id but the hybrid zamba2_2p7b runs; the frontend backbones
+(chameleon_34b, musicgen_medium) are fed zero embeddings, as the
+reference's engine feeds them, and falcon_mamba_7b's engine parks raw
+recurrent state (a prompt must be at most its scan chunk long or a
+multiple of it: ROADMAP C10).
 
 A config whose params do not fit in the device's memory (the published
 qwen3-moe and arctic on one card) is refused before anything is

@@ -1,5 +1,6 @@
 """Serving decode path of the port (``repro.models.decode``; the dense
-family with GQA/MHA or MLA attention, the MoE family with GQA attention):
+family with GQA/MHA or MLA attention, the MoE family with GQA attention,
+the SSM family):
 the IBEX-compressed KV cache and the one-token step.
 
 The KV cache is an IBEX pool specialized for append-only data:
@@ -35,6 +36,13 @@ The MoE family (qwen3-moe, arctic) is the GQA path with the experts in
 place of the MLP (``transformer.mlp``): a decode step routes every lane's
 token as one batch, idle lanes included, as the reference does.
 
+The SSM family (falcon-mamba) has no KV cache: its cache is the raw
+recurrent state of every layer (``ssm.h`` [L,B,d_in,N] f32, the scan's
+state, and ``ssm.conv`` [L,B,K-1,d_in] bf16, the conv's left context;
+the reference's ``{"ssm": {"h", "conv"}}`` subtree, with dotted names
+here), which prefill writes and each decode step advances (``models/
+ssm.py``); no kernel runs on this path.
+
 Unlike the reference, whose arrays are immutable, the port updates the
 cache **in place**: ``decode_step`` writes each layer's codes, scales, ring
 and ``cold_len`` into the tensors it was given (and returns the same dict).
@@ -52,6 +60,7 @@ from repro_torch.core.compressor import (dequantize_blocks,
 from repro_torch.kernels import kvc_attn as KA
 from repro_torch.kernels import qpack
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
@@ -196,11 +205,21 @@ def init_mla_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
             "cold_len": z((Lyr, batch), torch.int32)}
 
 
+def init_ssm_cache(cfg: ModelConfig, batch: int,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """The SSM family's cache: every layer's zero Mamba1 state."""
+    st = SSM.mamba1_init_state(cfg, batch, resolve_device(device))
+    return {f"ssm.{k}": v.expand((cfg.num_layers,) + v.shape).clone()
+            for k, v in st._asdict().items()}
+
+
 def init_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
                max_len: int, device=None) -> Dict[str, torch.Tensor]:
-    """Decode cache (GQA/MHA K and V, or MLA's latent). Leading axis =
-    layer."""
+    """Decode cache (GQA/MHA K and V, MLA's latent, or the SSM family's
+    recurrent state). Leading axis = layer."""
     T.check_supported(cfg)
+    if cfg.family == "ssm":
+        return init_ssm_cache(cfg, batch, device)
     if cfg.attn_kind == "mla":
         return init_mla_cache(cfg, scfg, batch, max_len, device)
     return init_gqa_cache(cfg, scfg, batch, max_len, cfg.num_layers, device)
@@ -326,6 +345,15 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
         x = embeds[:, None].to(dtype)
     else:
         x = params["tok_embed"].to(dtype)[tokens.long()][:, None]
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            st = SSM.Mamba1State(cache["ssm.h"][i], cache["ssm.conv"][i])
+            y, new = SSM.mamba1_decode(
+                lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps), st, cfg)
+            x = x + y
+            st.h.copy_(new.h)
+            st.conv.copy_(new.conv)
+        return T.unembed(params, x, cfg)[:, 0], cache
     layer = mla_decode_layer if cfg.attn_kind == "mla" else gqa_decode_layer
     for i, lp in enumerate(params["layers"]):
         x = layer(lp, x, {k: v[i] for k, v in cache.items()}, pos, cfg, scfg)
@@ -349,7 +377,10 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     row's true length for right-padded batches: the ring holds the last W
     real tokens, ``cold_len`` is the real compressed length, and the
     returned logits are each row's last real token's. MLA fills its latent
-    (the latent prefill fill) instead of K and V."""
+    (the latent prefill fill) instead of K and V. The SSM family keeps each
+    layer's state after all S tokens (h_T and the bf16 conv tail of the
+    last K-1 inputs), padded positions included, as the reference does:
+    its engines prefill exact-length groups."""
     T.check_supported(cfg)
     x = T.embed(params, batch, cfg)
     B, S, _ = x.shape
@@ -358,6 +389,17 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     pos = torch.arange(S, device=dev)[None, :]
     lens_arr = (torch.full((B,), S, dtype=torch.int32, device=dev)
                 if lens is None else lens.to(device=dev, dtype=torch.int32))
+    idx = torch.clamp(lens_arr - 1, 0, S - 1).long()
+    if cfg.family == "ssm":
+        cache = init_ssm_cache(cfg, B, dev)
+        for i, lp in enumerate(params["layers"]):
+            y, st = SSM.mamba1_prefill(
+                lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+            x = x + y
+            cache["ssm.h"][i] = st.h
+            cache["ssm.conv"][i] = st.conv
+        x_last = x[torch.arange(B, device=dev), idx][:, None]
+        return T.unembed(params, x_last, cfg)[:, 0], cache
     mla = cfg.attn_kind == "mla"
     cache = init_cache(cfg, scfg, B, max_len, dev)
     for k in ("lat_scales",) if mla else ("k_scales", "v_scales"):
@@ -391,6 +433,5 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                                            "v_codes", "v_scales", "v_hot")),
              lens_arr, bits)
 
-    idx = torch.clamp(lens_arr - 1, 0, S - 1).long()
     x_last = x[torch.arange(B, device=dev), idx][:, None]          # [B,1,d]
     return T.unembed(params, x_last, cfg)[:, 0], cache

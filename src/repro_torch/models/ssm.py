@@ -1,0 +1,209 @@
+"""Selective state-space layers of the port (``repro.models.ssm``, its
+Mamba1 half: falcon-mamba-7b).
+
+Prefill runs a chunked scan: a Python loop over time chunks carrying the
+[B, d_in, N] state, with a log-depth (Hillis-Steele) scan inside each
+chunk. Every [B, chunk, d_in, N] operand (the decay, the dt*x (x) B outer
+product, the state history) lives only while its chunk runs, and C
+contracts N away before the chunk's output is kept; at falcon-mamba's
+widths one batch row of a chunk is 128 x 8192 x 16 x 4 B = 64 MiB. Decode
+is the O(1)-state recurrence (no KV cache).
+
+A prompt length T must be at most the chunk or a multiple of it: the
+reference asserts so (``ssm._chunked_ssm_scan_out``), and the port keeps
+that refusal (ROADMAP C10) with an error that names the rule.
+
+The scan is plain PyTorch: the JAX package has no TPU kernel here.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.types import ModelConfig, SSMConfig
+from repro_torch.models.layers import init_dense
+
+Params = Dict[str, Any]
+
+# Mamba1 params the reference uses in float32 without a cast to the
+# activation dtype: they stay float32 in every cfg.dtype
+F32_PARAMS = frozenset({"conv_w", "conv_b", "dt_bias", "A_log", "D"})
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return max(1, cfg.d_model // 16)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 init_state: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv. x [B,T,C], w [C,K], b [C]; init_state
+    [B,K-1,C] supplies the left context (decode), zeros otherwise. Sums
+    the K taps in f32 in order, then silu, then x's dtype."""
+    B, T, C = x.shape
+    K = w.shape[1]
+    if init_state is None:
+        init_state = torch.zeros((B, K - 1, C), dtype=x.dtype,
+                                 device=x.device)
+    xp = torch.cat([init_state.to(torch.float32), x.to(torch.float32)],
+                   dim=1)
+    wf = w.to(torch.float32)
+    out = xp[:, 0:T] * wf[:, 0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + T] * wf[:, i]
+    return F.silu(out + b.to(torch.float32)).to(x.dtype)
+
+
+def _scan_chunk(d: torch.Tensor, i: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along axis 1 of (decay, inp) pairs under the
+    reference's combine, (da, ia) . (db, ib) = (da db, db ia + ib), in
+    log2(T) Hillis-Steele passes (each step t combines with t - s)."""
+    T = i.shape[1]
+    d2, i2 = torch.empty_like(d), torch.empty_like(i)
+    s = 1
+    while s < T:
+        d2[:, :s] = d[:, :s]
+        i2[:, :s] = i[:, :s]
+        torch.mul(d[:, s:], d[:, :-s], out=d2[:, s:])
+        torch.addcmul(i[:, s:], d[:, s:], i[:, :-s], out=i2[:, s:])
+        d, d2, i, i2 = d2, d, i2, i
+        s *= 2
+    return d, i
+
+
+def _chunked_ssm_scan_out(ins: Sequence[torch.Tensor], h0: torch.Tensor,
+                          make_decay_inp: Callable, contract: Callable,
+                          chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = decay_t h_{t-1} + inp_t along axis 1 of the [B, T, ...] tensors
+    of ``ins``, chunk by chunk: ``decay, inp = make_decay_inp(ins_chunk)``
+    builds the chunk's [B, chunk, ..., N] operands, the scan runs inside the
+    chunk, and ``contract(h_chunk, ins_chunk)`` reduces N away. Returns
+    (y [B, T, out...], h_T)."""
+    T = ins[0].shape[1]
+    c = min(chunk, T)
+    if T % c:
+        raise ValueError(
+            f"{T} steps: the chunked scan takes T at most the chunk ({chunk}) "
+            f"or a multiple of it, as the reference's _chunked_ssm_scan_out "
+            f"asserts (ROADMAP C10)")
+    h, ys = h0, []
+    for t0 in range(0, T, c):
+        xs = tuple(a[:, t0:t0 + c] for a in ins)
+        dd, ii = _scan_chunk(*make_decay_inp(xs))
+        h_all = dd * h[:, None] + ii                     # [B, c, ..., N]
+        h = h_all[:, -1]
+        ys.append(contract(h_all, xs))
+        del dd, ii, h_all
+    return torch.cat(ys, dim=1), h
+
+
+# ---------------------------------------------------------------------------
+# Mamba1
+# ---------------------------------------------------------------------------
+
+class Mamba1State(NamedTuple):
+    h: torch.Tensor        # [B, d_in, N] f32
+    conv: torch.Tensor     # [B, K-1, d_in] bf16
+
+
+def mamba1_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+                device) -> Params:
+    """A Mamba1 mixer's params from ``gen`` (the reference's
+    distributions): the projections in ``dtype``, ``F32_PARAMS`` in f32."""
+    ssm = cfg.ssm or SSMConfig()
+    d = cfg.d_model
+    d_in = ssm.expand * d
+    r = _dt_rank(cfg)
+    f32 = torch.float32
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=f32, device=device)
+
+    return {
+        "in_proj": init_dense((d, 2 * d_in), gen, dtype, device),
+        "conv_w": init_dense((d_in, ssm.d_conv), gen, f32, device, scale=0.5),
+        "conv_b": full((d_in,), 0.0),
+        "x_proj": init_dense((d_in, r + 2 * ssm.d_state), gen, dtype, device),
+        "dt_proj": init_dense((r, d_in), gen, dtype, device, scale=r ** -0.5),
+        "dt_bias": full((d_in,), -4.6),                 # softplus ~ 0.01
+        "A_log": torch.log(torch.arange(1, ssm.d_state + 1, dtype=f32,
+                                        device=device)).repeat(d_in, 1),
+        "D": full((d_in,), 1.0),
+        "out_proj": init_dense((d_in, d), gen, dtype, device,
+                               scale=d_in ** -0.5)}
+
+
+def _mamba1_core(p: Params, xconv: torch.Tensor, z: torch.Tensor,
+                 h0: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan of the conv output and the gate: (y [B,T,d],
+    h_T [B,d_in,N])."""
+    ssm = cfg.ssm or SSMConfig()
+    r, N = _dt_rank(cfg), ssm.d_state
+    dt_ = xconv.dtype
+    dbc = xconv @ p["x_proj"].to(dt_)
+    dt, Bc, Cc = dbc.split([r, N, N], dim=-1)
+    dt = F.softplus((dt @ p["dt_proj"].to(dt_)).to(torch.float32) +
+                    p["dt_bias"])                              # [B,T,d_in]
+    A = -torch.exp(p["A_log"])                                 # [d_in, N]
+
+    def make_di(xs):
+        dtc, xc, bc, _ = xs
+        decay = torch.exp(dtc[..., None] * A)                  # [B,c,d,N]
+        inp = (dtc * xc.to(torch.float32))[..., None] * \
+            bc.to(torch.float32)[:, :, None, :]
+        return decay, inp
+
+    y, hT = _chunked_ssm_scan_out(
+        (dt, xconv, Bc, Cc.to(torch.float32)), h0, make_di,
+        lambda h, xs: torch.einsum("btdn,btn->btd", h, xs[3]), ssm.chunk)
+    y = y + p["D"] * xconv.to(torch.float32)
+    y = (y * F.silu(z.to(torch.float32))).to(dt_)
+    return y @ p["out_proj"].to(dt_), hT
+
+
+def _mamba1_in(p: Params, u: torch.Tensor):
+    """in_proj, split: (x, z) [B,T,d_in] each."""
+    return (u @ p["in_proj"].to(u.dtype)).chunk(2, dim=-1)
+
+
+def mamba1_prefill(p: Params, u: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, Mamba1State]:
+    """A full sequence u [B,T,d] from a zero state: (y [B,T,d], the state
+    after it: h_T and the bf16 conv tail of the last K-1 inputs)."""
+    ssm = cfg.ssm or SSMConfig()
+    B = u.shape[0]
+    x, z = _mamba1_in(p, u)
+    xc = _causal_conv(x, p["conv_w"], p["conv_b"])
+    h0 = torch.zeros((B, ssm.expand * cfg.d_model, ssm.d_state),
+                     dtype=torch.float32, device=u.device)
+    y, hT = _mamba1_core(p, xc, z, h0, cfg)
+    return y, Mamba1State(hT, x[:, -(ssm.d_conv - 1):].to(torch.bfloat16))
+
+
+def mamba1_apply_train(p: Params, u: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """The full-sequence form: u [B,T,d] -> y [B,T,d]."""
+    return mamba1_prefill(p, u, cfg)[0]
+
+
+def mamba1_init_state(cfg: ModelConfig, batch: int, device) -> Mamba1State:
+    ssm = cfg.ssm or SSMConfig()
+    d_in = ssm.expand * cfg.d_model
+    return Mamba1State(
+        h=torch.zeros((batch, d_in, ssm.d_state), dtype=torch.float32,
+                      device=device),
+        conv=torch.zeros((batch, ssm.d_conv - 1, d_in), dtype=torch.bfloat16,
+                         device=device))
+
+
+def mamba1_decode(p: Params, u: torch.Tensor, state: Mamba1State,
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, Mamba1State]:
+    """u [B,1,d] one token: (y [B,1,d], the next state; new tensors)."""
+    x, z = _mamba1_in(p, u)
+    xc = _causal_conv(x, p["conv_w"], p["conv_b"], init_state=state.conv)
+    y, hT = _mamba1_core(p, xc, z, state.h, cfg)
+    conv = torch.cat([state.conv[:, 1:], x.to(state.conv.dtype)], dim=1)
+    return y, Mamba1State(hT, conv)

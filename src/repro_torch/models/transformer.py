@@ -1,11 +1,14 @@
 """The language model of the port (``repro.models.transformer``): the
-dense family with GQA/MHA or MLA attention and the MoE family with GQA
-attention (``models/moe.py`` in place of the MLP): init, embedding,
-unembedding and the full-sequence forward.
+dense family with GQA/MHA or MLA attention (the frontend backbones
+chameleon-34b and musicgen-medium among them: the batch may supply
+embeddings instead of tokens), the MoE family with GQA attention
+(``models/moe.py`` in place of the MLP) and the SSM family (Mamba1 mixer
+layers, ``models/ssm.py``): init, embedding, unembedding and the
+full-sequence forward.
 
 The reference stacks layers and walks them with ``lax.scan``; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python loop.
-The SSM and hybrid families wait for their slices (ROADMAP A.6).
+The hybrid family waits for its slice (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -13,21 +16,26 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.common.types import ModelConfig
+from repro_torch.common.types import ModelConfig, SSMConfig
 from repro_torch.common.utils import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family, cfg.attn_kind) not in (("dense", "gqa"), ("dense", "mla"),
-                                           ("moe", "gqa")):
+    kind = (cfg.ssm or SSMConfig()).kind
+    if (cfg.family, cfg.attn_kind) not in (
+            ("dense", "gqa"), ("dense", "mla"), ("moe", "gqa"),
+            ("vlm", "gqa"), ("audio", "gqa"), ("ssm", "none")) or \
+            (cfg.family == "ssm" and kind != "mamba1"):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attn_kind!r}: the port "
-            "serves the dense family, GQA or MLA attention, and the MoE "
-            "family with GQA attention (ROADMAP A.6)")
+            "serves the dense family (the vlm and audio backbones too), GQA "
+            "or MLA attention, the MoE family with GQA attention and the "
+            "SSM family with Mamba1 mixers (ROADMAP A.6)")
 
 
 def mlp(lp: Params, h: torch.Tensor, cfg: ModelConfig):
@@ -53,6 +61,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_dense((d, cfg.vocab_size), gen, dtype, dev,
                                          scale=0.02)
+    if cfg.family == "ssm":
+        params["layers"] = [
+            {"mixer": SSM.mamba1_init(gen, cfg, dtype, dev),
+             "ln": torch.ones((d,), dtype=dtype, device=dev)}
+            for _ in range(cfg.num_layers)]
+        return params
     params["layers"] = [
         {"attn": (L.mla_init if cfg.attn_kind == "mla" else L.gqa_init)(
             gen, cfg, dtype, dev),
@@ -81,9 +95,14 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig):
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             attn_impl: str = "auto"):
     """Full-sequence forward. Returns (logits [B,S,V], aux loss: the sum of
-    the MoE layers' load-balance losses, 0 for the dense family)."""
+    the MoE layers' load-balance losses, 0 for the other families)."""
     check_supported(cfg)
     x = embed(params, batch, cfg)
+    if cfg.family == "ssm":
+        for lp in params["layers"]:
+            x = x + SSM.mamba1_apply_train(
+                lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+        return unembed(params, x, cfg), torch.zeros((), dtype=torch.float32)
     attn = L.mla_apply_train if cfg.attn_kind == "mla" else L.gqa_apply_train
     aux = 0.0
     for lp in params["layers"]:

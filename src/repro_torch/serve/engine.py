@@ -1,6 +1,6 @@
 """Continuous-batching serving engine with IBEX-managed KV residency
-(PyTorch port of ``repro.serve.engine``, dense models: GQA/MHA K and V, or
-MLA's latent cache).
+(PyTorch port of ``repro.serve.engine``: GQA/MHA K and V, MLA's latent
+cache, or the SSM family's recurrent state).
 
   * running requests occupy decode *lanes* (batch slots of ``decode_step``):
     their recent tokens sit uncompressed in the hot ring (promoted region),
@@ -29,7 +29,13 @@ also counts in ``common.contracts.SYNCS``.
 
 **Prefill batching.** Fresh requests admitted in the same step are
 prefilled together in power-of-two length buckets (right-padded; the
-prefill's ``lens`` keeps padded positions out of the valid range).
+prefill's ``lens`` keeps padded positions out of the valid range). The
+SSM family's recurrent state cannot take right-padding: its requests are
+grouped by exact length (rows still padded to a power of two).
+
+**SSM state.** An SSM lane has no compressed form: preemption parks its
+raw recurrent state (``ssm.*`` leaves, no quantize, no flush) and resume
+installs it back; both move the state in full (``_moved_bytes``).
 
 The cache is updated in place (``models/decode.py``). ``modeled_time``
 prices the counters with ``simx.time``; the reference's telemetry hook
@@ -110,8 +116,11 @@ def _demote_lane_impl(lane_cache, pos: int, *, scfg: ServeConfig):
     quantized into the codes region, in place (the lane flush; the lane's
     slice is parked right after and rewritten whole before it is read
     again), and cold_len advances to ``pos`` (a new tensor). An MLA cache
-    flushes its one latent stream (the latent lane flush)."""
+    flushes its one latent stream (the latent lane flush); an SSM cache
+    passes through raw."""
     out = dict(lane_cache)
+    if "cold_len" not in out:
+        return out
     kernel = resolve_quantize_impl(scfg.quantize_impl,
                                    out["cold_len"].device) == "kernel"
     if "lat_hot" in out:
@@ -147,13 +156,16 @@ def _lanes_install(cache, lanes: torch.Tensor, sub_cache) -> None:
 
 def _moved_bytes(parked: Dict[str, Any], n_tokens: int, max_len: int) -> int:
     """Bytes a park/restore moves: the compressed payload (codes + scales)
-    of ``n_tokens`` tokens (the modeled CXL traffic of the motion)."""
+    of ``n_tokens`` tokens, plus the SSM family's raw recurrent state in
+    full (no compressed form, no append-only prefix): the modeled CXL
+    traffic of the motion."""
     total = 0
     for k, v in parked.items():
-        if k == "cold_len":
-            continue
         nbytes = v.numel() * v.element_size()
-        total += (nbytes // max_len) * min(int(n_tokens), max_len)
+        if k.startswith("ssm."):
+            total += nbytes
+        elif k != "cold_len":
+            total += (nbytes // max_len) * min(int(n_tokens), max_len)
     return total
 
 
@@ -309,6 +321,8 @@ class Engine(_EngineBase):
         self.state = {"tok": z(torch.int32), "pos": z(torch.int32),
                       "remaining": z(torch.int32), "active": z(torch.bool),
                       "ref": z(torch.bool)}
+        # recurrent state cannot take right-padding: exact-length groups
+        self._bucketed = cfg.family not in ("ssm", "hybrid")
 
     def _set_lane_state(self, lane: int, tok: int, pos: int, remaining: int
                         ) -> None:
@@ -328,6 +342,8 @@ class Engine(_EngineBase):
     # -- scheduling ---------------------------------------------------------
 
     def _bucket(self, n: int) -> int:
+        if not self._bucketed:
+            return n
         return min(max(next_pow2(n), 8), self.max_len)
 
     def _admit(self) -> None:

@@ -5,7 +5,9 @@ MLA latent forms; within the reference's tolerance for attention,
 including B5's latent form and B6 at MLA's head dims 96/64), the payload
 pool's whole path with the kernels against the plain compressor, and a
 small llama3 and a 2-layer minicpm3 at full width served with the kernels
-against the plain versions. Needs no JAX; every test carries the ``gpu``
+against the plain versions; the frontend backbones' shapes (B3's steps at
+24 KV heads of 64, B5 and B6 at 24/24 x 64 and 64/8 x 128), and REDUCED
+falcon-mamba on the card against the CPU. Needs no JAX; every test carries the ``gpu``
 marker and skips where no card is present:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -178,7 +180,7 @@ def _ring_case(cuda, B, H, D, bits, ring, new, seed):
 @pytest.mark.parametrize("ring,new", [(torch.bfloat16, torch.bfloat16),
                                       (torch.bfloat16, torch.float32),
                                       (torch.float32, torch.float32)])
-@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16)])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64)])
 def test_ring_step_vs_plain(cuda, scenario, bits, ring, new, H, D):
     """The ring step kernel against its plain version, in place, byte for
     byte: codes, scales and both rings."""
@@ -350,7 +352,7 @@ def _fill_case(cuda, B, S, L, W, H, D, bits, dtype, lens, seed):
 
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16)])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64)])
 @pytest.mark.parametrize("S,W,lens", [(40, 8, [40, 40]),
                                       (40, 8, [5, 40, 1, 23]),
                                       (6, 8, [6, 3])])
@@ -395,7 +397,7 @@ def _flush_case(cuda, Lyr, B, T, W, H, D, bits, cold, seed):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16)])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64)])
 @pytest.mark.parametrize("T,W,pos,cold", [
     (40, 8, 30, [0, 22, 25]), (40, 8, 21, [18, 20, 13]),
     (40, 8, 5, [0, 0, 3]), (40, 8, 17, [17, 17, 17]),
@@ -487,7 +489,8 @@ def test_kvc_attn_vs_plain(cuda, bits, D, G):
 @pytest.mark.parametrize("Sq,Sk,Hq,Hkv,D", [
     (1, 1, 4, 4, 64), (37, 37, 4, 1, 64), (128, 128, 8, 2, 128),
     (24, 200, 4, 2, 128), (512, 512, 32, 8, 128), (100, 100, 8, 1, 128),
-    (1000, 1000, 16, 2, 64), (2048, 2048, 8, 1, 128)])
+    (1000, 1000, 16, 2, 64), (2048, 2048, 8, 1, 128),
+    (1024, 1024, 24, 24, 64), (1000, 1000, 64, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attn_vs_plain(cuda, causal, Sq, Sk, Hq, Hkv, D, dtype):
     """bf16 runs on the tensor cores (launches_tc counts it), f32 on the
@@ -542,6 +545,38 @@ def test_kvc_attn_split_boundaries_and_repeats(cuda, bits, D, G):
                                              sm)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("Hq,Hkv,D", [(24, 24, 64), (64, 8, 128)])
+def test_kvc_attn_frontend_shapes(cuda, bits, Hq, Hkv, D):
+    """B5 at the frontend backbones' heads (musicgen-medium's 24/24 x 64,
+    a group of 1; chameleon-34b's 64/8 x 128, a group of 8), bf16 q, at
+    lengths around its chunk of S 2,048: within 2e-2 of the plain
+    version, a second call bit-identical, one launch a call at its
+    group."""
+    from repro_torch.kernels import kvc_attn as KA
+    c, S = KA.CHUNK, 2048
+    lengths = [0, 1, c - 1, c, c + 1, S]
+    B = len(lengths)
+    g = torch.Generator(device=cuda).manual_seed(Hq + bits)
+    q = torch.randn((B, Hq, D), generator=g, device=cuda).to(torch.bfloat16)
+    kc, ks = qpack.encode(torch.randn((B, S, Hkv, D), generator=g,
+                                      device=cuda), bits, D)
+    vc, vs = qpack.encode(torch.randn((B, S, Hkv, D), generator=g,
+                                      device=cuda), bits, D)
+    ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    KA.group_launches.clear()
+    got = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
+    again = KA.kvc_decode_partial(q, kc, ks, vc, vs, lens, bits=bits)
+    want = KA.kvc_decode_partial_plain(q, kc, ks, vc, vs, lens, bits,
+                                       1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        torch.testing.assert_close(a, w, atol=2e-2, rtol=2e-2)
+    assert KA.group_launches == {Hq // Hkv: 2}
 
 
 def test_kvc_attn_refuses_groups_past_sixteen(cuda):
@@ -619,6 +654,55 @@ def test_small_llama_serves_alike_with_kernels_and_plain(cuda):
     assert all(n > 0 for n in out["kernel"][1][:-1])
     assert out["kernel"][1][-1] == 0
     assert out["plain"][1] == [0] * 6
+
+
+def test_small_falcon_mamba_on_the_card_matches_the_cpu(cuda):
+    """REDUCED falcon-mamba (float32, TF32 off) on the card against the
+    same params on the CPU: prefill and decode logits within 1e-4, the
+    states alike, and the same generations through Engine (the SSM path
+    launches no kernel)."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("falcon_mamba_7b"),
+                              dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    pc = {k: ([{kk: {a: b.to(cuda) for a, b in vv.items()}
+                if isinstance(vv, dict) else vv.to(cuda)
+                for kk, vv in lp.items()} for lp in v]
+              if k == "layers" else v.to(cuda)) for k, v in params.items()}
+    scfg = ServeConfig(max_running=2, hot_window=16, kv_rate_bits=4)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 96)).astype(np.int32))
+    lg, cache = D.prefill(params, {"tokens": tokens}, cfg, scfg, 256)
+    lgc, cachec = D.prefill(pc, {"tokens": tokens.to(cuda)}, cfg, scfg, 256)
+    tok, pos = lg.argmax(-1).to(torch.int32), torch.full((2,), 96,
+                                                          dtype=torch.int32)
+    for _ in range(3):
+        torch.testing.assert_close(lgc.cpu(), lg, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(cachec["ssm.h"].cpu(), cache["ssm.h"],
+                                   atol=1e-4, rtol=1e-4)
+        lg, _ = D.decode_step(params, cache, tok, pos, cfg, scfg)
+        lgc, _ = D.decode_step(pc, cachec, tok.to(cuda), pos.to(cuda), cfg,
+                               scfg)
+        tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (32, 64, 32, 96, 20)]
+    out = []
+    n0 = (KA.launches, FA.launches, qpack.ring_step_launches)
+    for p_, dev in ((params, "cpu"), (pc, cuda)):
+        eng = Engine(cfg, scfg, p_, max_len=256, device=dev)
+        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_done(max_steps=400)
+        out.append(([eng.result(r) for r in rids], eng.counters))
+    assert out[0] == out[1]
+    assert (KA.launches, FA.launches, qpack.ring_step_launches) == n0
 
 
 # -- MLA: the latent forms of B3's steps, B5's latent form, B6 at 96/64 ------

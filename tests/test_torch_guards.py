@@ -83,13 +83,37 @@ def test_unported_arch_raises():
     assert len(ARCH_IDS) == 10
     assert get_config("llama3-8b").num_layers == 32
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        get_config("falcon_mamba_7b")
+        get_config("zamba2_2p7b")
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "arctic_480b"])
+def test_check_supported_refuses_the_hybrid_family():
+    """The hybrid family (zamba2's Mamba2 groups with shared attention)
+    waits for its slice: the model, its cache and its param count raise
+    naming the ROADMAP item."""
+    from repro.configs import get_config as jget_config
+    from repro_torch.common.types import ModelConfig, SSMConfig
+    from repro_torch.models import transformer as T
+    import dataclasses
+    ref = jget_config("zamba2_2p7b")
+    cfg = ModelConfig(**{k: v for k, v in dataclasses.asdict(ref).items()
+                         if k not in ("moe", "mla", "ssm")},
+                      ssm=SSMConfig(**dataclasses.asdict(ref.ssm)))
+    assert cfg.family == "hybrid"
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        T.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        cfg.param_count()
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        T.check_supported(dataclasses.replace(
+            cfg, family="ssm", attn_kind="none"))   # Mamba2 mixers
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "arctic_480b",
+                                  "chameleon_34b", "musicgen_medium",
+                                  "falcon_mamba_7b"])
 def test_moe_param_counts_match_reference(arch):
-    """The MoE configs and their parameter counts (all and active) are the
-    reference's, published and REDUCED."""
+    """The MoE, frontend and SSM configs and their parameter counts (all
+    and active) are the reference's, published and REDUCED."""
     import dataclasses
     from repro import configs as JC
     from repro_torch import configs as TC

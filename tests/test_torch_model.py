@@ -1,7 +1,9 @@
 """The port's dense models against the reference on REDUCED llama3-8b
-(2 layers, d 256, 4 heads, 2 KV heads, vocab 512), and on REDUCED
+(2 layers, d 256, 4 heads, 2 KV heads, vocab 512), on REDUCED
 codeqwen1.5-7b and deepseek-7b (the dense MHA configs: 4 heads, 4 KV
-heads, group 1), params made by the
+heads, group 1), and on the frontend backbones REDUCED chameleon-34b (8/2
+heads of 32) and musicgen-medium (4/4 heads of 32), whose batches supply
+seeded embeddings instead of tokens; params made by the
 reference's ``init_params(PRNGKey(0))`` and carried across with
 ``interop.params_from_numpy``: ``forward``, ``prefill`` (right-padded, with
 ``lens``) and three ``decode_step``s.
@@ -51,7 +53,11 @@ MAX_FLIPS = 1e-2
     pytest.param(("llama3_8b", "bfloat16"), id="bfloat16"),
     pytest.param(("llama3_8b", "float32"), id="float32"),
     pytest.param(("codeqwen15_7b", "bfloat16"), id="codeqwen15_7b-bfloat16"),
-    pytest.param(("deepseek_7b", "float32"), id="deepseek_7b-float32")])
+    pytest.param(("deepseek_7b", "float32"), id="deepseek_7b-float32"),
+    pytest.param(("chameleon_34b", "bfloat16"), id="chameleon_34b-bfloat16"),
+    pytest.param(("chameleon_34b", "float32"), id="chameleon_34b-float32"),
+    pytest.param(("musicgen_medium", "float32"),
+                 id="musicgen_medium-float32")])
 def setup(request):
     arch, dtype = request.param
     jcfg = dataclasses.replace(jget_reduced(arch), dtype=dtype)
@@ -63,7 +69,28 @@ def setup(request):
     rng = np.random.default_rng(0)
     tokens = rng.integers(1, cfg.vocab_size, (2, S)).astype(np.int32)
     tokens[1, LENS[1]:] = 0
-    return dtype, jcfg, cfg, jparams, params, tokens
+    # the frontend stub's input: embeddings for the prompt and each of the
+    # three decode steps (None: the model reads tokens)
+    embeds = None if cfg.frontend == "none" else rng.standard_normal(
+        (2, S + 3, cfg.d_model)).astype(np.float32)
+    return dtype, jcfg, cfg, jparams, params, tokens, embeds
+
+
+def _batch(tokens, embeds, jax_side: bool) -> dict:
+    """The prefill batch: tokens, and the prompt's embeddings if any."""
+    conv = jnp.asarray if jax_side else torch.from_numpy
+    out = {"tokens": conv(tokens)}
+    if embeds is not None:
+        out["embeds"] = conv(np.ascontiguousarray(embeds[:, :S]))
+    return out
+
+
+def _step_embeds(embeds, t: int, jax_side: bool):
+    """Decode step t's embeddings [B, d], or None."""
+    if embeds is None:
+        return None
+    e = np.ascontiguousarray(embeds[:, S + t])
+    return jnp.asarray(e) if jax_side else torch.from_numpy(e)
 
 
 def _close(got: torch.Tensor, want, tol: float) -> None:
@@ -73,10 +100,10 @@ def _close(got: torch.Tensor, want, tol: float) -> None:
 
 
 def test_forward_matches(setup):
-    dtype, jcfg, cfg, jparams, params, tokens = setup
-    got, _ = TT.forward(params, {"tokens": torch.from_numpy(tokens)}, cfg)
+    dtype, jcfg, cfg, jparams, params, tokens, embeds = setup
+    got, _ = TT.forward(params, _batch(tokens, embeds, False), cfg)
     want, _ = jax.jit(functools.partial(JT.forward, cfg=jcfg))(
-        jparams, {"tokens": jnp.asarray(tokens)})
+        jparams, _batch(tokens, embeds, True))
     _close(got, want, TOLS[dtype])
 
 
@@ -122,29 +149,31 @@ def test_prefill_and_decode_match(setup):
     cache (so a code flipped in an earlier step cannot leak into the next
     step's logits); the port's own cache, chained through the three steps,
     is compared after them."""
-    dtype, jcfg, cfg, jparams, params, tokens = setup
+    dtype, jcfg, cfg, jparams, params, tokens, embeds = setup
     tol = TOLS[dtype]
     lens = np.asarray(LENS, np.int32)
-    lg, cache = TD.prefill(params, {"tokens": torch.from_numpy(tokens)}, cfg,
+    lg, cache = TD.prefill(params, _batch(tokens, embeds, False), cfg,
                            SCFG, MAX_LEN, lens=torch.from_numpy(lens))
     jlg, jcache = jax.jit(functools.partial(
         JD.prefill, cfg=jcfg, scfg=JSCFG, max_len=MAX_LEN))(
-            jparams, {"tokens": jnp.asarray(tokens)}, lens=jnp.asarray(lens))
+            jparams, _batch(tokens, embeds, True), lens=jnp.asarray(lens))
     _close(lg, jlg, tol)
     _compare_caches(cache, jcache, cfg, tol)
 
     step = jax.jit(functools.partial(JD.decode_step, cfg=jcfg, scfg=JSCFG))
     tok = np.asarray(jnp.argmax(jlg, axis=-1), np.int32)
     pos = lens.copy()
-    for _ in range(3):
+    for t in range(3):
         fed = interop.cache_from_numpy(
             jax.tree_util.tree_map(np.asarray, jcache), device="cpu")
+        e = _step_embeds(embeds, t, False)
         lg, _ = TD.decode_step(params, fed, torch.tensor(tok),
-                               torch.tensor(pos), cfg, SCFG)
+                               torch.tensor(pos), cfg, SCFG, e)
         TD.decode_step(params, cache, torch.tensor(tok), torch.tensor(pos),
-                       cfg, SCFG)
+                       cfg, SCFG, e)
         jlg, jcache = step(jparams, jcache, jnp.asarray(tok),
-                           jnp.asarray(pos))
+                           jnp.asarray(pos),
+                           embeds=_step_embeds(embeds, t, True))
         _close(lg, jlg, tol)
         _compare_caches(fed, jcache, cfg, tol)
         tok = np.asarray(jnp.argmax(jlg, axis=-1), np.int32)
@@ -157,15 +186,16 @@ def test_paper_mode_decode_matches_fused(setup):
     (B5) read the same compressed prefix: their logits agree within the
     dtype's bound, and in bf16 the paper path rounds the prefix to bf16
     first, exactly as the reference's does."""
-    dtype, _, cfg, _, params, tokens = setup
+    dtype, _, cfg, _, params, tokens, embeds = setup
     lens = torch.tensor(LENS, dtype=torch.int32)
     out = []
     for fused in (True, False):
         scfg = dataclasses.replace(SCFG, fused_dequant_attention=fused)
-        lg, cache = TD.prefill(params, {"tokens": torch.from_numpy(tokens)},
+        lg, cache = TD.prefill(params, _batch(tokens, embeds, False),
                                cfg, scfg, MAX_LEN, lens=lens)
         tok = lg.argmax(dim=-1).to(torch.int32)
-        lg, _ = TD.decode_step(params, cache, tok, lens.clone(), cfg, scfg)
+        lg, _ = TD.decode_step(params, cache, tok, lens.clone(), cfg, scfg,
+                               _step_embeds(embeds, 0, False))
         out.append(lg)
     _close(out[0], out[1].to(torch.float32).numpy(), 2e-2)
     assert qpack.decode_launches == 0          # CPU: plain versions only

@@ -92,14 +92,20 @@ def test_engine_matches_reference(reference, params, name, engine_cls):
                                        c["step_syncs"])
 
 
-@pytest.mark.parametrize("arch", ["codeqwen15_7b", "deepseek_7b"])
+@pytest.mark.parametrize("arch", ["codeqwen15_7b", "deepseek_7b",
+                                  "chameleon_34b", "musicgen_medium"])
 def test_dense_mha_engine_matches_reference(arch):
-    """The dense MHA configs (Hq = Hkv, group 1) on the same dense path:
-    the batched engine's generations and counters equal to the reference
-    engine's, with preemption."""
+    """The dense MHA configs (Hq = Hkv, group 1) and the frontend backbones
+    (chameleon-34b GQA, musicgen-medium MHA; both engines feed the
+    frontend stub zero embeddings) on the same dense path: the batched
+    engine's generations and counters equal to the reference engine's,
+    with preemption."""
     jcfg = dataclasses.replace(jget_reduced(arch), dtype="float32")
     cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
-    assert cfg.num_heads == cfg.num_kv_heads
+    if cfg.frontend == "none":
+        assert cfg.num_heads == cfg.num_kv_heads
+    else:
+        assert cfg.family in ("vlm", "audio")
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg)[0]
     p = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                                   cfg, device="cpu")
