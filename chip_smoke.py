@@ -145,21 +145,45 @@ exits non-zero:
              and 64/8 x 128 (8) at lengths around its chunk within
              tolerance and bit-identical on a second call, B6 at both;
              (b) chameleon-34b and (c) musicgen-medium at their published
-             configs (48 layers each, seeded bf16 params made on the
-             card) with phase 7's engine and 16 requests of 32 new tokens:
+             widths (musicgen's 48 layers; chameleon at 24 of its 48 for
+             the script's time, CHAMELEON_SERVE_LAYERS; seeded bf16 params
+             made on the card) with phase 7's engine and 16 requests of 32
+             new tokens:
              rates, KV cache and peak memory (under 72 GiB), counters,
              launches against the expectations, the device busy share and
              the top kernels over 4 decode steps; (d) falcon-mamba-7b at
-             its published config (64 layers, bf16), prompts seeded
+             its published widths, 16 of its 64 layers for the script's
+             time (SSM_SERVE_LAYERS; bf16), prompts seeded
              multiples of 128 (the reference refuses other lengths past
              its scan chunk): no B3-B6 launch, every park and resume the
-             raw state in full (36,700,160 B a lane), exact-length
+             raw state in full (9,175,040 B a lane), exact-length
              prefill groups, rates, peak memory and the busy share; (e) 2
              layers at each model's full widths: chameleon and musicgen
              kernels against plain versions as phase 9, falcon-mamba in
              float32 on the card against the CPU (logits, generations);
              (f) kernel / eager / plain / library / bound times of the
              kernels at (a)'s shapes; each sub-phase's wall
+ 16 hybrid   serving zamba2-2.7b (the hybrid family: 54 Mamba2 layers in 9
+             groups, each followed by one of 2 shared attention blocks,
+             32/32 heads of 80) over the compressed KV cache and the raw
+             Mamba2 state: (a) the kernels at its shapes against their
+             plain versions: B3's ring step, prefill fill and lane flush
+             at 32 KV heads of 80 byte for byte, B5 at 32/32 x 80 (a group
+             of 1) at lengths around its chunk within tolerance and
+             bit-identical on a second call, B6 at 32/32 x 80 (bf16 on
+             the tensor cores, f32); (b) zamba2-2.7b at its published
+             config (seeded bf16 params made on the card), phase 15d's
+             recipe: rates, the cache (1,183,482,144 B) and peak memory,
+             counters, launches against the expectations (the ring step
+             and B5 one a group a step, the fill and B6 one a group a
+             prefill batch, the flush one a lane demotion), every park
+             and resume the raw state (72,437,760 B a lane) plus the KV
+             suffix, exact-length prefill groups, the busy share and the
+             top kernels over 4 decode steps; (c) float32 at full width:
+             2 groups, kernels against plain versions (generations
+             identical), and 1 group, the card against the CPU; (d)
+             kernel / eager / plain / library / bound times at (a)'s
+             shapes; each sub-phase's wall
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -1629,21 +1653,28 @@ def _profile_steps(eng, n: int):
     """(device events, host wall s) of ``n`` engine steps under
     torch.profiler, recording the card's activity only: the same device
     events as with the CPU's operators recorded too, without their cost in
-    the steps' wall and in the trace's processing (PERF.md §6). A CPU
+    the steps' wall and in the trace's processing (PERF.md §6). One more
+    engine step runs first in the profiler's warm-up, its events
+    discarded: a trace started on the steps themselves can lose the
+    records of its first launches while the tracer comes up. A CPU
     rehearsal records the CPU and finds no device event."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
     act = ProfilerActivity.CUDA if torch.cuda.is_available() else \
         ProfilerActivity.CPU
-    with profile(activities=[act]) as prof:
+    with profile(activities=[act],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+        prof.step()                     # the recorded window starts here
         t0 = time.perf_counter()
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return ([e for e in prof.events() if e.device_type == DeviceType.CUDA],
-            wall)
+    # the window's own step annotation is not device work
+    return ([e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("ProfilerStep")], wall)
 
 
 def _profile_line(eng, label: str, tag: str, b5_per_step: int = 0):
@@ -1651,15 +1682,21 @@ def _profile_line(eng, label: str, tag: str, b5_per_step: int = 0):
     device busy share, events a step and the top kernels by device time
     (with B5's launches and device time a step where it runs). Returns the
     busy share, or None where the profiler saw no device event."""
+    from repro_torch.kernels import kvc_attn as KA
+    want_b5 = PROFILE_STEPS * b5_per_step
     t0 = time.perf_counter()
+    n0 = KA.launches
     kern, pwall = _profile_steps(eng, PROFILE_STEPS)
+    b5 = [e for e in kern if "kvc_split_kernel" in e.name]
+    check(KA.launches - n0 == want_b5 + b5_per_step, f"phase {label}: the "
+          f"warm-up and profiled steps launched B5 {KA.launches - n0} "
+          f"times, not {want_b5 + b5_per_step}")
     t_prof = time.perf_counter() - t0
     if not kern:
         print(f"phase {label} profile: torch.profiler recorded no device "
               f"events; device busy share not measured [{tag}]", flush=True)
         return None
     busy = _busy_us(kern) / (pwall * 1e6)
-    b5 = [e for e in kern if "kvc_split_kernel" in e.name]
     b5_us = sum(e.time_range.elapsed_us() for e in b5)
     by_name: dict = {}
     for e in kern:
@@ -1677,9 +1714,8 @@ def _profile_line(eng, label: str, tag: str, b5_per_step: int = 0):
                                 for n, (k, us) in top) + f" | the profiled "
           f"steps and the trace's processing {t_prof:.3f} s [{tag}]",
           flush=True)
-    check(len(b5) == PROFILE_STEPS * b5_per_step, f"phase {label}: the "
-          f"profile found {len(b5)} B5 launches, not "
-          f"{PROFILE_STEPS * b5_per_step}")
+    check(len(b5) == want_b5, f"phase {label}: the profile found "
+          f"{len(b5)} B5 launches, not {want_b5}")
     return busy
 
 
@@ -3503,17 +3539,25 @@ def phase_moe_times(dev, tag: str, lens_l) -> dict:
 
 FRONT_PEAK_GIB = MOE_PEAK_GIB
 FRONT_NEW_TOKENS = 32
-# (Hq, Hkv, D) of the frontend backbones: chameleon-34b (a group of 8) and
-# musicgen-medium (MHA at D 64, a group of 1)
-FRONT_HEADS = {"chameleon": (64, 8, 128), "musicgen": (24, 24, 64)}
+# the frontend backbones' attention shapes (phase_attn_kernels and
+# phase_attn_times): B3's steps at musicgen's (name, Hkv, D); B5 and B6 at
+# each model's name: ((Hq, Hkv, D), B5's row key): chameleon-34b (a group
+# of 8) and musicgen-medium (MHA at D 64, a group of 1)
+FRONT_ATTN = {"b3": ("musicgen", 24, 64), "heads": {
+    "chameleon": ((64, 8, 128), "g8"), "musicgen": ((24, 24, 64), "g1")}}
 # falcon-mamba's prompts: seeded multiples of its scan chunk (128) in
 # [384, 1024], since the reference refuses a longer prompt that is not a
 # multiple of the chunk (ROADMAP C10); 15e's are 128 or 256
 SSM_PROMPT_CHUNKS = (3, 9)
 SSM_WHOLE_CHUNKS = (1, 3)
-# bytes of one parked falcon-mamba lane: 64 layers of h (8192 x 16 f32)
-# and the conv tail (3 x 8192 bf16)
-SSM_PARK_BYTES = 64 * (8192 * 16 * 4 + 3 * 8192 * 2)
+# depths of 15d (of falcon-mamba-7b's 64 layers) and 15b (of
+# chameleon-34b's 48): cut to keep the script near its 900 s target once
+# phase 16 came in (PERF.md §4), 15d first as the longest serving prefill
+SSM_SERVE_LAYERS = 16
+CHAMELEON_SERVE_LAYERS = 24
+# bytes of one parked falcon-mamba lane at 15d's depth: each layer's h
+# (8192 x 16 f32) and conv tail (3 x 8192 bf16)
+SSM_PARK_BYTES = SSM_SERVE_LAYERS * (8192 * 16 * 4 + 3 * 8192 * 2)
 # 15e's falcon-mamba, card against CPU in float32: logits normwise per row
 # (test_torch_model.py's float32 bound)
 SSM_WHOLE_TOL = 1e-4
@@ -3547,44 +3591,46 @@ def _ssm_prompts(n: int, vocab: int, seed: int, chunk: int,
     return [rng.integers(1, vocab, size=int(L)).tolist() for L in lens]
 
 
-def phase_frontend_kernels(dev) -> dict:
-    """15a: the kernels at the frontend backbones' shapes against their
-    plain versions: B3's ring step, prefill fill and lane flush at
-    musicgen's 24 KV heads of 64 byte for byte (chameleon's 8 x 128 is
-    phase 6's shape); B5 at musicgen's 24/24 x 64 (a group of 1) and
-    chameleon's 64/8 x 128 (8), 4 and 8 bits, lengths 0, 1, CHUNK - 1,
-    CHUNK, CHUNK + 1 and 2,048 of S 2,048, within ATTN_TOL and
-    bit-identical on a second call, every launch counted at its group; B6
-    at both (bf16 on the tensor cores, f32), within ATTN_TOL and
-    ATTN_NORM_TOL."""
+def phase_attn_kernels(dev, label: str, what: str, attn: dict,
+                       seed: int) -> dict:
+    """15a / 16a: the kernels at a cell's attention shapes against their
+    plain versions (``attn``: FRONT_ATTN or HYBRID_ATTN): B3's ring step,
+    prefill fill and lane flush at one model's KV heads byte for byte; B5
+    at each model's heads (a group of Hq / Hkv), 4 and 8 bits, lengths 0,
+    1, CHUNK - 1, CHUNK, CHUNK + 1 and 2,048 of S 2,048, within ATTN_TOL
+    and bit-identical on a second call, every launch counted at its group;
+    B6 at each model's heads (bf16 on the tensor cores, f32), causal and
+    full, within ATTN_TOL and ATTN_NORM_TOL."""
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import kvc_attn as KA
     from repro_torch.kernels import qpack
     t0 = time.perf_counter()
-    res = {k: {"cases": 0, "mismatches": 0, "err": 0.0}
-           for k in ("qpack_ring_step_musicgen", "qpack_prefill_fill_musicgen",
-                     "qpack_lane_flush_musicgen", "kvc_decode_attention_g1",
-                     "kvc_decode_attention_g8", "flash_attention_musicgen",
-                     "flash_attention_chameleon")}
+    b3, b3_hkv, b3_D = attn["b3"]
+    res = {k: {"cases": 0, "mismatches": 0, "err": 0.0} for k in (
+        [f"qpack_{s}_{b3}" for s in ("ring_step", "prefill_fill",
+                                     "lane_flush")]
+        + [f"kvc_decode_attention_{k}" for _, k in attn["heads"].values()]
+        + [f"flash_attention_{n}" for n in attn["heads"]])}
     W, S = SERVE_CFG["hot_window"], SERVE_MAX_LEN
-    _ring_cases(res["qpack_ring_step_musicgen"], qpack, dev,
-                shapes=((8, 24, 64),))
-    _fill_cases(res["qpack_prefill_fill_musicgen"], qpack, dev, shapes=[
-        (1, 1024, S, W, 24, 64, [1000]),
-        (4, 1024, S, W, 24, 64, [1024, 700, 513, 300]),
-        (4, 40, 49, 8, 24, 64, [40, 5, 1, 23])])
-    _flush_cases(res["qpack_lane_flush_musicgen"], qpack, dev,
-                 shapes=((24, 64),))
-    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    _ring_cases(res[f"qpack_ring_step_{b3}"], qpack, dev,
+                shapes=((8, b3_hkv, b3_D),))
+    _fill_cases(res[f"qpack_prefill_fill_{b3}"], qpack, dev, shapes=[
+        (1, 1024, S, W, b3_hkv, b3_D, [1000]),
+        (4, 1024, S, W, b3_hkv, b3_D, [1024, 700, 513, 300]),
+        (4, 40, 49, 8, b3_hkv, b3_D, [40, 5, 1, 23])])
+    _flush_cases(res[f"qpack_lane_flush_{b3}"], qpack, dev,
+                 shapes=((b3_hkv, b3_D),))
+    t_b3 = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(seed)
     c = KA.CHUNK
     lens_l = [0, 1, c - 1, c, c + 1, S]
     B = len(lens_l)
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     KA.group_launches.clear()
     calls = {}
-    for hq, hkv, D in FRONT_HEADS.values():
+    for (hq, hkv, D), key in attn["heads"].values():
         G, sm = hq // hkv, 1.0 / D ** 0.5
-        r = res[f"kvc_decode_attention_g{G}"]
+        r = res[f"kvc_decode_attention_{key}"]
         for bits in (4, 8):
             q = torch.randn((B, hq, D), generator=gen, device=dev) \
                 .to(torch.bfloat16)
@@ -3600,8 +3646,8 @@ def phase_frontend_kernels(dev) -> dict:
             calls[G] = calls.get(G, 0) + 3
             check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                       for a, b in zip(got, again)),
-                  f"phase 15a: B5 partials differ between two calls (G {G}, "
-                  f"bits {bits})")
+                  f"phase {label}: B5 partials differ between two calls "
+                  f"({hq}/{hkv} x {D}, bits {bits})")
             want = KA.kvc_decode_partial_plain(q, kc, ks, vc, vs, lens, bits,
                                                sm)
             wantn = KA.kvc_decode_attention_plain(q, kc, ks, vc, vs, lens,
@@ -3613,10 +3659,10 @@ def phase_frontend_kernels(dev) -> dict:
                     torch.bfloat16] * (1 + b.abs())).sum())
                 r["err"] = max(r["err"], float((a - b).abs().max()))
     groups = dict(KA.group_launches)
-    check(groups == calls, f"phase 15a: B5 launches by group {groups}, "
+    check(groups == calls, f"phase {label}: B5 launches by group {groups}, "
           f"{calls} expected")
     tc0, tc_cases = FA.launches_tc, 0
-    for name, (hq, hkv, D) in FRONT_HEADS.items():
+    for name, ((hq, hkv, D), _) in attn["heads"].items():
         r = res[f"flash_attention_{name}"]
         for Sq, Sk, Bf in ((1, 1, 2), (8, 8, 2), (100, 100, 2), (24, 200, 2),
                            (1000, 1000, 1), (1024, 1024, 2)):
@@ -3629,28 +3675,32 @@ def phase_frontend_kernels(dev) -> dict:
                     tc_cases += dt == torch.bfloat16
                     _flash_case(r, FA, q, k, v, causal)
     torch.cuda.synchronize()
-    check(FA.launches_tc - tc0 == tc_cases, f"phase 15a: {tc_cases} bf16 "
-          f"cases launched the tensor-core route {FA.launches_tc - tc0} "
-          "times")
-    print(f"phase 15a frontend kernels vs plain (B3's steps at 24 KV heads x "
-          f"64; B5 at 24/24 x 64 and 64/8 x 128, lengths {lens_l} of {S}; "
-          f"B6 at both): {json.dumps(res)} | B5 launches by group "
+    check(FA.launches_tc - tc0 == tc_cases, f"phase {label}: {tc_cases} "
+          f"bf16 cases launched the tensor-core route "
+          f"{FA.launches_tc - tc0} times")
+    heads = " and ".join(f"{hq}/{hkv} x {D}"
+                         for (hq, hkv, D), _ in attn["heads"].values())
+    print(f"phase {label} {what} kernels vs plain (B3's steps at {b3_hkv} KV "
+          f"heads x {b3_D}; B5 at {heads}, lengths {lens_l} of {S}; B6 at "
+          f"{heads}): {json.dumps(res)} | B5 launches by group "
           f"{json.dumps(groups)}, bit-identical on a second call; B6 "
           f"{tc_cases} bf16 cases on the tensor cores | tolerance |kernel - "
           f"plain| <= tol * (1 + |plain|), tol 2e-2 (bf16 q or B6) and 2e-3 "
           f"(f32 B6); B6 also normwise 1e-2 / 1e-4; B3's steps byte for "
-          f"byte | wall {time.perf_counter() - t0:.3f} s", flush=True)
+          f"byte | B3 {t_b3:.3f} s, wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
     for k, v in res.items():
-        check(v["mismatches"] == 0, f"phase 15a: {k} disagrees with its "
+        check(v["mismatches"] == 0, f"phase {label}: {k} disagrees with its "
               f"plain version in {v['mismatches']} elements/rows")
-        check(v.get("norm_fails", 0) == 0, f"phase 15a: {k} is off its "
+        check(v.get("norm_fails", 0) == 0, f"phase {label}: {k} is off its "
               "plain version normwise")
     return res
 
 
 def phase_serve_frontend(dev, model, label: str, tag: str) -> tuple:
-    """15b/15c: a frontend backbone at its published config (bf16 params
-    from the seed, made on the card; the engine feeds the frontend stub
+    """15b/15c: a frontend backbone at its published widths (15b at
+    CHAMELEON_SERVE_LAYERS of its layers; bf16 params from the seed, made
+    on the card; the engine feeds the frontend stub
     zero embeddings, as the reference's does) served through Engine with
     phase 7's engine, 16 requests of FRONT_NEW_TOKENS new tokens; peak
     memory under FRONT_PEAK_GIB; launches against the expectations (the
@@ -3765,8 +3815,9 @@ class _PrefillRecorder:
 
 
 def phase_serve_ssm(dev, tag: str) -> dict:
-    """15d: falcon-mamba-7b at its published config (64 layers, bf16
-    params from the seed, made on the card) served through Engine with
+    """15d: falcon-mamba-7b at its published widths, SSM_SERVE_LAYERS of
+    its 64 layers (bf16 params from the seed, made on the card) served
+    through Engine with
     phase 7's engine, 16 requests of FRONT_NEW_TOKENS new tokens, prompts
     seeded multiples of 128 (C10): no B3-B6 launch (no KV cache), every
     park and resume moving the raw state in full (SSM_PARK_BYTES a lane),
@@ -3778,7 +3829,7 @@ def phase_serve_ssm(dev, tag: str) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serve import Engine
     t0 = time.perf_counter()
-    cfg = _falcon()
+    cfg = _falcon(SSM_SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     params = T.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -3974,12 +4025,13 @@ def phase_ssm_whole(dev, layers: int = 2) -> dict:
     return {"err": err, "chained_err": c_err, "same_gen": same_gen}
 
 
-def phase_frontend_times(dev, tag: str, lens_l) -> dict:
-    """15f: the kernels at the frontend backbones' shapes (8 lanes): B3's
-    three steps at musicgen's 24 KV heads of 64 (the flush over its 48
-    layers), B5 at musicgen's 24/24 x 64 and chameleon's 64/8 x 128, B6 at
-    both x 8, 4 and 1 rows of 1,024: kernel / eager / plain / library /
-    bound ms."""
+def phase_attn_times(dev, label: str, tag: str, attn: dict, seed: int,
+                     lens_l, flush_layers: int, unit: str) -> dict:
+    """15f / 16d: the kernels at a cell's attention shapes (8 lanes): B3's
+    three steps at one model's KV heads (the flush over its
+    ``flush_layers`` attention layers or sites), B5 at each model's heads,
+    B6 at each x 8, 4 and 1 rows of 1,024: kernel / eager / plain /
+    library / bound ms."""
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import kvc_attn as KA
     from repro_torch.kernels import qpack
@@ -3988,15 +4040,15 @@ def phase_frontend_times(dev, tag: str, lens_l) -> dict:
     bits, W, S = SERVE_CFG["kv_rate_bits"], SERVE_CFG["hot_window"], \
         SERVE_MAX_LEN
     bf = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    _, Hkv, D = FRONT_HEADS["musicgen"]
+    b3, Hkv, D = attn["b3"]
     Dp = D * bits // 8
     pos = torch.tensor(lens_l + W, dtype=torch.int32, device=dev)
     ring = ring_inputs(B, Hkv, D, bits, bf, bf, gen, dev, W=W, S=S)[:4]
     ring_args = [ring[0][0], ring[1][0], ring[2][0], ring[0][1], ring[1][1],
                  ring[2][1], ring[3][0], ring[3][1], pos, pos - W, bits]
-    out["qpack_ring_step_musicgen"] = dict(
+    out[f"qpack_ring_step_{b3}"] = dict(
         shape=f"{B} lanes x {Hkv} KV heads x {D}, bf16 ring of {W}, "
               f"{bits}-bit codes of {S}, every lane evicting",
         kern=lambda: qpack.ring_step(*ring_args),
@@ -4004,20 +4056,20 @@ def phase_frontend_times(dev, tag: str, lens_l) -> dict:
         nbytes=2 * B * Hkv * (6 * D + Dp + 4) + 8 * B, ops=0, reps=200)
     kvf, leaves, lens1 = fill_inputs(1, 1024, S, W, Hkv, D, bits, bf, [1000],
                                      gen, dev)
-    out["qpack_prefill_fill_musicgen"] = dict(
+    out[f"qpack_prefill_fill_{b3}"] = dict(
         shape=f"1x1024x{Hkv}x{D} K and V bf16 -> {bits}-bit codes of {S} "
-              f"and a ring of {W} (a prefill layer)",
+              f"and a ring of {W} (a prefill {unit})",
         kern=lambda: qpack.prefill_fill(kvf[0], kvf[1], *leaves, lens1, bits),
         plain=lambda: qpack.prefill_fill_plain(kvf[0], kvf[1], *leaves,
                                                lens1, bits), lib=None,
         nbytes=2 * (1024 * Hkv * (2 * D + Dp + 4) + W * Hkv * 2 * D) + 4,
         ops=0, reps=200)
-    lyr, posf = _musicgen().num_layers, 1000
+    lyr, posf = flush_layers, 1000
     fl = flush_inputs(lyr, B, S, W, Hkv, D, bits, gen, dev)
     lane = [t[:, 1] for t in fl]
     cold_f = torch.full((lyr, B), posf - W, dtype=torch.int32, device=dev)
-    out["qpack_lane_flush_musicgen"] = dict(
-        shape=f"lane 1 of {B}: {lyr} layers, a live ring of {W} x {Hkv} x "
+    out[f"qpack_lane_flush_{b3}"] = dict(
+        shape=f"lane 1 of {B}: {lyr} {unit}s, a live ring of {W} x {Hkv} x "
               f"{D} bf16 -> {bits}-bit codes of {S}",
         kern=lambda: qpack.lane_flush(*lane, cold_f[:, 1], posf, bits),
         plain=lambda: qpack.lane_flush_plain(*lane, cold_f[:, 1], posf,
@@ -4028,7 +4080,7 @@ def phase_frontend_times(dev, tag: str, lens_l) -> dict:
         :, None, None, :]
     tok = int(lens.sum())
     Sp = 1024
-    for name, (hq, hkv, D) in FRONT_HEADS.items():
+    for name, ((hq, hkv, D), key) in attn["heads"].items():
         G, Dp = hq // hkv, D * bits // 8
         q = torch.randn((B, hq, D), generator=gen, device=dev).to(bf)
         (kc, ks), (vc, vs) = (qpack.encode(torch.randn(
@@ -4037,7 +4089,7 @@ def phase_frontend_times(dev, tag: str, lens_l) -> dict:
         kdq = qpack.decode(kc, ks, bits, D, bf)
         vdq = qpack.decode(vc, vs, bits, D, bf)
         ks1, vs1 = ks[..., 0].contiguous(), vs[..., 0].contiguous()
-        out[f"kvc_decode_attention_g{G}"] = dict(
+        out[f"kvc_decode_attention_{key}"] = dict(
             shape=f"q {B}x{hq}x{D} bf16 (G {G}, {name}), {bits}-bit KV "
                   f"{B}x{S}x{hkv}, lengths {lens_l.tolist()}",
             kern=lambda q=q, a=(kc, ks1, vc, vs1): KA.kvc_decode_partial(
@@ -4065,10 +4117,349 @@ def phase_frontend_times(dev, tag: str, lens_l) -> dict:
                 lib=lambda q_=q_, k_=k_, v_=v_: _sdpa(q_, k_, v_, True),
                 nbytes=2 * rows * Sp * D * (2 * hq + 2 * hkv),
                 ops=4 * rows * hq * D * Sp * (Sp + 1) // 2, reps=5)
-    res = _time_rows(out, "15f", tag)
-    print(f"phase 15f wall {time.perf_counter() - t0:.3f} s [{tag}]",
+    res = _time_rows(out, label, tag)
+    print(f"phase {label} wall {time.perf_counter() - t0:.3f} s [{tag}]",
           flush=True)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the hybrid family (zamba2-2.7b: Mamba2 groups with shared
+# attention) over the compressed KV cache, with B5 and B6 at head dim 80.
+# ---------------------------------------------------------------------------
+
+# zamba2-2.7b's shared attention, as FRONT_ATTN: MHA at D 80, a group of 1
+HYBRID_ATTN = {"b3": ("hybrid", 32, 80),
+               "heads": {"hybrid": ((32, 32, 80), "d80")}}
+# one parked lane's raw Mamba2 state: 54 layers of h (80 x 64 x 64 f32)
+# and the conv tail (3 x 5120 bf16)
+HYBRID_STATE_BYTES = 54 * (80 * 64 * 64 * 4 + 3 * 5120 * 2)
+# a token's compressed KV in a lane: 9 sites x 32 heads x K and V of 40
+# code bytes and a 4-byte scale (4-bit)
+HYBRID_TOKEN_BYTES = 9 * 32 * 2 * (80 * 4 // 8 + 4)
+# the serving cache at SERVE_CFG: 9 sites' codes, scales, rings and
+# cold_len, and 54 layers' state, 8 lanes
+HYBRID_CACHE_BYTES = 1_183_482_144
+# 16c's card against the CPU in float32: logits normwise per row
+# (test_torch_model.py's float32 bound), each step fed the CPU's state
+HYBRID_WHOLE_TOL = 1e-4
+HYBRID_WHOLE_STEPS = 8
+
+
+def _zamba2(layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2_2p7b")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+class _MovedRecorder:
+    """Records every ``serve.engine._moved_bytes`` call while it is
+    entered: (the raw-state bytes of the parked tree, n_tokens, the bytes
+    charged)."""
+
+    def __init__(self):
+        from repro_torch.serve import engine as engine_mod
+        self.mod, self.calls = engine_mod, []
+
+    def __enter__(self):
+        self.orig = self.mod._moved_bytes
+
+        def moved(parked, n_tokens, max_len):
+            out = self.orig(parked, n_tokens, max_len)
+            state = sum(v.numel() * v.element_size()
+                        for k, v in parked.items() if k.startswith("ssm."))
+            self.calls.append((state, min(int(n_tokens), max_len), out))
+            return out
+        self.mod._moved_bytes = moved
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._moved_bytes = self.orig
+
+
+def phase_serve_hybrid(dev, tag: str) -> dict:
+    """16b: zamba2-2.7b at its published config (54 Mamba2 layers in 9
+    groups, 2 shared attention blocks, 32/32 x 80; bf16 params from the
+    seed, made on the card) served through Engine with phase 7's engine, 16
+    requests of FRONT_NEW_TOKENS new tokens, prompts seeded multiples of
+    128 (C10): launches against the expectations (the ring step and B5 one
+    a group a step, all B5 at G 1; the fill and B6 one a group a prefill
+    batch, all bf16 B6 on the tensor cores; the flush one a lane
+    demotion); every park and resume moving HYBRID_STATE_BYTES of raw
+    state plus HYBRID_TOKEN_BYTES a token of KV suffix; exact-length
+    prefill groups; then torch.profiler over PROFILE_STEPS decode steps of
+    8 lanes."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import describe
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    cfg = _zamba2()
+    G, period, nshared = T.hybrid_groups(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    p_bytes = _tree_bytes(params)
+    scfg = ServeConfig(**SERVE_CFG)
+    prompts = _ssm_prompts(SERVE_REQUESTS, cfg.vocab_size, SEED,
+                           cfg.ssm.chunk)
+    timed = {}
+    with _PrefillRecorder() as rec, _MovedRecorder() as mov:
+        eng, wall, t_pre, t_step, launches = _serve(
+            cfg, scfg, params, prompts, FRONT_NEW_TOKENS, dev,
+            hooks=[(FA, "flash_attention", "b6")], timed=timed)
+    groups_b5 = dict(KA.group_launches)
+    c = eng.counters
+    n_prompt = sum(len(p) for p in prompts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cache_b = D.cache_bytes(eng.cache)
+    state_b = sum(v.numel() * v.element_size() for k, v in eng.cache.items()
+                  if k.startswith("ssm."))
+    batches = []
+    for shape, lens in rec.calls:
+        ln = lens.tolist()
+        real = [n for n in ln if n != 1]        # pad rows have length 1
+        batches.append((shape[1], len(real), shape[0]))
+        check(len(real) >= 1 and all(n == shape[1] for n in real) and
+              shape[0] == 1 << (len(ln) - 1).bit_length(),
+              f"phase 16b: prefill batch {tuple(shape)} with lengths {ln} "
+              "is not an exact-length group of power-of-two rows")
+    bad_moves = [m for m in mov.calls if m[0] != HYBRID_STATE_BYTES or
+                 m[2] != HYBRID_STATE_BYTES + HYBRID_TOKEN_BYTES * m[1]]
+    n_parks = c["demotions"] - c["shadow_repreempts"]
+    resumes = c["promotions"] - SERVE_REQUESTS
+    print(f"phase 16b serve {cfg.name}: {describe(cfg)} ({cfg.param_count()} "
+          f"params, {p_bytes} B = {p_bytes / 2**30:.3f} GiB of bf16 params "
+          f"from seed {SEED}, {t_init:.3f} s; {G} groups of {period} Mamba2 "
+          f"layers, {nshared} shared blocks) | {SERVE_REQUESTS} requests, "
+          f"prompts {sorted(set(map(len, prompts)))} tokens (multiples of the "
+          f"scan chunk {cfg.ssm.chunk}: C10), {FRONT_NEW_TOKENS} new each, "
+          f"{scfg.max_running} lanes, max_len {SERVE_MAX_LEN}, W "
+          f"{scfg.hot_window}, {scfg.kv_rate_bits}-bit KV | wall {wall:.3f} s "
+          f"| prefill {n_prompt} prompt tokens in {t_pre:.3f} s device = "
+          f"{n_prompt / t_pre:.3f} tokens/s | decode {c['tokens']} tokens in "
+          f"{c['steps']} steps, {t_step:.3f} s device = "
+          f"{c['tokens'] / t_step:.3f} tokens/s, "
+          f"{1e3 * t_step / c['steps']:.3f} ms per step | KV cache plus "
+          f"state {cache_b} B ({cache_b - state_b} B KV, {state_b} B state, "
+          f"{HYBRID_STATE_BYTES} B a lane), peak memory {peak:.3f} GiB "
+          f"[{tag}]", flush=True)
+    print(f"phase 16b counters: {json.dumps(c)} | {len(mov.calls)} moves "
+          f"(parks and resumes), each {HYBRID_STATE_BYTES} B of state + "
+          f"{HYBRID_TOKEN_BYTES} B a KV token: {len(bad_moves)} off | preempt "
+          f"{c['preempt_bytes']} B, resume {c['resume_bytes']} B | prefill "
+          f"batches (length, rows, padded rows): {batches}", flush=True)
+    t_b6, n_b6 = timed["b6"]
+    want = {"qpack_ring_step": c["steps"] * G,
+            "kvc_decode_attention": c["steps"] * G,
+            "qpack_prefill_fill": c["prefill_batches"] * G,
+            "flash_attention": c["prefill_batches"] * G,
+            "flash_attention_tc": c["prefill_batches"] * G,
+            "qpack_lane_flush": n_parks}
+    want.update({k: 0 for k in launches if k not in want})
+    print(f"phase 16b launches: {json.dumps(launches)} | expected "
+          f"{json.dumps(want)} (the ring step and B5 one a group a step, the "
+          f"fill and B6 one a group a prefill batch, the flush one a lane "
+          f"demotion) | B5 by group {json.dumps(groups_b5)} | B6 in prefill: "
+          f"{n_b6} calls, {t_b6:.6f} s device = {t_b6 / t_pre:.4f} of "
+          f"prefill [{tag}]", flush=True)
+    check(cache_b == HYBRID_CACHE_BYTES, f"phase 16b: cache {cache_b} B, "
+          f"not {HYBRID_CACHE_BYTES}")
+    check(c["demotions"] > 0 and resumes > 0, "phase 16b: no park or resume")
+    check(not bad_moves and len(mov.calls) == n_parks + resumes and
+          sum(m[2] for m in mov.calls) == c["preempt_bytes"] +
+          c["resume_bytes"], f"phase 16b: moves off the state + KV suffix: "
+          f"{bad_moves[:4]}")
+    check(launches == want and n_b6 == want["flash_attention"] and
+          all(launches[k] > 0 for k in GQA_STEPS),
+          f"phase 16b: launches {launches} against {want}")
+    check(groups_b5 == {1: want["kvc_decode_attention"]},
+          f"phase 16b: B5 launched at groups {groups_b5}, not all at 1")
+    check(len(batches) == c["prefill_batches"] and
+          sum(b[1] for b in batches) == SERVE_REQUESTS,
+          f"phase 16b: {len(batches)} prefill batches recorded")
+    del eng
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, scfg, params, max_len=SERVE_MAX_LEN)
+    # one-chunk prompts keep the warm-up prefill short; a decode step reads
+    # the KV up to each lane's length, so the lanes decode past 128
+    for p in _ssm_prompts(scfg.max_running, cfg.vocab_size, SEED + 4,
+                          cfg.ssm.chunk, (1, 2)):
+        eng.submit(p, max_new_tokens=FRONT_NEW_TOKENS)
+    for _ in range(3):
+        eng.step()
+    busy = _profile_line(eng, "16b", tag, b5_per_step=G)
+    del eng, params
+    launches["kvc_decode_attention_d80"] = groups_b5.get(1, 0)
+    print(f"phase 16b wall {time.perf_counter() - t0:.3f} s [{tag}]",
+          flush=True)
+    return launches
+
+
+def _hybrid_tokens(cfg, rows: int, T_: int, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (rows, T_)).astype(np.int32))
+
+
+def phase_hybrid_whole(dev) -> dict:
+    """16c: zamba2-2.7b at its full widths in float32 (TF32 off). (1) Two
+    groups (12 Mamba2 layers, both shared blocks) on the card, kernels
+    against plain versions: a prefill of 4 x 256 tokens and WHOLE_STEPS
+    decode steps fed the plain run's greedy tokens, logits normwise per
+    row within ATTN_TOL[f32] and the argmax alike where the top-2 margin
+    is above it; then 4 requests (128 or 256 tokens) through Engine both
+    ways, 2 lanes, 8 new: identical generations. (2) One group on the card
+    against the CPU, the same params: a 128-token prefill and
+    HYBRID_WHOLE_STEPS decode steps, each card step fed the CPU's state
+    before it (as 15e: the bf16 conv tail may round an input at a boundary
+    either way), logits within HYBRID_WHOLE_TOL of the row's largest,
+    argmax identical; the card's own chained steps reported; 2 requests of
+    128 tokens through Engine on each: identical generations and
+    counters."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    period = _zamba2().attn_period
+    # (1) kernels against plain versions on the card, two groups
+    cfg = dataclasses.replace(_zamba2(2 * period), dtype="float32")
+    params = T.init_params(cfg, seed=SEED + 2, device=dev)
+    tokens = _hybrid_tokens(cfg, 4, 2 * cfg.ssm.chunk, SEED + 2).to(dev)
+    lens = torch.full((4,), tokens.shape[1], dtype=torch.int32, device=dev)
+    want, feed, pl = _whole_run(cfg, params, tokens, lens, "plain")
+    got, _, kl = _whole_run(cfg, params, tokens, lens, "kernel", feed)
+    tol = ATTN_TOL[torch.float32]
+    err, bad, agree, n = 0.0, 0, 0, 0
+    for a, b in zip(got, want):
+        bound = tol * b.abs().amax(dim=-1)
+        err = max(err, float((a - b).abs().max()))
+        bad += int(((a - b).abs().amax(dim=-1) > bound).sum())
+        top2 = b.topk(2, dim=-1).values
+        same = a.argmax(-1) == b.argmax(-1)
+        agree += int(same.sum())
+        n += b.shape[0]
+        check(bool((same | (top2[:, 0] - top2[:, 1] <= 2 * bound)).all()),
+              "phase 16c: an argmax differs at a top-2 margin above the "
+              "tolerance")
+    prompts = _ssm_prompts(4, cfg.vocab_size, SEED + 2, cfg.ssm.chunk,
+                           SSM_WHOLE_CHUNKS)
+    served = {}
+    for name, kw in WHOLE_IMPLS.items():
+        scfg = ServeConfig(**dict(SERVE_CFG, max_running=2), **kw)
+        eng, _, _, _, launches = _serve(cfg, scfg, params, prompts, 8, dev)
+        served[name] = ([eng.result(r) for r in range(len(prompts))],
+                        dict(eng.counters), launches)
+        del eng
+    same_gen = sum(x == y for x, y in zip(served["kernel"][0],
+                                          served["plain"][0]))
+    t1 = time.perf_counter() - t0
+    print(f"phase 16c whole path float32, {cfg.name} {cfg.num_layers} Mamba2 "
+          f"layers (2 groups, both shared blocks) at full width, kernels vs "
+          f"plain on the card: prefill 4 x {tokens.shape[1]} + {WHOLE_STEPS} "
+          f"decode steps, logits max abs err {err:.8f}, {bad}/{n} rows "
+          f"outside tol {tol} * max|plain row|, argmax {agree}/{n} agree | "
+          f"Engine (4 requests of {[len(p) for p in prompts]} tokens, 2 "
+          f"lanes, 8 new): {same_gen}/4 generations identical, counters "
+          f"equal: {served['kernel'][1] == served['plain'][1]} | launches "
+          f"kernel run {json.dumps(kl)}, Engine "
+          f"{json.dumps(served['kernel'][2])}; plain runs {json.dumps(pl)}, "
+          f"{json.dumps(served['plain'][2])} | {t1:.3f} s", flush=True)
+    check(bad == 0, f"phase 16c: {bad} rows of logits outside tolerance")
+    check(same_gen == 4 and served["kernel"][1] == served["plain"][1],
+          "phase 16c: Engine generations differ between the kernels and the "
+          "plain versions")
+    for run, counts in (("prefill and decode", kl),
+                        ("Engine", served["kernel"][2])):
+        for k, v in counts.items():
+            on = k in GQA_STEPS + ("flash_attention",) and \
+                (k != "qpack_lane_flush" or run == "Engine")
+            check((v > 0) if on else (v == 0), f"phase 16c: {k} launched "
+                  f"{v} times in the kernel run's {run}")
+    check(not any(pl.values()) and not any(served["plain"][2].values()),
+          "phase 16c: a plain run launched a kernel")
+    del params
+    torch.cuda.empty_cache()
+
+    # (2) the card against the CPU, one group
+    t2 = time.perf_counter()
+    cfg = dataclasses.replace(_zamba2(period), dtype="float32")
+    cpu = torch.device("cpu")
+    params = T.init_params(cfg, seed=SEED + 3, device=cpu)
+    pc = _params_to(params, dev)
+    scfg = ServeConfig(**dict(SERVE_CFG, max_running=2))
+    tokens = _hybrid_tokens(cfg, 1, cfg.ssm.chunk, SEED + 3)
+    pos = torch.full((1,), tokens.shape[1], dtype=torch.int32)
+
+    def run(p, d, feed=None, states=None):
+        lg, cache = D.prefill(p, {"tokens": tokens.to(d)}, cfg, scfg,
+                              SERVE_MAX_LEN)
+        out, snaps = [lg.float().cpu()], []
+        for t in range(HYBRID_WHOLE_STEPS):
+            if states is not None:
+                for k, v in states[t].items():
+                    cache[k].copy_(v)
+            snaps.append({k: v.clone() for k, v in cache.items()})
+            tok = out[-1].argmax(-1).to(torch.int32) if feed is None \
+                else feed[t]
+            lg, _ = D.decode_step(p, cache, tok.to(d), (pos + t).to(d), cfg,
+                                  scfg)
+            out.append(lg.float().cpu())
+        return out, snaps
+
+    cwant, snaps = run(params, cpu)
+    cfeed = [w.argmax(-1).to(torch.int32) for w in cwant[:-1]]
+    fed, _ = run(pc, dev, cfeed, snaps)
+    chained, _ = run(pc, dev, cfeed)
+
+    def compare(rows):
+        e, b_, a_ = 0.0, 0, 0
+        for a, b in zip(rows, cwant):
+            diff = (a - b).abs().amax(dim=-1)
+            e = max(e, float(diff.max()))
+            b_ += int((diff > HYBRID_WHOLE_TOL * b.abs().amax(dim=-1)).sum())
+            a_ += int((a.argmax(-1) == b.argmax(-1)).sum())
+        return e, b_, a_
+
+    f_err, f_bad, f_agree = compare(fed)
+    c_err, c_bad, c_agree = compare(chained)
+    n = len(cwant)
+    cprompts = [_hybrid_tokens(cfg, 1, cfg.ssm.chunk, SEED + 5 + i)[0]
+                .tolist() for i in range(2)]
+    gens = {}
+    for name, p, d in (("cpu", params, cpu), ("card", pc, dev)):
+        eng = Engine(cfg, scfg, p, max_len=SERVE_MAX_LEN, device=d)
+        rids = [eng.submit(q, max_new_tokens=4) for q in cprompts]
+        eng.run_until_done(max_steps=100)
+        gens[name] = ([eng.result(r) for r in rids], dict(eng.counters))
+        del eng
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"phase 16c whole path float32, {cfg.name} {cfg.num_layers} Mamba2 "
+          f"layers + 1 shared block at full width, the card vs the CPU (TF32 "
+          f"off): prefill of 1 x {tokens.shape[1]} + {HYBRID_WHOLE_STEPS} "
+          f"decode steps each fed the CPU's state: logits max abs err "
+          f"{f_err:.8f}, {f_bad}/{n} rows outside tol {HYBRID_WHOLE_TOL} * "
+          f"max|CPU row|, argmax {f_agree}/{n} agree | the card's own chained "
+          f"steps: max abs err {c_err:.8f}, {c_bad}/{n} rows outside, argmax "
+          f"{c_agree}/{n} agree | Engine (2 requests of {cfg.ssm.chunk} "
+          f"tokens, 2 lanes, 4 new): generations identical "
+          f"{gens['card'][0] == gens['cpu'][0]}, counters equal "
+          f"{gens['card'][1] == gens['cpu'][1]} | "
+          f"{time.perf_counter() - t2:.3f} s; 16c wall "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    check(f_bad == 0 and f_agree == n, f"phase 16c: card vs CPU, {f_bad} "
+          f"rows outside tolerance, argmax {f_agree}/{n}")
+    check(gens["card"] == gens["cpu"], "phase 16c: Engine on the card "
+          "differs from the CPU")
+    del params, pc
+    return {"err": err, "cpu_err": f_err, "chained_err": c_err}
 
 
 def main() -> int:
@@ -4136,9 +4527,11 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
     t15 = time.perf_counter()
-    front_errs = phase_frontend_kernels(dev)
+    front_errs = phase_attn_kernels(dev, "15a", "frontend", FRONT_ATTN,
+                                    SEED + 30)
     torch.cuda.empty_cache()
-    cham_launches, _ = phase_serve_frontend(dev, _chameleon, "15b", tag)
+    cham_launches, _ = phase_serve_frontend(
+        dev, lambda: _chameleon(CHAMELEON_SERVE_LAYERS), "15b", tag)
     torch.cuda.empty_cache()
     music_launches, _ = phase_serve_frontend(dev, _musicgen, "15c", tag)
     torch.cuda.empty_cache()
@@ -4156,8 +4549,25 @@ def main() -> int:
     front_lens = np.random.default_rng(SEED).integers(
         *PROMPT_LENS, size=SERVE_CFG["max_running"]) + \
         FRONT_NEW_TOKENS // 2 - SERVE_CFG["hot_window"]
-    front_times = phase_frontend_times(dev, tag, front_lens)
+    front_times = phase_attn_times(dev, "15f", tag, FRONT_ATTN, SEED + 31,
+                                   front_lens, _musicgen().num_layers,
+                                   "layer")
     print(f"phase 15 wall {time.perf_counter() - t15:.3f} s [{tag}]",
+          flush=True)
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    hybrid_errs = phase_attn_kernels(dev, "16a", "hybrid", HYBRID_ATTN,
+                                     SEED + 40)
+    torch.cuda.empty_cache()
+    hybrid_launches = phase_serve_hybrid(dev, tag)
+    torch.cuda.empty_cache()
+    phase_hybrid_whole(dev)
+    torch.cuda.empty_cache()
+    from repro_torch.models import transformer as T
+    hybrid_times = phase_attn_times(
+        dev, "16d", tag, HYBRID_ATTN, SEED + 41, front_lens,
+        T.hybrid_groups(_zamba2())[0], "site")
+    print(f"phase 16 wall {time.perf_counter() - t16:.3f} s [{tag}]",
           flush=True)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
@@ -4338,6 +4748,38 @@ def main() -> int:
                     "ms", "eager_ms", "library_ms", "bound_ms")}
                 for k, tt in front_times.items()
                 if k.startswith(name_ + "_")}
+    # the hybrid (phase 16): launches on serve zamba2-2.7b (16b)
+    hybrid_path = {"qpack_ring_step_hybrid": hybrid_launches["qpack_ring_step"],
+                   "qpack_prefill_fill_hybrid":
+                       hybrid_launches["qpack_prefill_fill"],
+                   "qpack_lane_flush_hybrid":
+                       hybrid_launches["qpack_lane_flush"],
+                   "kvc_decode_attention_d80":
+                       hybrid_launches["kvc_decode_attention_d80"],
+                   "flash_attention_hybrid": hybrid_launches["flash_attention"]}
+    for name_, source, replaces in (
+            ("qpack_ring_step_hybrid", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_prefill_fill_hybrid", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_lane_flush_hybrid", "qpack_fixed.cu", "qpack.py:122"),
+            ("kvc_decode_attention_d80", "kvc_attn.cu", "kvc_attn.py:96"),
+            ("flash_attention_hybrid", "flash_attn.cu", "flash_attn.py:72")):
+        t, e = hybrid_times[name_], hybrid_errs[name_]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": hybrid_path[name_], "max_abs_err": e["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "path": "serve zamba2-2.7b (phase 16b)",
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"]})
+    kernels[-1]["path_shapes"] = {
+        k.split("_")[-1]: {f: tt[f] for f in ("ms", "eager_ms", "library_ms",
+                                               "bound_ms")}
+        for k, tt in hybrid_times.items()
+        if k.startswith("flash_attention_hybrid_")}
     print(f"total {time.perf_counter() - t_start:.3f} s [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)

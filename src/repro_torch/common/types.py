@@ -71,8 +71,8 @@ class PoolConfig:
 
 # ---------------------------------------------------------------------------
 # Model architecture. The port serves the dense and MoE families with
-# GQA/MHA or MLA attention and the SSM family (Mamba1); the hybrid family
-# waits for its slice (ROADMAP A.6).
+# GQA/MHA or MLA attention, the SSM family (Mamba1) and the hybrid family
+# (Mamba2 groups with shared GQA attention).
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -137,16 +137,16 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     def param_count(self) -> int:
-        """Parameter count of the dense, MoE and SSM families (the
-        reference's ``ModelConfig.param_count`` for them, its approximate
-        Mamba1 count included: the dt rank taken as d_in // 16, no conv
-        or dt bias)."""
-        if self.family == "hybrid" or (self.family != "ssm" and
-                                       self.attn_kind not in ("gqa", "mla")):
+        """Parameter count (the reference's ``ModelConfig.param_count``,
+        its approximations included: Mamba1's dt rank taken as d_in // 16
+        and no conv or dt bias; Mamba2's layer without its conv bias,
+        dt bias, A and norm, and the hybrid's shared blocks counted once
+        each)."""
+        if self.family != "ssm" and self.attn_kind not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"param_count of family {self.family!r} / attention "
-                f"{self.attn_kind!r}: the port has the dense, MoE and SSM "
-                "families only (ROADMAP A.6)")
+                f"{self.attn_kind!r}: the port has GQA and MLA attention "
+                "only")
         d, v, L = self.d_model, self.vocab_size, self.num_layers
         hd = self.resolved_head_dim
         n = v * d * (1 if self.tie_embeddings else 2)
@@ -176,6 +176,16 @@ class ModelConfig:
                 mlp += 3 * d * mo.dense_d_ff
         else:
             mlp = 3 * d * self.d_ff
+        if self.family == "hybrid":
+            # Mamba2 layers carry no MLP; the shared blocks do
+            ssm = self.ssm or SSMConfig(kind="mamba2")
+            d_in = ssm.expand * d
+            nheads = d_in // ssm.headdim
+            mixer = d * (2 * d_in + 2 * ssm.ngroups * ssm.d_state + nheads) \
+                + d_in * ssm.d_conv + d_in * d + nheads
+            uses = L // max(self.attn_period, 1) if self.attn_period else 0
+            return n + L * mixer + \
+                min(self.attn_shared_blocks, max(uses, 1)) * (attn + mlp)
         return n + L * (attn + mlp)
 
     def active_param_count(self) -> int:

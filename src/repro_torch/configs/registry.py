@@ -1,10 +1,10 @@
 """Architecture registry: the reference's ten arch ids and their CLI
 aliases. Each ported arch has a module exporting ``CONFIG`` (the published
 configuration) and ``REDUCED`` (a same-family miniature for CPU tests).
-The port serves the dense family (GQA/MHA and MLA attention, and the
-frontend backbones chameleon-34b and musicgen-medium), the MoE family
-(GQA) and the SSM family (Mamba1); the hybrid id raises
-``NotImplementedError`` naming the ROADMAP item that ports it."""
+The port serves all ten: the dense family (GQA/MHA and MLA attention, and
+the frontend backbones chameleon-34b and musicgen-medium), the MoE family
+(GQA), the SSM family (Mamba1) and the hybrid family (Mamba2 groups with
+shared attention). An unknown id raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -31,20 +31,10 @@ ALIASES: Dict[str, str] = {
     "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
-PORTED = ("llama3_8b", "minicpm3_4b", "codeqwen15_7b", "deepseek_7b",
-          "qwen3_moe_235b_a22b", "arctic_480b", "chameleon_34b",
-          "musicgen_medium", "falcon_mamba_7b")
-
-
 def _module(arch: str):
     arch = ALIASES.get(arch, arch)
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: ROADMAP A.6 (serving) queues "
-            f"the hybrid family; "
-            f"ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

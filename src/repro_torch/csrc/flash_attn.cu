@@ -6,9 +6,10 @@
 //
 //   q [B, Sq, Hq, D], k [B, Sk, Hkv, D], v [B, Sk, Hkv, DV] (all bf16, or
 //   all f32) -> o [B, Sq, Hq, DV] in q's type; query head h reads KV head
-//   h / (Hq/Hkv). (D, DV) is (64, 64), (128, 128) or (96, 64): the last is
-//   MLA's expanded prefill (minicpm3-4b: 40 heads, q/k nope 64 + rope 32, v
-//   64), run by the same two kernels with the qk and v widths apart.
+//   h / (Hq/Hkv). (D, DV) is (64, 64), (80, 80), (128, 128) or (96, 64):
+//   (80, 80) is zamba2-2.7b's shared attention (32/32 heads of 80), (96,
+//   64) MLA's expanded prefill (minicpm3-4b: 40 heads, q/k nope 64 + rope
+//   32, v 64), run by the same two kernels with the qk and v widths apart.
 //   Causal: query row i sees key columns c <= i + (Sk - Sq), the mask of
 //   chunked_attention and mha_ref (the TPU kernel's c <= i is the case
 //   Sq == Sk); masked scores are -1e30 as in the reference.
@@ -52,6 +53,13 @@
 //   stages idle), but the Q K^T issues only the 6 k16 steps of the 96
 //   real columns and global memory moves only those, so neither product
 //   does padded work; V (64 wide) is one box. 176 KB at (96, 64), BK 128.
+//   At (80, 80) a 160-byte row of Q, K or V is two boxes, the second
+//   holding 16 real columns (TMA fills the rest with zeros): Q K^T issues
+//   the 5 k16 steps of the 80 real columns, P V is one m64n80k16 product a
+//   k-step (N 80 reads the second box's first 16 columns), so again no
+//   product does padded work; each of Q, K and V stores 128-wide rows, 225
+//   KB of shared memory at BK 128 and 3 stages, and the accumulator
+//   holds the 80 columns exactly (no store past them).
 //   (96, 64) takes this tensor-core tile rather than the CUDA cores
 //   because MLA's prefill is operation-bound like GQA's (40 heads, 54
 //   GFLOP a layer at 8 x 1,024) and the tile needed only the two widths
@@ -124,7 +132,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
                  int Hq, int Hkv, float sm_scale, int causal) {
   constexpr int KS = D + 4;
-  constexpr int DL = DV / 32;
+  // V's columns a lane takes: lane + 32 dl; at DV 80 the third reaches
+  // only lanes 0-15
+  constexpr int DL = (DV + 31) / 32;
+  auto col_in = [](int lane_, int dl) {
+    return DV % 32 == 0 || lane_ + 32 * dl < DV;
+  };
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                    // [kBQ][D], pre-scaled
   float* k_s = q_s + kBQ * D;           // [kBK][KS]
@@ -199,7 +212,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kBK; ++j) {
       float vj[DL];
 #pragma unroll
-      for (int dl = 0; dl < DL; ++dl) vj[dl] = v_s[j * DV + lane + 32 * dl];
+      for (int dl = 0; dl < DL; ++dl)
+        vj[dl] = col_in(lane, dl) ? v_s[j * DV + lane + 32 * dl] : 0.0f;
 #pragma unroll
       for (int rr = 0; rr < kRPW; ++rr) {
         const float pj = __shfl_sync(kFull, p[rr], j);
@@ -216,7 +230,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[rr], 1e-30f);
     float* out = o + ((static_cast<int64_t>(b) * Sq + row) * Hq + hq) * DV + lane;
 #pragma unroll
-    for (int dl = 0; dl < DL; ++dl) out[32 * dl] = acc[rr][dl] / den;
+    for (int dl = 0; dl < DL; ++dl)
+      if (col_in(lane, dl)) out[32 * dl] = acc[rr][dl] / den;
   }
 }
 
@@ -287,23 +302,30 @@ template <>
 struct Tile<96, 64> {
   static constexpr int kBK = 128, kNS = 3;
 };
+// zamba2's (80, 80): sc 64, acc 40, P 32, the D = 128 tile's 136; Q, K and
+// V rows boxed to 128 values, 225 KB of shared memory at 3 stages
+template <>
+struct Tile<80, 80> {
+  static constexpr int kBK = 128, kNS = 3;
+};
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Byte offsets from the 1024-aligned base of dynamic shared memory (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes). A tile of R rows
 // stores its ceil(D/64) boxes one after the other, R x 128 bytes each: Q
-// and K rows are QW = 64 * ceil(D/64) values wide, V rows DV.
+// and K rows are QW = 64 * ceil(D/64) values wide, V rows VW = 64 *
+// ceil(DV/64).
 template <int D>
 constexpr int boxed() { return (D + 63) / 64 * 64; }
 
 template <int D, int DV, int BK, int NS>
 struct Smem {
-  static constexpr int QW = boxed<D>();
+  static constexpr int QW = boxed<D>(), VW = boxed<DV>();
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kBQ * QW * 2;
   static constexpr int kV = kK + NS * BK * QW * 2;
-  static constexpr int kBar = kV + NS * BK * DV * 2;   // q_full, q_empty, full[NS], empty[NS]
+  static constexpr int kBar = kV + NS * BK * VW * 2;   // q_full, q_empty, full[NS], empty[NS]
   static constexpr int kBytes = kBar + 8 * (2 + 2 * NS);
   static constexpr int kAlloc = kBytes + 1024;         // room to align the base
 };
@@ -374,8 +396,10 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_tile,
 }
 
 // O (64 x D) += P V for one key tile, issued and committed, not waited
-// (D here is V's width): 16 keys a step, V's rows 16 kk.., its D boxes
-// LBO = BK * 128 bytes apart.
+// (D here is V's width, N of the product: 64, 80 or 128): 16 keys a step,
+// V's rows 16 kk.., its boxes LBO = BK * 128 bytes apart (at D 80 the
+// product reads the second box's first 16 columns; the rest of that box
+// is TMA's zero fill, never read).
 template <int D, int BK>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
                                          const uint32_t (&pa)[BK / 16][4],
@@ -471,7 +495,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 __nv_bfloat16* __restrict__ o, int B, int Sq, int Sk, int Hq,
                 int Hkv, float scale_log2, int causal) {
   using L = Smem<D, DV, BK, NS>;
-  constexpr int QW = L::QW;
+  constexpr int QW = L::QW, VW = L::VW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
@@ -521,14 +545,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int it = 0; it < n_tiles; ++it, ++ring) {
           const int s = ring % NS;
           mbar_wait(empty0 + 8 * s, ((ring / NS) & 1) ^ 1);
-          mbar_expect_tx(full0 + 8 * s, BK * (QW + DV) * 2);
+          mbar_expect_tx(full0 + 8 * s, BK * (QW + VW) * 2);
 #pragma unroll
           for (int c = 0; c < QW / kBox; ++c)
             tma_load(base + L::kK + s * BK * QW * 2 + c * BK * 128, &tm_k,
                      full0 + 8 * s, c * kBox, hk, it * BK, b);
 #pragma unroll
-          for (int c = 0; c < DV / kBox; ++c)
-            tma_load(base + L::kV + s * BK * DV * 2 + c * BK * 128, &tm_v,
+          for (int c = 0; c < VW / kBox; ++c)
+            tma_load(base + L::kV + s * BK * VW * 2 + c * BK * 128, &tm_v,
                      full0 + 8 * s, c * kBox, hk, it * BK, b);
         }
       }
@@ -538,7 +562,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
     const int warp = t / 32, lane = t % 32;
     auto k_tile = [&](int r) { return base + L::kK + (r % NS) * BK * QW * 2; };
-    auto v_tile = [&](int r) { return base + L::kV + (r % NS) * BK * DV * 2; };
+    auto v_tile = [&](int r) { return base + L::kV + (r % NS) * BK * VW * 2; };
     auto full = [&](int r) { mbar_wait(full0 + 8 * (r % NS), (r / NS) & 1); };
     auto release = [&](int r) { mbar_arrive(empty0 + 8 * (r % NS)); };
     const uint32_t q_tile = base + L::kQ + wg * kWGRows * 128;
@@ -728,8 +752,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 // dtype: 0 bf16 -> the tensor-core kernel; 1 f32 -> the CUDA-core kernel.
 // D is q's and k's head dim, DV v's. Returns a cudaError_t:
 // cudaErrorInvalidValue for a case neither route takes (another dtype code,
-// (D, DV) other than (64, 64), (128, 128) and (96, 64), Hq not a multiple of
-// Hkv).
+// (D, DV) other than (64, 64), (80, 80), (128, 128) and (96, 64), Hq not a
+// multiple of Hkv).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int dtype, int B, int Sq, int Sk,
                               int Hq, int Hkv, int D, int DV, float sm_scale,
@@ -741,11 +765,13 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     if (D == 128 && DV == 128) return cc::launch_cc<128, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
     if (D == 64 && DV == 64) return cc::launch_cc<64, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
     if (D == 96 && DV == 64) return cc::launch_cc<96, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
+    if (D == 80 && DV == 80) return cc::launch_cc<80, 80>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
     return cudaErrorInvalidValue;
   }
   if (dtype != 0) return cudaErrorInvalidValue;
   if (D == 128 && DV == 128) return tc::launch_tc<128, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
   if (D == 64 && DV == 64) return tc::launch_tc<64, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
   if (D == 96 && DV == 64) return tc::launch_tc<96, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
+  if (D == 80 && DV == 80) return tc::launch_tc<80, 80>(q, k, v, o, B, Sq, Sk, Hq, Hkv, sm_scale, causal, s);
   return cudaErrorInvalidValue;
 }

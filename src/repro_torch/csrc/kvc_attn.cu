@@ -50,6 +50,12 @@
 //     thread (d-group, token-group) accumulates 8 dims of p.v over its
 //     tokens, and the token groups are summed in a fixed order (shuffles,
 //     then shared memory).
+//   - D 80 (zamba2-2.7b's 32/32 heads of 80): a 4-bit (token, head) row is
+//     40 bytes, 8-byte aligned only, so K's two threads a token read 20
+//     bytes each in 4-byte words (8-byte at 8 bits) and V's 8 values a
+//     thread 4 or 8 bytes; p.v's 10 dim groups are padded to 16 lanes (6
+//     idle), so the token groups still sum with shuffles. D 64 and 128 run
+//     the same code as before.
 //   - a CTA that is its lane's only split writes the output directly.
 //     Otherwise it writes (acc, m, l) for its slice's heads to scratch
 //     [B, Hkv, n_split, G, D + 2] f32 and adds one to a per-(lane, KV head,
@@ -125,11 +131,14 @@ __device__ __forceinline__ void dequant_word(uint32_t w, float scale,
   }
 }
 
-// NW 32-bit words of codes in loads of 16 bytes (or 8, or 4).
+// NW 32-bit words of codes in loads of 16 bytes (or 8, or 4). An odd
+// count (D 80 at 4 bits: 5 words, 20 bytes a thread from a 40-byte row,
+// so only 4-byte aligned) takes 4-byte loads.
 template <int NW>
 __device__ __forceinline__ void load_words(const uint8_t* src, uint32_t (&w)[NW]) {
-  if constexpr (NW == 1) {
-    w[0] = *reinterpret_cast<const uint32_t*>(src);
+  if constexpr (NW % 2 == 1) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) w[i] = reinterpret_cast<const uint32_t*>(src)[i];
   } else if constexpr (NW % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < NW / 4; ++i) {
@@ -140,7 +149,6 @@ __device__ __forceinline__ void load_words(const uint8_t* src, uint32_t (&w)[NW]
       w[4 * i + 3] = u.w;
     }
   } else {
-    static_assert(NW % 2 == 0, "1, 2k or 4k words");
 #pragma unroll
     for (int i = 0; i < NW / 2; ++i) {
       const uint2 u = reinterpret_cast<const uint2*>(src)[i];
@@ -165,9 +173,14 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
   constexpr int KWD = DP / TPT / 4;     // 32-bit code words a thread scores
   constexpr int VPW = 32 / BITS;        // values per word
   constexpr int DG = D / 8;             // p.v: 8 dims a thread
-  constexpr int TG = kThreads / DG;     // token groups
+  // dim groups rounded up to a power of two (16 for D 80's 10), so that a
+  // token group's threads sit at lane offsets of DGP inside a warp; the
+  // threads with dg >= DG load and add nothing
+  constexpr int DGP = DG <= 8 ? 8 : DG <= 16 ? 16 : 32;
+  constexpr int TG = kThreads / DGP;    // token groups
   constexpr int VT = CHUNK / TG;        // V tokens a thread
-  static_assert(TPT >= 1 && CHUNK % TG == 0 && DG <= 32, "chunk and D do not tile");
+  static_assert(TPT >= 1 && CHUNK % TG == 0 && DG <= 32 && D % 8 == 0 &&
+                DP % (TPT * 4) == 0, "chunk and D do not tile");
   __shared__ __align__(16) float q_s[kMaxG * D];
   __shared__ float p_s[kMaxG][CHUNK];
   __shared__ __align__(16) float red_s[kWarps][kMaxG * D];
@@ -210,7 +223,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
     load_words<KWD>(kc + row * DP + part * (DP / TPT), kw);
     ksc = ks[row];
   }
-  const int dg = tid % DG, tg = tid / DG;
+  const int dg = tid % DGP, tg = tid / DGP;
   uint32_t vw[VT][BITS / 4];
   float vsc[VT];
 #pragma unroll
@@ -219,7 +232,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
     vsc[j] = 0.0f;
 #pragma unroll
     for (int w = 0; w < BITS / 4; ++w) vw[j][w] = 0u;
-    if (tt < n) {
+    if (tt < n && dg < DG) {
       const int64_t row = (static_cast<int64_t>(b) * S + c0 + tt) * Hkv + h;
       load_words<BITS / 4>(vc + row * DP + dg * BITS, vw[j]);
       vsc[j] = vs[row];
@@ -316,7 +329,7 @@ kvc_split_kernel(const void* __restrict__ q, int q_f32,
   }
   // token groups: first inside the warp, then across warps
 #pragma unroll
-  for (int o = DG; o < 32; o <<= 1) {
+  for (int o = DGP; o < 32; o <<= 1) {
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g >= Gs) break;
@@ -1264,7 +1277,7 @@ int launch(const void* q, const void* codes, const void* scales,
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a shape the kernel does
-// not take (D other than 64/128, bits other than 4/8, G = Hq/Hkv > 16).
+// not take (D other than 64/80/128, bits other than 4/8, G = Hq/Hkv > 16).
 // scratch holds B*Hkv*ceil(S/kChunk)*G*(D+2) floats; counters
 // B*Hkv*ceil(G/8) int32 (a (lane, KV head, head slice) each), all 0 between
 // calls.
@@ -1286,6 +1299,10 @@ extern "C" int kvc_attn_partial(const void* q, int q_f32, const void* kc,
     return launch<64, 4>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
   if (D == 64 && bits == 8)
     return launch<64, 8>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
+  if (D == 80 && bits == 4)
+    return launch<80, 4>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
+  if (D == 80 && bits == 8)
+    return launch<80, 8>(q, q_f32, kc, ks, vc, vs, lengths, m, l, acc, scratch, counters, B, S, Hq, Hkv, sm_scale, empty_uniform, s);
   return cudaErrorInvalidValue;
 }
 

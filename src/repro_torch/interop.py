@@ -11,11 +11,14 @@ fabric's, ``state.make_pool_stack``) has the same names, every leaf with a
 leading expander axis.
 
 Model params: the reference's ``init_params`` tree (layers stacked on a
-leading axis, f32 leaves) becomes the port's (a list of per-layer dicts, in
-the model's dtype; the Mamba1 leaves the reference uses in float32 stay
-float32). Caches: the port's stacked cache as numpy, bf16 leaves as
-float32 (exact); the SSM family's dotted leaves ``ssm.h``/``ssm.conv`` as
-the reference's ``{"ssm": {"h", "conv"}}`` subtree.
+leading axis, f32 leaves; the hybrid's Mamba2 layers [G, period, ...] and
+its shared blocks [n_shared, ...]) becomes the port's (lists of per-layer
+dicts, in the model's dtype, the hybrid's Mamba2 layers flat; the mixer
+leaves the reference uses in float32 stay float32). Caches: the port's
+stacked cache as numpy, bf16 leaves as float32 (exact); the dotted leaves
+``ssm.h``/``ssm.conv`` as the reference's ``{"ssm": {"h", "conv"}}``
+subtree, the hybrid's [L, B, ...] as the reference's [G, period, B, ...]
+(G the cache's KV sites).
 """
 from __future__ import annotations
 
@@ -113,20 +116,42 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
                 t(np.asarray(v)[i], torch.float32 if k in keep else dtype)
                 for k, v in sub.items()}
 
-    out = {k: t(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [per_layer(tree["layers"], i)
-                     for i in range(cfg.num_layers)]
+    def flat(sub):
+        """[G, period, ...] leaves as [G * period, ...]."""
+        return {k: flat(v) if isinstance(v, dict) else
+                np.asarray(v).reshape((-1,) + np.shape(v)[2:])
+                for k, v in sub.items()}
+
+    stacked = ("layers", "shared")
+    out = {k: t(v) for k, v in tree.items() if k not in stacked}
+    layers = flat(tree["layers"]) if "shared" in tree else tree["layers"]
+    out["layers"] = [per_layer(layers, i) for i in range(cfg.num_layers)]
+    if "shared" in tree:
+        out["shared"] = [per_layer(tree["shared"], i)
+                         for i in range(cfg.attn_shared_blocks)]
     return out
+
+
+def _hybrid_sites(cache: dict):
+    """The KV sites of a cache holding both recurrent state and KV leaves
+    (the hybrid's), else None."""
+    names = {k.split(".")[-1] for k in cache} | set(cache.get("ssm", {}))
+    if {"h", "cold_len"} <= names:
+        return cache["cold_len"].shape[0]
+    return None
 
 
 def cache_to_numpy(cache: dict) -> dict:
     """A snapshot of a stacked cache (copies; bf16 leaves as f32), in the
     reference's tree: dotted leaves ("ssm.h") nest ({"ssm": {"h": ...}})."""
     out = {}
+    sites = _hybrid_sites(cache)
     for k, v in cache.items():
         v = v.detach().cpu()
         if v.dtype == torch.bfloat16:
             v = v.to(torch.float32)
+        if sites and k.startswith("ssm."):
+            v = v.reshape((sites, -1) + tuple(v.shape[1:]))
         *outer, leaf = k.split(".")
         sub = out
         for o in outer:
@@ -141,16 +166,21 @@ _BF16_LEAVES = ("k_hot", "v_hot", "lat_hot", "ssm.conv")
 
 def cache_from_numpy(arrays: dict, device=None) -> dict:
     """A stacked cache from numpy (the reference's tree, or
-    ``cache_to_numpy``'s): nested leaves get dotted names, ring leaves and
+    ``cache_to_numpy``'s): nested leaves get dotted names (the hybrid's
+    [G, period, B, ...] state leaves flat, [L, B, ...]), ring leaves and
     the SSM conv tail become bf16, the rest keep their dtype."""
     dev = resolve_device(device)
     out = {}
+    hybrid = _hybrid_sites(arrays) is not None
 
     def put(name, a):
         if isinstance(a, dict):
             for k, v in a.items():
                 put(f"{name}.{k}", v)
-        elif name in _BF16_LEAVES:
+            return
+        if hybrid and name.startswith("ssm."):
+            a = np.asarray(a).reshape((-1,) + np.shape(a)[2:])
+        if name in _BF16_LEAVES:
             out[name] = torch.from_numpy(np.array(a, np.float32)).to(
                 torch.bfloat16).to(dev)
         else:

@@ -35,12 +35,12 @@ launches_tc = 0
 # input type -> route on the card; the C entry point takes the type's code
 ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 # (qk, v) head-dim pairs with qk != v that both routes take
 SPLIT_HEAD_DIMS = ((96, 64),)
 # keys per tile of the tensor-core route, per head dim (csrc/flash_attn.cu's
 # tc::Tile): at D 128 the widest tile whose registers fit
-TC_KEYS = {128: 96, 64: 128}
+TC_KEYS = {128: 96, 80: 128, 64: 128}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -72,6 +72,8 @@ latent_launches_tc = 0
 CHUNK = 128
 # query heads a CTA (kSliceHeads) and a KV head's group at most (kMaxGroup)
 SLICE_HEADS, MAX_GROUP = 8, 16
+# the GQA kernel's head dims (csrc/kvc_attn.cu's kvc_attn_partial)
+HEAD_DIMS = (64, 80, 128)
 # the latent kernels' one instantiation (csrc/kvc_attn.cu's H, R):
 # minicpm3-4b
 LATENT_HEADS, LATENT_DIM = 40, 288
@@ -328,9 +330,9 @@ def _launch(q, k_codes, k_scales, v_codes, v_scales, lengths, bits,
     S, Hkv = k_codes.shape[1], k_codes.shape[2]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be bf16/f32, got {q.dtype}")
-    if bits not in (4, 8) or D not in (64, 128):
+    if bits not in (4, 8) or D not in HEAD_DIMS:
         raise ValueError(f"bits {bits}, head dim {D}: the kernel takes bits "
-                         "4/8 and D 64/128")
+                         f"4/8 and D {HEAD_DIMS}")
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq {Hq}, Hkv {Hkv}: not a whole group a KV head")
     n_slices = head_slices(Hq // Hkv)

@@ -9,12 +9,15 @@ from a seeded generator.
       --arch qwen3_moe_235b_a22b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch falcon_mamba_7b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch zamba2_2p7b --reduced --device cpu
 
-Every arch id but the hybrid zamba2_2p7b runs; the frontend backbones
-(chameleon_34b, musicgen_medium) are fed zero embeddings, as the
-reference's engine feeds them, and falcon_mamba_7b's engine parks raw
-recurrent state (a prompt must be at most its scan chunk long or a
-multiple of it: ROADMAP C10).
+Every arch id runs; the frontend backbones (chameleon_34b,
+musicgen_medium) are fed zero embeddings, as the reference's engine feeds
+them; falcon_mamba_7b's engine parks raw recurrent state, and
+zamba2_2p7b's parks its Mamba2 state raw beside its compressed KV suffix
+(for both, a prompt must be at most the scan chunk long or a multiple of
+it: ROADMAP C10).
 
 A config whose params do not fit in the device's memory (the published
 qwen3-moe and arctic on one card) is refused before anything is

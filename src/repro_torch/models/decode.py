@@ -1,6 +1,6 @@
 """Serving decode path of the port (``repro.models.decode``; the dense
 family with GQA/MHA or MLA attention, the MoE family with GQA attention,
-the SSM family):
+the SSM family, the hybrid family):
 the IBEX-compressed KV cache and the one-token step.
 
 The KV cache is an IBEX pool specialized for append-only data:
@@ -43,6 +43,14 @@ the reference's ``{"ssm": {"h", "conv"}}`` subtree, with dotted names
 here), which prefill writes and each decode step advances (``models/
 ssm.py``); no kernel runs on this path.
 
+The hybrid family (zamba2-2.7b) holds both: a GQA cache of one site a
+group (its leading axis the group g, read by the group's shared
+attention block through the ring step, B5, B6 and the prefill fill) and
+the Mamba2 state of every layer, flat (``ssm.h`` [L,B,H,P,N] f32,
+``ssm.conv`` [L,B,K-1,d_in] bf16, layer g * period + j being group g's
+j-th), so that every leaf has its lane on axis 1; ``interop`` gives the
+reference's [G, period, B, ...] subtree.
+
 Unlike the reference, whose arrays are immutable, the port updates the
 cache **in place**: ``decode_step`` writes each layer's codes, scales, ring
 and ``cold_len`` into the tensors it was given (and returns the same dict).
@@ -65,6 +73,9 @@ from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
+# a GQA site's cache leaves
+GQA_KEYS = ("k_codes", "k_scales", "v_codes", "v_scales", "k_hot", "v_hot",
+            "cold_len")
 
 
 # ---------------------------------------------------------------------------
@@ -207,19 +218,27 @@ def init_mla_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
 
 def init_ssm_cache(cfg: ModelConfig, batch: int,
                    device=None) -> Dict[str, torch.Tensor]:
-    """The SSM family's cache: every layer's zero Mamba1 state."""
-    st = SSM.mamba1_init_state(cfg, batch, resolve_device(device))
+    """Every layer's zero recurrent state: Mamba1's (the SSM family) or
+    Mamba2's (the hybrid's)."""
+    init = SSM.mamba2_init_state if cfg.family == "hybrid" else \
+        SSM.mamba1_init_state
+    st = init(cfg, batch, resolve_device(device))
     return {f"ssm.{k}": v.expand((cfg.num_layers,) + v.shape).clone()
             for k, v in st._asdict().items()}
 
 
 def init_cache(cfg: ModelConfig, scfg: ServeConfig, batch: int,
                max_len: int, device=None) -> Dict[str, torch.Tensor]:
-    """Decode cache (GQA/MHA K and V, MLA's latent, or the SSM family's
-    recurrent state). Leading axis = layer."""
+    """Decode cache (GQA/MHA K and V, MLA's latent, the SSM family's
+    recurrent state, or the hybrid's GQA sites and Mamba2 state). Leading
+    axis = layer (the hybrid's KV leaves: group)."""
     T.check_supported(cfg)
     if cfg.family == "ssm":
         return init_ssm_cache(cfg, batch, device)
+    if cfg.family == "hybrid":
+        return {**init_ssm_cache(cfg, batch, device),
+                **init_gqa_cache(cfg, scfg, batch, max_len,
+                                 T.hybrid_groups(cfg)[0], device)}
     if cfg.attn_kind == "mla":
         return init_mla_cache(cfg, scfg, batch, max_len, device)
     return init_gqa_cache(cfg, scfg, batch, max_len, cfg.num_layers, device)
@@ -345,14 +364,23 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
         x = embeds[:, None].to(dtype)
     else:
         x = params["tok_embed"].to(dtype)[tokens.long()][:, None]
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
+        hybrid = cfg.family == "hybrid"
+        state, step = (SSM.Mamba2State, SSM.mamba2_decode) if hybrid else \
+            (SSM.Mamba1State, SSM.mamba1_decode)
+        period = T.hybrid_groups(cfg)[1] if hybrid else 0
         for i, lp in enumerate(params["layers"]):
-            st = SSM.Mamba1State(cache["ssm.h"][i], cache["ssm.conv"][i])
-            y, new = SSM.mamba1_decode(
-                lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps), st, cfg)
+            st = state(cache["ssm.h"][i], cache["ssm.conv"][i])
+            y, new = step(lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                          st, cfg)
             x = x + y
             st.h.copy_(new.h)
             st.conv.copy_(new.conv)
+            if period and (i + 1) % period == 0:      # the group's shared block
+                g = i // period
+                x = gqa_decode_layer(
+                    params["shared"][g % len(params["shared"])], x,
+                    {k: cache[k][g] for k in GQA_KEYS}, pos, cfg, scfg)
         return T.unembed(params, x, cfg)[:, 0], cache
     layer = mla_decode_layer if cfg.attn_kind == "mla" else gqa_decode_layer
     for i, lp in enumerate(params["layers"]):
@@ -380,7 +408,9 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     (the latent prefill fill) instead of K and V. The SSM family keeps each
     layer's state after all S tokens (h_T and the bf16 conv tail of the
     last K-1 inputs), padded positions included, as the reference does:
-    its engines prefill exact-length groups."""
+    its engines prefill exact-length groups. The hybrid runs each group's
+    Mamba2 layers so, then its shared block's attention (B6) and fill of
+    the group's KV site."""
     T.check_supported(cfg)
     x = T.embed(params, batch, cfg)
     B, S, _ = x.shape
@@ -410,9 +440,41 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     lfill = qpack.latent_prefill_fill if kernel else \
         qpack.latent_prefill_fill_plain
 
-    for i, lp in enumerate(params["layers"]):
+    def gqa_layer(lp, x, site: int):
+        """A GQA block's prefill, filling KV site ``site``: codes, scales
+        and ring of K and V (the ring: slot s holds the largest real
+        position p = s mod W; p < 0 is no real token, masked out by
+        decode's ring test)."""
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if mla:
+        k, v = L.gqa_project_kv(lp["attn"], h, pos, cfg)
+        q = L.gqa_project_q(lp["attn"], h, pos, cfg)
+        o = L.attention(q, k, v, causal=True, impl=scfg.attn_impl)
+        x = x + L.gqa_output(lp["attn"], o, cfg)
+        x = x + T.mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
+        fill(k, v, *(cache[n][site] for n in ("k_codes", "k_scales", "k_hot",
+                                              "v_codes", "v_scales",
+                                              "v_hot")),
+             lens_arr, bits)
+        return x
+
+    if cfg.family == "hybrid":
+        _, period, _ = T.hybrid_groups(cfg)
+        for i, lp in enumerate(params["layers"]):
+            y, st = SSM.mamba2_prefill(
+                lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+            x = x + y
+            cache["ssm.h"][i] = st.h
+            cache["ssm.conv"][i] = st.conv
+            if (i + 1) % period == 0:                 # the group's shared block
+                g = i // period
+                x = gqa_layer(params["shared"][g % len(params["shared"])], x,
+                              g)
+    elif not mla:
+        for i, lp in enumerate(params["layers"]):
+            x = gqa_layer(lp, x, i)
+    else:
+        for i, lp in enumerate(params["layers"]):
+            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
             lat = L.mla_latent(lp["attn"], h, pos, cfg)            # [B,S,R]
             x = x + L.mla_attend(lp["attn"], h, lat, pos, cfg, causal=True,
                                  attn_impl=scfg.attn_impl)
@@ -420,18 +482,6 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                                 L.rms_norm(x, lp["ln2"], cfg.norm_eps))
             lfill(lat, cache["lat_codes"][i], cache["lat_scales"][i],
                   cache["lat_hot"][i], lens_arr, bits)
-            continue
-        k, v = L.gqa_project_kv(lp["attn"], h, pos, cfg)
-        q = L.gqa_project_q(lp["attn"], h, pos, cfg)
-        o = L.attention(q, k, v, causal=True, impl=scfg.attn_impl)
-        x = x + L.gqa_output(lp["attn"], o, cfg)
-        x = x + T.mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
-        # codes, scales and ring of K and V (the ring: slot s holds the
-        # largest real position p = s mod W; p < 0 is no real token, masked
-        # out by decode's ring test)
-        fill(k, v, *(cache[n][i] for n in ("k_codes", "k_scales", "k_hot",
-                                           "v_codes", "v_scales", "v_hot")),
-             lens_arr, bits)
 
     x_last = x[torch.arange(B, device=dev), idx][:, None]          # [B,1,d]
     return T.unembed(params, x_last, cfg)[:, 0], cache

@@ -1,13 +1,15 @@
-"""Selective state-space layers of the port (``repro.models.ssm``, its
-Mamba1 half: falcon-mamba-7b).
+"""Selective state-space layers of the port (``repro.models.ssm``): Mamba1
+(falcon-mamba-7b) and Mamba2 / SSD with a scalar decay per head (the
+hybrid zamba2-2.7b's mixer).
 
 Prefill runs a chunked scan: a Python loop over time chunks carrying the
-[B, d_in, N] state, with a log-depth (Hillis-Steele) scan inside each
-chunk. Every [B, chunk, d_in, N] operand (the decay, the dt*x (x) B outer
-product, the state history) lives only while its chunk runs, and C
-contracts N away before the chunk's output is kept; at falcon-mamba's
-widths one batch row of a chunk is 128 x 8192 x 16 x 4 B = 64 MiB. Decode
-is the O(1)-state recurrence (no KV cache).
+state, with a log-depth (Hillis-Steele) scan inside each chunk. Every
+[B, chunk, ..., N] operand (the decay, the dt*x (x) B outer product, the
+state history) lives only while its chunk runs, and C contracts N away
+before the chunk's output is kept; at falcon-mamba's widths one batch row
+of a chunk is 128 x 8192 x 16 x 4 B = 64 MiB, at zamba2's 128 x 80 x 64 x
+64 x 4 B = 160 MiB (Mamba2's decay [B, chunk, H, 1, 1] broadcasts against
+it and is never expanded). Decode is the O(1)-state recurrence.
 
 A prompt length T must be at most the chunk or a multiple of it: the
 reference asserts so (``ssm._chunked_ssm_scan_out``), and the port keeps
@@ -23,12 +25,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.types import ModelConfig, SSMConfig
-from repro_torch.models.layers import init_dense
+from repro_torch.models.layers import init_dense, rms_norm
 
 Params = Dict[str, Any]
 
-# Mamba1 params the reference uses in float32 without a cast to the
-# activation dtype: they stay float32 in every cfg.dtype
+# mixer params the reference uses in float32 without a cast to the
+# activation dtype (Mamba1's and Mamba2's): they stay float32 in every
+# cfg.dtype
 F32_PARAMS = frozenset({"conv_w", "conv_b", "dt_bias", "A_log", "D"})
 
 
@@ -73,6 +76,35 @@ def _scan_chunk(d: torch.Tensor, i: torch.Tensor
     return d, i
 
 
+def _check_chunked(T: int, chunk: int) -> int:
+    """The chunk a scan of T steps runs at; a ValueError where the
+    reference's assert would fail (ROADMAP C10)."""
+    c = min(chunk, T)
+    if T % c:
+        raise ValueError(
+            f"{T} steps: the chunked scan takes T at most the chunk ({chunk}) "
+            f"or a multiple of it, as the reference's _chunked_ssm_scan_out "
+            f"asserts (ROADMAP C10)")
+    return c
+
+
+def _chunked_ssm_scan(decay: torch.Tensor, inp: torch.Tensor,
+                      h0: torch.Tensor, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = decay_t h_{t-1} + inp_t along axis 1 with the full state
+    history kept: (h_all [B, T, ...], h_T). Short T only (the reference's
+    own, which no caller there uses; prefill runs
+    ``_chunked_ssm_scan_out``)."""
+    c = _check_chunked(inp.shape[1], chunk)
+    h, hs = h0, []
+    for t0 in range(0, inp.shape[1], c):
+        dd, ii = _scan_chunk(decay[:, t0:t0 + c], inp[:, t0:t0 + c])
+        h_all = dd * h[:, None] + ii
+        h = h_all[:, -1]
+        hs.append(h_all)
+    return torch.cat(hs, dim=1), h
+
+
 def _chunked_ssm_scan_out(ins: Sequence[torch.Tensor], h0: torch.Tensor,
                           make_decay_inp: Callable, contract: Callable,
                           chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,12 +114,7 @@ def _chunked_ssm_scan_out(ins: Sequence[torch.Tensor], h0: torch.Tensor,
     chunk, and ``contract(h_chunk, ins_chunk)`` reduces N away. Returns
     (y [B, T, out...], h_T)."""
     T = ins[0].shape[1]
-    c = min(chunk, T)
-    if T % c:
-        raise ValueError(
-            f"{T} steps: the chunked scan takes T at most the chunk ({chunk}) "
-            f"or a multiple of it, as the reference's _chunked_ssm_scan_out "
-            f"asserts (ROADMAP C10)")
+    c = _check_chunked(T, chunk)
     h, ys = h0, []
     for t0 in range(0, T, c):
         xs = tuple(a[:, t0:t0 + c] for a in ins)
@@ -207,3 +234,121 @@ def mamba1_decode(p: Params, u: torch.Tensor, state: Mamba1State,
     y, hT = _mamba1_core(p, xc, z, state.h, cfg)
     conv = torch.cat([state.conv[:, 1:], x.to(state.conv.dtype)], dim=1)
     return y, Mamba1State(hT, conv)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, scalar decay per head)
+# ---------------------------------------------------------------------------
+
+class Mamba2State(NamedTuple):
+    h: torch.Tensor        # [B, H, P, N] f32
+    conv: torch.Tensor     # [B, K-1, d_in] bf16
+
+
+def _mamba2_dims(cfg: ModelConfig):
+    """(ssm config, d_in, heads)."""
+    ssm = cfg.ssm or SSMConfig(kind="mamba2")
+    d_in = ssm.expand * cfg.d_model
+    return ssm, d_in, d_in // ssm.headdim
+
+
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+                device) -> Params:
+    """A Mamba2 mixer's params from ``gen`` (the reference's
+    distributions): the projections and the norm in ``dtype``,
+    ``F32_PARAMS`` in f32."""
+    ssm, d_in, nheads = _mamba2_dims(cfg)
+    d, g, n = cfg.d_model, ssm.ngroups, ssm.d_state
+    f32 = torch.float32
+
+    def full(shape, v, dt=f32):
+        return torch.full(shape, v, dtype=dt, device=device)
+
+    return {
+        "in_proj": init_dense((d, 2 * d_in + 2 * g * n + nheads), gen, dtype,
+                              device),
+        "conv_w": init_dense((d_in, ssm.d_conv), gen, f32, device, scale=0.5),
+        "conv_b": full((d_in,), 0.0),
+        "dt_bias": full((nheads,), -4.6),
+        "A_log": full((nheads,), 0.0),
+        "D": full((nheads,), 1.0),
+        "norm_w": full((d_in,), 1.0, dtype),
+        "out_proj": init_dense((d_in, d), gen, dtype, device,
+                               scale=d_in ** -0.5)}
+
+
+def _mamba2_split(p: Params, u: torch.Tensor, cfg: ModelConfig):
+    """in_proj, split: (z, x [B,T,d_in], B, C [B,T,g*N], dt [B,T,H])."""
+    ssm, d_in, nheads = _mamba2_dims(cfg)
+    gn = ssm.ngroups * ssm.d_state
+    return (u @ p["in_proj"].to(u.dtype)).split([d_in, d_in, gn, gn, nheads],
+                                                dim=-1)
+
+
+def _mamba2_core(p: Params, xc, Bc, Cc, dt, z, h0, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan of the conv output with a scalar decay per head, the
+    skip, the gate (rounded to the activation dtype before the gated
+    RMSNorm, as the reference does) and out_proj: (y [B,T,d], h_T
+    [B,H,P,N])."""
+    ssm, d_in, H = _mamba2_dims(cfg)
+    B_, T, _ = xc.shape
+    P, N, g = ssm.headdim, ssm.d_state, ssm.ngroups
+    f32 = torch.float32
+    xh = xc.reshape(B_, T, H, P).to(f32)
+    Bh = Bc.reshape(B_, T, g, N).to(f32).repeat_interleave(H // g, dim=2)
+    Ch = Cc.reshape(B_, T, g, N).to(f32).repeat_interleave(H // g, dim=2)
+    dt = F.softplus(dt.to(f32) + p["dt_bias"])                 # [B,T,H]
+    A = -torch.exp(p["A_log"])                                 # [H]
+
+    def make_di(xs):
+        dtc, xc_, bc, _ = xs
+        decay = torch.exp(dtc * A)[..., None, None]            # [B,c,H,1,1]
+        inp = (dtc[..., None] * xc_)[..., None] * bc[:, :, :, None, :]
+        return decay, inp
+
+    y, hT = _chunked_ssm_scan_out(
+        (dt, xh, Bh, Ch), h0, make_di,
+        lambda h, xs: torch.einsum("bthpn,bthn->bthp", h, xs[3]), ssm.chunk)
+    y = (y + p["D"][:, None] * xh).reshape(B_, T, d_in)
+    y = rms_norm((y * F.silu(z.to(f32))).to(xc.dtype), p["norm_w"],
+                 cfg.norm_eps)
+    return y @ p["out_proj"].to(xc.dtype), hT
+
+
+def mamba2_prefill(p: Params, u: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, Mamba2State]:
+    """A full sequence u [B,T,d] from a zero state: (y [B,T,d], the state
+    after it: h_T and the bf16 conv tail of the last K-1 inputs)."""
+    ssm, _, H = _mamba2_dims(cfg)
+    z, x, Bc, Cc, dt = _mamba2_split(p, u, cfg)
+    xc = _causal_conv(x, p["conv_w"], p["conv_b"])
+    h0 = torch.zeros((u.shape[0], H, ssm.headdim, ssm.d_state),
+                     dtype=torch.float32, device=u.device)
+    y, hT = _mamba2_core(p, xc, Bc, Cc, dt, z, h0, cfg)
+    return y, Mamba2State(hT, x[:, -(ssm.d_conv - 1):].to(torch.bfloat16))
+
+
+def mamba2_apply_train(p: Params, u: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """The full-sequence form: u [B,T,d] -> y [B,T,d]."""
+    return mamba2_prefill(p, u, cfg)[0]
+
+
+def mamba2_init_state(cfg: ModelConfig, batch: int, device) -> Mamba2State:
+    ssm, d_in, H = _mamba2_dims(cfg)
+    return Mamba2State(
+        h=torch.zeros((batch, H, ssm.headdim, ssm.d_state),
+                      dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, ssm.d_conv - 1, d_in), dtype=torch.bfloat16,
+                         device=device))
+
+
+def mamba2_decode(p: Params, u: torch.Tensor, state: Mamba2State,
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, Mamba2State]:
+    """u [B,1,d] one token: (y [B,1,d], the next state; new tensors)."""
+    z, x, Bc, Cc, dt = _mamba2_split(p, u, cfg)
+    xc = _causal_conv(x, p["conv_w"], p["conv_b"], init_state=state.conv)
+    y, hT = _mamba2_core(p, xc, Bc, Cc, dt, z, state.h, cfg)
+    conv = torch.cat([state.conv[:, 1:], x.to(state.conv.dtype)], dim=1)
+    return y, Mamba2State(hT, conv)

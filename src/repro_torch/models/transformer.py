@@ -2,13 +2,17 @@
 dense family with GQA/MHA or MLA attention (the frontend backbones
 chameleon-34b and musicgen-medium among them: the batch may supply
 embeddings instead of tokens), the MoE family with GQA attention
-(``models/moe.py`` in place of the MLP) and the SSM family (Mamba1 mixer
-layers, ``models/ssm.py``): init, embedding, unembedding and the
-full-sequence forward.
+(``models/moe.py`` in place of the MLP), the SSM family (Mamba1 mixer
+layers, ``models/ssm.py``) and the hybrid family (zamba2-2.7b: groups of
+``attn_period`` Mamba2 layers, each group followed by one of
+``attn_shared_blocks`` shared attention + MLP blocks, taken in turn):
+init, embedding, unembedding and the full-sequence forward.
 
-The reference stacks layers and walks them with ``lax.scan``; here
-``params["layers"]`` is a list of per-layer dicts walked by a Python loop.
-The hybrid family waits for its slice (ROADMAP A.6).
+The reference stacks layers and walks them with ``lax.scan`` (the
+hybrid's Mamba2 layers as [G, period, ...]); here ``params["layers"]`` is
+a list of per-layer dicts walked by a Python loop, the hybrid's Mamba2
+layers flat (layer g * period + j is group g's j-th) and its shared
+blocks a list of their own, ``params["shared"]``.
 """
 from __future__ import annotations
 
@@ -26,16 +30,29 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
+    """Refuses what the reference cannot serve either: the SSM family with
+    Mamba2 mixers (its decode runs Mamba1's step) and the hybrid family
+    with anything but Mamba2 mixers and GQA attention."""
     kind = (cfg.ssm or SSMConfig()).kind
     if (cfg.family, cfg.attn_kind) not in (
             ("dense", "gqa"), ("dense", "mla"), ("moe", "gqa"),
-            ("vlm", "gqa"), ("audio", "gqa"), ("ssm", "none")) or \
-            (cfg.family == "ssm" and kind != "mamba1"):
+            ("vlm", "gqa"), ("audio", "gqa"), ("ssm", "none"),
+            ("hybrid", "gqa")) or \
+            (cfg.family == "ssm" and kind != "mamba1") or \
+            (cfg.family == "hybrid" and kind != "mamba2"):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attn_kind!r}: the port "
             "serves the dense family (the vlm and audio backbones too), GQA "
-            "or MLA attention, the MoE family with GQA attention and the "
-            "SSM family with Mamba1 mixers (ROADMAP A.6)")
+            "or MLA attention, the MoE family with GQA attention, the SSM "
+            "family with Mamba1 mixers and the hybrid family with Mamba2 "
+            "mixers and GQA attention")
+
+
+def hybrid_groups(cfg: ModelConfig):
+    """The hybrid's (groups, period, shared blocks): group g runs Mamba2
+    layers [g * period, (g + 1) * period), then shared block g % shared."""
+    period = cfg.attn_period or cfg.num_layers
+    return cfg.num_layers // period, period, cfg.attn_shared_blocks
 
 
 def mlp(lp: Params, h: torch.Tensor, cfg: ModelConfig):
@@ -61,21 +78,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_dense((d, cfg.vocab_size), gen, dtype, dev,
                                          scale=0.02)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
+        init = SSM.mamba2_init if cfg.family == "hybrid" else \
+            SSM.mamba1_init
         params["layers"] = [
-            {"mixer": SSM.mamba1_init(gen, cfg, dtype, dev),
+            {"mixer": init(gen, cfg, dtype, dev),
              "ln": torch.ones((d,), dtype=dtype, device=dev)}
             for _ in range(cfg.num_layers)]
+        if cfg.family == "hybrid":
+            params["shared"] = [_layer_init(gen, cfg, dtype, dev)
+                                for _ in range(hybrid_groups(cfg)[2])]
         return params
-    params["layers"] = [
-        {"attn": (L.mla_init if cfg.attn_kind == "mla" else L.gqa_init)(
-            gen, cfg, dtype, dev),
-         "mlp": (MOE.moe_init(gen, cfg, dtype, dev) if cfg.family == "moe"
-                 else L.mlp_init(gen, d, cfg.d_ff, dtype, dev)),
-         "ln1": torch.ones((d,), dtype=dtype, device=dev),
-         "ln2": torch.ones((d,), dtype=dtype, device=dev)}
-        for _ in range(cfg.num_layers)]
+    params["layers"] = [_layer_init(gen, cfg, dtype, dev)
+                        for _ in range(cfg.num_layers)]
     return params
+
+
+def _layer_init(gen, cfg: ModelConfig, dtype, dev) -> Params:
+    """One attention + MLP (or experts) layer."""
+    d = cfg.d_model
+    return {"attn": (L.mla_init if cfg.attn_kind == "mla" else L.gqa_init)(
+                gen, cfg, dtype, dev),
+            "mlp": (MOE.moe_init(gen, cfg, dtype, dev) if cfg.family == "moe"
+                    else L.mlp_init(gen, d, cfg.d_ff, dtype, dev)),
+            "ln1": torch.ones((d,), dtype=dtype, device=dev),
+            "ln2": torch.ones((d,), dtype=dtype, device=dev)}
 
 
 def embed(params: Params, batch: Dict[str, torch.Tensor],
@@ -98,18 +125,31 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     the MoE layers' load-balance losses, 0 for the other families)."""
     check_supported(cfg)
     x = embed(params, batch, cfg)
-    if cfg.family == "ssm":
-        for lp in params["layers"]:
-            x = x + SSM.mamba1_apply_train(
-                lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
-        return unembed(params, x, cfg), torch.zeros((), dtype=torch.float32)
-    attn = L.mla_apply_train if cfg.attn_kind == "mla" else L.gqa_apply_train
+    zero = torch.zeros((), dtype=torch.float32)
+    if cfg.family in ("ssm", "hybrid"):
+        mixer = SSM.mamba2_apply_train if cfg.family == "hybrid" else \
+            SSM.mamba1_apply_train
+        period = hybrid_groups(cfg)[1] if cfg.family == "hybrid" else 0
+        for i, lp in enumerate(params["layers"]):
+            x = x + mixer(lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                          cfg)
+            if period and (i + 1) % period == 0:      # the group's shared block
+                sp = params["shared"][(i // period) % len(params["shared"])]
+                x = _attn_block(sp, x, cfg, attn_impl)[0]
+        return unembed(params, x, cfg), zero
     aux = 0.0
     for lp in params["layers"]:
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attn(lp["attn"], h, cfg, attn_impl)
-        y, a = mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
-        x = x + y
+        x, a = _attn_block(lp, x, cfg, attn_impl)
         aux = aux + a
     return unembed(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32)
+
+
+def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                attn_impl: str):
+    """Pre-norm attention then MLP (or experts): (x, aux loss)."""
+    attn = L.mla_apply_train if cfg.attn_kind == "mla" else L.gqa_apply_train
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attn(lp["attn"], h, cfg, attn_impl)
+    y, a = mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + y, a
 

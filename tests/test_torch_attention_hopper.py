@@ -9,7 +9,8 @@ checked on the CPU against the reference:
     and ``kvc_attn_ref`` at their 2e-2, the ``empty_uniform`` form included.
   * B6 (prefill attention) on the tensor cores scales the f32 scores after
     the product, rounds P to bf16 before the second product, walks key
-    tiles of the kernel's width (``TC_KEYS``: 96 at D 128, 128 at D 64) and
+    tiles of the kernel's width (``TC_KEYS``: 96 at D 128, 128 at D 64 and
+    80) and
     masks only the tiles that cross the diagonal or the end Sk: a model of
     exactly that rounding and tile schedule holds to the JAX
     ``ref.mha_ref`` at 2e-2 element-wise and 1e-2 normwise on bf16 inputs.
@@ -84,7 +85,7 @@ def _split_partial(q, kc, ks, vc, vs, lens, bits, sm, c0, c1, uniform):
                       acc.reshape(B, Hq, D))
 
 
-@pytest.mark.parametrize("bits,D", [(4, 64), (8, 128)])
+@pytest.mark.parametrize("bits,D", [(4, 64), (8, 128), (4, 80), (8, 80)])
 def test_kvc_split_merge_matches_unsplit_and_reference(bits, D):
     B, Hq, Hkv = 6, 4, 2
     chunk = KA.CHUNK
@@ -177,7 +178,8 @@ def _tc_model(q, k, v, causal, rows=64):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("Sq,Sk,Hq,Hkv,D", [
-    (200, 200, 4, 2, 64), (100, 300, 4, 1, 128), (130, 130, 2, 2, 128)])
+    (200, 200, 4, 2, 64), (100, 300, 4, 1, 128), (130, 130, 2, 2, 128),
+    (200, 200, 2, 2, 80)])
 def test_tc_rounding_model_matches_mha_ref(causal, Sq, Sk, Hq, Hkv, D):
     rng = np.random.default_rng(Sq + Sk + D)
     arrs = [rng.standard_normal(s).astype(np.float32)
@@ -195,13 +197,15 @@ def test_tc_rounding_model_matches_mha_ref(causal, Sq, Sk, Hq, Hkv, D):
 # -- dispatch tables ----------------------------------------------------------
 
 def test_dispatch_tables_without_a_card():
-    """B6: bf16 -> tensor cores, f32 -> CUDA cores, D 64/128 only; every
+    """B6: bf16 -> tensor cores, f32 -> CUDA cores, D 64/80/128 only; every
     other input raises before anything is launched. B5: the chunk plan the
     launch's grid follows, and the inputs its kernel refuses."""
     assert FA.route_for(torch.bfloat16, 128) == "tensor_cores"
     assert FA.route_for(torch.bfloat16, 64) == "tensor_cores"
     assert FA.route_for(torch.float32, 128) == "cuda_cores"
     assert FA.route_for(torch.float32, 64) == "cuda_cores"
+    assert FA.route_for(torch.bfloat16, 80) == "tensor_cores"
+    assert FA.route_for(torch.float32, 80) == "cuda_cores"
     for dt, d in ((torch.float16, 128), (torch.float64, 64),
                   (torch.bfloat16, 96), (torch.float32, 256)):
         with pytest.raises(ValueError):
@@ -250,6 +254,8 @@ def test_wrapper_tiles_match_kernel_sources():
         FA.TC_KEYS[128]
     assert int(re.search(r"struct Tile<64> \{\s*static constexpr int kBK = "
                          r"(\d+)", fa).group(1)) == FA.TC_KEYS[64]
+    assert int(re.search(r"struct Tile<80, 80> \{\s*static constexpr int "
+                         r"kBK = (\d+)", fa).group(1)) == FA.TC_KEYS[80]
     assert int(re.search(r"#define KVC_CHUNK (\d+)", kv).group(1)) == \
         KA.CHUNK
     assert int(re.search(r"constexpr int kMaxG = (\d+);", kv).group(1)) == \

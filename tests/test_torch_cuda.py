@@ -180,7 +180,8 @@ def _ring_case(cuda, B, H, D, bits, ring, new, seed):
 @pytest.mark.parametrize("ring,new", [(torch.bfloat16, torch.bfloat16),
                                       (torch.bfloat16, torch.float32),
                                       (torch.float32, torch.float32)])
-@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64)])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64),
+                                 (32, 80)])
 def test_ring_step_vs_plain(cuda, scenario, bits, ring, new, H, D):
     """The ring step kernel against its plain version, in place, byte for
     byte: codes, scales and both rings."""
@@ -352,7 +353,8 @@ def _fill_case(cuda, B, S, L, W, H, D, bits, dtype, lens, seed):
 
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64)])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64),
+                                 (32, 80)])
 @pytest.mark.parametrize("S,W,lens", [(40, 8, [40, 40]),
                                       (40, 8, [5, 40, 1, 23]),
                                       (6, 8, [6, 3])])
@@ -397,7 +399,8 @@ def _flush_case(cuda, Lyr, B, T, W, H, D, bits, cold, seed):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64)])
+@pytest.mark.parametrize("H,D", [(8, 128), (2, 64), (3, 16), (24, 64),
+                                 (32, 80)])
 @pytest.mark.parametrize("T,W,pos,cold", [
     (40, 8, 30, [0, 22, 25]), (40, 8, 21, [18, 20, 13]),
     (40, 8, 5, [0, 0, 3]), (40, 8, 17, [17, 17, 17]),
@@ -460,7 +463,8 @@ def test_fixed_rate_vs_plain(cuda, bits, block, dtype):
 
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("D,G", [(64, 2), (128, 4), (128, 1), (64, 8),
-                                 (128, 16), (128, 7), (64, 12)])
+                                 (128, 16), (128, 7), (64, 12), (80, 1),
+                                 (80, 4)])
 def test_kvc_attn_vs_plain(cuda, bits, D, G):
     from repro_torch.kernels import kvc_attn as KA
     B, S, Hkv = 4, 300, 2
@@ -490,7 +494,8 @@ def test_kvc_attn_vs_plain(cuda, bits, D, G):
     (1, 1, 4, 4, 64), (37, 37, 4, 1, 64), (128, 128, 8, 2, 128),
     (24, 200, 4, 2, 128), (512, 512, 32, 8, 128), (100, 100, 8, 1, 128),
     (1000, 1000, 16, 2, 64), (2048, 2048, 8, 1, 128),
-    (1024, 1024, 24, 24, 64), (1000, 1000, 64, 8, 128)])
+    (1024, 1024, 24, 24, 64), (1000, 1000, 64, 8, 128),
+    (1024, 1024, 32, 32, 80), (100, 100, 4, 4, 80), (24, 200, 4, 1, 80)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attn_vs_plain(cuda, causal, Sq, Sk, Hq, Hkv, D, dtype):
     """bf16 runs on the tensor cores (launches_tc counts it), f32 on the
@@ -548,13 +553,14 @@ def test_kvc_attn_split_boundaries_and_repeats(cuda, bits, D, G):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("Hq,Hkv,D", [(24, 24, 64), (64, 8, 128)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(24, 24, 64), (64, 8, 128),
+                                      (32, 32, 80)])
 def test_kvc_attn_frontend_shapes(cuda, bits, Hq, Hkv, D):
     """B5 at the frontend backbones' heads (musicgen-medium's 24/24 x 64,
-    a group of 1; chameleon-34b's 64/8 x 128, a group of 8), bf16 q, at
-    lengths around its chunk of S 2,048: within 2e-2 of the plain
-    version, a second call bit-identical, one launch a call at its
-    group."""
+    a group of 1; chameleon-34b's 64/8 x 128, a group of 8) and the
+    hybrid's (zamba2-2.7b's 32/32 x 80), bf16 q, at lengths around its
+    chunk of S 2,048: within 2e-2 of the plain version, a second call
+    bit-identical, one launch a call at its group."""
     from repro_torch.kernels import kvc_attn as KA
     c, S = KA.CHUNK, 2048
     lengths = [0, 1, c - 1, c, c + 1, S]
@@ -703,6 +709,63 @@ def test_small_falcon_mamba_on_the_card_matches_the_cpu(cuda):
         out.append(([eng.result(r) for r in rids], eng.counters))
     assert out[0] == out[1]
     assert (KA.launches, FA.launches, qpack.ring_step_launches) == n0
+
+
+def test_small_zamba2_on_the_card_matches_the_cpu(cuda):
+    """REDUCED zamba2 with attention heads of 80 (the published head dim;
+    float32, TF32 off) on the card, through the kernels at D 80 (B3's
+    steps, B5 and B6 on the CUDA cores), against the same params on the
+    CPU: prefill and decode logits within 2e-3 of each row's largest
+    (the f32 attention kernels' tolerance), and the same generations and
+    counters through Engine, with the kernels launched."""
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import kvc_attn as KA
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("zamba2_2p7b"), dtype="float32",
+                              head_dim=80)
+    params = T.init_params(cfg, seed=0, device="cpu")
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    pc = to(params)
+    scfg = ServeConfig(max_running=2, hot_window=16, kv_rate_bits=4)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 96)).astype(np.int32))
+    n0 = (KA.launches, FA.launches, qpack.ring_step_launches)
+    lg, cache = D.prefill(params, {"tokens": tokens}, cfg, scfg, 256)
+    lgc, cachec = D.prefill(pc, {"tokens": tokens.to(cuda)}, cfg, scfg, 256)
+    tok, pos = lg.argmax(-1).to(torch.int32), torch.full((2,), 96,
+                                                          dtype=torch.int32)
+    for _ in range(3):
+        bound = 2e-3 * lg.abs().amax(dim=-1)
+        assert bool(((lgc.cpu() - lg).abs().amax(dim=-1) <= bound).all())
+        assert torch.equal(lgc.cpu().argmax(-1), lg.argmax(-1))
+        lg, _ = D.decode_step(params, cache, tok, pos, cfg, scfg)
+        lgc, _ = D.decode_step(pc, cachec, tok.to(cuda), pos.to(cuda), cfg,
+                               scfg)
+        tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+    assert (KA.launches - n0[0], FA.launches - n0[1],
+            qpack.ring_step_launches - n0[2]) == (6, 2, 6)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (32, 64, 20)]
+    out = []
+    for p_, dev in ((params, "cpu"), (pc, cuda)):
+        eng = Engine(cfg, scfg, p_, max_len=256, device=dev)
+        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_done(max_steps=400)
+        out.append(([eng.result(r) for r in rids], eng.counters))
+    assert out[0] == out[1]
 
 
 # -- MLA: the latent forms of B3's steps, B5's latent form, B6 at 96/64 ------

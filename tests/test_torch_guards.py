@@ -79,17 +79,24 @@ def test_engine_without_device_needs_cuda():
 
 
 def test_unported_arch_raises():
-    from repro_torch.configs import ARCH_IDS, get_config
-    assert len(ARCH_IDS) == 10
+    """Every one of the reference's 10 arch ids resolves (all are ported),
+    by id and by alias; an unknown id raises ``KeyError``."""
+    from repro_torch.configs import ALIASES, ARCH_IDS, get_config, get_reduced
+    assert len(ARCH_IDS) == 10 and set(ALIASES.values()) == set(ARCH_IDS)
+    for arch in ARCH_IDS:
+        assert get_config(arch).name and get_reduced(arch).num_layers >= 1
+    for alias, arch in ALIASES.items():
+        assert get_config(alias) == get_config(arch)
     assert get_config("llama3-8b").num_layers == 32
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        get_config("zamba2_2p7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("not_an_arch")
 
 
 def test_check_supported_refuses_the_hybrid_family():
-    """The hybrid family (zamba2's Mamba2 groups with shared attention)
-    waits for its slice: the model, its cache and its param count raise
-    naming the ROADMAP item."""
+    """The hybrid family (zamba2's Mamba2 groups with shared attention) is
+    served: its config and param count are accepted. What the reference
+    cannot serve stays refused: the SSM family with Mamba2 mixers (its
+    decode runs Mamba1's step) and the hybrid with Mamba1 mixers."""
     from repro.configs import get_config as jget_config
     from repro_torch.common.types import ModelConfig, SSMConfig
     from repro_torch.models import transformer as T
@@ -99,21 +106,22 @@ def test_check_supported_refuses_the_hybrid_family():
                          if k not in ("moe", "mla", "ssm")},
                       ssm=SSMConfig(**dataclasses.asdict(ref.ssm)))
     assert cfg.family == "hybrid"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        T.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        cfg.param_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+    T.check_supported(cfg)
+    assert cfg.param_count() == ref.param_count() == 2_526_785_760
+    with pytest.raises(NotImplementedError, match="Mamba1 mixers"):
         T.check_supported(dataclasses.replace(
             cfg, family="ssm", attn_kind="none"))   # Mamba2 mixers
+    with pytest.raises(NotImplementedError, match="Mamba2 mixers"):
+        T.check_supported(dataclasses.replace(
+            cfg, ssm=SSMConfig(kind="mamba1")))
 
 
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "arctic_480b",
                                   "chameleon_34b", "musicgen_medium",
-                                  "falcon_mamba_7b"])
+                                  "falcon_mamba_7b", "zamba2_2p7b"])
 def test_moe_param_counts_match_reference(arch):
-    """The MoE, frontend and SSM configs and their parameter counts (all
-    and active) are the reference's, published and REDUCED."""
+    """The MoE, frontend, SSM and hybrid configs and their parameter
+    counts (all and active) are the reference's, published and REDUCED."""
     import dataclasses
     from repro import configs as JC
     from repro_torch import configs as TC
