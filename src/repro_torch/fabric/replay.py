@@ -44,11 +44,14 @@ it.
 
 Delivered time: per-segment replay deltas and per-epoch migration deltas
 are recorded from the same fetches; ``Fabric.pipeline_times`` prices them
-through ``simx.time.pipeline_delivered_time``.
+through ``simx.time.pipeline_delivered_time``. ``obs`` (a
+``repro_torch.obs.Recorder``) takes its samples from the same two fetches:
+a recorder attached makes every segment compute the migration stats (the
+freelist headroom it records) even with migration off, inside the one
+fetch, as the reference does.
 
 Not ported here: the sharded driver (``shard_devices``; the reference's
-``fabric/shard.py`` and ``common/sharding.py``, ROADMAP A.7) and the
-telemetry recorder (``obs``, ROADMAP A.8): both raise.
+``fabric/shard.py`` and ``common/sharding.py``, ROADMAP A.7): it raises.
 """
 from __future__ import annotations
 
@@ -73,7 +76,6 @@ from repro_torch.simx import time as TM
 
 SHARD_TODO = ("the sharded fabric driver (reference fabric/shard.py and "
               "common/sharding.py) is not ported: ROADMAP A.7")
-OBS_TODO = "fabric telemetry (reference obs/) is not ported: ROADMAP A.8"
 
 # one expander's slice of a segment: body(e, ospns, writes, args, valid,
 # pending mask or None)
@@ -126,8 +128,9 @@ class Fabric:
     docstring). ``devices`` is the fleet's timing model: None (default
     ``DeviceConfig`` everywhere), one ``DeviceConfig``, or a sequence
     cycled to N. ``on_epoch(fabric, plan, moved_pages)`` runs after every
-    committed epoch. ``device`` is where the stack lives: CUDA unless the
-    caller names one."""
+    committed epoch. ``obs`` is an optional ``repro_torch.obs.Recorder``
+    fed from the per-segment and per-epoch fetches. ``device`` is where the
+    stack lives: CUDA unless the caller names one."""
 
     def __init__(self, cfg: PoolConfig, policy: Policy, placement: Placement,
                  *, seed: int = 0, rates_table=None,
@@ -141,8 +144,6 @@ class Fabric:
                  device=None):
         if shard_devices is not None:
             raise NotImplementedError(SHARD_TODO)
-        if obs is not None:
-            raise NotImplementedError(OBS_TODO)
         if placement.n_pages != cfg.n_pages:
             raise ValueError("placement/page-space mismatch")
         if pipeline_depth not in (1, 2):
@@ -197,6 +198,9 @@ class Fabric:
         # barred from re-planning until some epoch makes progress
         self._blocked = np.zeros((cfg.n_pages,), bool)
         self._modeled_times: Optional[torch.Tensor] = None
+        self.obs = obs
+        if obs is not None:
+            obs.attach_fabric(self)
 
     def pool(self, e: int) -> S.Pool:
         """Expander ``e``'s pool: views into the stack."""
@@ -207,8 +211,8 @@ class Fabric:
     def _dispatch_segment(self, body: Body, o, w, a, v, sl,
                           pending_pages: Optional[np.ndarray]):
         """Stage A: run ``body`` over one segment on every expander, then
-        compute the delivered times, the migration stats (when a policy
-        reads them) and a counter snapshot on the device, for
+        compute the delivered times, the migration stats (when a policy or
+        a recorder reads them) and a counter snapshot on the device, for
         ``_fetch_view``."""
         pend = None
         if pending_pages is not None and len(pending_pages):
@@ -218,7 +222,7 @@ class Fabric:
             body(e, o[e, sl], w[e, sl], a[e, sl], v[e, sl], pend)
         times = TM.exec_time_vec(self.pools.counters, self.lanes)
         stats = fops.segment_stats(self.pools, self.cfg) \
-            if self.migration_enabled else None
+            if self.migration_enabled or self.obs is not None else None
         self._modeled_times = times
         self.segments_replayed += 1
         return times, stats, S.counters_snapshot(self.pools)
@@ -247,8 +251,8 @@ class Fabric:
                     recent: np.ndarray) -> Optional[MG.SegmentView]:
         """The ONE fetch per segment: delivered times, migration stats and
         the counter snapshot together; the replay delta falls out against
-        the previous snapshot. With migration off no stats were computed
-        and no view is built."""
+        the previous snapshot. With migration off and no recorder no stats
+        were computed and no view is built."""
         tree = {"t": times, "c": counters}
         if stats is not None:
             tree.update(stats._asdict())
@@ -260,9 +264,14 @@ class Fabric:
         delta = ctrs - self._last_counters
         self._last_counters = ctrs
         self.segment_deltas.append(delta)
+        if stats is not None:
+            self._last_free = got["free_units"].numpy().astype(np.int64)
+        if self.obs is not None:
+            # telemetry drain: host values of this segment's one fetch
+            self.obs.record_segment(self.segments_replayed - 1, delta,
+                                    t32.astype(np.float64), self._last_free)
         if stats is None:
             return None
-        self._last_free = got["free_units"].numpy().astype(np.int64)
         return MG.SegmentView(
             free_units=self._last_free,
             free_singles=got["free_singles"].numpy().astype(np.int64),
@@ -278,6 +287,14 @@ class Fabric:
         livelock guard barred (their last planned epoch moved nothing)."""
         if view is None:
             return None
+        plan = self._plan_filtered(view)
+        if plan is not None and self.obs is not None:
+            self.obs.record_plan(self.segments_replayed - 1, plan,
+                                 self.migration_policy.name)
+        return plan
+
+    def _plan_filtered(self, view: MG.SegmentView
+                       ) -> Optional[MG.MigrationPlan]:
         plan = self.migration_policy.plan(view)
         if plan is None or not self._blocked.any():
             return plan
@@ -341,6 +358,12 @@ class Fabric:
             # nothing moved: bar the plan's pages from re-planning until
             # some epoch succeeds, or an unappliable plan recurs forever
             self._blocked[plan.pages] = True
+        if self.obs is not None:
+            # telemetry drain: the same single per-epoch fetch
+            self.obs.record_epoch(overlapping_seg, delta, kind=kind,
+                                  overlapped=overlapped, planned=len(plan),
+                                  moved=len(pages_moved), urgent=plan.urgent,
+                                  free_units=free_units)
         if view is not None:
             view.free_units = self._last_free
             view.free_singles = got["free_singles"].numpy().astype(np.int64)

@@ -20,8 +20,16 @@ The port's own flags: ``--device`` (CUDA unless named) and ``--payload``
 (``store_payload=True, lossless=True``: every page of the OSPA space is
 first written with content of the workload's rate mix through
 ``Fabric.write_pages``, so demotions and promotions run the compression
-kernels on the card). ``--devices`` (the sharded driver, ROADMAP A.7) and
-``--trace`` (telemetry, ROADMAP A.8) are not ported and raise.
+kernels on the card). ``--devices`` (the sharded driver, ROADMAP A.7) is
+not ported and raises.
+
+``--trace OUT.trace.json`` attaches a ``repro_torch.obs.Recorder`` fed by
+the per-segment and per-epoch fetches (the sync budgets are asserted with
+it attached), checks that the trace's per-expander track totals reconcile
+with ``Fabric.pipeline_times()`` at rtol 1e-9, writes the Perfetto
+timeline there and the metrics snapshot beside it (``OUT.metrics.json``),
+and prints the per-segment summary table. ``main`` returns the fabric (its
+recorder is ``fabric.obs``).
 
 ``BENCH_RECIPE``/``BENCH_FABRICS`` are the fabrics of the reference's
 ``benchmarks/fabric_bench.py::run(quick=False)`` (scaling, mixed fleets,
@@ -49,7 +57,9 @@ from repro_torch.core.engine import ops as E
 from repro_torch.core.engine import state as S
 from repro_torch.core.engine.policy import POLICIES
 from repro_torch.fabric import Fabric, make_placement
-from repro_torch.fabric.replay import OBS_TODO, SHARD_TODO
+from repro_torch.fabric.replay import SHARD_TODO
+from repro_torch.obs import Recorder
+from repro_torch.obs import export as OBX
 from repro_torch.simx import time as TM
 from repro_torch.simx.engine import TRAFFIC_KEYS, pool_cfg_for
 from repro_torch.simx.trace import (WORKLOADS, make_block_content,
@@ -205,7 +215,7 @@ def _single_pool_parity(fab: Fabric, cfg, policy, placement, rates, content,
           "replays (exact)")
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Fabric:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="mcf", choices=sorted(WORKLOADS))
     ap.add_argument("--scheme", default="ibex", choices=sorted(POLICIES))
@@ -247,12 +257,14 @@ def main(argv=None) -> None:
     ap.add_argument("--devices", type=int, default=None, metavar="N",
                     help="not ported: " + SHARD_TODO)
     ap.add_argument("--trace", default=None, metavar="OUT.trace.json",
-                    help="not ported: " + OBS_TODO)
+                    help="attach a repro_torch.obs.Recorder (fed by the "
+                         "per-segment and per-epoch fetches: zero extra "
+                         "syncs, asserted), write the Perfetto trace_event "
+                         "export there plus a .metrics.json sibling, and "
+                         "print the per-segment summary table")
     args = ap.parse_args(argv)
     if args.devices is not None:
         raise NotImplementedError(SHARD_TODO)
-    if args.trace is not None:
-        raise NotImplementedError(OBS_TODO)
     dev = resolve_device(args.device)
 
     profiles = [p.strip() for p in args.device_profile.split(",")
@@ -298,8 +310,9 @@ def main(argv=None) -> None:
             fab.write_pages(np.arange(args.pages), content)
         return fab
 
+    rec = Recorder() if args.trace else None
     fab = make_fabric(placement, sync_migration=args.sync_migration,
-                      pipeline_depth=args.pipeline_depth)
+                      pipeline_depth=args.pipeline_depth, obs=rec)
     contracts.SYNCS.reset()
     t0 = time.perf_counter()
     fab.replay(ospn, wr, blk)
@@ -347,6 +360,22 @@ def main(argv=None) -> None:
               f"overlapped={over * 1e6:.1f}us sync={sync * 1e6:.1f}us "
               f"(migration overlap hides {(sync - over) * 1e6:.2f}us)")
 
+    if rec is not None:
+        # the budgets held with recording on (asserted above); the exported
+        # tracks must reconcile with the pipeline pricing
+        totals = OBX.fabric_track_totals(rec)
+        if pt is not None:
+            assert np.allclose(totals["overlapped_s"], pt["overlapped_s"],
+                               rtol=1e-9), "trace drifted from pipeline_times"
+        mpath = OBX.metrics_path(args.trace)
+        OBX.write_trace(rec, args.trace)
+        OBX.write_metrics(rec, mpath, seed=args.seed)
+        print(f"  trace: {args.trace} (+ {mpath}); {len(rec.segments)} "
+              f"segments, {len(rec.plans)} plans, {len(rec.epochs)} epochs "
+              f"recorded; per-expander track totals reconcile with "
+              f"pipeline_times (asserted)")
+        print(OBX.fabric_summary_table(rec))
+
     if args.verify_depth1:
         f1 = make_fabric(new_placement(), pipeline_depth=1)
         fs = make_fabric(new_placement(), sync_migration=True)
@@ -361,9 +390,10 @@ def main(argv=None) -> None:
         if (placement.overrides >= 0).any():
             print("parity check skipped: migration fired (re-run with "
                   "--migration off for the exact contract)")
-            return
-        _single_pool_parity(fab, cfg, policy, placement, rates, content,
-                            (ospn, wr, blk), args, dev)
+        else:
+            _single_pool_parity(fab, cfg, policy, placement, rates, content,
+                                (ospn, wr, blk), args, dev)
+    return fab
 
 
 if __name__ == "__main__":

@@ -39,6 +39,7 @@ QUICK_WL = ["mcf", "lbm", "omnetpp", "pr", "xsbench"]
 FULL_WL = list(WORKLOADS)
 N_Q, N_F = 4000, 12000
 PROM_Q, PROM_F = 64, 96
+FIG09_SCHEMES = ["ibex", "tmcc", "dylect", "mxt", "dmc", "compresso"]
 
 Runner = Callable[..., Dict[str, float]]
 
@@ -131,10 +132,9 @@ def fig01_bandwidth(quick: bool, run: Runner = run_workload) -> List[Dict]:
 
 def fig09_speedup(quick: bool, run: Runner = run_workload) -> List[Dict]:
     """Fig. 9: normalized perf per scheme; headline IBEX-vs-TMCC/DyLeCT."""
-    schemes = ["ibex", "tmcc", "dylect", "mxt", "dmc", "compresso"]
-    perf: Dict[str, Dict[str, float]] = {s: {} for s in schemes}
+    perf: Dict[str, Dict[str, float]] = {s: {} for s in FIG09_SCHEMES}
     rows = []
-    for s in schemes:
+    for s in FIG09_SCHEMES:
         for wl in _wl(quick):
             r = _cell(run, s, wl, quick)
             perf[s][wl] = r["normalized_perf"]
@@ -142,7 +142,7 @@ def fig09_speedup(quick: bool, run: Runner = run_workload) -> List[Dict]:
                          "derived": f"norm_perf={r['normalized_perf']:.3f}"})
     gm = {s: float(np.exp(np.mean(np.log([max(v, 1e-9)
                                           for v in perf[s].values()]))))
-          for s in schemes}
+          for s in FIG09_SCHEMES}
     for other in ("tmcc", "dylect", "mxt", "dmc"):
         rows.append({"name": f"fig09.speedup_ibex_over_{other}", "us": 0.0,
                      "derived": f"x{gm['ibex'] / gm[other]:.2f}"})

@@ -22,6 +22,17 @@ it: ROADMAP C10).
 A config whose params do not fit in the device's memory (the published
 qwen3-moe and arctic on one card) is refused before anything is
 allocated.
+
+``--trace OUT.trace.json`` attaches a ``repro_torch.obs.Recorder`` (its
+samples ride the engine's one fetch a step: on the batched engine
+``step_syncs == steps`` is asserted), writes the Perfetto ``trace_event``
+timeline there and the metrics snapshot beside it
+(``OUT.metrics.json``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
+      --reduced --requests 5 --lanes 2 --device cpu --trace out.trace.json
+
+``main`` returns the engine (its recorder is ``engine.obs``).
 """
 from __future__ import annotations
 
@@ -37,6 +48,8 @@ from repro_torch.common.utils import resolve_device
 from repro_torch.configs import describe, get_config, get_reduced
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.obs import Recorder
+from repro_torch.obs import export as OBX
 from repro_torch.serve import Engine, SerialEngine
 
 
@@ -47,7 +60,7 @@ def device_memory_bytes(dev: torch.device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Engine:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -66,6 +79,11 @@ def main(argv=None) -> None:
                     help="promote-then-read instead of fused dequant attn")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--trace", default=None, metavar="OUT.trace.json",
+                    help="attach a repro_torch.obs.Recorder (samples ride "
+                         "the engine's one fetch a step: zero extra syncs, "
+                         "asserted), write the Perfetto trace_event export "
+                         "there plus a .metrics.json sibling")
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -81,8 +99,9 @@ def main(argv=None) -> None:
                        fused_dequant_attention=not args.paper_mode)
     params = T.init_params(cfg, seed=0, device=args.device)
     engine_cls = SerialEngine if args.serial else Engine
+    rec = Recorder() if args.trace else None
     eng = engine_cls(cfg, scfg, params, max_len=args.max_len,
-                     device=args.device)
+                     device=args.device, obs=rec)
 
     rng = np.random.default_rng(0)
 
@@ -111,8 +130,19 @@ def main(argv=None) -> None:
           f"{mt['modeled_s_per_step'] * 1e6:.2f}us/step "
           f"(sync={mt['sync_s'] * 1e3:.3f}ms, motion bottleneck="
           f"{max(mt['motion_s_per_expander']) * 1e6:.2f}us)")
+    if rec is not None:
+        if not args.serial:   # the serial baseline syncs once a lane a step
+            assert c["step_syncs"] == c["steps"], \
+                "recording changed the per-step sync budget"
+        mpath = OBX.metrics_path(args.trace)
+        OBX.write_trace(rec, args.trace)
+        OBX.write_metrics(rec, mpath)
+        print(f"trace: {args.trace} (+ {mpath}); {len(rec.steps)} steps, "
+              f"{len(rec.serve_events)} events recorded at zero extra syncs"
+              f"{'' if args.serial else ' (asserted)'}")
     for rid in rids[:3]:
         print(f"  req {rid}: {eng.result(rid)}")
+    return eng
 
 
 if __name__ == "__main__":

@@ -38,9 +38,11 @@ raw recurrent state (``ssm.*`` leaves, no quantize, no flush) and resume
 installs it back; both move the state in full (``_moved_bytes``).
 
 The cache is updated in place (``models/decode.py``). ``modeled_time``
-prices the counters with ``simx.time``; the reference's telemetry hook
-(``obs``) waits for the telemetry slice. ``serve.serial.SerialEngine`` is the per-lane baseline; both engines
-share ``_EngineBase``.
+prices the counters with ``simx.time``. ``obs`` (a
+``repro_torch.obs.Recorder``) records each step from the step's one fetch
+and each admission, preemption and resume from host bookkeeping: zero
+extra syncs. ``serve.serial.SerialEngine`` is the per-lane baseline; both
+engines share ``_EngineBase``.
 """
 from __future__ import annotations
 
@@ -175,7 +177,7 @@ def _moved_bytes(parked: Dict[str, Any], n_tokens: int, max_len: int) -> int:
 
 class _EngineBase:
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params,
-                 max_len: int = 2048, seed: int = 0, device=None):
+                 max_len: int = 2048, seed: int = 0, device=None, obs=None):
         self.cfg, self.scfg = cfg, scfg
         self.params = params
         self.max_len = max_len
@@ -201,6 +203,9 @@ class _EngineBase:
             "resume_bytes": np.zeros((self.n_expanders,), np.int64),
         }
         self._kw = dict(cfg=cfg, scfg=scfg, max_len=max_len)
+        self.obs = obs
+        if obs is not None:
+            obs.attach_serve(self)
 
     # -- client API ---------------------------------------------------------
 
@@ -297,12 +302,15 @@ class _EngineBase:
         self.counters["resume_bytes"] += moved
         exp = int(self.lane_expander[lane])
         self.expander_stats["resume_bytes"][exp] += moved
-        if req.expander >= 0 and req.expander != exp:
+        cross = req.expander >= 0 and req.expander != exp
+        if cross:
             self.counters["cross_expander_resumes"] += 1
             self.expander_stats["parked"][req.expander] -= 1
             self.expander_stats["parked"][exp] += 1
             req.expander = exp
         self.counters["promotions"] += 1
+        if self.obs is not None:
+            self.obs.record_resume(lane, req.rid, moved, cross, exp)
         req.lane = lane
         req.state = RUNNING
         self.lane_req[lane] = req.rid
@@ -312,8 +320,8 @@ class Engine(_EngineBase):
     """Device-resident batched scheduler (module docstring has the design)."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params,
-                 max_len: int = 2048, seed: int = 0, device=None):
-        super().__init__(cfg, scfg, params, max_len, seed, device)
+                 max_len: int = 2048, seed: int = 0, device=None, obs=None):
+        super().__init__(cfg, scfg, params, max_len, seed, device, obs)
 
         def z(dtype):
             return torch.zeros((self.lanes,), dtype=dtype, device=self.device)
@@ -410,6 +418,8 @@ class Engine(_EngineBase):
             del sub
             toks_h = self._fetch(toks[:k], "admit_syncs").tolist()
             self.counters["prefill_batches"] += 1
+            if self.obs is not None:
+                self.obs.record_admission(k, L)
             for i, (rid, lane) in enumerate(grp):
                 req = self.requests[rid]
                 req.generated.append(int(toks_h[i]))
@@ -431,10 +441,17 @@ class Engine(_EngineBase):
         bytes (re-validated, §4.5); a partial shadow pays only the suffix."""
         rid = self.lane_req[lane]
         req = self.requests[rid]
-        if req.parked is not None and req.shadow_pos >= req.pos:
+        shadow_hit = req.parked is not None and req.shadow_pos >= req.pos
+        if shadow_hit:
             self.counters["shadow_repreempts"] += 1
+            moved = 0
         else:
+            before = self.counters["preempt_bytes"]
             self._park_lane(req, lane)
+            moved = self.counters["preempt_bytes"] - before
+        if self.obs is not None:
+            self.obs.record_preempt(lane, rid, moved, shadow_hit,
+                                    int(self.lane_expander[lane]))
         self.counters["demotions"] += 1
         req.state = PREEMPTED
         req.lane = -1
@@ -470,8 +487,12 @@ class Engine(_EngineBase):
         quad = torch.stack([self.state["tok"], done.to(torch.int32),
                             self.state["ref"].to(torch.int32),
                             self.state["pos"]])
-        tok_h, done_h, ref_h, _ = self._fetch(quad, "step_syncs").tolist()
+        tok_h, done_h, ref_h, pos_h = self._fetch(quad, "step_syncs").tolist()
         self._ref = np.array(ref_h, bool)
+        if self.obs is not None:
+            # telemetry drain: the host rows of this step's one fetch
+            self.obs.record_step(self.counters["steps"], tok_h, done_h,
+                                 pos_h, [lane for lane, _ in active])
         for lane, rid in active:
             req = self.requests[rid]
             req.pos += 1

@@ -111,14 +111,16 @@ def run_workload(scheme_name: str, spec: WorkloadSpec, *,
     workload's footprint is the set of pages its trace touches.
     ``window=1`` replays one access at a time. ``device`` is the timing
     model's ``DeviceConfig``; ``torch_device`` is where the pool lives
-    (the card unless the caller names another)."""
+    (the card unless the caller names another). ``obs`` (a
+    ``repro_torch.obs.Recorder``) records the finished cell's metrics, which
+    are host values already: no extra sync."""
+    out = run_cell(scheme_name, spec, n_accesses=n_accesses,
+                   promoted_pages=promoted_pages, seed=seed,
+                   first_touch=first_touch, device=device, window=window,
+                   torch_device=torch_device)[0]
     if obs is not None:
-        raise NotImplementedError("run_workload(obs=...): the port's "
-                                  "telemetry is ROADMAP A.8")
-    return run_cell(scheme_name, spec, n_accesses=n_accesses,
-                    promoted_pages=promoted_pages, seed=seed,
-                    first_touch=first_touch, device=device, window=window,
-                    torch_device=torch_device)[0]
+        obs.record_cell(scheme_name, spec.name, out)
+    return out
 
 
 def _finalize(c: Dict[str, int], dev: DEV.DeviceConfig, ratio: float

@@ -182,9 +182,5 @@ def test_unported_fabric_parts_raise_naming_roadmap():
     pl = StaticInterleave(2, cfg.n_pages)
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         Fabric(cfg, POLICIES["ibex"], pl, shard_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        Fabric(cfg, POLICIES["ibex"], pl, obs=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         LF.main(["--devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        LF.main(["--trace", "out.trace.json", "--device", "cpu"])

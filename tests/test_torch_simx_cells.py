@@ -64,9 +64,15 @@ def test_run_workload_is_run_cells_metrics():
 
 
 def test_run_workload_refuses_obs_and_needs_a_device(monkeypatch):
+    """``run_workload(obs=)`` records the cell (the telemetry is ported:
+    it no longer refuses a recorder) and still needs a device."""
+    from repro_torch.obs import Recorder
     spec = TT.WORKLOADS["mcf"]
-    with pytest.raises(NotImplementedError, match="A.8"):
-        SE.run_workload("ibex", spec, obs=object(), torch_device="cpu", **SIZE)
+    rec = Recorder()
+    got = SE.run_workload("ibex", spec, obs=rec, torch_device="cpu", **SIZE)
+    assert rec.cells == [{"scheme": "ibex", "workload": "mcf",
+                          "time_s": got["time_s"],
+                          "normalized_perf": got["normalized_perf"]}]
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
