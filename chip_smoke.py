@@ -66,8 +66,8 @@ exits non-zero:
              CTAs against the SMs
  11 simx     the paper's evaluation path (payload-less pools, no kernel):
              one timed full-size cell (ibex x pr), then fig09 at the
-             paper's full size over 5 of its 10 workloads (the four where
-             C5 fires, and mcf; FIG09_CARD_WL, for the script's time) and
+             paper's full size over 4 of its 10 workloads (the four where
+             C5 fires; FIG09_CARD_WL, for the script's time) and
              the other nine figures in quick mode through
              ``launch/paper_figs.py``, each distinct cell once; every cell's
              metrics and every figure row run (fig09's per-cell rows; its
@@ -149,7 +149,7 @@ exits non-zero:
              and 64/8 x 128 (8) at lengths around its chunk within
              tolerance and bit-identical on a second call, B6 at both;
              (b) chameleon-34b and (c) musicgen-medium at their published
-             widths (musicgen's 48 layers; chameleon at 24 of its 48 for
+             widths (musicgen's 48 layers; chameleon at 12 of its 48 for
              the script's time, CHAMELEON_SERVE_LAYERS; seeded bf16 params
              made on the card) with phase 7's engine and 16 requests of 32
              new tokens:
@@ -190,8 +190,8 @@ exits non-zero:
              shapes; each sub-phase's wall
  17 obs      telemetry (``repro_torch.obs``) through the entry points: (a)
              ``launch/serve.py`` on llama3-8b as published (8 lanes, 4-bit
-             KV, max_len 2048, 12 requests: preemption and resume) four
-             times in turns without and with ``--trace``: tokens and
+             KV, max_len 2048, 12 requests: preemption and resume) twice,
+             without and then with ``--trace``: tokens and
              counters equal, one fetch a step both ways, the recorder's
              steps and bytes equal the engine's, the trace valid, the ring
              step, fill, flush, B5 and B6 launched, the median step wall of
@@ -203,6 +203,30 @@ exits non-zero:
              1e-9, B1's and B2's steps launched; (c) ``run_workload(obs=)``
              on two quick cells of the reference file; each sub-phase's
              wall
+ 18 train    training llama3-8b with the IBEX-compressed AdamW state
+             (``train/trainer.py``, ``optim/adamw.py``): (a) B3/B4 at 8
+             bits, block 512, f32 in, at every size the update hands them,
+             byte for byte, and B6's autograd Function at the train shape
+             (8 x 512, 32/8 x 128) and at (96, 64), bf16 and f32: its
+             forward is B6's launch, dq/dk/dv within ATTN_NORM_TOL of
+             autograd through the plain version in f32; their kernel /
+             eager / plain / library / bound times and the PyTorch
+             attention backward's ms a layer; (b) train main: llama3-8b as
+             published (32 layers, bf16, remat, seeded params made on the
+             card), seq 512 x batch 8, the compressed state, through
+             ``trainer.make_train_step``: a warm-up step and 3 timed ones,
+             losses and grad norms finite, step ms (CUDA events), tokens/s,
+             the model-FLOP share, peak memory, the state's bytes against
+             an f32 state's, launches (B3 and B4 twice a slice of the
+             update, B6 twice a layer), no host sync (counted, and
+             PyTorch's sync debug mode), the busy share of one profiled
+             step and one step split into grads and update; (c) 2 layers
+             at llama3-8b's widths in float32, microbatches 2, 3 steps,
+             kernels against plain versions: losses within 1e-4, the
+             moment codes that differ counted; (d) ``launch/train.py
+             --reduced --compress-state`` on the card: checkpoints restore
+             byte-equal, a corrupted one is skipped, a resumed run's first
+             loss equals the uninterrupted run's
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -2328,9 +2352,10 @@ def _time_rows(out: dict, label: str, tag: str) -> dict:
 # CPU by tests/test_torch_simx_reference.py
 SIMX_REFERENCE = ROOT / "src" / "repro_torch" / "simx" / "reference_cells.json"
 # fig09's full-size grid on the card: the four workloads whose pools break
-# I1-I4 (C5) and mcf, 30 of its 60 cells, for the script's time; its
-# geomean-speedup rows need all ten workloads and are held on the CPU only
-FIG09_CARD_WL = ("pr", "cc", "xsbench", "bfs", "mcf")
+# I1-I4 (C5), 24 of its 60 cells, for the script's time (mcf's six went for
+# phase 18's); its geomean-speedup rows need all ten workloads and are held
+# on the CPU only
+FIG09_CARD_WL = ("pr", "cc", "xsbench", "bfs")
 
 
 def _zero_port_launches() -> None:
@@ -2356,7 +2381,7 @@ def _fig09_cut(cache) -> list:
 
 
 def phase_simx(dev, tag: str) -> dict:
-    """fig09 at the paper's full size (6 schemes x FIG09_CARD_WL's 5
+    """fig09 at the paper's full size (6 schemes x FIG09_CARD_WL's 4
     workloads, 12,000 accesses over 96 promoted pages) and the other nine
     figures in quick mode, each distinct cell computed once on the card
     (``CellCache``), after one timed full-size cell. Every cell's metrics
@@ -3638,9 +3663,10 @@ SSM_PROMPT_CHUNKS = (3, 9)
 SSM_WHOLE_CHUNKS = (1, 3)
 # depths of 15d (of falcon-mamba-7b's 64 layers) and 15b (of
 # chameleon-34b's 48): cut to keep the script near its 900 s target once
-# phase 16 came in (PERF.md §4), 15d first as the longest serving prefill
+# phase 16 came in (PERF.md §4), 15d first as the longest serving prefill;
+# 15b again (24 -> 12) for phase 18
 SSM_SERVE_LAYERS = 16
-CHAMELEON_SERVE_LAYERS = 24
+CHAMELEON_SERVE_LAYERS = 12
 # bytes of one parked falcon-mamba lane at 15d's depth: each layer's h
 # (8192 x 16 f32) and conv tail (3 x 8192 bf16)
 SSM_PARK_BYTES = SSM_SERVE_LAYERS * (8192 * 16 * 4 + 3 * 8192 * 2)
@@ -4609,8 +4635,8 @@ def _median_ms(walls, pure_only: bool):
 
 
 def phase_obs_serve(dev, tag: str, argv=OBS_SERVE_ARGV) -> dict:
-    """17a: ``launch/serve.py``'s ``main`` four times in turns, without and
-    with ``--trace`` (off, on, on, off), the same seed: tokens and every
+    """17a: ``launch/serve.py``'s ``main`` twice in turns, without and
+    with ``--trace`` (off, on), the same seed: tokens and every
     engine counter equal, one fetch a step both ways, the recorder's steps
     and byte counters equal the engine's, the written trace valid; the
     step walls of each kind of run (all steps, and pure decode steps)."""
@@ -4620,7 +4646,7 @@ def phase_obs_serve(dev, tag: str, argv=OBS_SERVE_ARGV) -> dict:
     t0 = time.perf_counter()
     runs, walls = [], {False: [], True: []}
     with tempfile.TemporaryDirectory() as tmp:
-        for i, on in enumerate((False, True, True, False)):
+        for i, on in enumerate((False, True)):
             path = Path(tmp) / f"serve{i}.trace.json"
             _reset_launches()
             with _StepClock() as clock:
@@ -4655,13 +4681,13 @@ def phase_obs_serve(dev, tag: str, argv=OBS_SERVE_ARGV) -> dict:
           for k, on in (("off", False), ("on", True))}
     turns = [(_median_ms(r["walls"], False), _median_ms(r["walls"], True))
              for r in runs]
-    print(f"phase 17a serve --trace: {' '.join(argv)} | 4 launcher runs "
-          f"(off, on, on, off) | tokens and counters equal in all: {same} "
+    print(f"phase 17a serve --trace: {' '.join(argv)} | 2 launcher runs "
+          f"(off, on) | tokens and counters equal in all: {same} "
           f"| counters {json.dumps(c)} | step_syncs == steps in each: "
           f"{all(r['counters']['step_syncs'] == r['counters']['steps'] for r in runs)}"
           f" | launches {json.dumps(runs[1]['launches'])} [{tag}]",
           flush=True)
-    for r in runs[1:3]:
+    for r in runs[1:]:
         print(f"phase 17a recorder: {r['steps']} steps recorded of "
               f"{r['counters']['steps']}, {r['events']} serve events "
               f"{r['kinds']}, trace {r['n_events']} events, validator "
@@ -4675,8 +4701,8 @@ def phase_obs_serve(dev, tag: str, argv=OBS_SERVE_ARGV) -> dict:
     print(f"phase 17a step ms (median host wall a step; all steps / pure "
           f"decode steps, their count): without the recorder {ms['off'][0]}"
           f" / {ms['off'][1]} ({ms['off'][2]}), with it {ms['on'][0]} / "
-          f"{ms['on'][1]} ({ms['on'][2]}); by run in turn (off, on, on, "
-          f"off): {json.dumps(turns)}; wall {wall:.3f} s [{tag}]",
+          f"{ms['on'][1]} ({ms['on'][2]}); by run in turn (off, on): "
+          f"{json.dumps(turns)}; wall {wall:.3f} s [{tag}]",
           flush=True)
     check(same, "phase 17a: tokens or counters differ with the recorder")
     check(c["demotions"] > 0 and c["promotions"] > c["prefill_batches"],
@@ -4807,6 +4833,468 @@ def phase_obs_cells(dev, tag: str, keys=OBS_CELLS) -> dict:
     return {"wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: training, llama3-8b with the IBEX-compressed AdamW state.
+# ---------------------------------------------------------------------------
+
+# 18b's peak memory limit; llama3-8b trains at all 32 layers under it
+# (a deeper cut would be listed in PERF.md §4, as 14b's is)
+TRAIN_PEAK_GIB = 72.0
+TRAIN_STEPS = 3           # timed steps after one warm-up step
+# the warning of torch.cuda.set_sync_debug_mode("warn") at each sync
+SYNC_WARNING = "called a synchronizing CUDA operation"
+# an f32 AdamW state of llama3-8b: 2 moments x 4 B x 8,029,995,008 params
+F32_STATE_BYTES = 8 * 8_029_995_008
+# 18a's B3/B4 sizes: a norm (final_norm), a stacked norm ([32, 4096]), the
+# embedding's last slice, and a whole slice of a stacked leaf (wq, the
+# MLP's and the embedding's other slices): every size the update hands B3
+TRAIN_CODEC_SIZES = (4096, 131072, 525_336_576 % (1 << 26), 1 << 26)
+# B6's Function: the train shape (8 x 512, 32/8 x 128) and MLA's pair
+TRAIN_ATTN = ((8, 512, 32, 8, 128, 128), (8, 512, 40, 40, 96, 64))
+# 18c: llama3-8b's widths at 2 layers, float32, microbatches 2, 3 steps,
+# the losses of the two routes within this relative distance (float32
+# sums in another order through 2 layers, 3 updates)
+TRAIN_WHOLE_LAYERS = 2
+TRAIN_WHOLE_RTOL = 1e-4
+# 18d: the launcher on REDUCED llama3 with the compressed state
+TRAIN_LAUNCHER_ARGV = ["--arch", "llama3_8b", "--reduced", "--steps", "4",
+                       "--seq-len", "64", "--global-batch", "4",
+                       "--compress-state", "--ckpt-every", "2"]
+
+
+def _train_configs(layers=None, dtype=None, microbatches=1):
+    """(model config, TrainConfig): llama3-8b as published (or cut to
+    ``layers``), TrainConfig's defaults (seq 512, global batch 8), the
+    launcher's optimizer (lr 3e-4, warm-up 20) with the compressed state."""
+    from repro_torch.common.types import OptimizerConfig, TrainConfig
+    cfg = _llama(layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg, TrainConfig(microbatches=microbatches,
+                            optimizer=OptimizerConfig(
+                                lr=3e-4, warmup_steps=20,
+                                compress_state=True))
+
+
+def _train_slices(params, block: int) -> int:
+    """Slices ``adamw.update`` cuts the leaves into (B3 and B4 launch twice
+    a slice: m and sqrt(v))."""
+    from repro_torch.common import tree as TR
+    from repro_torch.optim import adamw
+    return sum(len(adamw._slices(p.numel(), adamw._blk(p.numel(), block)))
+               for _, p in TR.leaves_with_paths(params))
+
+
+def phase_train_kernels(dev, tag: str) -> tuple:
+    """18a: B3/B4 at 8 bits, block 512, f32 in, at every size the update
+    hands them, byte for byte; B6's autograd Function at the train shape
+    and at (96, 64), bf16 and f32, causal: its forward is B6's launch, its
+    grads against autograd through the plain version in f32 on the card,
+    normwise within ATTN_NORM_TOL; then the kernel / eager / plain /
+    library / bound times of the three at the train path's shapes, and the
+    attention backward's ms a layer."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import qpack
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    errs = {k: {"err": 0.0, "cases": 0, "mismatches": 0} for k in (
+        "qpack_fixed_encode_train", "qpack_fixed_decode_train",
+        "flash_attention_train")}
+    for n in TRAIN_CODEC_SIZES:
+        x = torch.randn((n,), generator=gen, device=dev) * 1e-3
+        x[: n // 8] = 0.0                      # whole zero blocks too
+        got, want = qpack.encode(x, 8, 512), qpack.encode_plain(x, 8, 512)
+        r = errs["qpack_fixed_encode_train"]
+        r["cases"] += 1
+        r["mismatches"] += int((got[0] != want[0]).sum()) + \
+            int((~_bits_equal(got[1][:, None], want[1][:, None])).sum())
+        a = qpack.decode(*want, 8, 512, torch.float32)
+        b = qpack.decode_plain(*want, 8, 512, torch.float32)
+        r = errs["qpack_fixed_decode_train"]
+        r["cases"] += 1
+        r["mismatches"] += int((a.view(torch.int32) !=
+                                b.view(torch.int32)).sum())
+        r["err"] = max(r["err"], float((a - b).abs().max()))
+        errs["qpack_fixed_encode_train"]["err"] = max(
+            errs["qpack_fixed_encode_train"]["err"],
+            float((qpack.decode_plain(*got, 8, 512, torch.float32) -
+                   b).abs().max()))
+        del x, got, want, a, b
+    grad_errs = {}
+    r = errs["flash_attention_train"]
+    for B, S, Hq, Hkv, D, Dv in TRAIN_ATTN:
+        q = torch.randn((B, S, Hq, D), generator=gen, device=dev)
+        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+        v = torch.randn((B, S, Hkv, Dv), generator=gen, device=dev)
+        do = torch.randn((B, S, Hq, Dv), generator=gen, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            ins = [t.to(dt).requires_grad_() for t in (q, k, v)]
+            n0 = FA.launches
+            o = FA.flash_attention_trainable(*ins, causal=True)
+            check(FA.launches == n0 + 1 and o.grad_fn is not None,
+                  "phase 18a: B6's Function did not launch B6 once")
+            o.backward(do.to(dt))
+            ref = [t.to(dt).float().requires_grad_() for t in (q, k, v)]
+            o_ref = FA.flash_attention_plain(*ref, causal=True)
+            o_ref.backward(do.to(dt).float())
+            d = o.detach().float() - o_ref.detach()
+            r["cases"] += 1
+            r["mismatches"] += int((d.abs() > ATTN_TOL[dt] *
+                                    (1 + o_ref.detach().abs())).sum())
+            r["err"] = max(r["err"], float(d.abs().max()))
+            name = f"{B}x{S} {Hq}/{Hkv} x {D}/{Dv} {str(dt)[6:]}"
+            grad_errs[name] = [round(float((a.grad.float() - b.grad).norm()
+                                           / b.grad.norm()), 8)
+                               for a, b in zip(ins, ref)]
+            check(max(grad_errs[name]) <= ATTN_NORM_TOL[dt],
+                  f"phase 18a: B6's gradients off at {name}: "
+                  f"{grad_errs[name]}")
+            del ins, ref, o, o_ref, d
+    print(f"phase 18a kernels: B3 at 8 bits / block 512 / f32 over "
+          f"{list(TRAIN_CODEC_SIZES)} values: "
+          f"{errs['qpack_fixed_encode_train']['mismatches']} codes and "
+          f"scales differ; B4 to f32: "
+          f"{errs['qpack_fixed_decode_train']['mismatches']} values differ"
+          f" | B6's Function: forward max abs err {r['err']:.3e}, "
+          f"{r['mismatches']} outside ATTN_TOL; dq/dk/dv normwise against "
+          f"autograd through the plain version in f32: "
+          f"{json.dumps(grad_errs)} [{tag}]", flush=True)
+    check(errs["qpack_fixed_encode_train"]["mismatches"] == 0 and
+          errs["qpack_fixed_decode_train"]["mismatches"] == 0,
+          "phase 18a: B3/B4 differ from their plain versions")
+    check(r["mismatches"] == 0, "phase 18a: B6's forward off tolerance")
+
+    n = TRAIN_CODEC_SIZES[-1]
+    x = torch.randn((n,), generator=gen, device=dev) * 1e-3
+    c, sc = qpack.encode(x, 8, 512)
+    B, S, Hq, Hkv, D, _ = TRAIN_ATTN[0]
+    qa, ka, va = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                  .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    out = {
+        "qpack_fixed_encode_train": dict(
+            shape=f"{n} f32 values (a slice of a stacked leaf) -> 8-bit "
+                  f"codes, block 512",
+            kern=lambda: qpack.encode(x, 8, 512),
+            plain=lambda: qpack.encode_plain(x, 8, 512), lib=None,
+            nbytes=n * 4 + n + n // 512 * 4,
+            ops=ENCODE_OPS_PER_VALUE * n, ops_rate=F32_OPS_PER_S, reps=20),
+        "qpack_fixed_decode_train": dict(
+            shape=f"{n} 8-bit codes, block 512 -> f32",
+            kern=lambda: qpack.decode(c, sc, 8, 512, torch.float32),
+            plain=lambda: qpack.decode_plain(c, sc, 8, 512, torch.float32),
+            lib=None, nbytes=n + n // 512 * 4 + n * 4,
+            ops=DECODE_OPS_PER_VALUE * n, ops_rate=F32_OPS_PER_S, reps=20),
+        "flash_attention_train": dict(
+            shape=f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} bf16 causal "
+                  f"(a layer's training forward)",
+            kern=lambda: FA.flash_attention(qa, ka, va, causal=True),
+            plain=lambda: FA.flash_attention_plain(qa, ka, va, causal=True),
+            lib=lambda: _sdpa(qa, ka, va, True),
+            nbytes=2 * B * S * D * (2 * Hq + 2 * Hkv),
+            ops=4 * B * Hq * D * S * (S + 1) // 2, reps=20)}
+    times = _time_rows(out, "18a", tag)
+    oa = FA.flash_attention(qa, ka, va, causal=True)
+    bwd_ms = time_eager(lambda: FA.flash_attention_backward(
+        qa, ka, va, oa, oa, causal=True, sm_scale=1.0 / D ** 0.5), 5)
+    print(f"phase 18a attention backward (PyTorch, FlashAttention-2's "
+          f"formulas) at the train shape: {bwd_ms:.6f} ms a layer (eager) "
+          f"[{tag}]", flush=True)
+    times["attention_backward_ms"] = bwd_ms
+    return errs, times
+
+
+def _timed_steps(step_fn, params, opt, batches):
+    """Each step between two CUDA events; (params, opt, metrics list, ms
+    list)."""
+    evs, metrics = [], []
+    for b in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, opt, m = step_fn(params, opt, b)
+        e.record()
+        evs.append((a, e))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return params, opt, metrics, [a.elapsed_time(e) for a, e in evs]
+
+
+def phase_train_main(dev, tag: str) -> dict:
+    """18b: llama3-8b as published (32 layers, bf16, remat; seeded params
+    made on the card) trained through ``trainer.make_train_step`` with the
+    compressed AdamW state: one warm-up step, then TRAIN_STEPS timed
+    steps with every launch count set to 0 before them and read after
+    (B3 and B4 twice a slice of the update, B6 twice a layer: the forward
+    and the remat forward), no host sync (the port's counter, and
+    PyTorch's sync debug mode); then one step under torch.profiler (busy
+    share) and one split into grads and update (CUDA events)."""
+    import warnings
+    from repro_torch.common import contracts
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import qpack
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    t0 = time.perf_counter()
+    cfg, tcfg = _train_configs()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = trainer.init_params(cfg, SEED, dev)
+    opt = adamw.init(params, tcfg.optimizer)
+    step_fn, _ = trainer.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    batches = [make_batch(cfg, i, global_batch=tcfg.global_batch,
+                          seq_len=tcfg.seq_len, device=dev)
+               for i in range(TRAIN_STEPS + 3)]
+    params, opt, warm = step_fn(params, opt, batches[0])
+    torch.cuda.synchronize()
+    _reset_launches()
+    contracts.SYNCS.reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            params, opt, metrics, ms = _timed_steps(
+                step_fn, params, opt, batches[1:TRAIN_STEPS + 1])
+            n_caught = len(caught)
+            warm["loss"].item()        # the instrument's own check: caught
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = contracts.SYNCS.count
+    sync_msgs = [i for i, w in enumerate(caught)
+                 if SYNC_WARNING in str(w.message)]
+    debug_syncs = [str(caught[i].message)[:120] for i in sync_msgs
+                   if i < n_caught]
+    instrument_ok = any(i >= n_caught for i in sync_msgs)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    host = contracts.fetch({f"{k}{i}": m[k] for i, m in enumerate(
+        [warm] + metrics) for k in ("loss", "grad_norm", "lr")})
+    losses = [float(host[f"loss{i}"]) for i in range(TRAIN_STEPS + 1)]
+    gnorms = [float(host[f"grad_norm{i}"]) for i in range(TRAIN_STEPS + 1)]
+    slices = _train_slices(params, tcfg.optimizer.state_block)
+    want = {"qpack_fixed_encode": 2 * slices * TRAIN_STEPS,
+            "qpack_fixed_decode": 2 * slices * TRAIN_STEPS,
+            "flash_attention": 2 * cfg.num_layers * TRAIN_STEPS,
+            "flash_attention_tc": 2 * cfg.num_layers * TRAIN_STEPS}
+    got = {k: launches[k] for k in want}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    step_ms = statistics.median(ms)
+    tokens = tcfg.global_batch * tcfg.seq_len
+    n_params = cfg.param_count()
+    mfu = 6 * n_params * tokens / (step_ms / 1e3 * BF16_OPS_PER_S)
+    state = adamw.state_bytes(opt)
+
+    # one step under the profiler (the card's activity), one split
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    act = ProfilerActivity.CUDA if torch.cuda.is_available() else \
+        ProfilerActivity.CPU
+    with profile(activities=[act]) as prof:
+        tp = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, batches[TRAIN_STEPS + 1])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - tp
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _busy_us(evs) / 1e6 / prof_wall
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    e[0].record()
+    grads, loss = trainer.grads_and_loss(params, batches[TRAIN_STEPS + 2],
+                                         cfg, tcfg.microbatches)
+    e[1].record()
+    params, opt, _ = adamw.update(grads, opt, params, tcfg.optimizer)
+    e[2].record()
+    torch.cuda.synchronize()
+    del grads
+    split = {"grads_ms": e[0].elapsed_time(e[1]),
+             "update_ms": e[1].elapsed_time(e[2])}
+    wall = time.perf_counter() - t0
+    print(f"phase 18b train main: {cfg.name} as published ({cfg.num_layers} "
+          f"layers, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} x "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; "
+          f"{n_params} params) | seq {tcfg.seq_len} x batch "
+          f"{tcfg.global_batch}, microbatches {tcfg.microbatches}, "
+          f"compressed AdamW (lr {tcfg.optimizer.lr}, warm-up "
+          f"{tcfg.optimizer.warmup_steps}) | losses (warm-up, then timed) "
+          f"{losses} | grad norms {gnorms} [{tag}]", flush=True)
+    print(f"phase 18b step: {step_ms:.3f} ms median of {[round(x, 3) for x in ms]}"
+          f" (CUDA events) | {tokens / step_ms * 1e3:.1f} tokens/s | "
+          f"model-FLOP share {mfu:.4f} (6 N tokens / (step s x 989 TF/s)) "
+          f"| peak {peak:.3f} GiB | compressed state {state} B against "
+          f"{F32_STATE_BYTES} B in f32 ({state / F32_STATE_BYTES:.4f}) | "
+          f"init {t_init:.3f} s [{tag}]", flush=True)
+    print(f"phase 18b launches over {TRAIN_STEPS} steps: {json.dumps(got)}"
+          f" (expected {json.dumps(want)}: {slices} update slices, "
+          f"{cfg.num_layers} layers); a step: B3 "
+          f"{got['qpack_fixed_encode'] / TRAIN_STEPS:.1f}, B4 "
+          f"{got['qpack_fixed_decode'] / TRAIN_STEPS:.1f}, B6 "
+          f"{got['flash_attention'] / TRAIN_STEPS:.1f}; others "
+          f"{json.dumps(others)} | host syncs a step "
+          f"{syncs / TRAIN_STEPS:.1f} (counted), {len(debug_syncs)} in "
+          f"PyTorch's sync debug mode {debug_syncs[:3]} (a deliberate "
+          f".item() after the steps caught: {instrument_ok}) [{tag}]",
+          flush=True)
+    print(f"phase 18b profile: one step {prof_wall * 1e3:.3f} ms wall, "
+          f"{len(evs)} device events, busy {busy:.4f} | split step: grads "
+          f"(forward, remat and backward) {split['grads_ms']:.3f} ms, "
+          f"update {split['update_ms']:.3f} ms | phase 18b wall "
+          f"{wall:.3f} s [{tag}]", flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"phase 18b: a loss or grad norm is not finite: {losses} {gnorms}")
+    check(got == want, f"phase 18b: launches {got}, expected {want}")
+    check(not others, f"phase 18b: other kernels launched: {others}")
+    check(syncs == 0 and not debug_syncs and instrument_ok,
+          f"phase 18b: the train step synced: {syncs} counted, "
+          f"{debug_syncs[:3]} (sync debug mode working: {instrument_ok})")
+    check(peak <= TRAIN_PEAK_GIB, f"phase 18b: peak {peak:.3f} GiB past "
+          f"{TRAIN_PEAK_GIB} GiB")
+    del params, opt, batches, metrics, warm
+    return {"launches": got, "step_ms": step_ms, "wall_s": wall,
+            "peak_gib": peak, "busy": busy, **split}
+
+
+def _train_route(dev, impl: str) -> dict:
+    """18c's run on one route: TRAIN_WHOLE_LAYERS layers at llama3-8b's
+    widths in float32, microbatches 2, 3 steps from the seeded params."""
+    from repro_torch.common import contracts
+    from repro_torch.common import tree as TR
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg, tcfg = _train_configs(TRAIN_WHOLE_LAYERS, "float32", 2)
+    kw = WHOLE_IMPLS[impl]
+    params = trainer.init_params(cfg, SEED + 1, dev)
+    opt = adamw.init(params, tcfg.optimizer, kw["quantize_impl"])
+    step_fn, _ = trainer.make_train_step(cfg, tcfg, **kw)
+    _reset_launches()
+    ms = []
+    for i in range(3):
+        params, opt, m = step_fn(params, opt, make_batch(
+            cfg, i, global_batch=tcfg.global_batch, seq_len=tcfg.seq_len,
+            device=dev))
+        ms.append(m)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    host = contracts.fetch({f"loss{i}": m["loss"] for i, m in enumerate(ms)})
+    codes = torch.cat([x.reshape(-1) for p, x in
+                       TR.leaves_with_paths((opt.m, opt.v))
+                       if p[-1] == "codes"])
+    return {"losses": [float(host[f"loss{i}"]) for i in range(3)],
+            "codes": codes, "launches": launches}
+
+
+def phase_train_whole(dev, tag: str) -> dict:
+    """18c: the whole training path both ways at llama3-8b's widths and
+    TRAIN_WHOLE_LAYERS layers, float32, microbatches 2, 3 steps: the
+    kernel route (B3/B4/B6) against the plain route (``quantize_impl``
+    "jnp", ``attn_impl`` "plain"): losses within TRAIN_WHOLE_RTOL; the
+    share of moment codes that differ and the largest difference reported
+    (a value at a rounding boundary may move a code)."""
+    t0 = time.perf_counter()
+    k = _train_route(dev, "kernel")
+    torch.cuda.empty_cache()
+    p = _train_route(dev, "plain")
+    d = (k["codes"].view(torch.int8).int() - p["codes"].view(
+        torch.int8).int()).abs()
+    share, worst = float((d > 0).float().mean()), int(d.max())
+    rel = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
+    b6 = {r: x["launches"]["flash_attention"] for r, x in
+          (("kernel", k), ("plain", p))}
+    b3 = {r: x["launches"]["qpack_fixed_encode"] for r, x in
+          (("kernel", k), ("plain", p))}
+    wall = time.perf_counter() - t0
+    print(f"phase 18c train whole ({TRAIN_WHOLE_LAYERS} layers at "
+          f"llama3-8b's widths, float32, microbatches 2, 3 steps): losses "
+          f"kernel {k['losses']} / plain {p['losses']} (relative "
+          f"{[f'{x:.2e}' for x in rel]}) | moment codes differing "
+          f"{share:.6f} of {d.numel()}, largest difference {worst} | B6 "
+          f"launches {b6}, B3 {b3} | wall {wall:.3f} s [{tag}]", flush=True)
+    check(max(rel) <= TRAIN_WHOLE_RTOL, f"phase 18c: losses differ: {rel}")
+    check(b6["kernel"] > 0 and b3["kernel"] > 0 and b6["plain"] == 0 and
+          b3["plain"] == 0, f"phase 18c: routes crossed: B6 {b6}, B3 {b3}")
+    del k, p, d
+    return {"wall_s": wall, "code_share": share, "code_max": worst}
+
+
+def _tree_bytes_equal(a, b) -> bool:
+    from repro_torch.common import tree as TR
+    for (pa, x), (pb, y) in zip(TR.leaves_with_paths(a),
+                                TR.leaves_with_paths(b)):
+        if pa != pb:
+            return False
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                    x.reshape(-1).view(torch.uint8),
+                    y.reshape(-1).view(torch.uint8)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_train_launcher(dev, tag: str) -> dict:
+    """18d: ``launch/train.py`` on the card with ``--reduced
+    --compress-state``: 4 steps, a checkpoint every 2; the newest
+    checkpoint restores byte-equal to the run's params and state; with its
+    ``arrays.npz`` corrupted ``latest()`` skips it; a second run resumes
+    from step 2 and its first step's loss equals the first run's."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from repro_torch.launch import train as LT
+    from repro_torch.train import checkpoint as ckpt
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = TRAIN_LAUNCHER_ARGV + ["--ckpt-dir", tmp, "--device",
+                                      str(dev)]
+        _reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out1:
+            first = LT.main(argv)
+        launches = _launch_counts()
+        steps = ckpt.list_steps(tmp)
+        back, _ = ckpt.restore(tmp, steps[-1], {"params": first["params"],
+                                                "opt": first["opt"]})
+        restored = _tree_bytes_equal(back, {"params": first["params"],
+                                            "opt": first["opt"]})
+        npz = os.path.join(tmp, f"step_{steps[-1]:08d}", "arrays.npz")
+        with open(npz, "r+b") as f:
+            f.seek(120)
+            f.write(b"\xde\xad\xbe\xef")
+        skipped = ckpt.latest(tmp)
+        with contextlib.redirect_stdout(io.StringIO()) as out2:
+            again = LT.main(argv)
+        s0 = again["start"]
+        l1 = float(first["metrics"][s0]["loss"])
+        l2 = float(again["metrics"][s0]["loss"])
+        same_end = _tree_bytes_equal(
+            {"params": again["params"], "opt": again["opt"]},
+            {"params": first["params"], "opt": first["opt"]})
+    wall = time.perf_counter() - t0
+    lines = [x for x in out1.getvalue().splitlines() if x.startswith("step")]
+    print(f"phase 18d train launcher: {' '.join(TRAIN_LAUNCHER_ARGV)} | "
+          f"{lines} | checkpoints {steps}; step {steps[-1]} restores "
+          f"byte-equal: {restored}; corrupted, latest() -> {skipped} | "
+          f"resumed at step {s0}: loss {l2} against {l1} uninterrupted; "
+          f"the resumed run ends byte-equal: {same_end} | launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} | wall "
+          f"{wall:.3f} s [{tag}]", flush=True)
+    check("training complete" in out1.getvalue() and
+          "training complete" in out2.getvalue(),
+          "phase 18d: the launcher did not complete")
+    check(steps == [2, 4], f"phase 18d: checkpoints {steps}")
+    check(restored, "phase 18d: the checkpoint does not restore byte-equal")
+    check(skipped == 2, f"phase 18d: latest() gave {skipped} past a "
+          "corrupted checkpoint")
+    check(s0 == 2 and l1 == l2, f"phase 18d: resumed at {s0}, loss {l2} "
+          f"against {l1}")
+    check(all(launches[k] > 0 for k in ("qpack_fixed_encode",
+                                        "qpack_fixed_decode",
+                                        "flash_attention")),
+          f"phase 18d: a kernel was not launched: {launches}")
+    return {"wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4924,6 +5412,20 @@ def main() -> int:
     print(f"phase 17 wall {time.perf_counter() - t17:.3f} s "
           f"({json.dumps({k: round(v, 3) for k, v in walls17.items()})}) "
           f"[{tag}]", flush=True)
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    train_errs, train_times = phase_train_kernels(dev, tag)
+    walls18 = {"18a": time.perf_counter() - t18}
+    torch.cuda.empty_cache()
+    train = phase_train_main(dev, tag)
+    walls18["18b"] = train["wall_s"]
+    torch.cuda.empty_cache()
+    walls18["18c"] = phase_train_whole(dev, tag)["wall_s"]
+    torch.cuda.empty_cache()
+    walls18["18d"] = phase_train_launcher(dev, tag)["wall_s"]
+    print(f"phase 18 wall {time.perf_counter() - t18:.3f} s "
+          f"({json.dumps({k: round(v, 3) for k, v in walls18.items()})}) "
+          f"[{tag}]", flush=True)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     extra = ("composition_ms", "composition_graph_ms", "events",
@@ -4953,10 +5455,13 @@ def main() -> int:
                       else f"{n}x512 bf16"), "cases": errs[kind]["cases"],
             "mismatches": errs[kind]["mismatches"],
             **{f: t[f] for f in extra if f in t}})
-    # B4 runs on the paper path only: its launches are that path's
+    # B4 runs on the paper path of serving: its launches are that path's;
+    # B3's own encode runs on the train path (phase 18b)
     path_launches = dict(serve_launches,
                          qpack_fixed_decode=paper_launches[
-                             "qpack_fixed_decode"])
+                             "qpack_fixed_decode"],
+                         qpack_fixed_encode=train["launches"][
+                             "qpack_fixed_encode"])
     for name_, source, replaces in (
             ("qpack_fixed_encode", "qpack_fixed.cu", "qpack.py:122"),
             ("qpack_ring_step", "qpack_fixed.cu", "qpack.py:122"),
@@ -4975,8 +5480,10 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": ("serve paper (phase 8)" if name_ == "qpack_fixed_decode"
-                     else "none since the prefill fill and the lane flush: "
-                     "the TPU kernel's contract, held in phase 6"
+                     else "train main (phase 18b), the AdamW moments at "
+                     "qpack_fixed_encode_train's shape; none on serve main "
+                     "since the prefill fill and the lane flush (its shape "
+                     "here, held in phase 6)"
                      if name_ == "qpack_fixed_encode"
                      else "serve main (phase 7)"),
             "shape": t["shape"], "cases": e["cases"],
@@ -5135,6 +5642,31 @@ def main() -> int:
                                                "bound_ms")}
         for k, tt in hybrid_times.items()
         if k.startswith("flash_attention_hybrid_")}
+    # the training path (phase 18): launches on train main (18b)
+    train_path = {"qpack_fixed_encode_train":
+                  train["launches"]["qpack_fixed_encode"],
+                  "qpack_fixed_decode_train":
+                  train["launches"]["qpack_fixed_decode"],
+                  "flash_attention_train": train["launches"][
+                      "flash_attention"]}
+    for name_, source, replaces in (
+            ("qpack_fixed_encode_train", "qpack_fixed.cu", "qpack.py:122"),
+            ("qpack_fixed_decode_train", "qpack_fixed.cu", "qpack.py:148"),
+            ("flash_attention_train", "flash_attn.cu", "flash_attn.py:72")):
+        t, e = train_times[name_], train_errs[name_]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": train_path[name_], "max_abs_err": e["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "path": ("train main (phase 18b): the forward and the remat "
+                     "forward, under autograd" if name_.startswith("flash")
+                     else "train main (phase 18b): the AdamW moments"),
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"]})
     print(f"total {time.perf_counter() - t_start:.3f} s [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)

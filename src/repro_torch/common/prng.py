@@ -14,6 +14,11 @@ masked back to 32 bits where uint32 arithmetic would wrap.
                              over the flat index i of shape ``s``
   * ``uniform``/``gumbel``/``categorical`` follow ``jax.random`` ("low"
     Gumbel mode: -log(-log(u)), u uniform in [tiny, 1)).
+  * ``randint`` is ``jax.random.randint`` for int32 (two draws from
+    ``split(k)``, JAX's multiply-and-remainder span rule in uint32, held in
+    int64 and masked); ``normal`` is sqrt(2) * erfinv(u), u uniform in
+    (-1, 1): the same u as JAX, but torch's ``erfinv`` and XLA's need not
+    agree to the last bit.
 """
 from __future__ import annotations
 
@@ -92,3 +97,28 @@ def categorical(k: Key, logits: torch.Tensor) -> torch.Tensor:
     """Gumbel-argmax sample over the last axis (first index on ties)."""
     g = gumbel(k, tuple(logits.shape), logits.device)
     return torch.argmax(g + logits.to(torch.float32), dim=-1)
+
+
+def randint(k: Key, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """int32 uniform in [minval, maxval) (``jax.random.randint`` with JAX's
+    default int32 dtype); maxval <= minval gives minval, as in JAX."""
+    span = max(int(maxval) - int(minval), 1)
+    if span >= 1 << 31 or not (-(1 << 31) <= minval < (1 << 31)):
+        raise ValueError(f"randint over [{minval}, {maxval}): the port "
+                         "takes int32 bounds and spans under 2**31")
+    k1, k2 = split(k)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    # uint32 arithmetic: every product and sum wraps at 2**32
+    mult = ((((1 << 16) % span) ** 2) & U32) % span
+    off = ((((hi % span) * mult) & U32) + lo % span) & U32
+    return (off % span + minval).to(torch.int32)
+
+
+def normal(k: Key, shape, device="cpu") -> torch.Tensor:
+    """float32 standard normal, ``jax.random.normal``'s construction."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, lo, 1.0, device)
+    return torch.erfinv(u) * torch.tensor(np.sqrt(2), dtype=torch.float32,
+                                          device=device)

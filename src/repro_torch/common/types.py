@@ -1,7 +1,8 @@
 """Configurations of the PyTorch port: pool, model and serving.
 
-Field-for-field copies of the reference ``PoolConfig``, ``ModelConfig`` and
-``ServeConfig`` (same names, defaults and allowed values), so
+Field-for-field copies of the reference ``PoolConfig``, ``ModelConfig``,
+``ServeConfig``, ``MeshConfig``, ``OptimizerConfig`` and ``TrainConfig``
+(same names, defaults and allowed values), so
 ``PoolConfig(**dataclasses.asdict(ref_cfg))`` builds the port's config
 unchanged (``ServeConfig.from_reference`` does the same for the nested
 serving config). On the port, ``compress_impl``/``quantize_impl="jnp"``
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -223,6 +224,52 @@ class ServeConfig:
         pool = d.pop("pool")
         return cls(pool=PoolConfig(**(pool if isinstance(pool, dict) else
                                       dataclasses.asdict(pool))), **d, **kw)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+    pipeline_stages: int = 0           # >0: map "pod" axis to pipeline stages
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    # IBEX-compressed optimizer state (block-quantized moments)
+    compress_state: bool = False
+    state_block: int = 512
+    moment_dtype: str = "float32"      # "float32" | "bfloat16" (uncompressed)
+    # error-feedback int8 gradient compression for the DP all-reduce
+    compress_grads: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    seq_len: int = 512
+    global_batch: int = 8
+    microbatches: int = 1
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    seed: int = 0
+    log_every: int = 10
 
 
 def replace(cfg, **kw):

@@ -10,6 +10,12 @@ this module is the only place that converts them. A stacked pool (the
 fabric's, ``state.make_pool_stack``) has the same names, every leaf with a
 leading expander axis.
 
+Training: ``stacked_params_from_numpy``/``stacked_params_to_numpy`` carry
+the reference's tree as it is (the trainer's stacked layout), and
+``opt_state_from_numpy``/``opt_state_to_numpy`` the AdamW state, raw or
+compressed ({"codes", "scales", "block"} a leaf; ``block`` a host int in
+the port, an int32 array in the reference).
+
 Model params: the reference's ``init_params`` tree (layers stacked on a
 leading axis, f32 leaves; the hybrid's Mamba2 layers [G, period, ...] and
 its shared blocks [n_shared, ...]) becomes the port's (lists of per-layer
@@ -25,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common import tree as TR
 from repro_torch.common.types import PoolConfig
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.engine.state import Pool
@@ -189,3 +196,63 @@ def cache_from_numpy(arrays: dict, device=None) -> dict:
     for k, a in arrays.items():
         put(k, a)
     return out
+
+
+def stacked_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The trainer's stacked params from the reference ``init_params``
+    tree, cast to ``cfg.dtype`` on ``device`` (a Mamba1 mixer's
+    ``ssm.F32_PARAMS`` stay float32, as in ``params_from_numpy``)."""
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.ssm import F32_PARAMS
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+
+    def one(path, a):
+        f32 = len(path) >= 2 and path[-2] == "mixer" and \
+            path[-1] in F32_PARAMS and cfg.family == "ssm"
+        return torch.from_numpy(np.array(a, np.float32)).to(dev).to(
+            torch.float32 if f32 else dtype)
+    return TR.map_with_paths(one, tree)
+
+
+def stacked_params_to_numpy(params: dict) -> dict:
+    """The trainer's params as the reference's tree of float32 arrays
+    (bf16 is exact in float32)."""
+    return TR.map_tree(lambda t: t.detach().to("cpu", torch.float32).numpy(),
+                       params)
+
+
+def opt_state_from_numpy(state, device=None):
+    """The port's ``AdamState`` from the reference's (step, m, v): raw
+    moments as tensors of their dtype, compressed leaves with ``block`` as
+    a host int."""
+    from repro_torch.optim.adamw import AdamState
+    dev = resolve_device(device)
+
+    def one(path, a):
+        if path and path[-1] == "block":
+            return int(np.asarray(a))
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":          # bf16 moments: exact via f32
+            return torch.from_numpy(a.astype(np.float32)).to(dev).to(
+                torch.bfloat16)
+        return torch.from_numpy(a.copy()).to(dev)
+    step, m, v = state
+    return AdamState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                  device=dev),
+                     TR.map_with_paths(one, m), TR.map_with_paths(one, v))
+
+
+def opt_state_to_numpy(state):
+    """``AdamState(step, m, v)`` of numpy arrays, the reference's leaves:
+    ``block`` an int32 scalar array."""
+    from repro_torch.optim.adamw import AdamState
+
+    def one(x):
+        if isinstance(x, int):
+            return np.asarray(x, np.int32)
+        if x.dtype == torch.bfloat16:
+            return x.detach().to("cpu", torch.float32).numpy()
+        return x.detach().cpu().numpy().copy()
+    return AdamState(one(state.step), TR.map_tree(one, state.m),
+                     TR.map_tree(one, state.v))

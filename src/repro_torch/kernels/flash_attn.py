@@ -15,6 +15,14 @@ cores (wgmma fed by TMA), f32 on the CUDA cores; nothing gives way to
 another route at run time. ``launches`` counts every kernel launch,
 ``launches_tc`` those of the tensor-core route.
 
+Training: ``flash_attention_trainable`` is B6's forward under autograd (a
+``torch.autograd.Function``): the forward is ``flash_attention`` (the kernel
+on the card), the backward ``flash_attention_backward``, the FlashAttention-2
+formulas written out in PyTorch over query chunks (the reference trains
+through jnp autodiff and has no backward kernel). ``flash_attention`` itself
+refuses, on the card, inputs that require grad while a graph is recorded:
+its output would carry no gradient.
+
 Head dims: q and k share D, and v's dim equals it (``HEAD_DIMS``) except at
 the pairs of ``SPLIT_HEAD_DIMS``: MLA's expanded prefill, 96-wide q/k
 (nope 64 + rope 32) against 64-wide v (minicpm3-4b).
@@ -165,16 +173,108 @@ def _launch(q, k, v, causal: bool, sm_scale: float):
     return out
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernel (any device but the CPU; ``route``
+    refuses all but CUDA)."""
+    return t.device.type != "cpu"
+
+
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether a graph is being recorded through any of ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """GQA attention forward, ``flash_attention_plain``'s contract (at the
     head dims ``_check_gqa`` takes): a CUDA kernel for CUDA tensors
-    (``route``), the plain version for CPU tensors."""
+    (``route``), the plain version for CPU tensors. On the card, inputs
+    that require grad raise: use ``flash_attention_trainable``."""
     _check_gqa(q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    if q.device.type == "cpu":
+    if not _on_card(q):
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale)
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention: q, k or v requires grad and the "
+                           "kernel's output has none; call "
+                           "flash_attention_trainable")
     return _launch(q, k, v, causal, sm_scale)
+
+
+BWD_CHUNK = 512         # query rows a step of the backward
+
+
+def flash_attention_backward(q, k, v, o, do, *, causal: bool,
+                             sm_scale: float, chunk: int = BWD_CHUNK):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) with output ``o``
+    and output grad ``do``, in float32, cast to the inputs' types: per
+    chunk of query rows, P again from q and k (the row log-sum-exp), then
+    dV += P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dO * O)),
+    dQ = dS K * scale, dK += dS^T Q * scale; K's and V's grads summed over
+    each KV head's group of query heads."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    g = Hq // Hkv
+    f32 = torch.float32
+    kf = k.to(f32).repeat_interleave(g, dim=2).transpose(1, 2)  # [B,Hq,Sk,D]
+    vf = v.to(f32).repeat_interleave(g, dim=2).transpose(1, 2)
+    dq = torch.empty((B, Hq, Sq, D), dtype=f32, device=q.device)
+    dk = torch.zeros((B, Hq, Sk, D), dtype=f32, device=q.device)
+    dv = torch.zeros((B, Hq, Sk, Dv), dtype=f32, device=q.device)
+    cols = torch.arange(Sk, device=q.device)
+    for r0 in range(0, Sq, chunk):
+        r1 = min(Sq, r0 + chunk)
+        qc = q[:, r0:r1].to(f32).transpose(1, 2)                 # [B,Hq,c,D]
+        s = (qc * sm_scale) @ kf.transpose(-1, -2)               # [B,Hq,c,Sk]
+        if causal:
+            rows = torch.arange(r0, r1, device=q.device) + (Sk - Sq)
+            s = s.masked_fill(cols[None, :] > rows[:, None], NEG_INF)
+        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+        doc = do[:, r0:r1].to(f32).transpose(1, 2)               # [B,Hq,c,Dv]
+        delta = (doc * o[:, r0:r1].to(f32).transpose(1, 2)).sum(
+            dim=-1, keepdim=True)
+        dv += p.transpose(-1, -2) @ doc
+        ds = p * (doc @ vf.transpose(-1, -2) - delta)
+        dq[:, :, r0:r1] = (ds @ kf) * sm_scale
+        dk += (ds.transpose(-1, -2) @ qc) * sm_scale
+
+    def per_kv_head(t):                       # [B,Hq,Sk,d] -> [B,Sk,Hkv,d]
+        t = t.transpose(1, 2)
+        return t.reshape(B, Sk, Hkv, g, t.shape[-1]).sum(dim=3)
+
+    return (dq.transpose(1, 2).to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B6's forward (``flash_attention``) with the backward of
+    ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        o = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, do, causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              sm_scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """``flash_attention`` with a gradient: the same forward (the kernel on
+    the card, the plain version on the CPU), FlashAttention-2's backward."""
+    _check_gqa(q, k, v)
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    return _FlashAttention.apply(q, k, v, causal, float(sm_scale))

@@ -46,8 +46,12 @@ def resolve_attn_impl(impl: str, device) -> str:
 
 
 def attention(q, k, v, *, causal: bool = True, impl: str = "auto"):
-    """Prefill attention: the flash kernel (B6) or its plain version."""
+    """Prefill and training attention: the flash kernel (B6; under autograd
+    its Function, whose backward is FlashAttention-2's in PyTorch) or its
+    plain version (autograd's own gradient)."""
     if resolve_attn_impl(impl, q.device) == "kernel":
+        if FA.needs_grad(q, k, v):
+            return FA.flash_attention_trainable(q, k, v, causal=causal)
         return FA.flash_attention(q, k, v, causal=causal)
     return FA.flash_attention_plain(q, k, v, causal=causal)
 

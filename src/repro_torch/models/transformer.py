@@ -6,19 +6,30 @@ embeddings instead of tokens), the MoE family with GQA attention
 layers, ``models/ssm.py``) and the hybrid family (zamba2-2.7b: groups of
 ``attn_period`` Mamba2 layers, each group followed by one of
 ``attn_shared_blocks`` shared attention + MLP blocks, taken in turn):
-init, embedding, unembedding and the full-sequence forward.
+init, embedding, unembedding, the full-sequence forward and the training
+loss.
 
 The reference stacks layers and walks them with ``lax.scan`` (the
 hybrid's Mamba2 layers as [G, period, ...]); here ``params["layers"]`` is
 a list of per-layer dicts walked by a Python loop, the hybrid's Mamba2
 layers flat (layer g * period + j is group g's j-th) and its shared
-blocks a list of their own, ``params["shared"]``.
+blocks a list of their own, ``params["shared"]``. The trainer keeps the
+reference's stacked layout and hands ``forward`` per-layer views
+(``train/trainer.py``).
+
+With ``cfg.remat`` and a graph being recorded, each layer (the hybrid: each
+group with its shared block, as the reference's ``jax.checkpoint`` does) is
+rematerialised in the backward pass (``torch.utils.checkpoint``,
+non-reentrant): only its input is kept, and its forward, B6's launch
+included, runs again. Without a param that requires grad (serving), no
+layer is wrapped.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.types import ModelConfig, SSMConfig
 from repro_torch.common.utils import resolve_device
@@ -119,29 +130,74 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig):
     return x @ w.to(x.dtype)
 
 
+def tensors(tree):
+    """The tensors of a nest of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``, rematerialised in the backward pass when ``on`` (no
+    RNG runs inside a layer, so its state is not stashed)."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             attn_impl: str = "auto"):
     """Full-sequence forward. Returns (logits [B,S,V], aux loss: the sum of
     the MoE layers' load-balance losses, 0 for the other families)."""
     check_supported(cfg)
+    remat = cfg.remat and torch.is_grad_enabled() and \
+        any(t.requires_grad for t in tensors(params))
     x = embed(params, batch, cfg)
     zero = torch.zeros((), dtype=torch.float32)
     if cfg.family in ("ssm", "hybrid"):
         mixer = SSM.mamba2_apply_train if cfg.family == "hybrid" else \
             SSM.mamba1_apply_train
-        period = hybrid_groups(cfg)[1] if cfg.family == "hybrid" else 0
-        for i, lp in enumerate(params["layers"]):
-            x = x + mixer(lp["mixer"], L.rms_norm(x, lp["ln"], cfg.norm_eps),
-                          cfg)
-            if period and (i + 1) % period == 0:      # the group's shared block
-                sp = params["shared"][(i // period) % len(params["shared"])]
+        period = hybrid_groups(cfg)[1] if cfg.family == "hybrid" else 1
+
+        def group(x, g):
+            lps = params["layers"][g * period:(g + 1) * period]
+            for lp in lps:
+                x = x + mixer(lp["mixer"], L.rms_norm(x, lp["ln"],
+                                                      cfg.norm_eps), cfg)
+            if cfg.family == "hybrid":          # the group's shared block
+                sp = params["shared"][g % len(params["shared"])]
                 x = _attn_block(sp, x, cfg, attn_impl)[0]
+            return x
+
+        for g in range(len(params["layers"]) // period):
+            x = _remat(remat, group, x, g)
         return unembed(params, x, cfg), zero
     aux = 0.0
     for lp in params["layers"]:
-        x, a = _attn_block(lp, x, cfg, attn_impl)
+        x, a = _remat(remat, _attn_block, lp, x, cfg, attn_impl)
         aux = aux + a
     return unembed(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            attn_impl: str = "auto"):
+    """Mean next-token cross entropy over the labels >= 0, from the logits'
+    float32 log-softmax, plus the aux loss: (loss, {"xent", "aux"}). A
+    negative label is masked out (the reference gathers it out of bounds
+    before masking; the synthetic data has none)."""
+    logits, aux = forward(params, batch, cfg, attn_impl)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    xent = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -1,0 +1,183 @@
+"""Train-step factory (the reference's ``repro.train.trainer``):
+microbatched gradient accumulation, per-layer rematerialisation, AdamW with
+the optionally compressed state.
+
+The trainer keeps params, grads and moments in the reference's stacked
+layout (``params["layers"]`` a dict of leaves stacked [L, ...]; the hybrid's
+[G, period, ...] and its shared blocks [n, ...]), so the optimizer's block
+rule sees the reference's leaves and a checkpoint has the reference's keys.
+The model takes per-layer dicts (``models/transformer.py``): each step
+hands it views of the stacked leaves, one a layer, each a leaf of the
+graph whose ``.grad`` is preset to the matching view of a stacked grad
+buffer. Autograd accumulates each layer's grad into that buffer in place
+the moment it is ready, so no layer's grad outlives its layer's backward
+and no stacked copy is made (an ``unbind`` would hold every layer's grad
+until the last and then stack them: 16 GB more for llama3-8b).
+
+One device: a mesh, and the data-parallel step with compressed gradient
+collectives, exist only across devices (ROADMAP A.7).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.common import tree as TR
+from repro_torch.common.types import ModelConfig, TrainConfig
+from repro_torch.common.utils import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+
+Tree = Any
+STACKED = ("layers", "shared")
+
+
+def _lead(cfg: ModelConfig, name: str) -> Tuple[int, ...]:
+    """The stacked axes of ``params[name]``: [G, period] for the hybrid's
+    Mamba2 layers, one axis otherwise."""
+    if name == "layers" and cfg.family == "hybrid":
+        g, period, _ = T.hybrid_groups(cfg)
+        return (g, period)
+    return (cfg.num_layers if name == "layers" else cfg.attn_shared_blocks,)
+
+
+def stack_params(params: Tree, cfg: ModelConfig) -> Tree:
+    """The model's params (per-layer lists) in the stacked layout; each
+    leaf's per-layer tensors are released as soon as it is stacked."""
+    out = {k: v for k, v in params.items() if k not in STACKED}
+    for name in STACKED:
+        if name not in params:
+            continue
+        layers, lead = params[name], _lead(cfg, name)
+
+        def stack(path, _):
+            *head, last = path
+            t = torch.stack([TR.get(lp, tuple(head)).pop(last)
+                             for lp in layers])
+            return t.reshape(lead + t.shape[1:])
+
+        out[name] = TR.map_with_paths(
+            stack, TR.map_tree(lambda _: None, layers[0]))
+    return out
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
+    """``transformer.init_params`` (random params from a seeded generator,
+    on the card unless the caller names another) in the stacked layout."""
+    return stack_params(T.init_params(cfg, seed, resolve_device(device)), cfg)
+
+
+def _per_layer(stacked: Tree, cfg: ModelConfig, name: str, fn):
+    """[fn(leaf's layer i) for each leaf] as a list of per-layer dicts."""
+    n = 1
+    for s in _lead(cfg, name):
+        n *= s
+    k = len(_lead(cfg, name))
+    return [TR.map_tree(lambda *ts: fn(*(t.reshape((n,) + t.shape[k:])[i]
+                                         for t in ts)), *stacked)
+            for i in range(n)]
+
+
+def model_view(params: Tree, cfg: ModelConfig) -> Tree:
+    """The model's params: per-layer views of the stacked leaves."""
+    out = {k: v for k, v in params.items() if k not in STACKED}
+    for name in STACKED:
+        if name in params:
+            out[name] = _per_layer((params[name],), cfg, name, lambda t: t)
+    return out
+
+
+def _bound(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """A leaf of the graph viewing ``p``, its grad accumulating into ``g``
+    (a view of the grad buffer) in place."""
+    x = p.detach().requires_grad_(True)
+    x.grad = g
+    return x
+
+
+def _backward_into(params: Tree, grads: Tree, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig, attn_impl: str) -> torch.Tensor:
+    """loss_fn's loss on ``batch``; its grads added into ``grads``."""
+    view = {k: _bound(v, grads[k]) for k, v in params.items()
+            if k not in STACKED}
+    for name in STACKED:
+        if name in params:
+            view[name] = _per_layer((params[name], grads[name]), cfg, name,
+                                    _bound)
+    loss = T.loss_fn(view, batch, cfg, attn_impl)[0]
+    loss.backward()
+    return loss.detach()
+
+
+def grads_and_loss(params: Tree, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig, microbatches: int,
+                   attn_impl: str = "auto") -> Tuple[Tree, torch.Tensor]:
+    """(grads, loss). One microbatch: grads in the params' dtype. k > 1:
+    each microbatch's grads (in the params' dtype) summed in float32 and
+    scaled by 1/k, as the reference's ``lax.scan`` does."""
+    def zeros(p, dtype=None):
+        return torch.zeros(p.shape, dtype=dtype or p.dtype, device=p.device)
+
+    if microbatches <= 1:
+        grads = TR.map_tree(zeros, params)
+        return grads, _backward_into(params, grads, batch, cfg, attn_impl)
+    k = microbatches
+    acc = TR.map_tree(lambda p: zeros(p, torch.float32), params)
+    buf = TR.map_tree(zeros, params)
+    lsum = None
+    for i in range(k):
+        mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+              for n, x in batch.items()}
+        if i:
+            for _, b in TR.leaves_with_paths(buf):
+                b.zero_()
+        loss = _backward_into(params, buf, mb, cfg, attn_impl)
+        lsum = loss if lsum is None else lsum + loss
+        for (_, a), (_, b) in zip(TR.leaves_with_paths(acc),
+                                  TR.leaves_with_paths(buf)):
+            a += b
+    inv = 1.0 / k
+    for _, a in TR.leaves_with_paths(acc):
+        a *= inv
+    return acc, lsum * inv
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
+                    attn_impl: str = "auto", quantize_impl: str = "auto"):
+    """Returns (train_step, None): ``train_step(params, opt, batch) ->
+    (params, opt, metrics)`` with ``loss``, ``grad_norm`` and ``lr`` on the
+    device; params and state are updated in place (the reference donates
+    them). ``attn_impl``/``quantize_impl`` route B6 and B3/B4 ("auto": the
+    kernels for CUDA tensors). The second slot is the reference's
+    shardings, None on one device."""
+    if mesh is not None:
+        raise NotImplementedError("a mesh of devices: the port trains on one "
+                                  "device (ROADMAP A.7)")
+    ocfg = tcfg.optimizer
+
+    def step(params: Tree, opt: adamw.AdamState, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[Tree, adamw.AdamState, Dict[str, torch.Tensor]]:
+        grads, loss = grads_and_loss(params, batch, cfg, tcfg.microbatches,
+                                     attn_impl)
+        params, opt, metrics = adamw.update(grads, opt, params, ocfg,
+                                            quantize_impl)
+        metrics["loss"] = loss
+        return params, opt, metrics
+
+    return step, None
+
+
+def make_dp_compressed_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                            axis: str = "data"):
+    """The reference's data-parallel step with int8 error-feedback gradient
+    collectives: it exists only across devices."""
+    raise NotImplementedError("the data-parallel compressed step runs across "
+                              "devices (ROADMAP A.7)")
+
+
+def init_residual_flat(params: Tree, ndev: int) -> Tree:
+    """Per-device error-feedback residuals: [ndev, size] float32 zeros."""
+    return TR.map_tree(lambda p: torch.zeros((ndev, p.numel()),
+                                             dtype=torch.float32,
+                                             device=p.device), params)

@@ -984,3 +984,84 @@ def test_small_minicpm_serves_alike_with_kernels_and_plain(cuda):
     assert out["kernel"][0] == out["plain"][0]
     assert all(n > 0 for n in out["kernel"][1])
     assert out["plain"][1] == [0] * 5
+
+
+# -- the training path: B3/B4 on the AdamW moments, B6 under autograd --------
+
+@pytest.mark.parametrize("n,block", [(4096, 512), (256, 256),
+                                     (4096 * 4096, 512), (3 * 2 ** 21, 512),
+                                     (1024 * 14336, 512)])
+def test_fixed_rate_at_the_optimizer_shapes(cuda, n, block):
+    """8 bits, f32 in, flat leaves (a norm, a whole-leaf block, wq, a
+    slice of the MLP's leaves): codes, scales and the decoded f32
+    byte-identical to the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(n % 9973)
+    x = torch.randn((n,), generator=g, device=cuda) * 1e-3
+    x[: min(n, 1024)] = 0.0
+    got = qpack.encode(x, 8, block)
+    want = qpack.encode_plain(x, 8, block)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    a = qpack.decode(*want, 8, block, torch.float32)
+    b = qpack.decode_plain(*want, 8, block, torch.float32)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_compressed_adamw_kernels_vs_plain(cuda):
+    """Two compressed AdamW updates of REDUCED llama3's stacked leaves on
+    the card, B3/B4 against their plain versions: every code, scale and
+    param identical (the same arithmetic around them)."""
+    from repro_torch.common import tree as TR
+    from repro_torch.common.types import OptimizerConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = get_reduced("llama3_8b")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, compress_state=True)
+    out = {}
+    for impl in ("kernel", "jnp"):
+        params = trainer.init_params(cfg, 0, cuda)
+        state = adamw.init(params, ocfg, impl)
+        g = torch.Generator(device=cuda).manual_seed(1)
+        grads = TR.map_tree(lambda p: torch.randn(
+            p.shape, generator=g, device=cuda).to(p.dtype) * 1e-2, params)
+        e0 = qpack.encode_launches
+        for _ in range(2):
+            params, state, _ = adamw.update(grads, state, params, ocfg, impl)
+        assert (qpack.encode_launches > e0) == (impl == "kernel")
+        out[impl] = (params, state)
+    for (p, a), (_, b) in zip(TR.leaves_with_paths(out["kernel"]),
+                              TR.leaves_with_paths(out["jnp"])):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), p
+        else:
+            assert a == b, p
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv", [(8, 512, 32, 8, 128, 128),
+                                             (2, 256, 40, 40, 96, 64),
+                                             (2, 300, 4, 2, 64, 64)])
+def test_flash_attention_function_on_the_card(cuda, dtype, B, S, Hq, Hkv, D,
+                                              Dv):
+    """B6's autograd Function: the forward is B6's launch; dq/dk/dv
+    against autograd through the plain version in f32 on the card,
+    normwise within 1e-2 (bf16) / 1e-4 (f32)."""
+    from repro_torch.kernels import flash_attn as FA
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q = torch.randn((B, S, Hq, D), generator=g, device=cuda)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda)
+    v = torch.randn((B, S, Hkv, Dv), generator=g, device=cuda)
+    do = torch.randn((B, S, Hq, Dv), generator=g, device=cuda)
+    ins = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    n0 = FA.launches
+    o = FA.flash_attention_trainable(*ins, causal=True)
+    assert FA.launches == n0 + 1 and o.grad_fn is not None
+    o.backward(do.to(dtype))
+    ref = [t.to(dtype).float().requires_grad_() for t in (q, k, v)]
+    FA.flash_attention_plain(*ref, causal=True).backward(
+        do.to(dtype).float())
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(ins, ref):
+        assert (a.grad.float() - b.grad).norm() <= tol * b.grad.norm()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        FA.flash_attention(*ins)

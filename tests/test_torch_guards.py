@@ -184,3 +184,54 @@ def test_unported_fabric_parts_raise_naming_roadmap():
         Fabric(cfg, POLICIES["ibex"], pl, shard_devices=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         LF.main(["--devices", "2", "--device", "cpu"])
+
+
+def test_train_launcher_without_device_needs_cuda(capsys):
+    from repro_torch.launch import train as LT
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the launcher would train on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LT.main(["--arch", "llama3_8b", "--reduced", "--steps", "1"])
+    assert "step" not in capsys.readouterr().out     # nothing trained
+
+
+def test_mesh_and_dp_compressed_step_raise_naming_roadmap():
+    from repro_torch.common.types import TrainConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import elastic, trainer
+    cfg, tcfg = get_reduced("llama3_8b"), TrainConfig()
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        trainer.make_train_step(cfg, tcfg, mesh=elastic.plan_mesh(4))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        trainer.make_dp_compressed_step(cfg, tcfg, elastic.plan_mesh(4))
+
+
+def test_grad_requiring_card_input_never_loses_its_gradient(monkeypatch):
+    """With the device check stubbed to say "on the card" and B6's launch
+    stubbed (its output has no grad_fn, as the ctypes launch's has none),
+    ``layers.attention`` gives an output with a gradient through the
+    autograd Function, and the bare kernel wrapper refuses the input."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.models import layers as L
+    launched = []
+
+    def launch(q, k, v, causal, sm_scale):
+        launched.append(1)
+        return FA.flash_attention_plain(q, k, v, causal=causal,
+                                        sm_scale=sm_scale).detach()
+    monkeypatch.setattr(FA, "_on_card", lambda t: True)
+    monkeypatch.setattr(FA, "_launch", launch)
+    monkeypatch.setattr(L, "resolve_attn_impl", lambda impl, dev: "kernel")
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 16, 4, 64), generator=g, requires_grad=True)
+    k = torch.randn((1, 16, 2, 64), generator=g, requires_grad=True)
+    v = torch.randn((1, 16, 2, 64), generator=g, requires_grad=True)
+    o = L.attention(q, k, v, causal=True)
+    assert o.grad_fn is not None and launched == [1]
+    o.sum().backward()
+    assert all(t.grad is not None and t.grad.abs().sum() > 0
+               for t in (q, k, v))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        FA.flash_attention(q, k, v)
+    with torch.no_grad():                   # serving: the bare launch
+        assert L.attention(q, k, v).grad_fn is None and len(launched) == 2
