@@ -149,8 +149,9 @@ exits non-zero:
              and 64/8 x 128 (8) at lengths around its chunk within
              tolerance and bit-identical on a second call, B6 at both;
              (b) chameleon-34b and (c) musicgen-medium at their published
-             widths (musicgen's 48 layers; chameleon at 12 of its 48 for
-             the script's time, CHAMELEON_SERVE_LAYERS; seeded bf16 params
+             widths (musicgen at 24 of its 48 layers, chameleon at 12 of
+             its 48, for the script's time: MUSICGEN_SERVE_LAYERS,
+             CHAMELEON_SERVE_LAYERS; seeded bf16 params
              made on the card) with phase 7's engine and 16 requests of 32
              new tokens:
              rates, KV cache and peak memory (under 72 GiB), counters,
@@ -3661,12 +3662,14 @@ FRONT_ATTN = {"b3": ("musicgen", 24, 64), "heads": {
 # multiple of the chunk (ROADMAP C10); 15e's are 128 or 256
 SSM_PROMPT_CHUNKS = (3, 9)
 SSM_WHOLE_CHUNKS = (1, 3)
-# depths of 15d (of falcon-mamba-7b's 64 layers) and 15b (of
-# chameleon-34b's 48): cut to keep the script near its 900 s target once
-# phase 16 came in (PERF.md §4), 15d first as the longest serving prefill;
-# 15b again (24 -> 12) for phase 18
+# depths of 15d (of falcon-mamba-7b's 64 layers), 15b (of chameleon-34b's
+# 48) and 15c (of musicgen-medium's 48): cut to keep the script near its
+# 900 s target once phase 16 came in (PERF.md §4), 15d first as the longest
+# serving prefill; 15b again (24 -> 12) for phase 18; 15c (48 -> 24) for
+# phase 19
 SSM_SERVE_LAYERS = 16
 CHAMELEON_SERVE_LAYERS = 12
+MUSICGEN_SERVE_LAYERS = 24
 # bytes of one parked falcon-mamba lane at 15d's depth: each layer's h
 # (8192 x 16 f32) and conv tail (3 x 8192 bf16)
 SSM_PARK_BYTES = SSM_SERVE_LAYERS * (8192 * 16 * 4 + 3 * 8192 * 2)
@@ -4588,8 +4591,10 @@ OBS_SERVE_ARGV = ["--arch", "llama3_8b", "--requests", "12", "--new-tokens",
 # The launcher sizes the compressed region itself (8 chunks a page) and has
 # no flags for the spill's interval, batch and watermark, so the spill would
 # not fire: migration is the rebalance policy, which does
+# 17b's page space: half of 12c's 4,096 pages, for the script's time (the
+# population of every page took most of 17b's wall at 4,096)
 OBS_FABRIC_ARGV = ["--workload", "mcf", "--expanders", "4", "--skew", "0.8",
-                   "--payload", "--pages", "4096", "--prom", "128",
+                   "--payload", "--pages", "2048", "--prom", "128",
                    "--window", "32", "--accesses", "2048", "--migration",
                    "rebalance"]
 # 17c: two quick cells of the reference file, one pool-level, one line-level
@@ -5295,6 +5300,438 @@ def phase_train_launcher(dev, tag: str) -> dict:
     return {"wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the across-device paths (the sharded fabric, the DP train step).
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2           # 19b: gloo ranks sharing the one card
+RANK_TIMEOUT = 300.0
+# 19c: llama3-8b's widths at 8 of its 32 layers (the replicated f32
+# residual costs 4 B a parameter: 11.2 GB at 8 layers, 32 GB at 32), bf16,
+# compressed state; one warm-up step, DP_STEPS timed, one checked
+DP_LAYERS = 8
+DP_STEPS = 2
+DP_WHOLE_RTOL = 1e-4      # 19d: 2 layers, float32, the two routes' losses
+
+
+def _shard_spec(impl: str) -> dict:
+    """12c's recipe (4,096 pages, 4 expanders, 80% skew, spill firing) as
+    a ``fabric.shard.replay_specs`` spec: the pages written first, then
+    mcf's trace; ``impl`` names ``compress_impl`` (the batched demote step
+    on)."""
+    from repro_torch.common.types import PoolConfig
+    from repro_torch.simx.trace import (WORKLOADS, make_block_content,
+                                        make_rates_table, make_trace)
+    w = FABRIC_WHOLE
+    cfg = PoolConfig(**w["pool"], store_payload=True, lossless=True,
+                     compress_impl=impl, fused_demote="on")
+    rates = make_rates_table(WORKLOADS["mcf"], w["pages"],
+                             cfg.blocks_per_page, SEED)
+    vals = make_block_content(rates, cfg.vals_per_block, SEED).reshape(
+        w["pages"], cfg.vals_per_page).astype(np.float32)
+    run = w["run"]
+    return dict(cfg=dataclasses.asdict(cfg), policy="ibex",
+                placement=("WeightedInterleave", (FABRIC_N, cfg.n_pages,
+                                                  FABRIC_WEIGHTS)),
+                fabric=dict(seed=SEED, window=run["window"],
+                            spill_interval=run["spill_interval"],
+                            spill_k=run["spill_k"],
+                            spill_low=run["spill_low"]),
+                write=(np.arange(w["pages"]), vals),
+                trace=make_trace(WORKLOADS["mcf"], n_accesses=w["accesses"],
+                                 n_pages=w["pages"], seed=SEED))
+
+
+def _vmap_sync(spec: dict, dev):
+    """The spec's fabric on the vmap synchronous driver on ``dev``."""
+    from repro_torch.common.types import PoolConfig
+    from repro_torch.core.engine import POLICIES
+    from repro_torch.fabric import Fabric, placement as PL
+    name, args = spec["placement"]
+    fab = Fabric(PoolConfig(**spec["cfg"]), POLICIES[spec["policy"]],
+                 getattr(PL, name)(*args), sync_migration=True, device=dev,
+                 **spec["fabric"])
+    ospns, vals = spec["write"]
+    fab.write_pages(ospns, torch.from_numpy(vals).to(dev).to(torch.bfloat16))
+    return fab.replay(*spec["trace"])
+
+
+def _leaves_differ(a: dict, b: dict) -> list:
+    return [k for k in b if a[k].dtype != b[k].dtype or
+            not np.array_equal(a[k], b[k])]
+
+
+def shard_ranks_start(dev, gate: str):
+    """19b's SHARD_RANKS gloo ranks on ``dev`` (both blocks of the stack on
+    the one card), started now on a thread: they start up and wait for the
+    file ``gate``. Returns the future of (rank 0's record, wall from the
+    gate)."""
+    import concurrent.futures as cf
+    import tempfile
+    from repro_torch.common import sharding as SH
+    from repro_torch.fabric import shard as FS
+    spec = _shard_spec("kernel")
+    tmp = tempfile.mkdtemp(prefix="shard")
+
+    def ranks():
+        out = SH.spawn_ranks(FS.replay_specs, SHARD_RANKS, backend="gloo",
+                             args=([spec],), device=str(dev), workdir=tmp,
+                             timeout=RANK_TIMEOUT, gate=gate)[0][0]
+        return out, time.perf_counter()
+
+    pool = cf.ThreadPoolExecutor(1)
+    fut = pool.submit(ranks)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def phase_shard(dev, group, fut, gate: str, tag: str, during=None) -> dict:
+    """19a/19b: 12c's payload fabric on the sharded driver, at D = 1 (this
+    process, NCCL on cuda:0) and at D = SHARD_RANKS (the gloo ranks of
+    ``shard_ranks_start``, released here through ``gate`` to run beside
+    19a), B1's and B2's steps live; each against the vmap synchronous
+    driver on the card with the PLAIN compression (every leaf of every
+    expander and the override table equal: the sharded driver equals the
+    vmap one, and the kernels their plain versions). Counts: boundary and
+    drain fetches, apply syncs, B1's and B2's launches. ``during()`` runs
+    here while the ranks finish."""
+    from repro_torch import interop
+    from repro_torch.common.types import PoolConfig
+    from repro_torch.core.engine.invariants import first_violation
+    from repro_torch.fabric import shard as FS
+    t0 = time.perf_counter()
+    spec = _shard_spec("kernel")
+    Path(gate).touch()
+    _sync(dev)
+    t1 = time.perf_counter()
+    d1 = FS.replay_specs(group, [spec])[0]
+    _sync(dev)
+    t_d1 = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    ref = _vmap_sync(_shard_spec("jnp"), dev)
+    _sync(dev)
+    t_ref = time.perf_counter() - t2
+    want = interop.pool_stack_to_numpy(ref.pools)
+    extra = during() if during is not None else None
+    d2, t_end = fut.result()
+    t_d2 = t_end - t0
+    cfg = PoolConfig(**spec["cfg"])
+    res = {"during": extra}
+    for label, rec, wall in (("19a", d1, t_d1), ("19b", d2, t_d2)):
+        diff = _leaves_differ(rec["leaves"], want)
+        over = bool((rec["overrides"] == ref.placement.overrides).all())
+        viol = [first_violation({k: v[e] for k, v in rec["leaves"].items()},
+                                cfg) for e in range(FABRIC_N)]
+        ss = rec["sync_stats"]
+        res[label] = dict(rec["launches"], wall_s=wall, run_s=rec["run_s"])
+        ranks_ = 1 if label == "19a" else SHARD_RANKS
+        print(f"phase {label} sharded fabric, {ranks_} rank(s) "
+              f"({'NCCL' if ranks_ == 1 else 'gloo'} on {dev}), 12c's "
+              f"recipe ({FABRIC_N} expanders of "
+              f"{json.dumps(FABRIC_WHOLE['pool'])}, "
+              f"{FABRIC_WHOLE['pages']} pages written, "
+              f"{FABRIC_WHOLE['accesses']} accesses) | rank 0's write and "
+              f"replay {rec['run_s']:.3f} s, wall {wall:.3f} s"
+              f"{' from the gate (beside 19a, the reference and 19d)' if ranks_ > 1 else ''}"
+              f" | fetches: {ss['boundary_syncs']} boundary for "
+              f"{ss['boundaries']} boundaries, {ss['drain_syncs']} drain, "
+              f"{ss['segment_syncs']} segment, {ss['epoch_syncs']} epoch | "
+              f"apply syncs {rec['apply_syncs']} | epochs {ss['epochs']}, "
+              f"pages out {rec['spill_stats']['pages_out']} | launches "
+              f"demote-and-compact {rec['launches']['demote']} promote "
+              f"{rec['launches']['promote']} | against the vmap synchronous "
+              f"driver with the plain compression ({ref.epochs_applied} "
+              f"epochs, {t_ref:.3f} s): {len(want)} leaves, {len(diff)} "
+              f"differ {diff}; overrides equal {over} | I1-I4 "
+              f"{sum(v is not None for v in viol)} expanders broken "
+              f"[{tag}]", flush=True)
+        check(not diff and over, f"phase {label}: the sharded run differs "
+              f"from the vmap driver: {diff}, overrides equal {over}")
+        check(ss["boundary_syncs"] == ss["boundaries"] and
+              ss["segment_syncs"] == ss["epoch_syncs"] == 0,
+              f"phase {label}: fetches off budget: {ss}")
+        check(ss["epochs"] > 0 and rec["launches"]["demote"] > 0 and
+              rec["launches"]["promote"] > 0,
+              f"phase {label}: no epoch or a kernel not launched: "
+              f"{ss['epochs']} epochs, {rec['launches']}")
+        check(not any(viol), f"phase {label}: I1-I4 broken: {viol}")
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _dp_step_run(dev, group, cfg, tcfg, impl: dict, steps: int,
+                 check_codes: bool = False) -> dict:
+    """``steps`` DP steps of ``cfg`` at world size ``group.world`` from the
+    seeded params (the first a warm-up): losses, the timed steps' ms and
+    launches, syncs, and with ``check_codes`` one more step in which every
+    gradient leaf's B3 codes and scales and every B4 decode are held
+    against the plain versions on the same inputs."""
+    import warnings
+    from repro_torch.common import contracts
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.common import tree as TR
+    from repro_torch.optim import adamw, gradcomp
+    from repro_torch.train import trainer
+    params = trainer.init_params(cfg, SEED, dev)
+    opt = adamw.init(params, tcfg.optimizer, impl["quantize_impl"])
+    res = trainer.init_residual_flat(params, 1)
+    step = trainer.make_dp_compressed_step(cfg, tcfg, group, **impl)
+    batches = [make_batch(cfg, i, global_batch=tcfg.global_batch,
+                          seq_len=tcfg.seq_len, device=dev)
+               for i in range(steps + 1)]
+    params, opt, res, warm = step(params, opt, res, batches[0])
+    torch.cuda.synchronize()
+    _reset_launches()
+    contracts.SYNCS.reset()
+    evs, metrics = [], [warm]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for b in batches[1:steps]:
+                a = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                a.record()
+                params, opt, res, m = step(params, opt, res, b)
+                e.record()
+                evs.append((a, e))
+                metrics.append(m)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    debug_syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    out = {"ms": [a.elapsed_time(e) for a, e in evs],
+           "launches": _launch_counts(), "syncs": contracts.SYNCS.count,
+           "debug_syncs": debug_syncs, "slices": _train_slices(
+               params, tcfg.optimizer.state_block),
+           "leaves": sum(1 for _ in TR.leaves_with_paths(params))}
+    if check_codes:
+        bad = {"codes": 0, "scales": 0, "decoded": 0, "values": 0,
+               "calls": 0}
+        comp, decomp = gradcomp.compress_leaf, gradcomp.decompress_leaf
+
+        def compress(g, block, impl_="auto"):
+            c, p = comp(g, block, "kernel"), comp(g, block, "jnp")
+            bad["codes"] += int((c["codes"] != p["codes"]).sum())
+            bad["scales"] += int((~_bits_equal(c["scales"][:, None],
+                                               p["scales"][:, None])).sum())
+            bad["values"] += g.numel()
+            bad["calls"] += 1
+            return c
+
+        def decompress(c, shape, block, impl_="auto"):
+            a, p = decomp(c, shape, block, "kernel"), decomp(c, shape, block,
+                                                            "jnp")
+            bad["decoded"] += int((a.view(torch.int32) !=
+                                   p.view(torch.int32)).sum())
+            return a
+
+        gradcomp.compress_leaf, gradcomp.decompress_leaf = compress, \
+            decompress
+        try:
+            params, opt, res, m = step(params, opt, res, batches[steps])
+            metrics.append(m)
+        finally:
+            gradcomp.compress_leaf, gradcomp.decompress_leaf = comp, decomp
+        out["codes"] = bad
+    host = contracts.fetch({f"loss{i}": m["loss"] for i, m in
+                            enumerate(metrics)})
+    out["losses"] = [float(host[f"loss{i}"]) for i in range(len(metrics))]
+    del params, opt, res, batches
+    return out
+
+
+def phase_dp(dev, group, tag: str) -> dict:
+    """19c: ``trainer.make_dp_compressed_step`` at world size 1 under NCCL
+    on llama3-8b's widths cut to DP_LAYERS layers (bf16, compressed AdamW
+    state, seq 512 x batch 8): one warm-up step, DP_STEPS timed (CUDA
+    events), one more with every gradient leaf's B3 codes and B4 decodes
+    held against the plain versions; launches a step (B3 once a leaf and
+    twice a moment slice, B4 twice a leaf and twice a slice, B6 twice a
+    layer), host syncs, peak memory."""
+    t0 = time.perf_counter()
+    cfg, tcfg = _train_configs(DP_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = _dp_step_run(dev, group, cfg, tcfg, WHOLE_IMPLS["kernel"],
+                     DP_STEPS + 1, check_codes=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n = DP_STEPS
+    got = {k: r["launches"][k] for k in ("qpack_fixed_encode",
+                                         "qpack_fixed_decode",
+                                         "flash_attention")}
+    want = {"qpack_fixed_encode": (r["leaves"] + 2 * r["slices"]) * n,
+            "qpack_fixed_decode": (2 * r["leaves"] + 2 * r["slices"]) * n,
+            "flash_attention": 2 * cfg.num_layers * n}
+    others = {k: v for k, v in r["launches"].items()
+              if k not in want and k != "flash_attention_tc" and v}
+    step_ms = statistics.median(r["ms"])
+    c = r["codes"]
+    print(f"phase 19c DP step: {cfg.name} at its widths, {cfg.num_layers} "
+          f"of 32 layers ({cfg.param_count()} params), {cfg.dtype}, world "
+          f"size {group.world} (NCCL), seq {tcfg.seq_len} x batch "
+          f"{tcfg.global_batch}, compressed AdamW | losses (warm-up, timed, "
+          f"checked) {r['losses']} | step {step_ms:.3f} ms median of "
+          f"{[round(x, 3) for x in r['ms']]} (CUDA events) | peak "
+          f"{peak:.3f} GiB | host syncs a step "
+          f"{r['syncs'] / n:.1f} counted, {r['debug_syncs']} in PyTorch's "
+          f"sync debug mode | launches over {n} steps {json.dumps(got)} "
+          f"(expected {json.dumps(want)}: {r['leaves']} leaves, "
+          f"{r['slices']} update slices); others {json.dumps(others)} | "
+          f"checked step: {c['calls']} leaves, {c['values']} values: B3 "
+          f"codes differing {c['codes']}, scales {c['scales']}; B4 decoded "
+          f"values differing {c['decoded']} | wall "
+          f"{time.perf_counter() - t0:.3f} s [{tag}]", flush=True)
+    check(all(np.isfinite(r["losses"])), f"phase 19c: losses {r['losses']}")
+    check(got == want, f"phase 19c: launches {got}, expected {want}")
+    check(not others, f"phase 19c: other kernels launched: {others}")
+    check(r["syncs"] == 0, f"phase 19c: {r['syncs']} counted host syncs")
+    check(c["calls"] == r["leaves"] and c["codes"] == c["scales"] ==
+          c["decoded"] == 0, f"phase 19c: B3/B4 differ from the plain "
+          f"route: {c}")
+    return {"launches": got, "step_ms": step_ms, "peak_gib": peak,
+            "codes": c, "wall_s": time.perf_counter() - t0, "cfg": cfg}
+
+
+def phase_dp_whole(dev, group, tag: str) -> float:
+    """19d: the DP step at TRAIN_WHOLE_LAYERS layers in float32 (microbatches
+    2, a warm-up and 2 more steps) on the kernel route and on the plain
+    route: losses within DP_WHOLE_RTOL, and each route's launches."""
+    t1 = time.perf_counter()
+    cfg2, tcfg2 = _train_configs(TRAIN_WHOLE_LAYERS, "float32", 2)
+    k = _dp_step_run(dev, group, cfg2, tcfg2, WHOLE_IMPLS["kernel"], 3)
+    p = _dp_step_run(dev, group, cfg2, tcfg2, WHOLE_IMPLS["plain"], 3)
+    rel = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
+    routes = {name: {x: run["launches"][x] for x in (
+        "qpack_fixed_encode", "qpack_fixed_decode", "flash_attention")}
+        for name, run in (("kernel", k), ("plain", p))}
+    wall = time.perf_counter() - t1
+    print(f"phase 19d DP whole ({TRAIN_WHOLE_LAYERS} layers at llama3-8b's "
+          f"widths, float32, microbatches 2, 3 steps): losses kernel "
+          f"{k['losses']} / plain {p['losses']} (relative "
+          f"{[f'{x:.2e}' for x in rel]}) | launches of the last 2 steps "
+          f"{json.dumps(routes)} | wall {wall:.3f} s (beside 19b's ranks) "
+          f"[{tag}]", flush=True)
+    check(max(rel) <= DP_WHOLE_RTOL, f"phase 19d: losses differ: {rel}")
+    check(all(routes["kernel"].values()) and
+          not any(routes["plain"].values()),
+          f"phase 19d: routes crossed: {routes}")
+    return wall
+
+
+def _dp_times(dev, cfg, tag: str) -> dict:
+    """19e: the DP path's kernels at its shapes: B3/B4 on a whole gradient
+    leaf (wq at DP_LAYERS layers), B6 at the train shape."""
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import qpack
+    t0 = time.perf_counter()
+    n = cfg.num_layers * cfg.d_model * cfg.num_heads * cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    x = torch.randn((n,), generator=gen, device=dev) * 1e-3
+    cs, sc = qpack.encode(x, 8, 512)
+    B, S, Hq, Hkv, D, _ = TRAIN_ATTN[0]
+    qa, ka, va = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                  .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    rows = _time_rows({
+        "qpack_fixed_encode_dp": dict(
+            shape=f"a gradient leaf of {n} f32 values (wq at "
+                  f"{cfg.num_layers} layers) -> 8-bit codes, block 512",
+            kern=lambda: qpack.encode(x, 8, 512),
+            plain=lambda: qpack.encode_plain(x, 8, 512), lib=None,
+            nbytes=n * 4 + n + n // 512 * 4,
+            ops=ENCODE_OPS_PER_VALUE * n, ops_rate=F32_OPS_PER_S, reps=10),
+        "qpack_fixed_decode_dp": dict(
+            shape=f"{n} 8-bit codes, block 512 -> f32 (the gathered leaf)",
+            kern=lambda: qpack.decode(cs, sc, 8, 512, torch.float32),
+            plain=lambda: qpack.decode_plain(cs, sc, 8, 512, torch.float32),
+            lib=None, nbytes=n + n // 512 * 4 + n * 4,
+            ops=DECODE_OPS_PER_VALUE * n, ops_rate=F32_OPS_PER_S, reps=10),
+        "flash_attention_dp": dict(
+            shape=f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} bf16 causal "
+                  f"(a layer's forward in the DP step)",
+            kern=lambda: FA.flash_attention(qa, ka, va, causal=True),
+            plain=lambda: FA.flash_attention_plain(qa, ka, va, causal=True),
+            lib=lambda: _sdpa(qa, ka, va, True),
+            nbytes=2 * B * S * D * (2 * Hq + 2 * Hkv),
+            ops=4 * B * Hq * D * S * (S + 1) // 2, reps=10)}, "19e", tag)
+    del x, cs, sc, qa, ka, va
+    rows["wall_s"] = time.perf_counter() - t0
+    return rows
+
+
+def phase_across(dev, tag: str, times: dict, errs: dict,
+                 train_errs: dict, fut, gate: str) -> list:
+    """Phase 19: the DP train step (19c) and its kernels' times (19e) with
+    the card to themselves, then the sharded fabric (19a in this process,
+    19b's gloo ranks released) with the DP step's two routes (19d) beside
+    them; one NCCL rank group of world size 1 on cuda:0 here. Returns the
+    kernels line's entries for both paths. ``fut``/``gate``: 19b's ranks
+    (``shard_ranks_start``), waiting for the gate."""
+    import tempfile
+    from repro_torch.common import sharding as SH
+    t0 = time.perf_counter()
+    pg = tempfile.mkdtemp(prefix="pg")
+    group = SH.init_expander_ranks(1, 0, "nccl", f"file://{pg}/pg", dev)
+    try:
+        dp = phase_dp(dev, group, tag)
+        torch.cuda.empty_cache()
+        rows = _dp_times(dev, dp["cfg"], tag)
+        t_ab = time.perf_counter()
+        shard = phase_shard(dev, group, fut, gate, tag,
+                            during=lambda: phase_dp_whole(dev, group, tag))
+        t_ab = time.perf_counter() - t_ab
+    finally:
+        SH.leave_expander_ranks()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"phase 19 wall {wall:.3f} s ({json.dumps({'19c': round(dp['wall_s'], 3), '19e': round(rows['wall_s'], 3), '19abd': round(t_ab, 3)})}) "
+          f"[{tag}]", flush=True)
+    kernels = []
+    for kind, line in (("demote", 278), ("promote", 305)):
+        t = times[(kind, 8 if kind == "demote" else 1)]
+        kernels.append({
+            "name": f"qpack_fused_{kind}_sharded", "route": "cuda",
+            "source": "src/repro_torch/csrc/qpack_fused.cu",
+            "replaces": f"src/repro/kernels/qpack.py:{line}",
+            "launches": shard["19a"][kind] + shard["19b"][kind],
+            "max_abs_err": errs[kind]["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "eager_ms": t["eager_ms"],
+            "path": "the sharded payload fabric (phases 19a and 19b); "
+                    "times at phase 5's shape",
+            "shape": f"{8 if kind == 'demote' else 1} pages of 4x512 bf16",
+            "cases": errs[kind]["cases"],
+            "mismatches": errs[kind]["mismatches"]})
+    c = dp["codes"]
+    for name_, src, rep, key in (
+            ("qpack_fixed_encode_dp", "qpack_fixed.cu", "qpack.py:122",
+             "qpack_fixed_encode"),
+            ("qpack_fixed_decode_dp", "qpack_fixed.cu", "qpack.py:148",
+             "qpack_fixed_decode"),
+            ("flash_attention_dp", "flash_attn.cu", "flash_attn.py:72",
+             "flash_attention")):
+        t = rows[name_]
+        e = train_errs["flash_attention_train"] if key == "flash_attention" \
+            else {"err": 0.0, "cases": c["calls"],
+                  "mismatches": c["codes"] + c["scales"]
+                  if key == "qpack_fixed_encode" else c["decoded"]}
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{rep}",
+            "launches": dp["launches"][key], "max_abs_err": e["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "path": "the data-parallel train step (phase 19c): "
+                    + ("the forward and the remat forward"
+                       if key == "flash_attention" else
+                       "the gradient codes and the AdamW moments"),
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"]})
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -5366,7 +5803,8 @@ def main() -> int:
     cham_launches, _ = phase_serve_frontend(
         dev, lambda: _chameleon(CHAMELEON_SERVE_LAYERS), "15b", tag)
     torch.cuda.empty_cache()
-    music_launches, _ = phase_serve_frontend(dev, _musicgen, "15c", tag)
+    music_launches, _ = phase_serve_frontend(
+        dev, lambda: _musicgen(MUSICGEN_SERVE_LAYERS), "15c", tag)
     torch.cuda.empty_cache()
     phase_serve_ssm(dev, tag)
     torch.cuda.empty_cache()
@@ -5413,19 +5851,31 @@ def main() -> int:
           f"({json.dumps({k: round(v, 3) for k, v in walls17.items()})}) "
           f"[{tag}]", flush=True)
     torch.cuda.empty_cache()
-    t18 = time.perf_counter()
-    train_errs, train_times = phase_train_kernels(dev, tag)
-    walls18 = {"18a": time.perf_counter() - t18}
-    torch.cuda.empty_cache()
-    train = phase_train_main(dev, tag)
-    walls18["18b"] = train["wall_s"]
-    torch.cuda.empty_cache()
-    walls18["18c"] = phase_train_whole(dev, tag)["wall_s"]
-    torch.cuda.empty_cache()
-    walls18["18d"] = phase_train_launcher(dev, tag)["wall_s"]
-    print(f"phase 18 wall {time.perf_counter() - t18:.3f} s "
-          f"({json.dumps({k: round(v, 3) for k, v in walls18.items()})}) "
-          f"[{tag}]", flush=True)
+    # phase 19b's gloo ranks start up now (10-18 s a spawn on the chip's
+    # host), beside phase 18: CPU work and an idle context each; they wait
+    # for the gate that phase 19 opens
+    import tempfile
+    gate = str(Path(tempfile.mkdtemp(prefix="gate")) / "go")
+    shard_fut = shard_ranks_start(dev, gate)
+    try:
+        t18 = time.perf_counter()
+        train_errs, train_times = phase_train_kernels(dev, tag)
+        walls18 = {"18a": time.perf_counter() - t18}
+        torch.cuda.empty_cache()
+        train = phase_train_main(dev, tag)
+        walls18["18b"] = train["wall_s"]
+        torch.cuda.empty_cache()
+        walls18["18c"] = phase_train_whole(dev, tag)["wall_s"]
+        torch.cuda.empty_cache()
+        walls18["18d"] = phase_train_launcher(dev, tag)["wall_s"]
+        print(f"phase 18 wall {time.perf_counter() - t18:.3f} s "
+              f"({json.dumps({k: round(v, 3) for k, v in walls18.items()})}) "
+              f"[{tag}]", flush=True)
+        torch.cuda.empty_cache()
+        across = phase_across(dev, tag, times, errs, train_errs,
+                              shard_fut, gate)
+    finally:
+        Path(gate).touch()    # a failed phase lets the ranks finish
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     extra = ("composition_ms", "composition_graph_ms", "events",
@@ -5667,6 +6117,7 @@ def main() -> int:
                      else "train main (phase 18b): the AdamW moments"),
             "shape": t["shape"], "cases": e["cases"],
             "mismatches": e["mismatches"]})
+    kernels += across
     print(f"total {time.perf_counter() - t_start:.3f} s [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)

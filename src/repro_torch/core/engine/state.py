@@ -125,15 +125,18 @@ def tree_map(fn, pool, *rest):
 
 
 def make_pool_stack(cfg: PoolConfig, n_expanders: int, seed: int = 0,
-                    rates_table=None, device=None) -> Pool:
+                    rates_table=None, device=None, ids=None) -> Pool:
     """N identically configured pools stacked leaf-wise on ``device``
     (CUDA unless the caller names one). Expander e's key is
     ``fold_in(key(seed), e)``, the reference's derivation, so a fabric run
-    is reproducible from one seed and expanders share no randomness."""
+    is reproducible from one seed and expanders share no randomness.
+    ``ids`` (a range of expander ids) stacks only those expanders: a rank's
+    block of the sharded fabric."""
+    ids = range(n_expanders) if ids is None else ids
     base = make_pool(cfg, seed=seed, rates_table=rates_table, device=device)
     stack = tree_map(lambda a: a.unsqueeze(0).expand(
-        (n_expanders,) + tuple(a.shape)).clone(), base)
-    keys = [prng.fold_in(prng.key(seed), e) for e in range(n_expanders)]
+        (len(ids),) + tuple(a.shape)).clone(), base)
+    keys = [prng.fold_in(prng.key(seed), e) for e in ids]
     return stack._replace(rng=torch.tensor(keys, dtype=torch.int64,
                                            device=base.meta.device))
 

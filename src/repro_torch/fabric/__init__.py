@@ -16,12 +16,11 @@ pages to expanders through a pluggable placement layer:
   * ``replay``    — the segment scheduler: trace partitioning, the
     expanders' masked window replay (``engine.batch``'s window bodies
     unchanged), the double-buffered schedule with a carried pending-page
-    mask, and the synchronous reference driver.
-
-The reference's ``shard`` (the fabric across a device mesh) is not ported
-(ROADMAP A.7).
+    mask, the synchronous reference driver, and the sharded driver;
+  * ``shard``     — the fabric across ranks (``common.sharding``): the
+    plan on the device, the collective apply, the boundary step.
 """
-from repro_torch.fabric import migration, ops, placement, replay
+from repro_torch.fabric import migration, ops, placement, replay, shard
 from repro_torch.fabric.migration import (MigrationPlan, MigrationPolicy,
                                           NoMigration, SegmentView,
                                           SpillPressure, TrafficRebalance,
@@ -34,7 +33,7 @@ from repro_torch.fabric.placement import (CapacityAware, LocalityAffinity,
 from repro_torch.fabric.replay import Fabric, partition_trace
 
 __all__ = [
-    "migration", "ops", "placement", "replay",
+    "migration", "ops", "placement", "replay", "shard",
     "Placement", "StaticInterleave", "CapacityAware", "LocalityAffinity",
     "WeightedInterleave", "make_placement",
     "MigrationPolicy", "MigrationPlan", "SegmentView", "NoMigration",

@@ -50,8 +50,20 @@ a recorder attached makes every segment compute the migration stats (the
 freelist headroom it records) even with migration off, inside the one
 fetch, as the reference does.
 
-Not ported here: the sharded driver (``shard_devices``; the reference's
-``fabric/shard.py`` and ``common/sharding.py``, ROADMAP A.7): it raises.
+The sharded driver (``shard_devices=D``; DESIGN.md §17, ``fabric/shard.py``)
+runs on D ranks (``common.sharding``: one process a device, joined by
+``init_expander_ranks`` or ``spawn_ranks``), each holding the replicated
+host state (placement, trace partition, plan, counter snapshots, the
+recorder on rank 0) and its own block of ``N / D`` expanders. It schedules
+migration synchronously (the ``_replay_sync`` semantics): each segment
+boundary replays locally, plans on the device from stats gathered in one
+collective, applies the plan collectively and commits with ONE fetch
+(``_commit_boundary``); with migration off nothing is gathered until one
+deferred fetch per ``replay()`` (``_drain_deferred``). Every rank issues
+the same collectives in the same order: the metrics that read expanders
+(``counters``, ``counters_by_expander``, ``delivered_time``,
+``park_capacity``, ``state_identical``, ``gather_leaves``) are collective
+calls, made on every rank.
 """
 from __future__ import annotations
 
@@ -62,6 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch.common import contracts
+from repro_torch.common import sharding as SH
 from repro_torch.common.contracts import sync_contract
 from repro_torch.common.types import PoolConfig
 from repro_torch.common.utils import next_pow2, resolve_device
@@ -71,11 +84,9 @@ from repro_torch.core.engine import state as S
 from repro_torch.core.engine.policy import Policy
 from repro_torch.fabric import migration as MG
 from repro_torch.fabric import ops as fops
+from repro_torch.fabric import shard as FS
 from repro_torch.fabric.placement import Placement
 from repro_torch.simx import time as TM
-
-SHARD_TODO = ("the sharded fabric driver (reference fabric/shard.py and "
-              "common/sharding.py) is not ported: ROADMAP A.7")
 
 # one expander's slice of a segment: body(e, ospns, writes, args, valid,
 # pending mask or None)
@@ -129,8 +140,15 @@ class Fabric:
     ``DeviceConfig`` everywhere), one ``DeviceConfig``, or a sequence
     cycled to N. ``on_epoch(fabric, plan, moved_pages)`` runs after every
     committed epoch. ``obs`` is an optional ``repro_torch.obs.Recorder``
-    fed from the per-segment and per-epoch fetches. ``device`` is where the
-    stack lives: CUDA unless the caller names one."""
+    fed from the per-segment and per-epoch fetches (on the sharded driver,
+    rank 0's; the other ranks record nothing). ``device`` is where the
+    stack lives: CUDA unless the caller names one.
+
+    ``shard_devices=D`` runs the sharded driver on the D ranks that
+    ``common.sharding.init_expander_ranks`` joined (none raises): this
+    rank's block of the stack lives on the rank's device, and N must divide
+    by D. Its migration policy needs an on-device planner (``spill`` or
+    ``rebalance``)."""
 
     def __init__(self, cfg: PoolConfig, policy: Policy, placement: Placement,
                  *, seed: int = 0, rates_table=None,
@@ -142,12 +160,31 @@ class Fabric:
                  shard_devices: Optional[int] = None,
                  on_epoch: Optional[Callable] = None, obs=None,
                  device=None):
-        if shard_devices is not None:
-            raise NotImplementedError(SHARD_TODO)
         if placement.n_pages != cfg.n_pages:
             raise ValueError("placement/page-space mismatch")
         if pipeline_depth not in (1, 2):
             raise ValueError("pipeline_depth must be 1 or 2")
+        self.shard_devices = shard_devices
+        self.group = None
+        ids = range(placement.n_expanders)
+        if shard_devices is not None:
+            if placement.n_expanders % shard_devices:
+                raise ValueError(f"{placement.n_expanders} expanders not "
+                                 f"divisible by shard_devices="
+                                 f"{shard_devices}")
+            self.group = SH.current_group()
+            if self.group.world != shard_devices:
+                raise ValueError(f"shard_devices={shard_devices} on a group "
+                                 f"of {self.group.world} ranks")
+            if device is not None and \
+                    torch.device(device).type != self.group.device.type:
+                raise ValueError(f"device {device} is not the rank's "
+                                 f"{self.group.device}")
+            device = self.group.device
+            ids = self.group.owned(placement.n_expanders)
+            if obs is not None and self.group.rank:
+                obs = None                # only rank 0 records
+        self._owned = ids
         self.device = resolve_device(device)
         self.cfg = cfg
         self.policy = policy
@@ -166,14 +203,17 @@ class Fabric:
         self.migration_policy = migration
         self.migration_enabled = (self.n_expanders > 1 and
                                   not isinstance(migration, MG.NoMigration))
+        if shard_devices is not None and self.migration_enabled:
+            FS.plan_params(migration)   # fail fast: no on-device planner
         self.pipeline_depth = pipeline_depth
         self.sync_migration = sync_migration
         self.on_epoch = on_epoch
         self.devices = TM.resolve_fleet(devices, self.n_expanders)
-        self.lanes = TM.stack_devices(self.devices, device=self.device)
+        self.lanes = TM.stack_devices(
+            self.devices[ids.start:ids.stop], device=self.device)
         self.pools = S.make_pool_stack(cfg, self.n_expanders, seed=seed,
                                        rates_table=rates_table,
-                                       device=self.device)
+                                       device=self.device, ids=ids)
         n = self.n_expanders
         self.spill_events = 0
         self.spill_pages_out = np.zeros((n,), np.int64)
@@ -191,6 +231,12 @@ class Fabric:
         # the mechanisms' own syncs, beside the fetch budget
         self.replay_stats = B.new_stats()
         self.apply_syncs = 0
+        # the sharded driver's fetches: one a boundary (migration on), one
+        # deferred drain a replay() (migration off)
+        self.boundaries = 0
+        self.boundary_syncs = 0
+        self.drain_syncs = 0
+        self._deferred: List[Dict[str, torch.Tensor]] = []
         self._last_counters = np.zeros((n, S.NUM_COUNTERS), np.int64)
         self._last_free: Optional[np.ndarray] = None
         self._pending_plan: Optional[MG.MigrationPlan] = None
@@ -203,8 +249,11 @@ class Fabric:
             obs.attach_fabric(self)
 
     def pool(self, e: int) -> S.Pool:
-        """Expander ``e``'s pool: views into the stack."""
-        return S.pool_slice(self.pools, e)
+        """Expander ``e``'s pool: views into the stack (on the sharded
+        driver, only this rank's expanders have one here)."""
+        if e not in self._owned:
+            raise IndexError(f"expander {e} lives on another rank")
+        return S.pool_slice(self.pools, e - self._owned.start)
 
     # -- pipeline stages -----------------------------------------------------
 
@@ -412,10 +461,18 @@ class Fabric:
         reads per item (``replay``: the block; ``write_pages``: the row of
         the payload)."""
         rem = cols
-        driver = (self._replay_sync if self.sync_migration
-                  else self._replay_pipelined)
+        if self.shard_devices is not None:
+            driver = self._replay_sharded
+        elif self.sync_migration:
+            driver = self._replay_sync
+        else:
+            driver = self._replay_pipelined
         while rem is not None and len(rem[0]):
             rem = driver(rem, body)
+        if self._deferred:
+            # sharded, migration off: nothing forced a fetch mid-run; the
+            # per-segment bookkeeping drains in ONE deferred fetch now
+            self._drain_deferred()
         if self._pending_plan is not None:
             # drain: the plan computed off the final segment's stats has
             # nothing left to overlap; apply and commit it now
@@ -525,23 +582,169 @@ class Fabric:
                     return rem
         return None
 
-    # the sharded driver's two fetch budgets (one fused fetch per segment
-    # boundary; one deferred fetch per replay with migration off), declared
-    # for the port as the reference declares them; the driver is not ported
+    def _replay_sharded(self, cur, body: Body):
+        """The sharded driver (DESIGN.md §17): at each segment boundary
+        ``shard.boundary_step`` replays this rank's expanders, plans on the
+        device from the gathered stats and applies the plan collectively,
+        and ``_commit_boundary`` commits it with ONE fetch: the
+        ``_replay_sync`` semantics (bit-identical for the integer ``spill``
+        planner) at one fetch a boundary instead of one a segment plus one
+        an epoch. With migration off nothing is gathered or fetched mid-run:
+        each segment's device values wait for one deferred fetch at the end
+        of ``replay()``."""
+        o, w, b, v, eids = partition_trace(self.placement, *cur, self.window)
+        n = self.n_expanders
+        n_win = o.shape[1]
+        seg = self._segments(n_win)
+        pos_by_exp = [np.nonzero(eids == e)[0] for e in range(n)]
+        for lo in range(0, n_win, seg):
+            hi = min(lo + seg, n_win)
+            sl = slice(lo, hi)
+
+            def replay_local():
+                for e in self._owned:
+                    body(e, o[e, sl], w[e, sl], b[e, sl], v[e, sl], None)
+
+            self.segments_replayed += 1
+            if not self.migration_enabled:
+                out = FS.replay_step(replay_local, self.pools, self.lanes)
+                self._modeled_times = out["t"]
+                self._deferred.append(out)
+                continue
+            step = FS.boundary_step(replay_local, self.pools, self.lanes,
+                                    self.cfg, self.policy,
+                                    FS.plan_params(self.migration_policy),
+                                    self.group, self._blocked)
+            self._modeled_times = step["times"]
+            self.apply_syncs += step["apply_syncs"]
+            self.boundaries += 1
+            moved_pages = self._commit_boundary(
+                step["gathered"], step["plan"], step["moved"], step["post"])
+            if len(moved_pages):
+                rem = self._rebuild(cur, pos_by_exp, hi,
+                                    np.empty((0,), np.int64))
+                if rem is not None:
+                    return rem
+        return None
 
     @sync_contract(syncs_per="boundary", fetches=1)
-    def _commit_boundary(self, *args) -> np.ndarray:
-        raise NotImplementedError(SHARD_TODO)
+    def _commit_boundary(self, gathered: Dict[str, torch.Tensor],
+                         plan: Optional[MG.MigrationPlan],
+                         moved: Optional[np.ndarray],
+                         post: Optional[Dict[str, torch.Tensor]]
+                         ) -> np.ndarray:
+        """The sharded driver's ONE fetch a boundary: the gathered
+        post-replay times, counters (the segment's replay delta) and
+        headroom, with the post-apply counters and freelist tops (the
+        epoch's migration delta) when the plan was not empty; then the
+        host bookkeeping ``_fetch_view`` and ``_commit_epoch`` split across
+        two fetches on the vmap drivers. ``plan`` and ``moved`` are already
+        on the host (the apply read them)."""
+        tree = {"t": gathered["t"], "c": gathered["c"],
+                "f": gathered["free_units"]}
+        if post is not None:
+            tree.update(c_post=post["c"], fc=post["fc"], fg=post["fg"])
+        got = contracts.fetch_packed(tree)
+        self.boundary_syncs += 1
+        t32 = got["t"].numpy()
+        self.segment_times.append(t32)
+        ctrs_mid = got["c"].numpy().astype(np.int64)
+        delta_replay = ctrs_mid - self._last_counters
+        self.segment_deltas.append(delta_replay)
+        self._last_free = got["f"].numpy().astype(np.int64)
+        seg = self.segments_replayed - 1
+        if self.obs is not None:
+            # telemetry drain: host values of this boundary's one fetch
+            self.obs.record_segment(seg, delta_replay,
+                                    t32.astype(np.float64), self._last_free)
+        if plan is None:
+            # empty plan: no epoch; the snapshot advances to post-replay
+            self._last_counters = ctrs_mid
+            return np.empty((0,), np.int64)
+        if self.obs is not None:
+            self.obs.record_plan(seg, plan, self.migration_policy.name)
+        ctrs_post = got["c_post"].numpy().astype(np.int64)
+        delta_mig = ctrs_post - ctrs_mid
+        self.migration_deltas.append((seg, delta_mig, False))
+        self._last_counters = ctrs_post
+        free_units = (got["fc"].numpy().astype(np.int64) +
+                      8 * got["fg"].numpy().astype(np.int64))
+        self._last_free = free_units
+        sel = moved >= 0
+        pages_moved = moved[sel].astype(np.int64)
+        self.placement.apply_epoch(pages_moved, plan.dsts[sel])
+        self.epochs_applied += 1
+        if len(pages_moved):
+            np.add.at(self.spill_pages_out, plan.srcs[sel], 1)
+            np.add.at(self.spill_pages_in, plan.dsts[sel], 1)
+            pairs = {(int(s), int(d)) for s, d in zip(plan.srcs[sel],
+                                                      plan.dsts[sel])}
+            self.spill_events += len(pairs)
+            self._modeled_times = None    # migration traffic not yet priced
+            self._blocked[:] = False      # progress: conditions changed
+        else:
+            self._blocked[plan.pages] = True
+        if self.obs is not None:
+            self.obs.record_epoch(seg, delta_mig, kind="sync",
+                                  overlapped=False, planned=len(plan),
+                                  moved=len(pages_moved), urgent=plan.urgent,
+                                  free_units=free_units)
+        if self.on_epoch is not None:
+            self.on_epoch(self, plan, pages_moved)
+        return pages_moved
 
     @sync_contract(syncs_per="drain", fetches=1)
     def _drain_deferred(self) -> None:
-        raise NotImplementedError(SHARD_TODO)
+        """The sharded migration-off driver's ONE fetch a ``replay()``: every
+        segment's times, counter snapshot and headroom, gathered over the
+        ranks in one collective after the whole trace replayed, then the
+        per-segment bookkeeping the vmap drivers do a fetch at a time."""
+        tree = {f"{k}{i}": x for i, out in enumerate(self._deferred)
+                for k, x in out.items()}
+        got = contracts.fetch_packed(self.group.gather_tree(tree))
+        self.drain_syncs += 1
+        seg0 = self.segments_replayed - len(self._deferred)
+        for i in range(len(self._deferred)):
+            t32 = got[f"t{i}"].numpy()
+            self.segment_times.append(t32)
+            ctrs = got[f"c{i}"].numpy().astype(np.int64)
+            delta = ctrs - self._last_counters
+            self._last_counters = ctrs
+            self.segment_deltas.append(delta)
+            self._last_free = got[f"f{i}"].numpy().astype(np.int64)
+            if self.obs is not None:
+                self.obs.record_segment(seg0 + i, delta,
+                                        t32.astype(np.float64),
+                                        self._last_free)
+        self._deferred = []
 
     # -- metrics -------------------------------------------------------------
 
+    def _all(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``tree``'s per-expander tensors for all N expanders: this rank's
+        block gathered with the others' on the sharded driver (a
+        collective), the stack itself otherwise."""
+        return tree if self.group is None else self.group.gather_tree(tree)
+
+    def _all_pools(self) -> S.Pool:
+        return self.pools if self.group is None else \
+            FS.gather_pool(self.pools, self.group)
+
+    def gather_leaves(self) -> Optional[Dict[str, np.ndarray]]:
+        """Every expander's leaves as numpy (``interop.pool_stack_to_numpy``'s
+        names and dtypes): on the sharded driver gathered from every rank (a
+        collective) and returned on rank 0, None on the others."""
+        from repro_torch import interop
+        pools = self._all_pools()
+        if self.group is not None and self.group.rank:
+            return None
+        return interop.pool_stack_to_numpy(pools)
+
     def counters(self) -> Dict[str, int]:
         """Summed traffic counters across expanders."""
-        return S.stacked_counters_dict(self.pools)
+        c = self._all({"c": self.pools.counters})["c"]
+        return dict(zip(S.COUNTER_NAMES, contracts.tolist(
+            c.sum(dim=0, dtype=S.CTR_DTYPE))))
 
     @sync_contract(syncs_per="call", fetches=1)
     def delivered_time(self, exact: bool = True) -> np.ndarray:
@@ -556,7 +759,8 @@ class Fabric:
         times = self._modeled_times
         if times is None:
             times = TM.exec_time_vec(self.pools.counters, self.lanes)
-        got = contracts.fetch_packed({"t": times, "c": self.pools.counters})
+        got = contracts.fetch_packed(self._all({"t": times,
+                                                "c": self.pools.counters}))
         if not exact:
             return got["t"].numpy().astype(np.float64)
         return TM.exec_time_vec(got["c"].numpy().astype(np.float64),
@@ -583,7 +787,9 @@ class Fabric:
         over = TM.pipeline_delivered_time(replay, mig, lanes, overlapped=True)
         sync = TM.pipeline_delivered_time(replay, mig, lanes,
                                           overlapped=False)
-        overlapped_run = not self.sync_migration and self.pipeline_depth > 1
+        overlapped_run = (not self.sync_migration and
+                          self.pipeline_depth > 1 and
+                          self.shard_devices is None)
         return {"overlapped_s": over, "sync_s": sync,
                 "mode": "overlapped" if overlapped_run else "sync",
                 "delivered_s": over if overlapped_run else sync}
@@ -607,18 +813,37 @@ class Fabric:
             mig[n_seg + j] += d
         return replay, mig
 
-    def device_times(self) -> None:
-        """Per-device seconds of the sharded driver: None here (one device
-        replays every expander; the sharded driver is ROADMAP A.7)."""
-        return None
+    def device_times(self) -> Optional[Dict[str, object]]:
+        """Per-rank delivered seconds on the sharded driver: a rank's
+        expanders replay one after another on its device, so it finishes
+        pipeline row ``r`` when its slowest owned expander does:
+        ``device_s[d] = sum_r max_{e in d} max(replay, mig)``, from the same
+        row matrices as ``pipeline_times`` (every epoch here is a
+        zero-replay sync row). None on the vmap drivers or before any
+        segment."""
+        if self.shard_devices is None:
+            return None
+        rows = self._pipeline_rows()
+        if rows is None:
+            return None
+        replay, mig = rows
+        lanes = TM.stack_devices(self.devices, xp=np)
+        cell = np.maximum(np.atleast_2d(TM.exec_time_vec(replay, lanes,
+                                                         xp=np)),
+                          np.atleast_2d(TM.exec_time_vec(mig, lanes, xp=np)))
+        owners = SH.device_of_expander(self.n_expanders, self.shard_devices)
+        device_s = np.asarray([cell[:, owners == d].max(axis=1).sum()
+                               for d in range(self.shard_devices)],
+                              np.float64)
+        return {"device_s": device_s, "owners": owners}
 
     def park_capacity(self) -> np.ndarray:
         """Per-expander compressed-region headroom in chunk units, from the
         last segment's stats when a segment has run (no fetch), else one
         fetch of the freelist tops."""
         if self._last_free is None:
-            got = contracts.fetch_packed({"c": self.pools.cfree.top,
-                                   "g": self.pools.gfree.top})
+            got = contracts.fetch_packed(self._all({
+                "c": self.pools.cfree.top, "g": self.pools.gfree.top}))
             return (got["c"].numpy().astype(np.int64) +
                     8 * got["g"].numpy().astype(np.int64))
         return self._last_free
@@ -626,17 +851,19 @@ class Fabric:
     def state_identical(self, other: "Fabric") -> bool:
         """Bit-identity of two fabrics' end states: every leaf of the
         stacked pool (counters included) and the placement override
-        tables."""
+        tables. A sharded fabric gathers its leaves (a collective), so
+        every rank calls it, each with an ``other`` of its own."""
         same = []
         S.tree_map(lambda a, b: same.append(
             a.shape == b.shape and bool(torch.equal(a, b.to(a.device)))),
-            self.pools, other.pools)
+            self._all_pools(), other._all_pools())
         return bool(all(same) and
                     (self.placement.overrides ==
                      other.placement.overrides).all())
 
     def counters_by_expander(self) -> List[Dict[str, int]]:
-        return S.per_expander_counters(self.pools)
+        return [dict(zip(S.COUNTER_NAMES, row)) for row in contracts.tolist(
+            self._all({"c": self.pools.counters})["c"])]
 
     def spill_stats(self) -> Dict[str, object]:
         return {
@@ -647,16 +874,19 @@ class Fabric:
         }
 
     def sync_stats(self) -> Dict[str, int]:
-        """The fetch budget: one fetch per replayed segment plus one per
-        committed epoch (the sharded driver's boundary and drain fetches,
-        the reference's other keys, stay 0: not ported)."""
+        """The fetch budget: on the vmap drivers one fetch per replayed
+        segment plus one per committed epoch; on the sharded driver one per
+        boundary (migration on) or one deferred drain per ``replay()``
+        (migration off). The mechanisms' own syncs (``replay_stats``,
+        ``apply_syncs``) are beside it, not in it."""
         return {
             "segments": self.segments_replayed,
             "segment_syncs": self.segment_syncs,
             "epochs": self.epochs_applied,
             "epoch_syncs": self.epoch_syncs,
-            "boundaries": 0,
-            "boundary_syncs": 0,
-            "drain_syncs": 0,
-            "host_syncs": self.segment_syncs + self.epoch_syncs,
+            "boundaries": self.boundaries,
+            "boundary_syncs": self.boundary_syncs,
+            "drain_syncs": self.drain_syncs,
+            "host_syncs": self.segment_syncs + self.epoch_syncs +
+            self.boundary_syncs + self.drain_syncs,
         }

@@ -20,8 +20,14 @@ The port's own flags: ``--device`` (CUDA unless named) and ``--payload``
 (``store_payload=True, lossless=True``: every page of the OSPA space is
 first written with content of the workload's rate mix through
 ``Fabric.write_pages``, so demotions and promotions run the compression
-kernels on the card). ``--devices`` (the sharded driver, ROADMAP A.7) is
-not ported and raises.
+kernels on the card). ``--devices N`` runs the sharded driver
+(``Fabric(shard_devices=N)``) on N ranks that the launcher spawns itself
+(``common.sharding.spawn_ranks``, a ``file://`` rendezvous): NCCL on the
+cards ``cuda:0..N-1`` by default (fewer visible cards raises, naming the
+count), gloo with ``--device cpu``. Rank 0 prints the reference's mesh and
+ownership lines and the report; ``main`` then returns rank 0's summary
+(per-expander and summed counters, delivered times, spill and sync stats)
+instead of the fabric, which lives on the ranks.
 
 ``--trace OUT.trace.json`` attaches a ``repro_torch.obs.Recorder`` fed by
 the per-segment and per-epoch fetches (the sync budgets are asserted with
@@ -42,14 +48,17 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import interop
 from repro_torch.common import contracts
+from repro_torch.common import sharding as SH
 from repro_torch.common.types import replace
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.engine import batch as B
@@ -57,7 +66,6 @@ from repro_torch.core.engine import ops as E
 from repro_torch.core.engine import state as S
 from repro_torch.core.engine.policy import POLICIES
 from repro_torch.fabric import Fabric, make_placement
-from repro_torch.fabric.replay import SHARD_TODO
 from repro_torch.obs import Recorder
 from repro_torch.obs import export as OBX
 from repro_torch.simx import time as TM
@@ -181,19 +189,20 @@ def _content(rates: np.ndarray, cfg, seed: int, dev) -> torch.Tensor:
         .to(dev).to(torch.bfloat16)
 
 
-def _single_pool_parity(fab: Fabric, cfg, policy, placement, rates, content,
-                        trace, args, dev) -> None:
+def _single_pool_parity(agg: dict, leaves, cfg, policy, placement, rates,
+                        content, trace, args, dev) -> None:
     """Each expander's partition through the single-pool engine, from the
-    same starting state: summed counters (and, with payload, every leaf of
-    every expander) must equal the fabric's."""
+    same starting state: summed counters ``agg`` (and, with payload, every
+    leaf of every expander, ``leaves``) must equal the fabric's."""
     ospn, wr, blk = trace
     eids = placement.route(ospn)
-    stack0 = S.make_pool_stack(cfg, fab.n_expanders, seed=args.seed,
+    n = placement.n_expanders
+    stack0 = S.make_pool_stack(cfg, n, seed=args.seed,
                                rates_table=rates, device=dev)
     total = {k: 0 for k in S.COUNTER_NAMES}
     homes = placement.route(np.arange(cfg.n_pages)) if content is not None \
         else None
-    for e in range(fab.n_expanders):
+    for e in range(n):
         pool = S.pool_slice(stack0, e)
         if content is not None:
             for p in np.nonzero(homes == e)[0].tolist():
@@ -203,10 +212,9 @@ def _single_pool_parity(fab: Fabric, cfg, policy, placement, rates, content,
                        window=args.window)
         for k, v in S.counters_dict(pool).items():
             total[k] += v
-    assert fab.counters() == total, "fabric drifted from single-pool"
+    assert agg == total, "fabric drifted from single-pool"
     if content is not None:
-        a, b = interop.pool_stack_to_numpy(fab.pools), \
-            interop.pool_stack_to_numpy(stack0)
+        a, b = leaves, interop.pool_stack_to_numpy(stack0)
         bad = [k for k in a if not np.array_equal(a[k], b[k])]
         assert not bad, f"fabric leaves drifted from single-pool: {bad}"
         print("parity: every leaf of every expander (payload stores "
@@ -215,7 +223,7 @@ def _single_pool_parity(fab: Fabric, cfg, policy, placement, rates, content,
           "replays (exact)")
 
 
-def main(argv=None) -> Fabric:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="mcf", choices=sorted(WORKLOADS))
     ap.add_argument("--scheme", default="ibex", choices=sorted(POLICIES))
@@ -255,17 +263,53 @@ def main(argv=None) -> Fabric:
                     help="store_payload=True, lossless=True: write every "
                          "page with content of the rate mix first")
     ap.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="not ported: " + SHARD_TODO)
+                    help="the sharded driver on N spawned ranks (NCCL on "
+                         "cuda:0..N-1; gloo with --device cpu)")
     ap.add_argument("--trace", default=None, metavar="OUT.trace.json",
                     help="attach a repro_torch.obs.Recorder (fed by the "
                          "per-segment and per-epoch fetches: zero extra "
                          "syncs, asserted), write the Perfetto trace_event "
                          "export there plus a .metrics.json sibling, and "
                          "print the per-segment summary table")
+    return ap
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ap = _parser()
     args = ap.parse_args(argv)
-    if args.devices is not None:
-        raise NotImplementedError(SHARD_TODO)
-    dev = resolve_device(args.device)
+    if args.devices is None:
+        return _run(ap, args)
+    if args.expanders % args.devices:
+        ap.error(f"--devices {args.devices} does not divide --expanders "
+                 f"{args.expanders}")
+    on_cpu = args.device is not None and \
+        torch.device(args.device).type == "cpu"
+    if not on_cpu:
+        n_cards = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if n_cards < args.devices:
+            raise RuntimeError(f"--devices {args.devices} needs "
+                               f"{args.devices} CUDA devices; {n_cards} "
+                               f"visible (--device cpu runs gloo ranks)")
+    return SH.spawn_ranks(_rank_main, args.devices,
+                          backend="gloo" if on_cpu else "nccl",
+                          args=(argv,), device="cpu" if on_cpu else None)[0]
+
+
+def _rank_main(group: SH.ExpanderGroup, argv) -> dict:
+    """One rank of ``--devices N``: the launcher's run on its block."""
+    ap = _parser()
+    return _run(ap, ap.parse_args(argv), group)
+
+
+def _run(ap, args, group: SH.ExpanderGroup = None):
+    """The launcher's run: on one device (returns the fabric), or as one
+    rank of ``--devices N`` (returns rank 0's summary, None elsewhere;
+    only rank 0 prints)."""
+    rank = 0 if group is None else group.rank
+    say = print if rank == 0 else (lambda *a, **k: None)
+    dev = resolve_device(args.device) if group is None else group.device
 
     profiles = [p.strip() for p in args.device_profile.split(",")
                 if p.strip()]
@@ -301,6 +345,7 @@ def main(argv=None) -> Fabric:
 
     placement = new_placement()
     migration = "off" if args.no_spill else args.migration
+    sharded = dict(shard_devices=group.world) if group else {}
 
     def make_fabric(pl, **kw):
         fab = Fabric(cfg, policy, pl, seed=args.seed, rates_table=rates,
@@ -310,55 +355,73 @@ def main(argv=None) -> Fabric:
             fab.write_pages(np.arange(args.pages), content)
         return fab
 
-    rec = Recorder() if args.trace else None
+    if group is not None:
+        owners = SH.device_of_expander(n, group.world)
+        say(f"mesh: {group.world} device(s) ({dist.get_backend()} ranks), "
+            f"axis '{SH.EXPANDER_AXIS}', {n} expanders "
+            f"({n // group.world} per device)")
+        for d in range(group.world):
+            owned = np.nonzero(owners == d)[0]
+            say(f"  device {d} ({dev.type}): expanders {owned.tolist()}")
+    rec = Recorder() if args.trace and rank == 0 else None
     fab = make_fabric(placement, sync_migration=args.sync_migration,
-                      pipeline_depth=args.pipeline_depth, obs=rec)
+                      pipeline_depth=args.pipeline_depth, obs=rec, **sharded)
     contracts.SYNCS.reset()
     t0 = time.perf_counter()
     fab.replay(ospn, wr, blk)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    # collective on the sharded driver: every rank reads them
     agg = fab.counters()
-    print(f"fabric: {n} expanders, placement="
-          f"{'weighted' if args.skew > 0 else args.placement}, "
-          f"profiles={','.join(profiles)}, "
-          f"{'payload, ' if args.payload else ''}"
-          f"{args.accesses} accesses in {dt:.1f}s "
-          f"({args.accesses / max(dt, 1e-9):,.0f} acc/s) on {dev}")
     per = fab.counters_by_expander()
     delivered = fab.delivered_time()
+    leaves = fab.gather_leaves() if args.check_parity and content is not \
+        None else None
+    say(f"fabric: {n} expanders, placement="
+        f"{'weighted' if args.skew > 0 else args.placement}, "
+        f"profiles={','.join(profiles)}, "
+        f"{'payload, ' if args.payload else ''}"
+        f"{args.accesses} accesses in {dt:.1f}s "
+        f"({args.accesses / max(dt, 1e-9):,.0f} acc/s) on {dev}")
     for e, c in enumerate(per):
         host = c["host_reads"] + c["host_writes"]
         internal = sum(c[k] for k in TRAFFIC_KEYS)
-        print(f"  expander {e} ({profiles[e % len(profiles)]}): "
-              f"host={host} internal={internal} "
-              f"promotions={c['promotions']} "
-              f"demotions={c['demotions_clean'] + c['demotions_dirty']} "
-              f"delivered={delivered[e] * 1e6:.1f}us")
-    print(f"  aggregate: host={agg['host_reads'] + agg['host_writes']} "
-          f"internal={sum(agg[k] for k in TRAFFIC_KEYS)}")
+        say(f"  expander {e} ({profiles[e % len(profiles)]}): "
+            f"host={host} internal={internal} "
+            f"promotions={c['promotions']} "
+            f"demotions={c['demotions_clean'] + c['demotions_dirty']} "
+            f"delivered={delivered[e] * 1e6:.1f}us")
+    say(f"  aggregate: host={agg['host_reads'] + agg['host_writes']} "
+        f"internal={sum(agg[k] for k in TRAFFIC_KEYS)}")
     bottleneck = float(delivered.max())
-    print(f"  delivered time (bottleneck expander "
-          f"{int(delivered.argmax())}): {bottleneck * 1e6:.1f}us "
-          f"({args.accesses / bottleneck:,.0f} modeled acc/s)")
-    print(f"  migration ({fab.migration_policy.name}): {fab.spill_stats()}")
+    say(f"  delivered time (bottleneck expander "
+        f"{int(delivered.argmax())}): {bottleneck * 1e6:.1f}us "
+        f"({args.accesses / bottleneck:,.0f} modeled acc/s)")
+    say(f"  migration ({fab.migration_policy.name}): {fab.spill_stats()}")
     ss = fab.sync_stats()
-    assert ss["segment_syncs"] == ss["segments"], ss
-    assert ss["epoch_syncs"] == ss["epochs"], ss
-    print(f"  syncs: {ss} (one per segment + one per epoch, asserted)")
+    if group is not None:
+        assert ss["segment_syncs"] == 0 and ss["epoch_syncs"] == 0, ss
+        assert ss["boundary_syncs"] == ss["boundaries"], ss
+        assert ss["drain_syncs"] <= 1, ss
+        say(f"  syncs: {ss} (sharded: one fetch per boundary, one drain "
+            f"with migration off, asserted)")
+    else:
+        assert ss["segment_syncs"] == ss["segments"], ss
+        assert ss["epoch_syncs"] == ss["epochs"], ss
+        say(f"  syncs: {ss} (one per segment + one per epoch, asserted)")
     rs = fab.replay_stats
-    print(f"  mechanism syncs: replay {contracts.SYNCS.count} counted "
-          f"({rs['windows']} windows, "
-          f"{(rs['window_syncs'] + rs['slow_syncs']) / max(rs['windows'], 1):.3f}"
-          f" a window), migration apply {fab.apply_syncs}")
+    say(f"  mechanism syncs: replay {contracts.SYNCS.count} counted "
+        f"({rs['windows']} windows, "
+        f"{(rs['window_syncs'] + rs['slow_syncs']) / max(rs['windows'], 1):.3f}"
+        f" a window), migration apply {fab.apply_syncs}")
     pt = fab.pipeline_times()
     if pt is not None and fab.epochs_applied:
         over = float(np.max(pt["overlapped_s"]))
         sync = float(np.max(pt["sync_s"]))
-        print(f"  pipeline pricing ({pt['mode']}): "
-              f"overlapped={over * 1e6:.1f}us sync={sync * 1e6:.1f}us "
-              f"(migration overlap hides {(sync - over) * 1e6:.2f}us)")
+        say(f"  pipeline pricing ({pt['mode']}): "
+            f"overlapped={over * 1e6:.1f}us sync={sync * 1e6:.1f}us "
+            f"(migration overlap hides {(sync - over) * 1e6:.2f}us)")
 
     if rec is not None:
         # the budgets held with recording on (asserted above); the exported
@@ -367,33 +430,48 @@ def main(argv=None) -> Fabric:
         if pt is not None:
             assert np.allclose(totals["overlapped_s"], pt["overlapped_s"],
                                rtol=1e-9), "trace drifted from pipeline_times"
+        dev_totals = OBX.fabric_device_totals(rec)
+        if dev_totals is not None:
+            dts = fab.device_times()
+            assert np.allclose(dev_totals["device_s"], dts["device_s"],
+                               rtol=1e-9), \
+                "device tracks drifted from Fabric.device_times"
+            say(f"  device tracks: "
+                f"{[f'{t * 1e6:.1f}us' for t in dts['device_s']]} "
+                f"(reconcile with device_times at rtol=1e-9, asserted)")
         mpath = OBX.metrics_path(args.trace)
         OBX.write_trace(rec, args.trace)
         OBX.write_metrics(rec, mpath, seed=args.seed)
-        print(f"  trace: {args.trace} (+ {mpath}); {len(rec.segments)} "
-              f"segments, {len(rec.plans)} plans, {len(rec.epochs)} epochs "
-              f"recorded; per-expander track totals reconcile with "
-              f"pipeline_times (asserted)")
-        print(OBX.fabric_summary_table(rec))
+        say(f"  trace: {args.trace} (+ {mpath}); {len(rec.segments)} "
+            f"segments, {len(rec.plans)} plans, {len(rec.epochs)} epochs "
+            f"recorded; per-expander track totals reconcile with "
+            f"pipeline_times (asserted)")
+        say(OBX.fabric_summary_table(rec))
 
-    if args.verify_depth1:
+    if args.verify_depth1 and rank == 0:
         f1 = make_fabric(new_placement(), pipeline_depth=1)
         fs = make_fabric(new_placement(), sync_migration=True)
         f1.replay(ospn, wr, blk)
         fs.replay(ospn, wr, blk)
         assert f1.state_identical(fs), \
             "depth-1 pipeline drifted from the synchronous driver"
-        print(f"  verify-depth1: depth-1 pipeline == synchronous driver "
-              f"(bit-identical; {fs.epochs_applied} epochs)")
+        say(f"  verify-depth1: depth-1 pipeline == synchronous driver "
+            f"(bit-identical; {fs.epochs_applied} epochs)")
 
-    if args.check_parity:
+    if args.check_parity and rank == 0:
         if (placement.overrides >= 0).any():
-            print("parity check skipped: migration fired (re-run with "
-                  "--migration off for the exact contract)")
+            say("parity check skipped: migration fired (re-run with "
+                "--migration off for the exact contract)")
         else:
-            _single_pool_parity(fab, cfg, policy, placement, rates, content,
-                                (ospn, wr, blk), args, dev)
-    return fab
+            _single_pool_parity(agg, leaves, cfg, policy, placement, rates,
+                                content, (ospn, wr, blk), args, dev)
+    if group is None:
+        return fab
+    if rank:
+        return None
+    return {"counters": per, "aggregate": agg, "delivered": delivered,
+            "spill_stats": fab.spill_stats(), "sync_stats": ss,
+            "device_times": fab.device_times()}
 
 
 if __name__ == "__main__":

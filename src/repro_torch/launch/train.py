@@ -13,7 +13,8 @@ A printed step reads its loss and grad norm from the card in one counted
 sync; the step itself makes none. Checkpoints (every ``--ckpt-every``
 steps, written by a worker thread) go to ``--ckpt-dir``, by default
 ``repro_torch_<arch>_ckpt`` in the temporary directory; a run resumes from
-the newest valid one there. One device: a mesh of several is ROADMAP A.7.
+the newest valid one there. One device, as the reference's launcher (it
+has no data-parallel flag; a GSPMD mesh is ROADMAP A.9).
 
 ``main`` returns {"params", "opt", "metrics" (step -> the step's metrics,
 on the device), "start", "retries"}.

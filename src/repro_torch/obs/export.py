@@ -15,8 +15,9 @@ zero-replay rows, charged in full on the critical path, exactly as
 Every time here is modeled, not measured: priced by ``simx.time``'s
 float64 numpy path (``xp=np``), as the reference's exporter prices them,
 so a trace is a function of the recorded samples alone. Sharded runs
-(``fabric_info["shard_devices"]``) would add one track per device; the
-port's drivers are not sharded, so ``fabric_device_totals`` returns None.
+(``fabric_info["shard_devices"]``) add one track per rank's device, whose
+extent ``fabric_device_totals`` gives (``Fabric.device_times`` on the same
+rows); on the vmap drivers it returns None.
 
 Events follow the Chrome ``trace_event`` JSON format: ``X`` complete
 events (ts/dur in microseconds), ``M`` metadata naming processes and
@@ -113,8 +114,8 @@ def fabric_device_totals(rec: Recorder) -> Optional[Dict[str, np.ndarray]]:
     """Per-device delivered seconds on sharded runs: row ``r``'s device
     time is the max over owned expanders of ``max(replay, mig)``, summed
     over rows (the extent of the per-device tracks in the exported
-    trace). None without ``shard_devices`` (every driver the port has;
-    the sharded one is ROADMAP A.7) or before any segment."""
+    trace). None without ``shard_devices`` (the vmap drivers) or before
+    any segment."""
     info = rec.fabric_info or {}
     n_dev = info.get("shard_devices")
     rows = _fabric_rows(rec)

@@ -78,9 +78,8 @@ class Recorder:
             "sync_migration": fabric.sync_migration,
             "migration": fabric.migration_policy.name,
             "migration_enabled": fabric.migration_enabled,
-            # the sharded driver's mesh size: None on every driver the
-            # port has (the sharded driver is ROADMAP A.7)
-            "shard_devices": None,
+            # the sharded driver's rank count (None on the vmap drivers)
+            "shard_devices": fabric.shard_devices,
         }
 
     def attach_serve(self, engine) -> None:

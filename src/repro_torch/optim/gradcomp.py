@@ -6,9 +6,8 @@ gradients, about 3.9x fewer bytes; each device's quantization residual is
 carried into the next step (error feedback), which keeps SGD and Adam
 unbiased to first order [Seide et al. 2014; Karimireddy et al. 2019]. The
 codes go through B3 ``encode`` and back through B4 ``decode`` (the CUDA
-kernels for CUDA tensors). The all-reduce that would use them exists only
-across devices (``train/trainer.py::make_dp_compressed_step``, ROADMAP
-A.7).
+kernels for CUDA tensors, unless ``impl`` names the plain version).
+``train/trainer.py::make_dp_compressed_step`` runs them across ranks.
 """
 from __future__ import annotations
 
@@ -26,20 +25,20 @@ def _block_for(n: int, block: int) -> int:
     return block if n % block == 0 and n >= block else n
 
 
-def compress_leaf(g: torch.Tensor, block: int):
+def compress_leaf(g: torch.Tensor, block: int, impl: str = "auto"):
     flat = g.to(torch.float32).reshape(-1)
     b = _block_for(flat.numel(), block)
-    codes, scales = quantize_blocks_fast(flat, 8, b)
+    codes, scales = quantize_blocks_fast(flat, 8, b, impl)
     return {"codes": codes, "scales": scales}
 
 
-def decompress_leaf(c, shape, block: int) -> torch.Tensor:
+def decompress_leaf(c, shape, block: int, impl: str = "auto") -> torch.Tensor:
     n = 1
     for s in shape:
         n *= s
     b = _block_for(n, block)
-    return dequantize_blocks(c["codes"], c["scales"], 8, b,
-                             torch.float32).reshape(shape)
+    return dequantize_blocks(c["codes"], c["scales"], 8, b, torch.float32,
+                             impl).reshape(shape)
 
 
 def compress_with_feedback(grads: Tree, residual: Tree, block: int = 512

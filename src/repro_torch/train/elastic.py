@@ -9,7 +9,8 @@
   * step-level retry: ``launch/train.py`` retries a failed step from the
     last checkpoint.
 
-The port trains on one device; a mesh of several is ROADMAP A.7.
+A GSPMD mesh is not ported (ROADMAP A.9); data-parallel ranks train
+through ``trainer.make_dp_compressed_step``.
 """
 from __future__ import annotations
 

@@ -14,20 +14,25 @@ the moment it is ready, so no layer's grad outlives its layer's backward
 and no stacked copy is made (an ``unbind`` would hold every layer's grad
 until the last and then stack them: 16 GB more for llama3-8b).
 
-One device: a mesh, and the data-parallel step with compressed gradient
-collectives, exist only across devices (ROADMAP A.7).
+Across devices: ``make_dp_compressed_step`` is the reference's
+data-parallel step with int8 error-feedback gradient collectives, on the
+ranks of ``common.sharding`` (one process a device, NCCL on the cards,
+gloo on the CPU). A GSPMD mesh (``make_train_step(mesh=)``, FSDP over a
+logical-axis rule table) is not ported (ROADMAP A.9).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.common import sharding as SH
 from repro_torch.common import tree as TR
 from repro_torch.common.types import ModelConfig, TrainConfig
 from repro_torch.common.utils import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, gradcomp
 
 Tree = Any
 STACKED = ("layers", "shared")
@@ -150,10 +155,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
     device; params and state are updated in place (the reference donates
     them). ``attn_impl``/``quantize_impl`` route B6 and B3/B4 ("auto": the
     kernels for CUDA tensors). The second slot is the reference's
-    shardings, None on one device."""
+    shardings, None without a mesh."""
     if mesh is not None:
-        raise NotImplementedError("a mesh of devices: the port trains on one "
-                                  "device (ROADMAP A.7)")
+        raise NotImplementedError("a GSPMD mesh (FSDP over a logical-axis "
+                                  "rule table) is not ported: ROADMAP A.9; "
+                                  "data-parallel ranks run "
+                                  "make_dp_compressed_step")
     ocfg = tcfg.optimizer
 
     def step(params: Tree, opt: adamw.AdamState, batch: Dict[str, torch.Tensor]
@@ -168,16 +175,128 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
     return step, None
 
 
-def make_dp_compressed_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
-                            axis: str = "data"):
+def make_dp_compressed_step(cfg: ModelConfig, tcfg: TrainConfig,
+                            group: SH.ExpanderGroup = None, *,
+                            attn_impl: str = "auto",
+                            quantize_impl: str = "auto"):
     """The reference's data-parallel step with int8 error-feedback gradient
-    collectives: it exists only across devices."""
-    raise NotImplementedError("the data-parallel compressed step runs across "
-                              "devices (ROADMAP A.7)")
+    collectives, on D ranks (``group``; default: the one
+    ``common.sharding.init_expander_ranks`` joined, none raises).
+
+    ``step(params, opt, residual, batch) -> (params, opt, residual,
+    metrics)``: params and state replicated on every rank; ``batch`` is this
+    rank's rows of the global batch (rank r holds rows r B/D .. (r+1) B/D);
+    ``residual`` this rank's error-feedback row (``init_residual_flat(params,
+    1)``: [1, size] a leaf). Per leaf of n values, as the reference: when
+    ``n % D`` or ``n < 4 D``, a plain mean; otherwise the rank's slice of
+    the summed gradient over D (the reference's reduce-scatter: here an
+    all_reduce and the rank's own slice), 8-bit codes of slice + residual
+    (B3 ``encode``), the residual's update (B4 ``decode``), every rank's
+    codes and scales gathered (one masked all_reduce) and decoded (B4).
+    Then ``adamw.update`` on every rank. Wire bytes a step are not the
+    reference's 1.25x the gradient's: the all_reduce moves the float32
+    gradient whole (backends offer no reduce-scatter on gloo's CUDA path).
+    Params, state and residual are updated in place; ``metrics`` has
+    ``loss`` (the mean over ranks), ``grad_norm`` and ``lr`` on the
+    device."""
+    group = SH.current_group() if group is None else group
+    ocfg = tcfg.optimizer
+
+    def step(params: Tree, opt: adamw.AdamState, residual: Tree,
+             batch: Dict[str, torch.Tensor]):
+        grads, loss = grads_and_loss(params, batch, cfg, tcfg.microbatches,
+                                     attn_impl)
+        loss = group.psum(loss) / group.world
+        grads = mean_grads(grads, residual, group, quantize_impl)
+        params, opt, metrics = adamw.update(grads, opt, params, ocfg,
+                                            quantize_impl)
+        metrics["loss"] = loss
+        return params, opt, residual, metrics
+
+    return step
+
+
+def mean_grads(grads: Tree, residual: Tree, group: SH.ExpanderGroup,
+               quantize_impl: str = "auto") -> Tree:
+    """The ranks' mean gradient, leaf by leaf as the reference's DP step
+    (``make_dp_compressed_step``): float32, every rank's the same; this
+    rank's residual rows updated in place."""
+    ndev, rank = group.world, group.rank
+
+    def one(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        gf = g.to(torch.float32)
+        flat = gf.reshape(-1)
+        n = flat.numel()
+        if n % ndev or n < 4 * ndev:          # tiny leaves: plain mean
+            return group.psum(gf) / ndev
+        ns = n // ndev
+        shard = group.psum(flat)[rank * ns:(rank + 1) * ns] / ndev
+        corrected = shard + r[0, :ns]
+        blk = gradcomp._block_for(ns, 512)
+        c = gradcomp.compress_leaf(corrected, blk, quantize_impl)
+        r[0, :ns] = corrected - gradcomp.decompress_leaf(c, (ns,), blk,
+                                                         quantize_impl)
+        full = gradcomp.decompress_leaf(group.gather_tree(c), (n,), blk,
+                                        quantize_impl)
+        return full.reshape(g.shape)
+
+    return TR.map_tree(one, grads, residual)
 
 
 def init_residual_flat(params: Tree, ndev: int) -> Tree:
-    """Per-device error-feedback residuals: [ndev, size] float32 zeros."""
+    """Per-device error-feedback residuals: [ndev, size] float32 zeros (a
+    rank of ``make_dp_compressed_step`` holds its own row: ``ndev`` 1)."""
     return TR.map_tree(lambda p: torch.zeros((ndev, p.numel()),
                                              dtype=torch.float32,
                                              device=p.device), params)
+
+
+def run_dp_steps(group: SH.ExpanderGroup, cfg: ModelConfig,
+                 tcfg: TrainConfig, params: Tree, batches, *,
+                 attn_impl: str = "auto", quantize_impl: str = "auto"):
+    """A rank entry point (``common.sharding.spawn_ranks``): the
+    data-parallel step over ``batches`` (global batches of numpy arrays;
+    this rank takes its rows) from ``params`` (the reference's stacked tree
+    of numpy arrays), the state and residuals starting at zero. Returns on
+    rank 0 the losses and the end state as numpy (params, the AdamW state,
+    every rank's residual row gathered: [D, size] a leaf); None on the
+    others."""
+    from repro_torch import interop
+    dev = group.device
+    p = interop.stacked_params_from_numpy(params, cfg, dev)
+    opt = adamw.init(p, tcfg.optimizer, quantize_impl)
+    res = init_residual_flat(p, 1)
+    step = make_dp_compressed_step(cfg, tcfg, group, attn_impl=attn_impl,
+                                   quantize_impl=quantize_impl)
+    losses = []
+    for b in batches:
+        rows = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                for k, v in b.items()}
+        n = next(iter(rows.values())).shape[0] // group.world
+        rows = {k: v[group.rank * n:(group.rank + 1) * n]
+                for k, v in rows.items()}
+        p, opt, res, m = step(p, opt, res, rows)
+        losses.append(m["loss"])
+    flat = {"/".join(map(str, k)): v for k, v in TR.leaves_with_paths(res)}
+    got = group.gather_tree(flat)
+    if group.rank:
+        return None
+    return {"losses": [float(x) for x in torch.stack(losses).cpu()],
+            "params": interop.stacked_params_to_numpy(p),
+            "opt": interop.opt_state_to_numpy(opt),
+            "residual": {k: v.cpu().numpy() for k, v in got.items()}}
+
+
+def mean_grads_on_ranks(group: SH.ExpanderGroup, grads, residuals,
+                        quantize_impl: str = "auto"):
+    """A rank entry point: ``mean_grads`` of rank r's gradient tree
+    ``grads[r]`` with its residual rows ``residuals[r]`` (numpy trees).
+    Returns (the mean gradient, this rank's updated residual) as numpy on
+    every rank."""
+    def dev(tree):
+        return TR.map_tree(lambda a: torch.from_numpy(np.array(a)).to(
+            group.device), tree)
+    res = dev(residuals[group.rank])
+    out = mean_grads(dev(grads[group.rank]), res, group, quantize_impl)
+    host = TR.map_tree(lambda t: t.cpu().numpy(), (out, res))
+    return host

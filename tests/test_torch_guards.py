@@ -173,6 +173,9 @@ def test_fabric_launcher_without_device_needs_cuda(capsys):
 
 
 def test_unported_fabric_parts_raise_naming_roadmap():
+    """The sharded driver needs a rank group: without one the fabric raises
+    and says so; ``--devices 2`` without two visible cards raises, naming
+    the count (never a CPU or gloo fallback)."""
     from repro_torch.common.types import PoolConfig
     from repro_torch.core.engine import POLICIES
     from repro_torch.fabric import Fabric, StaticInterleave
@@ -180,10 +183,13 @@ def test_unported_fabric_parts_raise_naming_roadmap():
     cfg = PoolConfig(n_pages=16, n_cchunks=64, n_pchunks=16,
                      store_payload=False)
     pl = StaticInterleave(2, cfg.n_pages)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+    with pytest.raises(RuntimeError, match="no initialized rank group"):
         Fabric(cfg, POLICIES["ibex"], pl, shard_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        LF.main(["--devices", "2", "--device", "cpu"])
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        with pytest.raises(RuntimeError,
+                           match=f"needs 2 CUDA devices; {n} visible"):
+            LF.main(["--devices", "2"])
 
 
 def test_train_launcher_without_device_needs_cuda(capsys):
@@ -196,14 +202,16 @@ def test_train_launcher_without_device_needs_cuda(capsys):
 
 
 def test_mesh_and_dp_compressed_step_raise_naming_roadmap():
+    """A GSPMD mesh is not ported (ROADMAP A.9); the data-parallel step
+    needs a rank group and says so without one."""
     from repro_torch.common.types import TrainConfig
     from repro_torch.configs import get_reduced
     from repro_torch.train import elastic, trainer
     cfg, tcfg = get_reduced("llama3_8b"), TrainConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         trainer.make_train_step(cfg, tcfg, mesh=elastic.plan_mesh(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        trainer.make_dp_compressed_step(cfg, tcfg, elastic.plan_mesh(4))
+    with pytest.raises(RuntimeError, match="no initialized rank group"):
+        trainer.make_dp_compressed_step(cfg, tcfg)
 
 
 def test_grad_requiring_card_input_never_loses_its_gradient(monkeypatch):
