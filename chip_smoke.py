@@ -66,7 +66,7 @@ exits non-zero:
              CTAs against the SMs
  11 simx     the paper's evaluation path (payload-less pools, no kernel):
              one timed full-size cell (ibex x pr), then fig09 at the
-             paper's full size over 4 of its 10 workloads (the four where
+             paper's full size over 2 of its 10 workloads (two where
              C5 fires; FIG09_CARD_WL, for the script's time) and
              the other nine figures in quick mode through
              ``launch/paper_figs.py``, each distinct cell once; every cell's
@@ -78,10 +78,10 @@ exits non-zero:
              same message, no kernel launched; accesses/s per cell and per
              scheme, windows, slow accesses and syncs a window, the phase's
              wall time
- 12 fabric   the multi-expander fabric: (a) every fabric of the reference
-             fabric bench's full recipe (N = 1, 2, 4, 8; the mixed fleets;
-             the skew sweep; the rebalance pipeline at depth 2, sync and
-             depth 1) replayed once, payload-less, each equal to
+ 12 fabric   the multi-expander fabric: (a) 9 of the 12 fabrics of the
+             reference fabric bench's full recipe (N = 1, 4, 8; the mixed
+             fleets; the skew sweep's 80%; the rebalance pipeline at depth
+             2, sync and depth 1) replayed once, payload-less, each equal to
              ``src/repro_torch/fabric/reference_fabric.json`` in every
              field (float32 segment times bit for bit), depth 1 ==
              sync, fetches one a segment plus one an epoch, no kernel
@@ -229,6 +229,22 @@ exits non-zero:
              byte-equal, a corrupted one is skipped, a resumed run's first
              loss equals the uninterrupted run's
 
+ 19 across   the across-device paths on ``torch.distributed`` ranks: the
+             sharded fabric at world size 1 (NCCL, this process) and 2
+             (two gloo ranks sharing the card) against the vmap driver, the
+             data-parallel step with int8 gradient codes (19c-19e)
+ 20 mesh     the mesh train step (``make_train_step(mesh=)``: FSDP over
+             data, tensor parallel over model): (a) mesh (1, 1) on this
+             process's NCCL world of one at llama3-8b's published width and
+             18b's recipe: one step from 18b's seed and first batch, its
+             loss and per-leaf digest equal to 18b's first step's, step ms,
+             host syncs 0, B3/B4/B6 launches equal to 18b's a step; (b)
+             meshes (1, 2) and (2, 1) on phase 19's two gloo ranks at
+             llama3-8b's widths cut to 2 layers, float32, 2 steps: losses
+             and params against the single-device step's, B6's launches at
+             the rank's head counts (16/4 x 128 at model 2), and B6 at those
+             counts held against its plain version and timed
+
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
 Needs no network; imports torch, numpy and the port, never JAX.
@@ -237,6 +253,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2352,11 +2369,11 @@ def _time_rows(out: dict, label: str, tag: str) -> dict:
 # the JAX package's numbers for every cell phase 11 runs, written on the
 # CPU by tests/test_torch_simx_reference.py
 SIMX_REFERENCE = ROOT / "src" / "repro_torch" / "simx" / "reference_cells.json"
-# fig09's full-size grid on the card: the four workloads whose pools break
-# I1-I4 (C5), 24 of its 60 cells, for the script's time (mcf's six went for
-# phase 18's); its geomean-speedup rows need all ten workloads and are held
-# on the CPU only
-FIG09_CARD_WL = ("pr", "cc", "xsbench", "bfs")
+# fig09's full-size grid on the card: two of the four workloads whose pools
+# break I1-I4 (C5), 12 of its 60 cells, for the script's time (mcf's six
+# went for phase 18's, cc's and xsbench's for phase 20's); its
+# geomean-speedup rows need all ten workloads and are held on the CPU only
+FIG09_CARD_WL = ("pr", "bfs")
 
 
 def _zero_port_launches() -> None:
@@ -2382,7 +2399,7 @@ def _fig09_cut(cache) -> list:
 
 
 def phase_simx(dev, tag: str) -> dict:
-    """fig09 at the paper's full size (6 schemes x FIG09_CARD_WL's 4
+    """fig09 at the paper's full size (6 schemes x FIG09_CARD_WL's 2
     workloads, 12,000 accesses over 96 promoted pages) and the other nine
     figures in quick mode, each distinct cell computed once on the card
     (``CellCache``), after one timed full-size cell. Every cell's metrics
@@ -2539,14 +2556,19 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+# 12a's fabrics left out for the script's time (PR 26): N = 2 (between 1
+# and 4) and the skew sweep's 25% and 50% (80% runs)
+FABRIC_CARD_SKIP = ("scale.2x", "skew.0.25", "skew.0.50")
+
+
 def _fabric_reference(dev, tag: str) -> dict:
-    """12a: every fabric of the reference bench's full recipe
-    (``launch.fabric.BENCH_FABRICS``: scaling N = 1, 2, 4, 8 with
-    migration off, the mixed2/mixed4 fleets, the skew sweep at N = 4 with
+    """12a: the fabrics of the reference bench's full recipe
+    (``launch.fabric.BENCH_FABRICS``: scaling N = 1, 4, 8 with migration
+    off, the mixed2/mixed4 fleets, the skew sweep's 80% at N = 4 with
     spill live, the rebalance pipeline at depth 2, synchronous and depth
-    1), each replayed once, against the JAX package's record
-    (``fabric/reference_fabric.json``): every field equal, the float32
-    segment times bit for bit."""
+    1; FABRIC_CARD_SKIP left out), each replayed once, against the JAX
+    package's record (``fabric/reference_fabric.json``): every field
+    equal, the float32 segment times bit for bit."""
     from repro_torch.common import contracts
     from repro_torch.launch import fabric as LF
     ref = json.loads(LF.REFERENCE.read_text())
@@ -2564,6 +2586,8 @@ def _fabric_reference(dev, tag: str) -> dict:
     t_all = time.perf_counter()
     for want in ref["fabrics"]:
         name = want["name"]
+        if name in FABRIC_CARD_SKIP:
+            continue
         contracts.SYNCS.reset()
         _sync(dev)
         t0 = time.perf_counter()
@@ -2599,7 +2623,8 @@ def _fabric_reference(dev, tag: str) -> dict:
                  r["epoch_fetches"] == r["epochs"] for r in rows.values())
     print(f"phase 12a reference recipe: {len(rows)} fabrics of {n_acc} "
           f"accesses over {LF.BENCH_RECIPE['n_pages']} pages (window "
-          f"{LF.BENCH_RECIPE['window']}), {len(rows) - len(differ)} equal to "
+          f"{LF.BENCH_RECIPE['window']}; {', '.join(FABRIC_CARD_SKIP)} not "
+          f"run), {len(rows) - len(differ)} equal to "
           f"the reference file in every field; depth 1 == sync "
           f"(state_identical): {same}; overlapped <= sync pricing: "
           f"{over_ok} (overlapped {float(np.max(pt['overlapped_s'])):.9e} "
@@ -5007,6 +5032,28 @@ def phase_train_kernels(dev, tag: str) -> tuple:
     return errs, times
 
 
+def _train_digest(params, opt) -> dict:
+    """Per leaf, in slices: every param's float64 sum, and each compressed
+    moment's code sum (int64) and scale sum (float64); one fetch."""
+    from repro_torch.common import contracts
+    from repro_torch.common import tree as TR
+    from repro_torch.optim import adamw
+
+    def total(x, dt):
+        flat = x.reshape(-1)
+        return torch.stack([flat[s:e].to(dt).sum() for s, e in
+                            adamw._slices(flat.numel(), 1)]).sum()
+
+    out = {"p:" + "/".join(p): total(x, torch.float64)
+           for p, x in TR.leaves_with_paths(params)}
+    for pre, tree in (("m:", opt.m), ("v:", opt.v)):
+        for p, x in TR.leaves_with_paths(tree):
+            if p[-1] in ("codes", "scales"):
+                out[pre + "/".join(p)] = total(
+                    x, torch.int64 if p[-1] == "codes" else torch.float64)
+    return {k: v.item() for k, v in contracts.fetch(out).items()}
+
+
 def _timed_steps(step_fn, params, opt, batches):
     """Each step between two CUDA events; (params, opt, metrics list, ms
     list)."""
@@ -5052,6 +5099,7 @@ def phase_train_main(dev, tag: str) -> dict:
                for i in range(TRAIN_STEPS + 3)]
     params, opt, warm = step_fn(params, opt, batches[0])
     torch.cuda.synchronize()
+    digest = _train_digest(params, opt)      # 20a holds its step to these
     _reset_launches()
     contracts.SYNCS.reset()
     with warnings.catch_warnings(record=True) as caught:
@@ -5155,7 +5203,8 @@ def phase_train_main(dev, tag: str) -> dict:
           f"{TRAIN_PEAK_GIB} GiB")
     del params, opt, batches, metrics, warm
     return {"launches": got, "step_ms": step_ms, "wall_s": wall,
-            "peak_gib": peak, "busy": busy, **split}
+            "peak_gib": peak, "busy": busy,
+            "first": {"loss": losses[0], "digest": digest}, **split}
 
 
 def _train_route(dev, impl: str) -> dict:
@@ -5361,28 +5410,43 @@ def _leaves_differ(a: dict, b: dict) -> list:
             not np.array_equal(a[k], b[k])]
 
 
-def shard_ranks_start(dev, gate: str):
-    """19b's SHARD_RANKS gloo ranks on ``dev`` (both blocks of the stack on
-    the one card), started now on a thread: they start up and wait for the
-    file ``gate``. Returns the future of (rank 0's record, wall from the
-    gate)."""
+def shard_ranks_start(dev, gate: str, gate20: str):
+    """The SHARD_RANKS gloo ranks of 19b and 20b on ``dev`` (both blocks of
+    the stack on the one card), started now on a thread: they start up and
+    wait for the file ``gate``, run 19b, then wait for ``gate20`` and run
+    20b (``_across_ranks``). Returns the future of (rank 0's 19b record,
+    the time its replay ended, every rank's 20b record)."""
     import concurrent.futures as cf
     import tempfile
     from repro_torch.common import sharding as SH
-    from repro_torch.fabric import shard as FS
     spec = _shard_spec("kernel")
     tmp = tempfile.mkdtemp(prefix="shard")
 
     def ranks():
-        out = SH.spawn_ranks(FS.replay_specs, SHARD_RANKS, backend="gloo",
-                             args=([spec],), device=str(dev), workdir=tmp,
-                             timeout=RANK_TIMEOUT, gate=gate)[0][0]
-        return out, time.perf_counter()
+        outs = SH.spawn_ranks(_across_ranks, SHARD_RANKS, backend="gloo",
+                              args=(spec, gate20), device=str(dev),
+                              workdir=tmp, timeout=RANK_TIMEOUT, gate=gate)
+        return outs[0][0], outs[0][1], [o[2] for o in outs]
 
     pool = cf.ThreadPoolExecutor(1)
     fut = pool.submit(ranks)
     pool.shutdown(wait=False)
     return fut
+
+
+def _across_ranks(group, spec: dict, gate20: str) -> tuple:
+    """One of the ranks of ``shard_ranks_start`` (a spawn target, so it is
+    a module-level function): 19b's replay, then, once ``gate20`` exists,
+    20b (``_mesh_ranks``); in between, ``_train_warm``. Returns (its 19b
+    record, the time its replay ended, its 20b record); the 19b record is
+    rank 0's alone."""
+    from repro_torch.fabric import shard as FS
+    recs = FS.replay_specs(group, [spec])
+    t_end = time.perf_counter()
+    _train_warm(group.device)
+    while not os.path.exists(gate20):
+        time.sleep(0.01)
+    return None if recs is None else recs[0], t_end, _mesh_ranks(group)
 
 
 def phase_shard(dev, group, fut, gate: str, tag: str, during=None) -> dict:
@@ -5413,10 +5477,10 @@ def phase_shard(dev, group, fut, gate: str, tag: str, during=None) -> dict:
     t_ref = time.perf_counter() - t2
     want = interop.pool_stack_to_numpy(ref.pools)
     extra = during() if during is not None else None
-    d2, t_end = fut.result()
+    d2, t_end, mesh_ranks = fut.result()
     t_d2 = t_end - t0
     cfg = PoolConfig(**spec["cfg"])
-    res = {"during": extra}
+    res = {"during": extra, "mesh_ranks": mesh_ranks}
     for label, rec, wall in (("19a", d1, t_d1), ("19b", d2, t_d2)):
         diff = _leaves_differ(rec["leaves"], want)
         over = bool((rec["overrides"] == ref.placement.overrides).all())
@@ -5658,33 +5722,347 @@ def _dp_times(dev, cfg, tag: str) -> dict:
     return rows
 
 
-def phase_across(dev, tag: str, times: dict, errs: dict,
-                 train_errs: dict, fut, gate: str) -> list:
-    """Phase 19: the DP train step (19c) and its kernels' times (19e) with
-    the card to themselves, then the sharded fabric (19a in this process,
-    19b's gloo ranks released) with the DP step's two routes (19d) beside
-    them; one NCCL rank group of world size 1 on cuda:0 here. Returns the
-    kernels line's entries for both paths. ``fut``/``gate``: 19b's ranks
-    (``shard_ranks_start``), waiting for the gate."""
+# ---------------------------------------------------------------------------
+# Phase 20: the mesh train step (FSDP over data, tensor parallel over model).
+# ---------------------------------------------------------------------------
+
+# 20b: llama3-8b's widths cut to 2 layers, float32 (the CPU test's dtype),
+# the raw AdamW state, 2 steps of 4 x 256 tokens on each mesh, held to the
+# single-device step with the CPU test's tolerances
+# (tests/test_torch_train_mesh.py)
+MESH_LAYERS = 2
+MESH_SHAPES = ((1, 2), (2, 1))
+MESH_STEPS = 2
+MESH_BATCH, MESH_SEQ = 4, 256
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAM_TOL = 1e-4
+# B6 at a rank's heads on a model axis of 2 (llama3-8b's 32/8 -> 16/4 x
+# 128): 18b's recipe (8 x 512, bf16) and 20b's (4 x 256, float32)
+MESH_ATTN = ((8, 512, 16, 4, 128, torch.bfloat16),
+             (MESH_BATCH, MESH_SEQ, 16, 4, 128, torch.float32))
+
+
+def _mesh_configs():
+    """20b's (model config, TrainConfig): the raw state, the launcher's
+    optimizer."""
+    from repro_torch.common.types import OptimizerConfig, TrainConfig
+    cfg = dataclasses.replace(_llama(MESH_LAYERS), dtype="float32")
+    return cfg, TrainConfig(seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+                            optimizer=OptimizerConfig(lr=3e-4,
+                                                      warmup_steps=20))
+
+
+def phase_mesh_one(dev, group, first: dict, tag: str) -> dict:
+    """20a: ``trainer.make_train_step(mesh=)`` on a (1, 1) mesh over this
+    process's NCCL world of one, at 18b's recipe (llama3-8b as published,
+    bf16, the compressed state): one step from 18b's seed and first
+    batch, with every launch count set to 0 before it and read after; its
+    loss and ``_train_digest`` equal to 18b's first step's (``first``);
+    step ms (CUDA events), host syncs (counted, and PyTorch's sync debug
+    mode), peak memory."""
+    import warnings
+    from repro_torch.common import contracts
+    from repro_torch.common.types import MeshConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    t0 = time.perf_counter()
+    cfg, tcfg = _train_configs()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_mesh(MeshConfig((1, 1), ("data", "model")), group)
+    step_fn, sh = trainer.make_train_step(cfg, tcfg, mesh)
+    params = sh["params"].shard(trainer.init_params(cfg, SEED, dev))
+    opt = adamw.init(params, tcfg.optimizer, sharding=sh["params"])
+    batch = sh["batch"].shard(make_batch(cfg, 0, global_batch=tcfg.global_batch,
+                                         seq_len=tcfg.seq_len, device=dev))
+    torch.cuda.synchronize()
+    _reset_launches()
+    contracts.SYNCS.reset()
+    a = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            a.record()
+            params, opt, m = step_fn(params, opt, batch)
+            e.record()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = contracts.SYNCS.count
+    debug = [str(w.message)[:120] for w in caught
+             if SYNC_WARNING in str(w.message)]
+    launches = _launch_counts()
+    ms = a.elapsed_time(e)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    loss = float(contracts.fetch(m["loss"]))
+    digest = _train_digest(params, opt)
+    slices = _train_slices(params, tcfg.optimizer.state_block)
+    want = {"qpack_fixed_encode": 2 * slices, "qpack_fixed_decode": 2 * slices,
+            "flash_attention": 2 * cfg.num_layers,
+            "flash_attention_tc": 2 * cfg.num_layers}
+    got = {k: launches[k] for k in want}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    differ = sorted(k for k in first["digest"]
+                    if digest.get(k) != first["digest"][k])
+    del params, opt, batch, m
+    wall = time.perf_counter() - t0
+    print(f"phase 20a mesh (1, 1): {cfg.name} as published ({cfg.num_layers} "
+          f"layers, {cfg.dtype}), 18b's recipe (seq {tcfg.seq_len} x batch "
+          f"{tcfg.global_batch}, compressed AdamW), NCCL world of "
+          f"{group.world} | loss {loss!r} (18b's first step {first['loss']!r})"
+          f" | digest: {len(digest)} leaves (params' float64 sums, the "
+          f"moments' code and scale sums), {len(differ)} differ from 18b's "
+          f"first step {differ[:4]} | step {ms:.3f} ms (CUDA events, one "
+          f"step) | peak {peak:.3f} GiB | host syncs {syncs} counted, "
+          f"{len(debug)} in PyTorch's sync debug mode | launches "
+          f"{json.dumps(got)} (expected 18b's a step {json.dumps(want)}); "
+          f"others {json.dumps(others)} | wall {wall:.3f} s [{tag}]",
+          flush=True)
+    check(loss == first["loss"] and not differ and
+          set(digest) == set(first["digest"]),
+          f"phase 20a: the (1, 1) mesh step differs from 18b's first step: "
+          f"loss {loss!r} vs {first['loss']!r}, leaves {differ[:8]}")
+    check(got == want, f"phase 20a: launches {got}, expected {want}")
+    check(not others, f"phase 20a: other kernels launched: {others}")
+    check(syncs == 0 and not debug,
+          f"phase 20a: the step synced: {syncs} counted, {debug[:3]}")
+    return {"launches": got, "step_ms": ms, "peak_gib": peak,
+            "wall_s": wall}
+
+
+def _train_warm(dev) -> None:
+    """One train step of a small float32 model (2 layers, d 256, 2/1 heads
+    of 128) on ``dev``: a fresh process pays its first training step's
+    one-time costs here (about 10 s on the chip's host, whatever the
+    model's size: the libraries' kernels loaded), not inside a collective
+    step where the other rank would wait for it."""
+    from repro_torch.common.types import TrainConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = dataclasses.replace(get_reduced("llama3_8b"), dtype="float32",
+                              num_heads=2, num_kv_heads=1, head_dim=128)
+    tcfg = TrainConfig(seq_len=64, global_batch=2)
+    p = trainer.init_params(cfg, SEED, dev)
+    opt = adamw.init(p, tcfg.optimizer)
+    trainer.make_train_step(cfg, tcfg)[0](
+        p, opt, make_batch(cfg, 0, global_batch=2, seq_len=64, device=dev))
+    torch.cuda.synchronize()
+
+
+def _mesh_ranks(group) -> dict:
+    """20b on one of ``shard_ranks_start``'s ranks: rank 0 first trains
+    the single-device step (its end params kept); then both ranks train
+    each mesh of MESH_SHAPES from the seeded params over the same
+    batches, every launch of B6 tallied by its (query heads / KV heads x
+    head dim); rank 0 holds each mesh's losses and gathered params to the
+    single-device step's."""
+    from repro_torch.common.types import MeshConfig
+    from repro_torch.common import tree as TR
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    t0 = time.perf_counter()
+    dev = group.device
+    cfg, tcfg = _mesh_configs()
+    batches = [make_batch(cfg, i, global_batch=MESH_BATCH, seq_len=MESH_SEQ,
+                          device=dev) for i in range(MESH_STEPS)]
+    out = {"rank": group.rank, "meshes": {}}
+    ref = None
+    if group.rank == 0:
+        p = trainer.init_params(cfg, SEED, dev)
+        opt = adamw.init(p, tcfg.optimizer)
+        step = trainer.make_train_step(cfg, tcfg)[0]
+        losses = []
+        for b in batches:
+            p, opt, m = step(p, opt, b)
+            losses.append(m["loss"])
+        out["single"] = [float(x) for x in torch.stack(losses).cpu()]
+        ref = p
+        del opt
+    heads: dict = {}
+    launch = FA._launch
+
+    def tallied(q, k, v, causal, sm_scale):
+        key = f"{q.shape[2]}/{k.shape[2]} x {q.shape[3]}"
+        heads[key] = heads.get(key, 0) + 1
+        return launch(q, k, v, causal, sm_scale)
+
+    FA._launch = tallied
+    try:
+        for shape in MESH_SHAPES:
+            heads.clear()
+            mesh = make_mesh(MeshConfig(shape, ("data", "model")), group)
+            step, sh = trainer.make_train_step(cfg, tcfg, mesh)
+            p = sh["params"].shard(trainer.init_params(cfg, SEED, dev))
+            opt = adamw.init(p, tcfg.optimizer, sharding=sh["params"])
+            losses, evs = [], []
+            for b in batches:
+                a = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                a.record()
+                p, opt, m = step(p, opt, sh["batch"].shard(b))
+                e.record()
+                evs.append((a, e))
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            rec = {"losses": [float(x) for x in torch.stack(losses).cpu()],
+                   "ms": [a.elapsed_time(e) for a, e in evs],
+                   "heads": dict(heads)}
+            del opt
+            whole = sh["params"].gather(p)
+            del p
+            if ref is not None:
+                rec["param_err"] = max(
+                    float((x.float() - TR.get(ref, path).float()).norm() /
+                          TR.get(ref, path).float().norm())
+                    for path, x in TR.leaves_with_paths(whole))
+            del whole
+            torch.cuda.empty_cache()
+            out["meshes"]["%dx%d" % shape] = rec
+    finally:
+        FA._launch = launch
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh_kernels(dev, tag: str) -> tuple:
+    """20b's kernel side, in this process beside the ranks: B6 at a rank's
+    head counts on a model axis of 2 (MESH_ATTN) against its plain version
+    (ATTN_TOL), and its kernel / eager / plain / library / bound times."""
+    from repro_torch.kernels import flash_attn as FA
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    err = {"err": 0.0, "cases": 0, "mismatches": 0}
+    rows = {}
+    for B, S, Hq, Hkv, D, dt in MESH_ATTN:
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                   .to(dt) for h in (Hq, Hkv, Hkv))
+        n0 = FA.launches
+        o = FA.flash_attention(q, k, v, causal=True)
+        check(FA.launches == n0 + 1, "phase 20b: B6 did not launch")
+        want = FA.flash_attention_plain(q, k, v, causal=True)
+        d = (o.float() - want.float()).abs()
+        err["cases"] += 1
+        err["mismatches"] += int((d > ATTN_TOL[dt] *
+                                  (1 + want.float().abs())).sum())
+        err["err"] = max(err["err"], float(d.max()))
+        name = "flash_attention_mesh" + ("_f32" if dt == torch.float32
+                                         else "")
+        rows[name] = dict(
+            shape=f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} "
+                  f"{str(dt)[6:]} causal (a rank's heads at model 2)",
+            kern=lambda q=q, k=k, v=v: FA.flash_attention(q, k, v,
+                                                          causal=True),
+            plain=lambda q=q, k=k, v=v: FA.flash_attention_plain(
+                q, k, v, causal=True),
+            lib=lambda q=q, k=k, v=v: _sdpa(q, k, v, True),
+            nbytes=B * S * D * (2 * Hq + 2 * Hkv) * q.element_size(),
+            ops=4 * B * Hq * D * S * (S + 1) // 2,
+            ops_rate=F32_OPS_PER_S if dt == torch.float32
+            else BF16_OPS_PER_S, reps=10)
+    print(f"phase 20b kernels: B6 at 16/4 x 128 ({len(MESH_ATTN)} shapes, "
+          f"bf16 and f32): max abs err {err['err']:.3e}, "
+          f"{err['mismatches']} outside ATTN_TOL [{tag}]", flush=True)
+    check(err["mismatches"] == 0, "phase 20b: B6 at 16/4 x 128 off "
+          "tolerance")
+    return err, _time_rows(rows, "20b", tag)
+
+
+def phase_mesh_ranks(ranks: list, wall: float, tag: str) -> dict:
+    """20b's report from the ranks' records: each mesh's losses and params
+    against the single-device step's, B6's launches by head count, step
+    ms. Returns B6's launches at 16/4 x 128 (the (1, 2) mesh's)."""
+    r0 = ranks[0]
+    single = r0["single"]
+    cfg = _mesh_configs()[0]
+    launches = 0
+    for name, rec in r0["meshes"].items():
+        rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], single)]
+        per_rank = [r["meshes"][name]["heads"] for r in ranks]
+        n = sum(sum(h.values()) for h in per_rank)
+        model = int(name.split("x")[1])
+        want_heads = (f"{cfg.num_heads // model}/"
+                      f"{cfg.num_kv_heads // model} x "
+                      f"{cfg.resolved_head_dim}")
+        print(f"phase 20b mesh ({name.replace('x', ', ')}) on "
+              f"{len(ranks)} gloo ranks sharing the card: llama3-8b's "
+              f"widths, {MESH_LAYERS} layers, float32, raw AdamW, "
+              f"{MESH_STEPS} steps of {MESH_BATCH} x {MESH_SEQ} | losses "
+              f"{rec['losses']} against the single-device step's {single} "
+              f"(relative {[f'{x:.2e}' for x in rel]}) | params normwise "
+              f"{rec['param_err']:.3e} at most | B6 launches by heads, rank "
+              f"by rank {json.dumps(per_rank)} | step ms on rank 0 "
+              f"{[round(x, 3) for x in rec['ms']]} (CUDA events) [{tag}]",
+              flush=True)
+        check(max(rel) <= MESH_LOSS_RTOL and
+              rec["param_err"] <= MESH_PARAM_TOL,
+              f"phase 20b {name}: losses {rel}, params {rec['param_err']}")
+        check(all(list(h) == [want_heads] and
+                  h[want_heads] == 2 * MESH_LAYERS * MESH_STEPS
+                  for h in per_rank),
+              f"phase 20b {name}: B6 launches {per_rank}, expected "
+              f"{2 * MESH_LAYERS * MESH_STEPS} a rank at {want_heads}")
+        if model == 2:
+            launches += n
+    print(f"phase 20b wall {max(r['wall_s'] for r in ranks):.3f} s on the "
+          f"ranks, {wall:.3f} s from the gate [{tag}]", flush=True)
+    return {"launches": launches}
+
+
+
+def phase_across(dev, tag: str, times: dict, errs: dict, train: dict,
+                 train_times: dict, train_errs: dict, fut, gate: str,
+                 gate20: str) -> list:
+    """Phases 19 and 20 on one NCCL rank group of world size 1 on cuda:0
+    here: the DP train step (19c), its kernels' times (19e) and the (1, 1)
+    mesh step (20a) with the card to themselves; then the sharded fabric
+    (19a in this process, 19b on the gloo ranks, released through
+    ``gate``) with the DP step's two routes (19d) beside them; then 20b on
+    the same ranks (released through ``gate20`` once 19d is done); then
+    B6 at a rank's head counts, checked and timed with the card to itself.
+    Returns the kernels line's entries for both phases. ``fut``: the
+    ranks (``shard_ranks_start``)."""
     import tempfile
     from repro_torch.common import sharding as SH
     t0 = time.perf_counter()
     pg = tempfile.mkdtemp(prefix="pg")
     group = SH.init_expander_ranks(1, 0, "nccl", f"file://{pg}/pg", dev)
+    beside = {}
+
+    def during():
+        beside["19d"] = phase_dp_whole(dev, group, tag)
+        torch.cuda.empty_cache()
+        Path(gate20).touch()
+        beside["t20"] = time.perf_counter()
+
     try:
         dp = phase_dp(dev, group, tag)
         torch.cuda.empty_cache()
         rows = _dp_times(dev, dp["cfg"], tag)
+        mesh_one = phase_mesh_one(dev, group, train["first"], tag)
+        torch.cuda.empty_cache()
         t_ab = time.perf_counter()
-        shard = phase_shard(dev, group, fut, gate, tag,
-                            during=lambda: phase_dp_whole(dev, group, tag))
+        shard = phase_shard(dev, group, fut, gate, tag, during=during)
         t_ab = time.perf_counter() - t_ab
     finally:
         SH.leave_expander_ranks()
+        Path(gate20).touch()    # a failed phase lets the ranks finish
     torch.cuda.empty_cache()
+    mesh_ranks = phase_mesh_ranks(shard["mesh_ranks"],
+                                  time.perf_counter() - beside["t20"], tag)
+    mesh_errs, mesh_times = phase_mesh_kernels(dev, tag)   # the card alone
     wall = time.perf_counter() - t0
     print(f"phase 19 wall {wall:.3f} s ({json.dumps({'19c': round(dp['wall_s'], 3), '19e': round(rows['wall_s'], 3), '19abd': round(t_ab, 3)})}) "
           f"[{tag}]", flush=True)
+    print(f"phase 20 wall {mesh_one['wall_s'] + time.perf_counter() - beside['t20']:.3f} s (20a "
+          f"{mesh_one['wall_s']:.3f} s, then 20b from the gate to its "
+          f"report, beside 19b's end) [{tag}]", flush=True)
     kernels = []
     for kind, line in (("demote", 278), ("promote", 305)):
         t = times[(kind, 8 if kind == "demote" else 1)]
@@ -5729,6 +6107,37 @@ def phase_across(dev, tag: str, times: dict, errs: dict,
                        "the gradient codes and the AdamW moments"),
             "shape": t["shape"], "cases": e["cases"],
             "mismatches": e["mismatches"]})
+    # the mesh step (phase 20): 20a's launches at 18a's shapes and times;
+    # B6 at a rank's heads on 20b's (1, 2) mesh, timed in 20b
+    for name_, src, rep, key, row in (
+            ("qpack_fixed_encode_mesh", "qpack_fixed.cu", "qpack.py:122",
+             "qpack_fixed_encode", "qpack_fixed_encode_train"),
+            ("qpack_fixed_decode_mesh", "qpack_fixed.cu", "qpack.py:148",
+             "qpack_fixed_decode", "qpack_fixed_decode_train"),
+            ("flash_attention_mesh_one", "flash_attn.cu", "flash_attn.py:72",
+             "flash_attention", "flash_attention_train"),
+            ("flash_attention_mesh", "flash_attn.cu", "flash_attn.py:72",
+             None, "flash_attention_mesh_f32")):
+        t = mesh_times[row] if key is None else train_times[row]
+        e = mesh_errs if key is None else train_errs[row]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{rep}",
+            "launches": mesh_ranks["launches"] if key is None
+            else mesh_one["launches"][key], "max_abs_err": e["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "path": "the mesh step at (1, 2) on two ranks (phase 20b): a "
+                    "rank's 16/4 heads, forward and remat forward"
+                    if key is None else "the mesh step at (1, 1) (phase "
+                    "20a); times at 18a's shape",
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"]})
+    kernels[-1]["path_shapes"] = {"bf16 8x512": {
+        f: mesh_times["flash_attention_mesh"][f]
+        for f in ("ms", "eager_ms", "library_ms", "bound_ms")}}
     return kernels
 
 
@@ -5855,8 +6264,9 @@ def main() -> int:
     # host), beside phase 18: CPU work and an idle context each; they wait
     # for the gate that phase 19 opens
     import tempfile
-    gate = str(Path(tempfile.mkdtemp(prefix="gate")) / "go")
-    shard_fut = shard_ranks_start(dev, gate)
+    gates = Path(tempfile.mkdtemp(prefix="gate"))
+    gate, gate20 = str(gates / "go"), str(gates / "go20")
+    shard_fut = shard_ranks_start(dev, gate, gate20)
     try:
         t18 = time.perf_counter()
         train_errs, train_times = phase_train_kernels(dev, tag)
@@ -5872,10 +6282,11 @@ def main() -> int:
               f"({json.dumps({k: round(v, 3) for k, v in walls18.items()})}) "
               f"[{tag}]", flush=True)
         torch.cuda.empty_cache()
-        across = phase_across(dev, tag, times, errs, train_errs,
-                              shard_fut, gate)
+        across = phase_across(dev, tag, times, errs, train, train_times,
+                              train_errs, shard_fut, gate, gate20)
     finally:
         Path(gate).touch()    # a failed phase lets the ranks finish
+        Path(gate20).touch()
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     extra = ("composition_ms", "composition_graph_ms", "events",

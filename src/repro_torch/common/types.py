@@ -1,8 +1,8 @@
 """Configurations of the PyTorch port: pool, model and serving.
 
 Field-for-field copies of the reference ``PoolConfig``, ``ModelConfig``,
-``ServeConfig``, ``MeshConfig``, ``OptimizerConfig`` and ``TrainConfig``
-(same names, defaults and allowed values), so
+``ServeConfig``, ``MeshConfig``, ``OptimizerConfig``, ``TrainConfig`` and
+``ShapeConfig`` with its four shapes (same names, defaults and allowed values), so
 ``PoolConfig(**dataclasses.asdict(ref_cfg))`` builds the port's config
 unchanged (``ServeConfig.from_reference`` does the same for the nested
 serving config). On the port, ``compress_impl``/``quantize_impl="jnp"``
@@ -238,6 +238,22 @@ class MeshConfig:
         for s in self.shape:
             n *= s
         return n
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclass(frozen=True)

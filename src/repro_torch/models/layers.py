@@ -88,6 +88,18 @@ def init_dense(shape, gen: torch.Generator, dtype, device, scale=None):
     return w.mul_(scale).to(dtype)      # in place: one f32 copy at a time
 
 
+# logical axes of each layer's leaves (the reference's ``*_init`` axes;
+# ``common/sharding.py`` maps them to mesh axes)
+GQA_AXES = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "heads"),
+            "wv": ("fsdp", "heads"), "wo": ("heads", "fsdp")}
+MLA_AXES = {"wq_a": ("fsdp", "latent"), "wq_b": ("latent", "heads"),
+            "wkv_a": ("fsdp", "latent"), "wkv_b": ("latent", "heads"),
+            "wo": ("heads", "fsdp"), "q_norm": ("latent",),
+            "kv_norm": ("latent",)}
+MLP_AXES = {"wi": ("fsdp", "mlp"), "wg": ("fsdp", "mlp"),
+            "wo": ("mlp", "fsdp")}
+
+
 def gqa_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim

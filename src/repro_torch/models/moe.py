@@ -59,6 +59,17 @@ def moe_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     return p
 
 
+def moe_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of ``moe_init``'s leaves (the reference's)."""
+    axes: Dict[str, Any] = {"router": ("fsdp", None),
+                            "wi": ("expert", "fsdp", "expert_mlp"),
+                            "wg": ("expert", "fsdp", "expert_mlp"),
+                            "wo": ("expert", "expert_mlp", "fsdp")}
+    if (cfg.moe or MoEConfig()).dense_residual:
+        axes["dense"] = dict(L.MLP_AXES)
+    return axes
+
+
 def capacity(k: int, tokens: int, e: int) -> int:
     """Rows an expert's buffer holds: ceil(k * tokens * cf / E), at least
     1 (the reference's float arithmetic)."""

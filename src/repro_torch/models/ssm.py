@@ -135,6 +135,17 @@ class Mamba1State(NamedTuple):
     conv: torch.Tensor     # [B, K-1, d_in] bf16
 
 
+# logical axes of the mixers' leaves (the reference's ``mamba*_init``)
+MAMBA1_AXES = {"in_proj": ("fsdp", "mlp"), "conv_w": ("mlp", None),
+               "conv_b": ("mlp",), "x_proj": ("mlp", None),
+               "dt_proj": (None, "mlp"), "dt_bias": ("mlp",),
+               "A_log": ("mlp", "state"), "D": ("mlp",),
+               "out_proj": ("mlp", "fsdp")}
+MAMBA2_AXES = {"in_proj": ("fsdp", "mlp"), "conv_w": ("mlp", None),
+               "conv_b": ("mlp",), "dt_bias": (None,), "A_log": (None,),
+               "D": (None,), "norm_w": ("mlp",), "out_proj": ("mlp", "fsdp")}
+
+
 def mamba1_init(gen: torch.Generator, cfg: ModelConfig, dtype,
                 device) -> Params:
     """A Mamba1 mixer's params from ``gen`` (the reference's

@@ -17,6 +17,12 @@ blocks a list of their own, ``params["shared"]``. The trainer keeps the
 reference's stacked layout and hands ``forward`` per-layer views
 (``train/trainer.py``).
 
+On a ``(data, model)`` mesh the trainer passes ``mesh`` (a
+``models/parallel.py::MeshModel``): each layer gathers its leaves over
+``data`` and runs its products tensor-parallel over ``model``; without one
+every path is the single-device code. ``param_axes`` is the reference's
+logical-axes tree in the trainer's stacked layout.
+
 With ``cfg.remat`` and a graph being recorded, each layer (the hybrid: each
 group with its shared block, as the reference's ``jax.checkpoint`` does) is
 rematerialised in the backward pass (``torch.utils.checkpoint``,
@@ -105,6 +111,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     return params
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of every leaf in the trainer's stacked layout (the
+    tree the reference's ``init_params`` returns): a stacked leaf leads
+    with "layers", the hybrid's Mamba2 leaves with two ([G, period])."""
+    def stacked(axes, lead=("layers",)):
+        return {k: stacked(v, lead) if isinstance(v, dict) else lead + v
+                for k, v in axes.items()}
+
+    axes: Dict[str, Any] = {"tok_embed": ("vocab", "embed"),
+                            "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    attn_layer = {
+        "attn": dict(L.MLA_AXES if cfg.attn_kind == "mla" else L.GQA_AXES),
+        "mlp": MOE.moe_axes(cfg) if cfg.family == "moe" else
+        dict(L.MLP_AXES), "ln1": ("embed",), "ln2": ("embed",)}
+    if cfg.family == "ssm":
+        axes["layers"] = stacked({"mixer": SSM.MAMBA1_AXES, "ln": ("embed",)})
+    elif cfg.family == "hybrid":
+        axes["layers"] = stacked({"mixer": SSM.MAMBA2_AXES, "ln": ("embed",)},
+                                 ("layers", "layers"))
+        axes["shared"] = stacked(attn_layer)
+    else:
+        axes["layers"] = stacked(attn_layer)
+    return axes
+
+
 def _layer_init(gen, cfg: ModelConfig, dtype, dev) -> Params:
     """One attention + MLP (or experts) layer."""
     d = cfg.d_model
@@ -152,13 +185,15 @@ def _remat(on: bool, fn, *args):
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", mesh=None):
     """Full-sequence forward. Returns (logits [B,S,V], aux loss: the sum of
-    the MoE layers' load-balance losses, 0 for the other families)."""
+    the MoE layers' load-balance losses, 0 for the other families).
+    ``mesh``: a ``MeshModel`` (params are this rank's blocks)."""
     check_supported(cfg)
     remat = cfg.remat and torch.is_grad_enabled() and \
         any(t.requires_grad for t in tensors(params))
-    x = embed(params, batch, cfg)
+    x = embed(params, batch, cfg) if mesh is None else \
+        mesh.embed(params, batch, cfg)
     zero = torch.zeros((), dtype=torch.float32)
     if cfg.family in ("ssm", "hybrid"):
         mixer = SSM.mamba2_apply_train if cfg.family == "hybrid" else \
@@ -180,18 +215,20 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         return unembed(params, x, cfg), zero
     aux = 0.0
     for lp in params["layers"]:
-        x, a = _remat(remat, _attn_block, lp, x, cfg, attn_impl)
+        x, a = _remat(remat, _attn_block, lp, x, cfg, attn_impl, mesh)
         aux = aux + a
-    return unembed(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32)
+    logits = unembed(params, x, cfg) if mesh is None else \
+        mesh.unembed(params, x, cfg)
+    return logits, torch.as_tensor(aux, dtype=torch.float32)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", mesh=None):
     """Mean next-token cross entropy over the labels >= 0, from the logits'
     float32 log-softmax, plus the aux loss: (loss, {"xent", "aux"}). A
     negative label is masked out (the reference gathers it out of bounds
     before masking; the synthetic data has none)."""
-    logits, aux = forward(params, batch, cfg, attn_impl)
+    logits, aux = forward(params, batch, cfg, attn_impl, mesh)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
@@ -201,11 +238,20 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-                attn_impl: str):
-    """Pre-norm attention then MLP (or experts): (x, aux loss)."""
+                attn_impl: str, mesh=None):
+    """Pre-norm attention then MLP (or experts): (x, aux loss). On a mesh:
+    the layer's leaves gathered over data, each product tensor-parallel at
+    the rank's head counts (``mesh.cfg``)."""
     attn = L.mla_apply_train if cfg.attn_kind == "mla" else L.gqa_apply_train
-    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attn(lp["attn"], h, cfg, attn_impl)
-    y, a = mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
-    return x + y, a
+    if mesh is None:
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attn(lp["attn"], h, cfg, attn_impl)
+        y, a = mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        return x + y, a
+    lp = mesh.layer(lp)
+    h = mesh.enter(L.rms_norm(x, lp["ln1"], cfg.norm_eps))
+    x = x + mesh.leave(attn(lp["attn"], h, mesh.cfg, attn_impl))
+    y, a = mlp(lp, mesh.enter(L.rms_norm(x, lp["ln2"], cfg.norm_eps)),
+               mesh.cfg)
+    return x + mesh.leave(y), a
 

@@ -18,6 +18,15 @@ The port's own choices, none of which changes the function:
     over all grads first, also in slices.
   * Params, moments and codes are updated in place (the reference's jitted
     step donates them).
+  * On a mesh (``sharding``: the params' ``common.sharding.TreeSharding``)
+    params, grads and raw moments are this rank's blocks and the update is
+    the same elementwise pass over them. The global norm sums each block
+    once (on the rank that holds its first copy) and all-reduces the sum
+    over the mesh. Compressed moments are replicated whole, as the
+    reference lays them out (``_opt_tree_shardings``): the leaf's gradient
+    and param are gathered whole, updated in slices as without a mesh, and
+    the rank keeps its block of the param, so the codes depend on the
+    gathered gradient only.
   * A compressed leaf's ``block`` is a host int under the reference's key
     (the reference keeps an int32 array and reads it with ``int()``,
     which under ``jit`` raises: ROADMAP C11). The step, the clip factor,
@@ -73,10 +82,9 @@ def _decompress_leaf(c, shape, impl: str = "auto") -> torch.Tensor:
                              torch.float32, impl).reshape(shape)
 
 
-def _compressed_zeros(p: torch.Tensor, block: int, impl: str):
-    """``_compress_leaf`` of a float32 zero leaf shaped like ``p``, made in
-    slices."""
-    n = p.numel()
+def _compressed_zeros(p: torch.Tensor, block: int, impl: str, n: int):
+    """``_compress_leaf`` of a float32 zero leaf of ``n`` values on ``p``'s
+    device, made in slices."""
     b = _blk(n, block)
     out = {"codes": torch.empty((n,), dtype=torch.uint8, device=p.device),
            "scales": torch.empty((n // b,), dtype=torch.float32,
@@ -101,15 +109,20 @@ def _part(c, s: int, e: int):
             "block": b}
 
 
-def init(params: Params, cfg: OptimizerConfig,
-         impl: str = "auto") -> AdamState:
+def init(params: Params, cfg: OptimizerConfig, impl: str = "auto",
+         sharding=None) -> AdamState:
+    """Zero moments for ``params`` (on a mesh: this rank's blocks, whose
+    compressed moments cover the whole leaf)."""
     dev = next(t for _, t in TR.leaves_with_paths(params)).device
     step = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.compress_state:
-        def comp(p):
-            return _compressed_zeros(p, cfg.state_block, impl)
-        return AdamState(step, TR.map_tree(comp, params),
-                         TR.map_tree(comp, params))
+        def comp(path, p):
+            shape = p.shape if sharding is None else \
+                sharding.mesh.full_shape(p.shape, sharding.spec(path))
+            return _compressed_zeros(p, cfg.state_block, impl,
+                                     int(torch.Size(shape).numel()))
+        return AdamState(step, TR.map_with_paths(comp, params),
+                         TR.map_with_paths(comp, params))
     mdt = MOMENT_DTYPES[cfg.moment_dtype]
 
     def zeros(p):
@@ -124,27 +137,37 @@ def _lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree: Params) -> torch.Tensor:
+def global_norm(tree: Params, sharding=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a leaf's sum in
-    slices of ``SLICE_VALUES``)."""
+    slices of ``SLICE_VALUES``). On a mesh: each block counted on the rank
+    that holds its first copy, the sum all-reduced over the mesh."""
     total = None
-    for _, x in TR.leaves_with_paths(tree):
+    for path, x in TR.leaves_with_paths(tree):
+        if sharding is not None and \
+                not sharding.mesh.owns(sharding.spec(path)):
+            continue
         flat = x.reshape(-1)
         for s, e in _slices(flat.numel(), 1):
             part = torch.sum(flat[s:e].to(torch.float32) ** 2)
             total = part if total is None else total + part
+    if sharding is not None:
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=sharding.mesh.device)
+        total = sharding.mesh.psum(total)
     return torch.sqrt(total)
 
 
 def update(grads: Params, state: AdamState, params: Params,
-           cfg: OptimizerConfig, impl: str = "auto"
+           cfg: OptimizerConfig, impl: str = "auto", sharding=None
            ) -> Tuple[Params, AdamState, Dict[str, torch.Tensor]]:
     """One AdamW step: params, moments and codes updated in place and
     returned, with {"grad_norm", "lr"} on the device. ``impl`` routes the
-    compressed state's codec ("auto": the kernels for CUDA tensors)."""
+    compressed state's codec ("auto": the kernels for CUDA tensors);
+    ``sharding``: the params' layout on a mesh (module docstring)."""
     f32 = torch.float32
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharding)
     clip = torch.clamp(torch.full((), cfg.grad_clip, dtype=f32,
                                   device=gnorm.device) /
                        torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -154,8 +177,13 @@ def update(grads: Params, state: AdamState, params: Params,
     mdt = MOMENT_DTYPES[cfg.moment_dtype]
 
     for path, p in TR.leaves_with_paths(params):
-        g_all = TR.get(grads, path).reshape(-1)
-        p_all = p.view(-1)
+        g_leaf, p_leaf = TR.get(grads, path), p
+        if sharding is not None and cfg.compress_state:   # the whole leaf
+            spec = sharding.spec(path)
+            g_leaf = sharding.mesh.gather(g_leaf, spec)
+            p_leaf = sharding.mesh.gather(p, spec)
+        g_all = g_leaf.reshape(-1)
+        p_all = p_leaf.view(-1)
         m_c, v_c = TR.get(state.m, path), TR.get(state.v, path)
         b = m_c["block"] if cfg.compress_state else 1
         for s, e in _slices(p_all.numel(), b):
@@ -182,6 +210,8 @@ def update(grads: Params, state: AdamState, params: Params,
             else:
                 m_c.view(-1)[s:e] = m.to(mdt)
                 v_c.view(-1)[s:e] = v.to(mdt)
+        if p_leaf is not p:                  # this rank's block of the leaf
+            p.copy_(sharding.mesh.shard(p_leaf, spec))
     state = AdamState(step, state.m, state.v)
     return params, state, {"grad_norm": gnorm, "lr": lr}
 

@@ -13,6 +13,11 @@ package restores in the other.
   its manifest and falls back to the previous one.
 * Async: ``save_async`` copies to the host (one counted sync) and hands the
   disk I/O to a writer thread.
+* Re-sharding (the reference's ``restore(shardings=)``): ``save`` from a
+  mesh (``shardings``, a ``common.sharding.TreeSharding``) gathers every
+  leaf whole and rank 0 writes the single-device files; ``restore`` with
+  ``shardings`` gives each rank its blocks on any mesh, so a checkpoint
+  moves between meshes and one device either way.
 """
 from __future__ import annotations
 
@@ -90,8 +95,18 @@ def _write(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray], keep: int,
 
 
 def save(ckpt_dir: str, step: int, tree: Tree, *, keep: int = 3,
-         extra: Optional[Dict[str, Any]] = None) -> str:
-    return _write(ckpt_dir, step, _flatten(_host(tree)), keep, extra)
+         extra: Optional[Dict[str, Any]] = None, shardings=None) -> str:
+    """Write ``tree`` as step ``step``. With ``shardings`` (``tree`` this
+    rank's blocks on a mesh; every rank calls it) the leaves are gathered
+    whole, rank 0 writes them, and every rank waits for the write."""
+    if shardings is None:
+        return _write(ckpt_dir, step, _flatten(_host(tree)), keep, extra)
+    whole = shardings.gather(tree)
+    if shardings.mesh.rank == 0:
+        _write(ckpt_dir, step, _flatten(_host(whole)), keep, extra)
+    del whole
+    shardings.mesh.barrier()
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
 _PENDING: List[threading.Thread] = []
@@ -170,9 +185,12 @@ def _to_like(arr: np.ndarray, like):
     return np.asarray(arr).astype(np.asarray(like).dtype)
 
 
-def restore(ckpt_dir: str, step: int, like: Tree) -> Tuple[Tree, Dict]:
+def restore(ckpt_dir: str, step: int, like: Tree,
+            shardings=None) -> Tuple[Tree, Dict]:
     """The checkpoint in the structure of ``like``, each leaf as
-    ``like``'s (``_to_like``); bf16 arrays are exact in float32."""
+    ``like``'s (``_to_like``); bf16 arrays are exact in float32. With
+    ``shardings`` (``like`` this rank's blocks on a mesh) each tensor leaf
+    is this rank's block of the whole leaf written."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -189,9 +207,17 @@ def restore(ckpt_dir: str, step: int, like: Tree) -> Tuple[Tree, Dict]:
         else:
             arr = flat[key]
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+        spec = None
+        if shardings is not None and isinstance(leaf, torch.Tensor):
+            spec = shardings.spec(p)
+            shape = shardings.mesh.full_shape(shape, spec)
         if tuple(arr.shape) != shape:
             raise ValueError(f"checkpoint leaf {key}: shape "
                              f"{tuple(arr.shape)}, expected {shape}")
+        if spec is not None:                # the block, cut on the host
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.from_numpy(np.array(arr, copy=True))
+            arr = shardings.mesh.shard(arr, spec)
         if isinstance(arr, torch.Tensor):
             return arr.to(leaf.dtype).to(leaf.device)
         return _to_like(arr, leaf)

@@ -9,8 +9,12 @@
   * step-level retry: ``launch/train.py`` retries a failed step from the
     last checkpoint.
 
-A GSPMD mesh is not ported (ROADMAP A.9); data-parallel ranks train
-through ``trainer.make_dp_compressed_step``.
+``launch/train.py --devices D`` trains on ``plan_mesh(D,
+prefer_model=2)`` through ``trainer.make_train_step(mesh=)``, and a
+checkpoint restores onto any mesh, a ``degraded_plan`` included
+(``checkpoint.restore(shardings=)``); the mesh for MLA, MoE, SSM and
+hybrid is ROADMAP A.9.5. Data-parallel ranks with int8 gradient codes
+train through ``trainer.make_dp_compressed_step``.
 """
 from __future__ import annotations
 

@@ -14,11 +14,19 @@ the moment it is ready, so no layer's grad outlives its layer's backward
 and no stacked copy is made (an ``unbind`` would hold every layer's grad
 until the last and then stack them: 16 GB more for llama3-8b).
 
-Across devices: ``make_dp_compressed_step`` is the reference's
-data-parallel step with int8 error-feedback gradient collectives, on the
-ranks of ``common.sharding`` (one process a device, NCCL on the cards,
-gloo on the CPU). A GSPMD mesh (``make_train_step(mesh=)``, FSDP over a
-logical-axis rule table) is not ported (ROADMAP A.9).
+Across devices, on the ranks of ``common.sharding`` (one process a
+device, NCCL on the cards, gloo on the CPU):
+  * ``make_train_step(mesh=)`` is the reference's GSPMD step on a
+    ``(data, model)`` mesh: each leaf is held as this rank's block of its
+    spec under a logical-axis rule table (FSDP over data, tensor parallel
+    over model; ``models/parallel.py`` gathers a layer's blocks inside the
+    layer and reduce-scatters its grads when they are complete), the
+    batch split over data, leaves that the mesh replicates all-reduced
+    after the backward, and AdamW on the blocks with a global norm
+    (``optim/adamw.py``). The GQA-and-dense-MLP families only on a mesh
+    that shards anything (MLA, MoE, SSM and hybrid: ROADMAP A.9.5);
+  * ``make_dp_compressed_step`` is the reference's data-parallel step with
+    int8 error-feedback gradient collectives.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch.common import sharding as SH
 from repro_torch.common import tree as TR
 from repro_torch.common.types import ModelConfig, TrainConfig
 from repro_torch.common.utils import resolve_device
+from repro_torch.models import parallel as PAR
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, gradcomp
 
@@ -102,31 +111,41 @@ def _bound(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _backward_into(params: Tree, grads: Tree, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig, attn_impl: str) -> torch.Tensor:
-    """loss_fn's loss on ``batch``; its grads added into ``grads``."""
+                   cfg: ModelConfig, attn_impl: str,
+                   mesh: "PAR.MeshModel" = None) -> torch.Tensor:
+    """loss_fn's loss on ``batch``; its grads added into ``grads``. On a
+    mesh the loss is this rank's rows' mean and the gradient that of the
+    mean over the batch's ranks (the loss scaled by 1 / their count)."""
     view = {k: _bound(v, grads[k]) for k, v in params.items()
             if k not in STACKED}
     for name in STACKED:
         if name in params:
             view[name] = _per_layer((params[name], grads[name]), cfg, name,
                                     _bound)
-    loss = T.loss_fn(view, batch, cfg, attn_impl)[0]
-    loss.backward()
+    loss = T.loss_fn(view, batch, cfg, attn_impl, mesh)[0]
+    if mesh is not None and mesh.batch_ways > 1:
+        (loss / mesh.batch_ways).backward()
+    else:
+        loss.backward()
     return loss.detach()
 
 
 def grads_and_loss(params: Tree, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, microbatches: int,
-                   attn_impl: str = "auto") -> Tuple[Tree, torch.Tensor]:
+                   attn_impl: str = "auto", mesh: "PAR.MeshModel" = None
+                   ) -> Tuple[Tree, torch.Tensor]:
     """(grads, loss). One microbatch: grads in the params' dtype. k > 1:
     each microbatch's grads (in the params' dtype) summed in float32 and
-    scaled by 1/k, as the reference's ``lax.scan`` does."""
+    scaled by 1/k, as the reference's ``lax.scan`` does. ``mesh``: the
+    rank's blocks and rows (``make_train_step(mesh=)``); the loss is the
+    rank's rows', the grads not yet reduced over replicas."""
     def zeros(p, dtype=None):
         return torch.zeros(p.shape, dtype=dtype or p.dtype, device=p.device)
 
     if microbatches <= 1:
         grads = TR.map_tree(zeros, params)
-        return grads, _backward_into(params, grads, batch, cfg, attn_impl)
+        return grads, _backward_into(params, grads, batch, cfg, attn_impl,
+                                     mesh)
     k = microbatches
     acc = TR.map_tree(lambda p: zeros(p, torch.float32), params)
     buf = TR.map_tree(zeros, params)
@@ -137,7 +156,7 @@ def grads_and_loss(params: Tree, batch: Dict[str, torch.Tensor],
         if i:
             for _, b in TR.leaves_with_paths(buf):
                 b.zero_()
-        loss = _backward_into(params, buf, mb, cfg, attn_impl)
+        loss = _backward_into(params, buf, mb, cfg, attn_impl, mesh)
         lsum = loss if lsum is None else lsum + loss
         for (_, a), (_, b) in zip(TR.leaves_with_paths(acc),
                                   TR.leaves_with_paths(buf)):
@@ -148,19 +167,22 @@ def grads_and_loss(params: Tree, batch: Dict[str, torch.Tensor],
     return acc, lsum * inv
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
-                    attn_impl: str = "auto", quantize_impl: str = "auto"):
-    """Returns (train_step, None): ``train_step(params, opt, batch) ->
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    mesh: SH.Mesh = None, *, rules=SH.DEFAULT_RULES,
+                    param_axes: Tree = None, attn_impl: str = "auto",
+                    quantize_impl: str = "auto"):
+    """Returns (train_step, shardings): ``train_step(params, opt, batch) ->
     (params, opt, metrics)`` with ``loss``, ``grad_norm`` and ``lr`` on the
     device; params and state are updated in place (the reference donates
     them). ``attn_impl``/``quantize_impl`` route B6 and B3/B4 ("auto": the
-    kernels for CUDA tensors). The second slot is the reference's
-    shardings, None without a mesh."""
-    if mesh is not None:
-        raise NotImplementedError("a GSPMD mesh (FSDP over a logical-axis "
-                                  "rule table) is not ported: ROADMAP A.9; "
-                                  "data-parallel ranks run "
-                                  "make_dp_compressed_step")
+    kernels for CUDA tensors). Without a mesh, shardings is None.
+
+    With ``mesh`` (a ``common.sharding.Mesh``; every rank calls the step):
+    params and the state are this rank's blocks and ``batch`` this rank's
+    rows; ``shardings`` holds ``TreeSharding``s of ``"params"``, ``"opt"``
+    and ``"batch"`` (their ``specs`` and ``shard``/``gather`` of whole
+    trees) from ``param_axes`` (default ``transformer.param_axes(cfg)``)
+    under ``rules``. The loss in the metrics is the whole batch's."""
     ocfg = tcfg.optimizer
 
     def step(params: Tree, opt: adamw.AdamState, batch: Dict[str, torch.Tensor]
@@ -172,7 +194,96 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         metrics["loss"] = loss
         return params, opt, metrics
 
-    return step, None
+    if mesh is None:
+        return step, None
+    PAR.check_mesh_family(cfg, mesh)
+    specs = SH.tree_specs(T.param_axes(cfg) if param_axes is None
+                          else param_axes, rules, mesh.axes)
+    _check_mesh_specs(cfg, mesh, specs)
+    shardings = _mesh_shardings(cfg, ocfg, mesh, specs, rules)
+    if mesh.size == 1:                  # shards nothing: the one-device step
+        return step, shardings
+    batch_axes = mesh.spec_axes(shardings["batch"].specs["tokens"])
+    model = PAR.MeshModel(cfg, mesh, specs, mesh.axis_size(batch_axes))
+    psh = shardings["params"]
+
+    def mesh_step(params: Tree, opt: adamw.AdamState,
+                  batch: Dict[str, torch.Tensor]):
+        grads, loss = grads_and_loss(params, batch, cfg, tcfg.microbatches,
+                                     attn_impl, model)
+        _reduce_replicas(grads, specs, mesh, batch_axes)
+        params, opt, metrics = adamw.update(grads, opt, params, ocfg,
+                                            quantize_impl, psh)
+        metrics["loss"] = mesh.psum(loss, batch_axes) / model.batch_ways
+        return params, opt, metrics
+
+    return mesh_step, shardings
+
+
+def _check_mesh_specs(cfg: ModelConfig, mesh: SH.Mesh, specs: Tree) -> None:
+    """The mesh path's layout: no stacked axis sharded, and, on a model
+    axis of more than one rank, "model" alone on the dims ``TRAIN_RULES``
+    puts it on (heads, MLP columns, vocab): the products the forward runs
+    tensor-parallel."""
+    want = SH.TreeSharding(mesh, SH.tree_specs(
+        T.param_axes(cfg), SH.DEFAULT_RULES, mesh.axes))
+    tp = PAR.MODEL in mesh.sizes and mesh.axis_size(PAR.MODEL) > 1
+
+    def model_dims(spec):
+        return [i for i, e in enumerate(spec)
+                if PAR.MODEL in SH._entry_axes(e)]
+
+    for path, spec in SH.spec_leaves(specs):
+        name = "/".join(path)
+        if path[0] in STACKED and mesh.spec_axes(spec[:1]):
+            raise NotImplementedError(f"{name}: spec {spec} shards the "
+                                      "stacked layers axis")
+        dims = model_dims(spec)
+        if tp and (dims != model_dims(want.spec(path)) or
+                   any(spec[i] != PAR.MODEL for i in dims)):
+            raise NotImplementedError(
+                f"{name}: spec {spec}; the mesh runs the model axis alone on "
+                f"the dims TRAIN_RULES gives ({want.spec(path)})")
+
+
+def _mesh_shardings(cfg: ModelConfig, ocfg, mesh: SH.Mesh, specs: Tree,
+                    rules) -> Dict[str, SH.TreeSharding]:
+    """The params', state's and batch's ``TreeSharding``s: raw moments as
+    their params, compressed ones replicated whole (the reference's
+    ``_opt_tree_shardings``)."""
+    if ocfg.compress_state:
+        moments = SH.map_specs(lambda _: {"codes": (), "scales": (),
+                                          "block": ()}, specs)
+    else:
+        moments = specs
+    rows = SH.logical_to_spec(("batch", "seq"), rules, mesh.axes)
+    batch = {"tokens": rows, "labels": rows}
+    if cfg.frontend != "none":
+        batch["embeds"] = SH.logical_to_spec(("batch", "seq", "embed"),
+                                             rules, mesh.axes)
+    return {"params": SH.TreeSharding(mesh, specs),
+            "opt": SH.TreeSharding(mesh, adamw.AdamState((), moments,
+                                                         moments)),
+            "batch": SH.TreeSharding(mesh, batch)}
+
+
+def _reduce_replicas(grads: Tree, specs: Tree, mesh: SH.Mesh,
+                     batch_axes) -> None:
+    """Sum in place each gradient over the batch's axes its leaf is not
+    sharded over (the replicated leaves: the norms, and the vocab
+    leaves over data), one all_reduce for each set of such axes."""
+    groups: Dict[Tuple, list] = {}
+    for path, spec in SH.spec_leaves(specs):
+        g = TR.get(grads, path)
+        axes = tuple(a for a in batch_axes if a not in mesh.spec_axes(spec))
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(g)
+    for (axes, _), gs in groups.items():
+        flat = mesh.psum(torch.cat([g.reshape(-1) for g in gs]), axes)
+        o = 0
+        for g in gs:
+            g.copy_(flat[o:o + g.numel()].view(g.shape))
+            o += g.numel()
 
 
 def make_dp_compressed_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -300,3 +411,52 @@ def mean_grads_on_ranks(group: SH.ExpanderGroup, grads, residuals,
     out = mean_grads(dev(grads[group.rank]), res, group, quantize_impl)
     host = TR.map_tree(lambda t: t.cpu().numpy(), (out, res))
     return host
+
+
+def run_mesh_steps(group: SH.ExpanderGroup, cfg: ModelConfig,
+                   tcfg: TrainConfig, mesh_shape, params, batches, *,
+                   ckpt_dir: str = None, save_at=(), restore_step=None):
+    """A rank entry point (``common.sharding.spawn_ranks``): the mesh step
+    on a ``(data, model)`` mesh of ``mesh_shape`` over the group's ranks,
+    from ``params`` (the reference's stacked tree of numpy arrays; the rank
+    takes its blocks) with the state at zero, or with ``restore_step`` from
+    that checkpoint in ``ckpt_dir``, over ``batches`` (global batches of
+    numpy arrays; the rank takes its rows). For each i in ``save_at`` the
+    state after i steps is saved to ``ckpt_dir`` as step i. Returns on rank
+    0 the losses and grad norms and the end state gathered whole, as numpy;
+    None on the others."""
+    from repro_torch import interop
+    from repro_torch.common.types import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint as ckpt
+    dev = group.device
+    mesh = make_mesh(MeshConfig(shape=tuple(mesh_shape),
+                                axes=("data", "model")), group)
+    step, sh = make_train_step(cfg, tcfg, mesh)
+    both = SH.TreeSharding.join({"params": sh["params"], "opt": sh["opt"]})
+    p = sh["params"].shard(interop.stacked_params_from_numpy(params, cfg,
+                                                             dev))
+    opt = adamw.init(p, tcfg.optimizer, sharding=sh["params"])
+    if restore_step is not None:
+        tree, _ = ckpt.restore(ckpt_dir, restore_step,
+                               {"params": p, "opt": opt}, shardings=both)
+        p, opt = tree["params"], tree["opt"]
+    losses, norms = [], []
+    for i, b in enumerate(batches):
+        if i in save_at:
+            ckpt.save(ckpt_dir, i, {"params": p, "opt": opt}, shardings=both)
+        rows = sh["batch"].shard({k: torch.from_numpy(np.asarray(v)).to(dev)
+                                  for k, v in b.items()})
+        p, opt, m = step(p, opt, rows)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    if len(batches) in save_at:
+        ckpt.save(ckpt_dir, len(batches), {"params": p, "opt": opt},
+                  shardings=both)
+    whole = both.gather({"params": p, "opt": opt})
+    if group.rank:
+        return None
+    return {"losses": [float(x) for x in torch.stack(losses).cpu()],
+            "grad_norms": [float(x) for x in torch.stack(norms).cpu()],
+            "params": interop.stacked_params_to_numpy(whole["params"]),
+            "opt": interop.opt_state_to_numpy(whole["opt"])}

@@ -202,14 +202,21 @@ def test_train_launcher_without_device_needs_cuda(capsys):
 
 
 def test_mesh_and_dp_compressed_step_raise_naming_roadmap():
-    """A GSPMD mesh is not ported (ROADMAP A.9); the data-parallel step
-    needs a rank group and says so without one."""
+    """The mesh step refuses a family it does not shard (MLA here) on a
+    mesh that shards anything, naming ROADMAP A.9.5 (a stand-in for the
+    (2, 2) mesh of ``plan_mesh(4)``: the check reads its sizes); the
+    data-parallel step needs a rank group and says so without one."""
+    import types
     from repro_torch.common.types import TrainConfig
     from repro_torch.configs import get_reduced
     from repro_torch.train import elastic, trainer
     cfg, tcfg = get_reduced("llama3_8b"), TrainConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        trainer.make_train_step(cfg, tcfg, mesh=elastic.plan_mesh(4))
+    plan = elastic.plan_mesh(4, prefer_model=2)
+    mesh = types.SimpleNamespace(shape=plan.shape, axes=plan.axes,
+                                 size=plan.num_devices,
+                                 sizes=dict(zip(plan.axes, plan.shape)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9.5"):
+        trainer.make_train_step(get_reduced("minicpm3_4b"), tcfg, mesh)
     with pytest.raises(RuntimeError, match="no initialized rank group"):
         trainer.make_dp_compressed_step(cfg, tcfg)
 
