@@ -27,7 +27,8 @@ exits non-zero:
              compressor: every pool leaf identical; then its population
              and replay rates with the demote-and-compact kernel and with
              the composition it replaced, and with the promote step and
-             the composition it replaced, in turns
+             the composition it replaced, in turns, at half the pages and
+             accesses
   5 times    B1/B2 kernel / plain / bound times (CUDA events) at the main
              path's shapes and at 65,536 blocks; the demote-and-compact
              kernel at a demotion batch of 8 pages and the promote step at
@@ -243,7 +244,20 @@ exits non-zero:
              llama3-8b's widths cut to 2 layers, float32, 2 steps: losses
              and params against the single-device step's, B6's launches at
              the rank's head counts (16/4 x 128 at model 2), and B6 at those
-             counts held against its plain version and timed
+             counts held against its plain version and timed; gloo's
+             all_reduce and broadcast rates between the two ranks
+ 21 roofline the dry run (``launch/dryrun.py``, ``roofline/``) beside what
+             18b, 19c and 20 measured, no new training run: the counted
+             argument bytes (params, state, grads; 19c's residuals) within
+             1% of the card's allocation, 18b's peak estimate beside its
+             peak, 18b's roofline terms beside its step, 20b's counted
+             collective bytes at gloo's rates beside its steps, the card's
+             memory against the module's, and ``python -m
+             repro_torch.launch.dryrun --all --devices 8`` on the host with
+             0 failures, after phase 20, beside nothing that is timed
+
+Every kernel row's bound comes from ``roofline.analyze.kernel_bound`` and
+the kernels line carries each row's ``kernel_roofline`` fields.
 
 The last three lines are the kernels summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -265,9 +279,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # f32 operations per value, counted from the kernel source: encode does
 # abs/max, then for each of the two rates multiply, round, two clamps, a
 # multiply, a bf16 round trip and a compare (or a subtract, abs and max);
@@ -282,6 +293,10 @@ MAIN_POOL = dict(n_pages=262144, n_pchunks=16384, n_cchunks=2097152)
 MAIN_PAGES = 32768
 MAIN_ACCESSES = 32768
 WHOLE_POOL = dict(n_pages=4096, n_pchunks=512, n_cchunks=32768)
+# phase 4: pages written and accesses replayed for the kernel-vs-plain
+# check, and (half of each, for the script's time) for the timed turns
+WHOLE_PAGES, WHOLE_ACCESSES = 1024, 4096
+WHOLE_AB_PAGES, WHOLE_AB_ACCESSES = 512, 2048
 # serving: the main path's engine and workload
 SERVE_CFG = dict(max_running=8, hot_window=256, kv_rate_bits=4,
                  attn_chunk=2048)
@@ -793,14 +808,17 @@ def phase_whole(qpack, dev) -> None:
 
     base = PoolConfig(**WHOLE_POOL, store_payload=True, lossless=True,
                       fused_demote="on")
-    pages, accesses = 1024, 4096
-    rates = make_rates_table(WORKLOADS["mcf"], pages, base.blocks_per_page,
-                             SEED + 1)
-    content = torch.from_numpy(
-        make_block_content(rates, base.vals_per_block, SEED + 1)
-        .reshape(pages, base.vals_per_page)).to(dev).to(torch.bfloat16)
-    trace = make_trace(WORKLOADS["mcf"], n_accesses=accesses, n_pages=pages,
-                       seed=SEED + 1)
+
+    def recipe(pages, accesses):
+        rates = make_rates_table(WORKLOADS["mcf"], pages,
+                                 base.blocks_per_page, SEED + 1)
+        content = torch.from_numpy(
+            make_block_content(rates, base.vals_per_block, SEED + 1)
+            .reshape(pages, base.vals_per_page)).to(dev).to(torch.bfloat16)
+        return content, make_trace(WORKLOADS["mcf"], n_accesses=accesses,
+                                   n_pages=pages, seed=SEED + 1)
+
+    content, trace = recipe(WHOLE_PAGES, WHOLE_ACCESSES)
     out = {}
     for impl in ("kernel", "jnp"):
         cfg = dataclasses.replace(base, compress_impl=impl)
@@ -820,9 +838,12 @@ def phase_whole(qpack, dev) -> None:
           "phase 4: the kernel run did not launch the kernels, or the plain "
           "run did")
 
-    # the same recipe with the kernels, the demotion done by the demote-
-    # and-compact kernel and by the composition it replaced (the gather,
-    # the fused-encode kernel, the eager compaction), in turns
+    # the same recipe at half the pages and accesses with the kernels, the
+    # demotion done by the demote-and-compact kernel and by the composition
+    # it replaced (the gather, the fused-encode kernel, the eager
+    # compaction), in turns
+    pages, accesses = WHOLE_AB_PAGES, WHOLE_AB_ACCESSES
+    content, trace = recipe(pages, accesses)
     fused = qpack.fused_demote
 
     def composition(x, slots, **kw):
@@ -942,6 +963,20 @@ def time_eager(fn, reps: int, samples: int = 21) -> float:
     return statistics.median(times)
 
 
+def _bound(nbytes: int, ops: int, dtype) -> dict:
+    """A kernel row's bound (``roofline.analyze.kernel_bound``: bytes at
+    the HBM rate or operations at the peak of their type, the larger) and
+    its bytes."""
+    from repro_torch.roofline import analyze as RA
+    ms, by = RA.kernel_bound(nbytes, ops, dtype)
+    return {"bound_ms": ms, "bound_by": by, "bytes": nbytes}
+
+
+def _peak(dtype) -> float:
+    from repro_torch.roofline import analyze as RA
+    return RA.PEAK_BY_DTYPE[str(dtype).replace("torch.", "")]
+
+
 def phase_times(qpack, comp, dev, tag: str) -> dict:
     qt = comp.quanta_per_rate(512)
     out = {}
@@ -965,13 +1000,10 @@ def phase_times(qpack, comp, dev, tag: str) -> dict:
             if (kind, n) not in (("encode", 32), ("decode", 4),
                                  ("encode", 65536), ("decode", 65536)):
                 continue
-            t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
             r = {"ms": time_graph(kern, reps),
                  "eager_ms": time_eager(kern, reps),
                  "plain_ms": time_eager(plain, max(reps // 10, 5)),
-                 "bound_ms": max(t_b, t_o) * 1e3,
-                 "bound_by": "bytes" if t_b >= t_o else "operations",
-                 "bytes": nbytes}
+                 **_bound(nbytes, ops, "float32")}
             out[(kind, n)] = r
             print(f"phase 5 {kind} {n}x512 bf16: kernel {r['ms']:.6f} ms "
                   f"(graph replay), {r['eager_ms']:.6f} ms eager | plain "
@@ -997,15 +1029,12 @@ def phase_times(qpack, comp, dev, tag: str) -> dict:
     page = 2 * nb * v
     # slots and pages read; page streams, quanta and record written
     nbytes = k * (8 + 2 * page + 4 * nb + 4 * (nb + 1))
-    t_b = nbytes / HBM_BYTES_PER_S
-    t_o = ENCODE_OPS_PER_VALUE * k * nb * v / F32_OPS_PER_S
     r = {"ms": time_graph(kern, 200), "eager_ms": time_eager(kern, 200),
          "plain_ms": time_eager(lambda: qpack.fused_demote_plain(
              store, slots, **kw), 20),
          "composition_ms": time_eager(old, 50),
          "composition_graph_ms": time_graph(old, 50),
-         "bound_ms": max(t_b, t_o) * 1e3,
-         "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": nbytes,
+         **_bound(nbytes, ENCODE_OPS_PER_VALUE * k * nb * v, "float32"),
          "event_names": device_events(kern),
          "composition_events": sum(device_events(old).values())}
     r["events"] = sum(r["event_names"].values())
@@ -1064,15 +1093,12 @@ def _promote_times(qpack, comp, dev, tag: str) -> dict:
 
     # record and compressed bytes read, the whole page written
     nbytes = 4 * len(rows[0]) + comp_bytes + cfg.page_bytes
-    t_b = nbytes / HBM_BYTES_PER_S
-    t_o = DECODE_OPS_PER_VALUE * nb * v / F32_OPS_PER_S
     r = {"ms": time_graph(kern, 200), "eager_ms": time_eager(kern, 200),
          "plain_ms": time_eager(lambda: qpack.fused_promote_plain(
              c_store, p_store, record, **kw), 20),
          "composition_ms": time_eager(old, 50),
          "composition_graph_ms": time_graph(old_device, 50),
-         "bound_ms": max(t_b, t_o) * 1e3,
-         "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": nbytes,
+         **_bound(nbytes, DECODE_OPS_PER_VALUE * nb * v, "float32"),
          "event_names": device_events(kern),
          "composition_events": sum(device_events(old).values())}
     r["events"] = sum(r["event_names"].values())
@@ -2326,16 +2352,13 @@ def _time_rows(out: dict, label: str, tag: str) -> dict:
     one line a row."""
     res = {}
     for name, t in out.items():
-        rate = t.get("ops_rate", BF16_OPS_PER_S)
-        t_b = t["nbytes"] / HBM_BYTES_PER_S
-        t_o = t["ops"] / rate
+        dtype = t.get("ops_dtype", "bfloat16")
         r = {"shape": t["shape"], "ms": time_graph(t["kern"], t["reps"]),
              "eager_ms": time_eager(t["kern"], t["reps"]),
              "plain_ms": time_eager(t["plain"], max(t["reps"] // 10, 2)),
              "library_ms": (time_eager(t["lib"], t["reps"])
                             if t["lib"] else None),
-             "bound_ms": max(t_b, t_o) * 1e3,
-             "bound_by": "bytes" if t_b >= t_o else "operations"}
+             **_bound(t["nbytes"], t["ops"], dtype)}
         comp_txt = ""
         if "composition" in t:
             r["composition_ms"] = time_eager(t["composition"], 50)
@@ -2356,7 +2379,8 @@ def _time_rows(out: dict, label: str, tag: str) -> dict:
               f"(graph replay), {r['eager_ms']:.6f} ms eager | plain "
               f"{r['plain_ms']:.6f} ms | library {lib} | bound "
               f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({t['nbytes']} B "
-              f"at 3.35 TB/s, {t['ops']} flop at {rate / 1e12:g} TF/s)"
+              f"at 3.35 TB/s, {t['ops']} flop at "
+              f"{_peak(dtype) / 1e12:g} TF/s)"
               f"{comp_txt} "
               f"[{tag}]", flush=True)
     return res
@@ -3293,7 +3317,7 @@ def phase_mla_times(dev, tag: str, lens_l) -> dict:
                                                   MLA_SM),
         lib=lambda: _sdpa(q32[:, None], ldq32, ldq32, False, mask),
         nbytes=tok * (Rp + 4) + B * H * R * 4 + B * 4 + B * H * (R + 2) * 4,
-        ops=4 * tok * H * R, ops_rate=F32_OPS_PER_S, reps=50)
+        ops=4 * tok * H * R, ops_dtype="float32", reps=50)
     # B6 at (96, 64): the prefill's attention at the 1024 bucket, causal, 8
     # rows, then the path's 4- and 1-row batches
     Sp = 1024
@@ -5006,13 +5030,13 @@ def phase_train_kernels(dev, tag: str) -> tuple:
             kern=lambda: qpack.encode(x, 8, 512),
             plain=lambda: qpack.encode_plain(x, 8, 512), lib=None,
             nbytes=n * 4 + n + n // 512 * 4,
-            ops=ENCODE_OPS_PER_VALUE * n, ops_rate=F32_OPS_PER_S, reps=20),
+            ops=ENCODE_OPS_PER_VALUE * n, ops_dtype="float32", reps=20),
         "qpack_fixed_decode_train": dict(
             shape=f"{n} 8-bit codes, block 512 -> f32",
             kern=lambda: qpack.decode(c, sc, 8, 512, torch.float32),
             plain=lambda: qpack.decode_plain(c, sc, 8, 512, torch.float32),
             lib=None, nbytes=n + n // 512 * 4 + n * 4,
-            ops=DECODE_OPS_PER_VALUE * n, ops_rate=F32_OPS_PER_S, reps=20),
+            ops=DECODE_OPS_PER_VALUE * n, ops_dtype="float32", reps=20),
         "flash_attention_train": dict(
             shape=f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} bf16 causal "
                   f"(a layer's training forward)",
@@ -5085,12 +5109,15 @@ def phase_train_main(dev, tag: str) -> dict:
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import qpack
     from repro_torch.optim import adamw
+    from repro_torch.roofline import analyze as RA
     from repro_torch.train import trainer
     t0 = time.perf_counter()
     cfg, tcfg = _train_configs()
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     params = trainer.init_params(cfg, SEED, dev)
     opt = adamw.init(params, tcfg.optimizer)
+    mem = {"args": torch.cuda.memory_allocated(dev) - base}
     step_fn, _ = trainer.make_train_step(cfg, tcfg)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
@@ -5134,7 +5161,8 @@ def phase_train_main(dev, tag: str) -> dict:
     step_ms = statistics.median(ms)
     tokens = tcfg.global_batch * tcfg.seq_len
     n_params = cfg.param_count()
-    mfu = 6 * n_params * tokens / (step_ms / 1e3 * BF16_OPS_PER_S)
+    mfu = RA.model_flops(n_params, n_params, tokens, "train") / (
+        step_ms / 1e3 * RA.PEAK_FLOPS)
     state = adamw.state_bytes(opt)
 
     # one step under the profiler (the card's activity), one split
@@ -5153,6 +5181,8 @@ def phase_train_main(dev, tag: str) -> dict:
     e[0].record()
     grads, loss = trainer.grads_and_loss(params, batches[TRAIN_STEPS + 2],
                                          cfg, tcfg.microbatches)
+    # params, state, grads, the batches and the loss: all that is alive
+    mem["with_grads"] = torch.cuda.memory_allocated(dev) - base
     e[1].record()
     params, opt, _ = adamw.update(grads, opt, params, tcfg.optimizer)
     e[2].record()
@@ -5203,7 +5233,8 @@ def phase_train_main(dev, tag: str) -> dict:
           f"{TRAIN_PEAK_GIB} GiB")
     del params, opt, batches, metrics, warm
     return {"launches": got, "step_ms": step_ms, "wall_s": wall,
-            "peak_gib": peak, "busy": busy,
+            "peak_gib": peak, "busy": busy, "mfu": mfu, "mem": mem,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "first": {"loss": losses[0], "digest": digest}, **split}
 
 
@@ -5524,21 +5555,25 @@ def phase_shard(dev, group, fut, gate: str, tag: str, during=None) -> dict:
 
 
 def _dp_step_run(dev, group, cfg, tcfg, impl: dict, steps: int,
-                 check_codes: bool = False) -> dict:
+                 check_codes: bool = False, mem: dict = None) -> dict:
     """``steps`` DP steps of ``cfg`` at world size ``group.world`` from the
     seeded params (the first a warm-up): losses, the timed steps' ms and
     launches, syncs, and with ``check_codes`` one more step in which every
     gradient leaf's B3 codes and scales and every B4 decode are held
-    against the plain versions on the same inputs."""
+    against the plain versions on the same inputs. ``mem``: gets the bytes
+    allocated by the params, the state and the residuals ("args")."""
     import warnings
     from repro_torch.common import contracts
     from repro_torch.data.pipeline import make_batch
     from repro_torch.common import tree as TR
     from repro_torch.optim import adamw, gradcomp
     from repro_torch.train import trainer
+    base = torch.cuda.memory_allocated(dev)
     params = trainer.init_params(cfg, SEED, dev)
     opt = adamw.init(params, tcfg.optimizer, impl["quantize_impl"])
     res = trainer.init_residual_flat(params, 1)
+    if mem is not None:
+        mem["args"] = torch.cuda.memory_allocated(dev) - base
     step = trainer.make_dp_compressed_step(cfg, tcfg, group, **impl)
     batches = [make_batch(cfg, i, global_batch=tcfg.global_batch,
                           seq_len=tcfg.seq_len, device=dev)
@@ -5616,8 +5651,9 @@ def phase_dp(dev, group, tag: str) -> dict:
     t0 = time.perf_counter()
     cfg, tcfg = _train_configs(DP_LAYERS)
     torch.cuda.reset_peak_memory_stats(dev)
+    mem: dict = {}
     r = _dp_step_run(dev, group, cfg, tcfg, WHOLE_IMPLS["kernel"],
-                     DP_STEPS + 1, check_codes=True)
+                     DP_STEPS + 1, check_codes=True, mem=mem)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     n = DP_STEPS
     got = {k: r["launches"][k] for k in ("qpack_fixed_encode",
@@ -5653,7 +5689,8 @@ def phase_dp(dev, group, tag: str) -> dict:
           c["decoded"] == 0, f"phase 19c: B3/B4 differ from the plain "
           f"route: {c}")
     return {"launches": got, "step_ms": step_ms, "peak_gib": peak,
-            "codes": c, "wall_s": time.perf_counter() - t0, "cfg": cfg}
+            "codes": c, "wall_s": time.perf_counter() - t0, "cfg": cfg,
+            "tcfg": tcfg, "mem": mem}
 
 
 def phase_dp_whole(dev, group, tag: str) -> float:
@@ -5702,13 +5739,13 @@ def _dp_times(dev, cfg, tag: str) -> dict:
             kern=lambda: qpack.encode(x, 8, 512),
             plain=lambda: qpack.encode_plain(x, 8, 512), lib=None,
             nbytes=n * 4 + n + n // 512 * 4,
-            ops=ENCODE_OPS_PER_VALUE * n, ops_rate=F32_OPS_PER_S, reps=10),
+            ops=ENCODE_OPS_PER_VALUE * n, ops_dtype="float32", reps=10),
         "qpack_fixed_decode_dp": dict(
             shape=f"{n} 8-bit codes, block 512 -> f32 (the gathered leaf)",
             kern=lambda: qpack.decode(cs, sc, 8, 512, torch.float32),
             plain=lambda: qpack.decode_plain(cs, sc, 8, 512, torch.float32),
             lib=None, nbytes=n + n // 512 * 4 + n * 4,
-            ops=DECODE_OPS_PER_VALUE * n, ops_rate=F32_OPS_PER_S, reps=10),
+            ops=DECODE_OPS_PER_VALUE * n, ops_dtype="float32", reps=10),
         "flash_attention_dp": dict(
             shape=f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} bf16 causal "
                   f"(a layer's forward in the DP step)",
@@ -5772,8 +5809,10 @@ def phase_mesh_one(dev, group, first: dict, tag: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     mesh = make_mesh(MeshConfig((1, 1), ("data", "model")), group)
     step_fn, sh = trainer.make_train_step(cfg, tcfg, mesh)
+    base = torch.cuda.memory_allocated(dev)
     params = sh["params"].shard(trainer.init_params(cfg, SEED, dev))
     opt = adamw.init(params, tcfg.optimizer, sharding=sh["params"])
+    mem = {"args": torch.cuda.memory_allocated(dev) - base}
     batch = sh["batch"].shard(make_batch(cfg, 0, global_batch=tcfg.global_batch,
                                          seq_len=tcfg.seq_len, device=dev))
     torch.cuda.synchronize()
@@ -5830,7 +5869,7 @@ def phase_mesh_one(dev, group, first: dict, tag: str) -> dict:
     check(syncs == 0 and not debug,
           f"phase 20a: the step synced: {syncs} counted, {debug[:3]}")
     return {"launches": got, "step_ms": ms, "peak_gib": peak,
-            "wall_s": wall}
+            "wall_s": wall, "mem": mem}
 
 
 def _train_warm(dev) -> None:
@@ -5928,7 +5967,33 @@ def _mesh_ranks(group) -> dict:
             out["meshes"]["%dx%d" % shape] = rec
     finally:
         FA._launch = launch
+    out["gloo"] = _gloo_rates(group)
     out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _gloo_rates(group) -> dict:
+    """GiB/s of gloo's all_reduce and broadcast of one of ``Mesh``'s 64 MiB
+    pieces between the ranks sharing the card (the median of 3 calls each,
+    CUDA tensors, the ranks lined up by a barrier before each)."""
+    import torch.distributed as dist
+    from repro_torch.common import sharding as SH
+    x = torch.zeros(SH.COLLECTIVE_BYTES, dtype=torch.uint8,
+                    device=group.device)
+    out = {}
+    for op in ("all_reduce", "broadcast"):
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize(group.device)
+            dist.barrier()
+            t = time.perf_counter()
+            if op == "all_reduce":
+                dist.all_reduce(x)
+            else:
+                dist.broadcast(x, src=0)
+            torch.cuda.synchronize(group.device)
+            secs.append(time.perf_counter() - t)
+        out[op] = SH.COLLECTIVE_BYTES / 2 ** 30 / statistics.median(secs)
     return out
 
 
@@ -5964,8 +6029,7 @@ def phase_mesh_kernels(dev, tag: str) -> tuple:
             lib=lambda q=q, k=k, v=v: _sdpa(q, k, v, True),
             nbytes=B * S * D * (2 * Hq + 2 * Hkv) * q.element_size(),
             ops=4 * B * Hq * D * S * (S + 1) // 2,
-            ops_rate=F32_OPS_PER_S if dt == torch.float32
-            else BF16_OPS_PER_S, reps=10)
+            ops_dtype=dt, reps=10)
     print(f"phase 20b kernels: B6 at 16/4 x 128 ({len(MESH_ATTN)} shapes, "
           f"bf16 and f32): max abs err {err['err']:.3e}, "
           f"{err['mismatches']} outside ATTN_TOL [{tag}]", flush=True)
@@ -6010,9 +6074,14 @@ def phase_mesh_ranks(ranks: list, wall: float, tag: str) -> dict:
               f"{2 * MESH_LAYERS * MESH_STEPS} a rank at {want_heads}")
         if model == 2:
             launches += n
+    print(f"phase 20b gloo between the ranks, a 64 MiB piece on the card: "
+          f"all_reduce {r0['gloo']['all_reduce']:.3f} GiB/s, broadcast "
+          f"{r0['gloo']['broadcast']:.3f} GiB/s (median of 3) [{tag}]",
+          flush=True)
     print(f"phase 20b wall {max(r['wall_s'] for r in ranks):.3f} s on the "
           f"ranks, {wall:.3f} s from the gate [{tag}]", flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "gloo": r0["gloo"],
+            "ms": {name: rec["ms"] for name, rec in r0["meshes"].items()}}
 
 
 
@@ -6072,6 +6141,7 @@ def phase_across(dev, tag: str, times: dict, errs: dict, train: dict,
             "replaces": f"src/repro/kernels/qpack.py:{line}",
             "launches": shard["19a"][kind] + shard["19b"][kind],
             "max_abs_err": errs[kind]["err"], "ms": t["ms"],
+            "bytes": t["bytes"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "eager_ms": t["eager_ms"],
@@ -6098,7 +6168,7 @@ def phase_across(dev, tag: str, times: dict, errs: dict, train: dict,
             "source": f"src/repro_torch/csrc/{src}",
             "replaces": f"src/repro/kernels/{rep}",
             "launches": dp["launches"][key], "max_abs_err": e["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": "the data-parallel train step (phase 19c): "
@@ -6126,7 +6196,7 @@ def phase_across(dev, tag: str, times: dict, errs: dict, train: dict,
             "replaces": f"src/repro/kernels/{rep}",
             "launches": mesh_ranks["launches"] if key is None
             else mesh_one["launches"][key], "max_abs_err": e["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": "the mesh step at (1, 2) on two ranks (phase 20b): a "
@@ -6138,7 +6208,175 @@ def phase_across(dev, tag: str, times: dict, errs: dict, train: dict,
     kernels[-1]["path_shapes"] = {"bf16 8x512": {
         f: mesh_times["flash_attention_mesh"][f]
         for f in ("ms", "eager_ms", "library_ms", "bound_ms")}}
-    return kernels
+    return kernels, {"dp": dp, "mesh_one": mesh_one,
+                     "mesh_ranks": mesh_ranks}
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the dry run's counts against what phases 18-20 measured.
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARGV = ["--all", "--devices", "8"]
+DRYRUN_MEM_RTOL = 0.01      # a count of allocated bytes against the card's
+
+
+def dryrun_start() -> dict:
+    """``python -m repro_torch.launch.dryrun`` with DRYRUN_ARGV started on
+    the host, its output piped, its records in a temporary directory;
+    phase 21 starts it and collects it (it runs beside phase 21's own
+    counts, after every phase that times something)."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="dryrun")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV,
+         "--out", out_dir], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    return {"proc": proc, "dir": out_dir, "t0": time.perf_counter()}
+
+
+def dryrun_stop(dry: dict) -> None:
+    import shutil
+    if dry["proc"].poll() is None:
+        dry["proc"].kill()
+        dry["proc"].wait()
+    shutil.rmtree(dry["dir"], ignore_errors=True)
+
+
+def phase_roofline(dev, tag: str, train: dict, info: dict) -> dict:
+    """21: ``launch/dryrun.py``'s per-rank counts beside phases 18-20's
+    measurements, no new training run: the argument bytes (params, state,
+    grads; 19c's residuals) of 18b, 19c and 20a within DRYRUN_MEM_RTOL of
+    ``torch.cuda.memory_allocated`` taken where those tensors and nothing
+    else were alive; 18b's peak estimate beside its measured peak; 18b's
+    roofline terms beside its step, and its model-FLOP share from
+    ``roofline.analyze``; 20b's collective bytes at (1, 2) and (2, 1) timed
+    at gloo's rates measured between 20b's ranks, beside 20b's steps; the
+    card's memory against ``analyze.HBM_BYTES``; and
+    ``python -m repro_torch.launch.dryrun --all --devices 8`` on the host
+    (started here, beside the rest of this phase), its own time, with 0
+    failures."""
+    from repro_torch.common.types import MeshConfig, ShapeConfig
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.roofline import analyze as RA
+    t0 = time.perf_counter()
+    dry = dryrun_start()
+    proc = dry["proc"]
+    try:
+        one = MeshConfig((1, 1), ("data", "model"))
+        cfg, tcfg = _train_configs()
+        rec = DRY.count_cell(cfg, DRY.TRAIN_512, one, tcfg)
+        pr = rec["per_rank"]
+        dp = info["dp"]
+        dcfg, dtcfg = dp["cfg"], dp["tcfg"]
+        r19 = DRY.count_cell(dcfg, ShapeConfig(
+            "train_19c", dtcfg.seq_len, dtcfg.global_batch, "train"), one,
+            dtcfg)["per_rank"]
+        held = {
+            "18b params + state": (pr["params"] + pr["state"],
+                                   train["mem"]["args"]),
+            "18b params + state + grads + batch": (
+                pr["params"] + pr["state"] + pr["grads"] + pr["batch"],
+                train["mem"]["with_grads"]),
+            # the DP step's error-feedback rows: float32, a value a param
+            "19c params + state + residuals": (
+                r19["params"] + r19["state"] + 4 * r19["values"],
+                dp["mem"]["args"]),
+            "20a params + state": (pr["params"] + pr["state"],
+                                   info["mesh_one"]["mem"]["args"])}
+        errs = {k: abs(got - want) / want for k, (want, got) in held.items()}
+        print(f"phase 21 argument bytes, dry run against the card's "
+              f"allocation: " + "; ".join(
+                  f"{k} {want} B counted, {got} B allocated (relative "
+                  f"{errs[k]:.2e})" for k, (want, got) in held.items()) +
+              f" [{tag}]", flush=True)
+        peak = train["peak_bytes"]
+        print(f"phase 21 18b peak: estimated {rec['peak_bytes'] / 2 ** 30:.3f}"
+              f" GiB (arguments {rec['memory']['argument_bytes']} B, grads "
+              f"{pr['grads']} B, working set {pr['temp']} B), measured "
+              f"{peak / 2 ** 30:.3f} GiB (relative "
+              f"{(rec['peak_bytes'] - peak) / peak:+.4f}); fits "
+              f"{RA.HBM_BYTES / 2 ** 30:.3f} GiB: {rec['fits']} [{tag}]",
+              flush=True)
+        rl = RA.analyze_record(dict(rec, status="ok"), rec["tokens"],
+                               "train")
+        step_s = train["step_ms"] / 1e3
+        share = rl.model_flops / (step_s * RA.PEAK_FLOPS)
+        # the share as 18b computed it before roofline/ existed
+        old_share = 6 * rec["params"] * rec["tokens"] / (step_s * 989e12)
+        print(f"phase 21 18b roofline: compute {rl.compute_s * 1e3:.3f} ms "
+              f"({rec['flops']:.6g} executed matmul FLOPs, "
+              f"{rec['flops'] - rec['flops_f32']:.6g} bf16 at 989 TF/s and "
+              f"{rec['flops_f32']:.6g} float32 at 67 TF/s; "
+              f"{rec['other_flops']:.6g} others), memory "
+              f"{rl.memory_s * 1e3:.3f} ms (a floor of "
+              f"{rec['bytes_accessed']} B at 3.35 TB/s), collective "
+              f"{rl.collective_s * 1e3:.3f} ms, {rl.dominant}; model FLOPs "
+              f"{rl.model_flops:.6g}, useful ratio {rl.useful_ratio:.4f} | "
+              f"measured step {train['step_ms']:.3f} ms: "
+              f"{rl.compute_s / step_s:.4f} of it the compute term, "
+              f"model-FLOP share {share:.4f} (18b's {train['mfu']:.4f}, "
+              f"6 N D / (step x 989 TF/s) {old_share:.4f}) [{tag}]",
+              flush=True)
+        mr = info["mesh_ranks"]
+        mcfg, mtcfg = _mesh_configs()
+        coll = {}
+        for shape in MESH_SHAPES:
+            name = "%dx%d" % shape
+            c = DRY.count_cell(mcfg, ShapeConfig(
+                "mesh_20b", MESH_SEQ, MESH_BATCH, "train"),
+                MeshConfig(shape, ("data", "model")), mtcfg)[
+                    "collective_bytes"]
+            secs = c["all-reduce"] / (mr["gloo"]["all_reduce"] * 2 ** 30) + \
+                c["all-gather"] / (mr["gloo"]["broadcast"] * 2 ** 30)
+            coll[name] = {"all_reduce": c["all-reduce"],
+                          "broadcast": c["all-gather"], "s": secs,
+                          "step_ms": mr["ms"][name]}
+            print(f"phase 21 20b mesh ({shape[0]}, {shape[1]}) collectives "
+                  f"counted a rank a step: all_reduce {c['all-reduce']:.0f} "
+                  f"B, broadcast {c['all-gather']:.0f} B "
+                  f"({json.dumps({k: round(v) for k, v in c['by_use'].items()})}"
+                  f") | at gloo's measured rates {secs * 1e3:.3f} ms | "
+                  f"20b's steps on rank 0 "
+                  f"{[round(x, 3) for x in mr['ms'][name]]} ms [{tag}]",
+                  flush=True)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        print(f"phase 21 card memory: total_memory {total} B "
+              f"({total / 2 ** 30:.3f} GiB) against analyze.HBM_BYTES "
+              f"{RA.HBM_BYTES} B ({total / RA.HBM_BYTES:.4f}) [{tag}]",
+              flush=True)
+        done = proc.poll() is not None
+        text, _ = proc.communicate(timeout=300)
+        dry_s = time.perf_counter() - dry["t0"]
+    finally:
+        dryrun_stop(dry)
+    m = re.search(r"dryrun: (\d+) failures, (\d+) cells in ([0-9.]+) s",
+                  text)
+    failures, cells, secs = (int(m.group(1)), int(m.group(2)),
+                             float(m.group(3))) if m else (-1, 0, -1.0)
+    ok = text.count("[ok     ]")
+    skipped = text.count("[skipped]")
+    wall = time.perf_counter() - t0
+    print(f"phase 21 dry run {' '.join(DRYRUN_ARGV)}: exit "
+          f"{proc.returncode}, {ok} cells counted, {skipped} skipped, "
+          f"{failures} failures; {secs:.3f} s counting after its imports, "
+          f"done {'before' if done else 'after'} the phase's own counts, "
+          f"{dry_s:.3f} s from its start to its end | phase 21 wall "
+          f"{wall:.3f} s [{tag}]", flush=True)
+    check(all(e <= DRYRUN_MEM_RTOL for e in errs.values()),
+          f"phase 21: argument bytes off the allocation: {errs}")
+    check(abs(train["mfu"] - old_share) <= 1e-12 * old_share and
+          abs(share - old_share) <= 1e-12 * old_share,
+          f"phase 21: model-FLOP shares {share} (roofline) and "
+          f"{train['mfu']} (18b) against 6 N D's {old_share}")
+    check(abs(total - RA.HBM_BYTES) <= 0.01 * RA.HBM_BYTES,
+          f"phase 21: total_memory {total} against analyze.HBM_BYTES "
+          f"{RA.HBM_BYTES}")
+    check(proc.returncode == 0 and failures == 0 and ok + skipped == cells
+          and ok > 0,
+          f"phase 21: the dry run exited {proc.returncode} with {failures} "
+          f"failures: {text[-2000:]}")
+    return {"wall_s": wall, "coll": coll, "errs": errs}
 
 
 def main() -> int:
@@ -6282,8 +6520,11 @@ def main() -> int:
               f"({json.dumps({k: round(v, 3) for k, v in walls18.items()})}) "
               f"[{tag}]", flush=True)
         torch.cuda.empty_cache()
-        across = phase_across(dev, tag, times, errs, train, train_times,
-                              train_errs, shard_fut, gate, gate20)
+        across, info = phase_across(dev, tag, times, errs, train,
+                                    train_times, train_errs, shard_fut,
+                                    gate, gate20)
+        torch.cuda.empty_cache()
+        phase_roofline(dev, tag, train, info)
     finally:
         Path(gate).touch()    # a failed phase lets the ranks finish
         Path(gate20).touch()
@@ -6308,7 +6549,7 @@ def main() -> int:
             "replaces": f"src/repro/kernels/qpack.py:{line}",
             "launches": launches[kind] + fabric_launches.get(kind, 0),
             "max_abs_err": errs[kind]["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "eager_ms": t["eager_ms"], "path": path,
             "shape": (f"{n} pages of 4x512 bf16" if kind in ("demote",
@@ -6337,7 +6578,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": path_launches[name_], "max_abs_err": e["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": ("serve paper (phase 8)" if name_ == "qpack_fixed_decode"
@@ -6375,7 +6616,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": mla_path[name_], "max_abs_err": e["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": ("serve mla paper mode (phase 13c)"
@@ -6417,7 +6658,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": moe_path[name_], "max_abs_err": e["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": ("arctic-480b's whole path, 1 layer (phase 14c)"
@@ -6458,7 +6699,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": front_path[name_], "max_abs_err": e["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": ("serve chameleon (phase 15b)" if name_.endswith(
@@ -6492,7 +6733,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": hybrid_path[name_], "max_abs_err": e["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": "serve zamba2-2.7b (phase 16b)",
@@ -6520,7 +6761,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": train_path[name_], "max_abs_err": e["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "path": ("train main (phase 18b): the forward and the remat "
@@ -6529,6 +6770,11 @@ def main() -> int:
             "shape": t["shape"], "cases": e["cases"],
             "mismatches": e["mismatches"]})
     kernels += across
+    from repro_torch.roofline import analyze as RA
+    for k in kernels:
+        rl = RA.kernel_roofline([{"name": k["name"], "bytes": k["bytes"],
+                                  "us": k["ms"] * 1e3}])[0]
+        k.update({f: rl[f] for f in ("gbps", "frac_of_hbm_roof", "bound")})
     print(f"total {time.perf_counter() - t_start:.3f} s [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(smi)

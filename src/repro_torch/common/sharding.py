@@ -346,6 +346,21 @@ def _entry_axes(entry) -> Tuple[str, ...]:
         else tuple(entry)
 
 
+def block_shape(full_shape, spec: Spec, sizes: Dict[str, int]
+                ) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of ``full_shape`` under
+    ``spec`` on a mesh of axis ``sizes``; a dim that does not split evenly
+    raises, as the reference's sharded arguments do."""
+    out = list(full_shape)
+    for d, e in enumerate(spec):
+        n = int(np.prod([sizes[a] for a in _entry_axes(e)]))
+        if out[d] % n:
+            raise ValueError(f"dim {d} of {tuple(full_shape)} does not "
+                             f"split {n} ways ({spec})")
+        out[d] //= n
+    return tuple(out)
+
+
 class Mesh:
     """The world's ranks as a mesh of ``shape`` over ``axes``, row-major:
     rank r sits at ``np.unravel_index(r, shape)``. Every rank builds every
@@ -435,14 +450,7 @@ class Mesh:
         return n, i
 
     def local_shape(self, full_shape, spec: Spec) -> Tuple[int, ...]:
-        out = list(full_shape)
-        for d, e in enumerate(spec):
-            n = self._ways(e)[0]
-            if out[d] % n:
-                raise ValueError(f"dim {d} of {tuple(full_shape)} does not "
-                                 f"split {n} ways ({spec})")
-            out[d] //= n
-        return tuple(out)
+        return block_shape(full_shape, spec, self.sizes)
 
     def full_shape(self, local_shape, spec: Spec) -> Tuple[int, ...]:
         out = list(local_shape)

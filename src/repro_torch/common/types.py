@@ -137,6 +137,10 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         """Parameter count (the reference's ``ModelConfig.param_count``,
         its approximations included: Mamba1's dt rank taken as d_in // 16

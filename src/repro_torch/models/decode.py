@@ -248,6 +248,50 @@ def cache_bytes(cache: Dict[str, torch.Tensor]) -> int:
     return sum(x.numel() * x.element_size() for x in cache.values())
 
 
+def cache_axes(cfg: ModelConfig, scfg: ServeConfig) -> Dict[str, Any]:
+    """The logical axes of ``init_cache``'s leaves, the reference's tree
+    (its ``cache_axes``): the SSM state under ``"ssm"``, whose leaves the
+    port keys ``"ssm.h"`` and ``"ssm.conv"``; the hybrid's state leads with
+    [group, period] there and with its layer here (``leaf_axes``)."""
+    gqa = {
+        "k_codes": ("layers", "batch", "kv_seq", "kv_heads", None),
+        "k_scales": ("layers", "batch", "kv_seq", "kv_heads"),
+        "v_codes": ("layers", "batch", "kv_seq", "kv_heads", None),
+        "v_scales": ("layers", "batch", "kv_seq", "kv_heads"),
+        "k_hot": ("layers", "batch", "kv_hot", "kv_heads", None),
+        "v_hot": ("layers", "batch", "kv_hot", "kv_heads", None),
+        "cold_len": ("layers", "batch"),
+    }
+    if cfg.family == "ssm":
+        return {"ssm": {"h": ("layers", "batch", "mlp", "state"),
+                        "conv": ("layers", "batch", None, "mlp")}}
+    if cfg.family == "hybrid":
+        return {"ssm": {"h": ("layers", None, "batch", "heads", None, None),
+                        "conv": ("layers", None, "batch", None, "mlp")},
+                **gqa}
+    if cfg.attn_kind == "mla":
+        return {"lat_codes": ("layers", "batch", "kv_seq", None),
+                "lat_scales": ("layers", "batch", "kv_seq"),
+                "lat_hot": ("layers", "batch", "kv_hot", None),
+                "cold_len": ("layers", "batch")}
+    return gqa
+
+
+def leaf_axes(cfg: ModelConfig, scfg: ServeConfig) -> Dict[str, Any]:
+    """``cache_axes`` keyed as ``init_cache``'s leaves: "ssm.h" for the
+    tree's ``["ssm"]["h"]``, the hybrid's [group, period] axes as the
+    port's one layer axis."""
+    out = {}
+    for k, v in cache_axes(cfg, scfg).items():
+        if k != "ssm":
+            out[k] = v
+            continue
+        for name, axes in v.items():
+            out[f"ssm.{name}"] = axes[:1] + axes[2:] \
+                if cfg.family == "hybrid" else axes
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Hot-window ring positions
 # ---------------------------------------------------------------------------

@@ -82,6 +82,8 @@ def init_dense(shape, gen: torch.Generator, dtype, device, scale=None):
     """N(0, 1) * scale (default 1/sqrt(fan_in)), drawn in f32 from ``gen``
     and stored in ``dtype`` (the reference's ``_init`` distribution; the
     numbers differ from JAX's, so tests carry JAX-made params across)."""
+    if torch.device(device).type == "meta":       # shapes only: no draw
+        return torch.empty(shape, dtype=dtype, device=device)
     if scale is None:
         scale = 1.0 / (shape[0] ** 0.5)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)

@@ -82,10 +82,13 @@ def mlp(lp: Params, h: torch.Tensor, cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random params from a seeded ``torch.Generator`` on ``device`` (the
-    card unless the caller names another), stored in ``cfg.dtype``."""
+    card unless the caller names another), stored in ``cfg.dtype``. On the
+    meta device (shapes and types only, nothing allocated: the dry run)
+    no generator is made: the meta device takes none."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     dtype = L.torch_dtype(cfg)
     d = cfg.d_model
     params: Params = {

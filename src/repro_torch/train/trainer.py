@@ -200,7 +200,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     specs = SH.tree_specs(T.param_axes(cfg) if param_axes is None
                           else param_axes, rules, mesh.axes)
     _check_mesh_specs(cfg, mesh, specs)
-    shardings = _mesh_shardings(cfg, ocfg, mesh, specs, rules)
+    shardings = mesh_shardings(cfg, ocfg, mesh, specs, rules)
     if mesh.size == 1:                  # shards nothing: the one-device step
         return step, shardings
     batch_axes = mesh.spec_axes(shardings["batch"].specs["tokens"])
@@ -246,11 +246,12 @@ def _check_mesh_specs(cfg: ModelConfig, mesh: SH.Mesh, specs: Tree) -> None:
                 f"the dims TRAIN_RULES gives ({want.spec(path)})")
 
 
-def _mesh_shardings(cfg: ModelConfig, ocfg, mesh: SH.Mesh, specs: Tree,
-                    rules) -> Dict[str, SH.TreeSharding]:
+def mesh_shardings(cfg: ModelConfig, ocfg, mesh: SH.Mesh, specs: Tree,
+                   rules) -> Dict[str, SH.TreeSharding]:
     """The params', state's and batch's ``TreeSharding``s: raw moments as
     their params, compressed ones replicated whole (the reference's
-    ``_opt_tree_shardings``)."""
+    ``_opt_tree_shardings``). Only ``mesh.axes`` is read to make the specs
+    (the dry run passes a ``MeshConfig``)."""
     if ocfg.compress_state:
         moments = SH.map_specs(lambda _: {"codes": (), "scales": (),
                                           "block": ()}, specs)

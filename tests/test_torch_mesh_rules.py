@@ -121,3 +121,22 @@ def test_batch_spec_and_shards_equal_reference(mc):
         assert rules == jrules
         assert SH.batch_spec(mc, rules) == tuple(
             JSH.batch_spec(_jmesh(mc), jrules))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_port_cache_axes_specs_equal_reference(arch):
+    """The port's own ``models/decode.py::cache_axes`` (the dry run's
+    cache layout): its tree is the reference's, and every leaf's spec
+    under each shape's rules on each mesh equals the reference's."""
+    from repro_torch.models import decode as D
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    port = D.cache_axes(cfg, JServe())
+    assert port == JD.cache_axes(jcfg, JServe())
+    for shape, jshape in zip(ALL_SHAPES, JSHAPES):
+        for mc in MESHES:
+            m = dict(zip(mc.axes, mc.shape)).get("model", 1)
+            rules = M.rules_for(shape, mc.axes, cfg, m)
+            jrules = JM.rules_for(jshape, mc.axes, jcfg, m)
+            for axes in _axes_leaves(port):
+                assert SH.logical_to_spec(axes, rules, mc.axes) == tuple(
+                    JSH.logical_to_spec(axes, jrules, mc.axes)), axes

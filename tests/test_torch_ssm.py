@@ -189,3 +189,23 @@ def test_init_state_matches():
     for a, b in zip(tst, jst):
         assert tuple(a.shape) == b.shape and not a.any()
     assert tst.h.dtype == torch.float32 and tst.conv.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("T", [20, 32])
+def test_scan_forms_agree_bitwise(T):
+    """The scan's two forms (serving's ``out=`` buffers, which reuse the
+    inputs as scratch, and training's new tensors) run the same products:
+    equal bit for bit; under autograd the dispatch takes the new tensors,
+    whose gradient reaches the inputs."""
+    d = torch.from_numpy(np.exp(-np.abs(_normal(8, (2, T, D_IN, N)))))
+    i = torch.from_numpy(_normal(9, (2, T, D_IN, N)))
+    into = TSSM._scan_into(d.clone(), i.clone())
+    new = TSSM._scan_new(d.clone(), i.clone())
+    assert all(torch.equal(a, b) for a, b in zip(into, new))
+    assert all(torch.equal(a, b) for a, b in zip(
+        TSSM._scan_chunk(d.clone(), i.clone()), into))
+    dg, ig = d.clone().requires_grad_(), i.clone().requires_grad_()
+    got = TSSM._scan_chunk(dg, ig)
+    assert all(torch.equal(a.detach(), b) for a, b in zip(got, into))
+    (got[0].sum() + got[1].sum()).backward()
+    assert dg.grad is not None and ig.grad is not None
