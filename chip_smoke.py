@@ -255,6 +255,23 @@ exits non-zero:
              memory against the module's, and ``python -m
              repro_torch.launch.dryrun --all --devices 8`` on the host with
              0 failures, after phase 20, beside nothing that is timed
+ 22 families training the MLA, MoE, SSM and hybrid families through
+             ``trainer.make_train_step`` (bf16, remat, seq 512 x batch 8,
+             the launcher's optimizer with the compressed state, seeded
+             params made on the card): (a) minicpm3-4b as published (62
+             layers): a warm-up and 2 timed steps, step ms, tokens/s, the
+             model-FLOP share (``roofline.analyze``), peak against the dry
+             run's estimate, 0 host syncs (counted and in PyTorch's sync
+             debug mode), B3/B4 twice a slice and B6 twice a layer a step;
+             (b) zamba2-2.7b and falcon-mamba-7b as published, one step
+             each, the peak held to the dry run's estimate (the SSM scan's
+             backward keeps one chunk); (c) qwen3-moe at 2 of its 94
+             layers; (d) each family cut to 2 layers (zamba2: one group;
+             qwen3-moe: 1) in float32, microbatches 2, the kernel route
+             against the plain one: losses and params; (e) B6's forward at
+             the families' train shapes (40 x 96/64, 64/4 x 128, 32/32 x
+             80) against its plain version, and its kernel / eager / plain
+             / SDPA / bound times
 
 Every kernel row's bound comes from ``roofline.analyze.kernel_bound`` and
 the kernels line carries each row's ``kernel_roofline`` fields.
@@ -6379,6 +6396,468 @@ def phase_roofline(dev, tag: str, train: dict, info: dict) -> dict:
     return {"wall_s": wall, "coll": coll, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: training the MLA, MoE, SSM and hybrid families.
+# ---------------------------------------------------------------------------
+
+FAMILY_STEPS = 2          # 22a's timed steps after one warm-up step
+MOE_TRAIN_LAYERS = 2      # 22c: qwen3-moe's widths at 2 of its 94 layers
+# 22d: 2 layers (zamba2: one group of 6 Mamba2 layers and a shared block;
+# qwen3-moe: 1, whose float32 params, grads, their float32 sum and state
+# at 2 layers, 87 GB, pass the card's 80) in float32, microbatches 2, one
+# step (two took phase 22 to 67 s on an H100, past its 60), the kernel
+# route against the plain one: the loss within TRAIN_WHOLE_RTOL, every
+# param leaf after the update normwise within FAMILY_PARAM_TOL
+FAMILY_WHOLE = ((_minicpm, 2), (_qwen3moe, 1), (_falcon, 2), (_zamba2, 6))
+FAMILY_WHOLE_STEPS = 1
+FAMILY_PARAM_TOL = 1e-4
+# 22e: B6's forward at the families' train shapes, 8 x 512, causal:
+# name -> (Hq, Hkv, qk dim, v dim)
+FAMILY_ATTN_ROWS = (8, 512)
+FAMILY_ATTN = {"flash_attention_train_mla": (40, 40, 96, 64),
+               "flash_attention_train_moe": (64, 4, 128, 128),
+               "flash_attention_train_hybrid": (32, 32, 80, 80)}
+
+
+def _family_train(dev, cfg, tcfg, steps: int, warm: bool,
+                  sync_check: bool = False) -> dict:
+    """``cfg`` trained through ``trainer.make_train_step`` from seeded
+    params made on the card: a warm-up step when ``warm``, then ``steps``
+    steps between CUDA events with every launch count set to 0 before them
+    and read after (with ``sync_check`` in PyTorch's sync debug mode and
+    the port's counter, as 18b); the peak from before the params."""
+    import warnings
+    from repro_torch.common import contracts
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = trainer.init_params(cfg, SEED, dev)
+    opt = adamw.init(params, tcfg.optimizer)
+    step_fn, _ = trainer.make_train_step(cfg, tcfg)
+    batches = [make_batch(cfg, i, global_batch=tcfg.global_batch,
+                          seq_len=tcfg.seq_len, device=dev)
+               for i in range(steps + int(warm))]
+    warm_m = []
+    if warm:
+        params, opt, m = step_fn(params, opt, batches.pop(0))
+        warm_m.append(m)
+    torch.cuda.synchronize()
+    _reset_launches()
+    contracts.SYNCS.reset()
+    debug_syncs, instrument_ok = [], None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            params, opt, metrics, ms = _timed_steps(step_fn, params, opt,
+                                                    batches)
+            n_caught = len(caught)
+            if sync_check:
+                metrics[0]["loss"].item()     # the instrument's own check
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = contracts.SYNCS.count
+    if sync_check:
+        hits = [i for i, w in enumerate(caught)
+                if SYNC_WARNING in str(w.message)]
+        debug_syncs = [str(caught[i].message)[:120] for i in hits
+                       if i < n_caught]
+        instrument_ok = any(i >= n_caught for i in hits)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    all_m = warm_m + metrics
+    host = contracts.fetch({f"{k}{i}": m[k] for i, m in enumerate(all_m)
+                            for k in ("loss", "grad_norm")})
+    slices = _train_slices(params, tcfg.optimizer.state_block)
+    codec = _whole_leaf_codec(opt, tcfg.optimizer.state_block)
+    sites = _attn_sites(cfg)
+    want = {"qpack_fixed_encode": 2 * slices * steps,
+            "qpack_fixed_decode": 2 * slices * steps,
+            "flash_attention": 2 * sites * steps}
+    got = {k: launches[k] for k in want}
+    others = {k: v for k, v in launches.items()
+              if k not in want and k != "flash_attention_tc" and v}
+    del params, opt, batches, metrics, warm_m, all_m
+    return {"losses": [float(host[f"loss{i}"]) for i in range(
+                steps + int(warm))],
+            "gnorms": [float(host[f"grad_norm{i}"]) for i in range(
+                steps + int(warm))],
+            "ms": ms, "launches": got, "want": want, "others": others,
+            "tc": launches["flash_attention_tc"], "slices": slices,
+            "syncs": syncs, "debug_syncs": debug_syncs,
+            "instrument_ok": instrument_ok, "peak_bytes": peak,
+            "codec": codec, "wall_s": time.perf_counter() - t0}
+
+
+def _whole_leaf_codec(opt, block: int) -> dict:
+    """The compressed moments a step left on the card at every leaf whose
+    block is not ``block`` (one block of the whole leaf: zamba2's per-head
+    dt_bias, A_log and D, 6 x 80 values a group): B4 against its plain
+    version bit for bit on their codes and scales, and B3 against its
+    plain version byte for byte on the values B4 gave, at the block the
+    update hands them. Read after the path's launch counts."""
+    from repro_torch.common import tree as TR
+    from repro_torch.kernels import qpack
+    from repro_torch.optim import adamw
+    leaves = {}
+    for name, tree in (("m", opt.m), ("v", opt.v)):
+        for path, x in TR.leaves_with_paths(tree):
+            leaves.setdefault((name,) + tuple(path[:-1]), {})[path[-1]] = x
+    blocks, bad = [], 0
+    for c in leaves.values():
+        b = c["block"]
+        if b == block:
+            continue
+        blocks.append(b)
+        for s, e in adamw._slices(c["codes"].numel(), b):
+            codes, scales = c["codes"][s:e], c["scales"][s // b:e // b]
+            a = qpack.decode(codes, scales, 8, b, torch.float32)
+            w = qpack.decode_plain(codes, scales, 8, b, torch.float32)
+            got, want = qpack.encode(w, 8, b), qpack.encode_plain(w, 8, b)
+            bad = bad + (a.view(torch.int32) != w.view(torch.int32)).sum() \
+                + (got[0] != want[0]).sum() + \
+                (~_bits_equal(got[1][:, None], want[1][:, None])).sum()
+    return {"leaves": len(blocks), "blocks": sorted(set(blocks)),
+            "mismatches": int(bad)}
+
+
+def _attn_sites(cfg) -> int:
+    """B6's call sites in one forward: the attention layers, the hybrid's
+    groups (each ends in a shared block), none for the SSM family."""
+    from repro_torch.models import transformer as T
+    if cfg.family == "ssm":
+        return 0
+    return T.hybrid_groups(cfg)[0] if cfg.family == "hybrid" else \
+        cfg.num_layers
+
+
+def _family_estimate(cfg, tcfg) -> dict:
+    """The dry run's count of ``cfg``'s train step on one device."""
+    from repro_torch.common.types import MeshConfig, ShapeConfig
+    from repro_torch.launch import dryrun as DRY
+    return DRY.count_cell(cfg, ShapeConfig(
+        "family", tcfg.seq_len, tcfg.global_batch, "train"),
+        MeshConfig((1, 1), ("data", "model")), tcfg)
+
+
+def _family_line(label: str, cfg, tcfg, r: dict, est: dict, tag: str,
+                 timed: str) -> dict:
+    """One phase-22 line (step ms, tokens/s, the model-FLOP share from
+    ``roofline.analyze``, peak against the dry run's estimate, launches a
+    step, host syncs) and the checks every family run shares."""
+    from repro_torch.launch import train as TL
+    from repro_torch.roofline import analyze as RA
+    steps = len(r["ms"])
+    step_ms = statistics.median(r["ms"])
+    tokens = tcfg.global_batch * tcfg.seq_len
+    share = RA.model_flops(cfg.param_count(), cfg.active_param_count(),
+                           tokens, "train") / (step_ms / 1e3 * RA.PEAK_FLOPS)
+    gap = (est["peak_bytes"] - r["peak_bytes"]) / r["peak_bytes"]
+    per_step = {k: v / steps for k, v in r["launches"].items()}
+    print(f"phase {label} train {cfg.name} ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.dtype}, remat {cfg.remat}; "
+          f"{cfg.param_count()} params, {cfg.active_param_count()} active) | "
+          f"seq {tcfg.seq_len} x batch {tcfg.global_batch}, microbatches "
+          f"{tcfg.microbatches}, compressed AdamW | losses {r['losses']} | "
+          f"grad norms {r['gnorms']} | {timed}: {step_ms:.3f} ms median of "
+          f"{[round(x, 3) for x in r['ms']]} (CUDA events) | "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s | model-FLOP share "
+          f"{share:.4f} (roofline.analyze.model_flops at "
+          f"{RA.PEAK_FLOPS / 1e12:g} TF/s) | peak {r['peak_bytes']} B "
+          f"({r['peak_bytes'] / 2 ** 30:.3f} GiB) against the dry run's "
+          f"{est['peak_bytes']} B ({est['peak_bytes'] / 2 ** 30:.3f} GiB; "
+          f"gap {gap:+.4f}; working set {est['per_rank']['temp']} B) | "
+          f"launches a step {json.dumps(per_step)} (expected "
+          f"{json.dumps({k: v / steps for k, v in r['want'].items()})}: "
+          f"{r['slices']} update slices, {_attn_sites(cfg)} B6 sites; B6 on "
+          f"the tensor cores {r['tc']}); others {json.dumps(r['others'])} | "
+          f"host syncs a step {r['syncs'] / steps:.1f} (counted) | the "
+          f"state after the step at its whole-leaf blocks {r['codec']['blocks']}"
+          f" ({r['codec']['leaves']} moments): B4 and B3 against their plain "
+          f"versions, {r['codec']['mismatches']} values, codes or scales "
+          f"differ | wall {r['wall_s']:.3f} s [{tag}]", flush=True)
+    check(all(np.isfinite(r["losses"])) and all(np.isfinite(r["gnorms"])),
+          f"phase {label}: {cfg.name}'s losses or grad norms not finite")
+    check(r["launches"] == r["want"], f"phase {label}: {cfg.name} launches "
+          f"{r['launches']}, expected {r['want']}")
+    check(not r["others"], f"phase {label}: other kernels launched: "
+          f"{r['others']}")
+    check(r["tc"] == r["launches"]["flash_attention"],
+          f"phase {label}: a bf16 B6 launch left the tensor cores")
+    check(r["syncs"] == 0, f"phase {label}: {r['syncs']} host syncs counted")
+    check(est["fits"], f"phase {label}: the dry run says {cfg.name} does not "
+          f"fit ({est['peak_bytes']} B)")
+    check(r["codec"]["mismatches"] == 0, f"phase {label}: B3/B4 differ from "
+          f"their plain versions on the state at blocks "
+          f"{r['codec']['blocks']}")
+    margin = 1 + TL.COUNT_MARGIN
+    check(r["peak_bytes"] <= est["peak_bytes"] * margin and
+          est["peak_bytes"] <= r["peak_bytes"] * margin,
+          f"phase {label}: {cfg.name}'s peak {r['peak_bytes']} B against the "
+          f"dry run's {est['peak_bytes']} B (gap {gap:+.4f}) is past the "
+          f"launcher's margin {TL.COUNT_MARGIN}")
+    return {"step_ms": step_ms, "share": share, "gap": gap,
+            "launches": r["launches"], "peak_bytes": r["peak_bytes"],
+            "estimate": est["peak_bytes"], "wall_s": r["wall_s"]}
+
+
+def _family_configs(cfg, dtype=None, microbatches=1):
+    """(``cfg`` in ``dtype``, TrainConfig's defaults: seq 512 x batch 8,
+    the launcher's optimizer with the compressed state)."""
+    _, tcfg = _train_configs(microbatches=microbatches)
+    return (cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype),
+            tcfg)
+
+
+def phase_family_main(dev, tag: str) -> dict:
+    """22a: minicpm3-4b at its published width, all 62 layers, bf16, remat,
+    8 x 512, the compressed state: a warm-up and FAMILY_STEPS timed steps,
+    as 18b (no host sync, counted and in sync debug mode; B3/B4 twice a
+    slice, B6 twice a layer a step)."""
+    cfg, tcfg = _family_configs(_minicpm())
+    est = _family_estimate(cfg, tcfg)
+    r = _family_train(dev, cfg, tcfg, FAMILY_STEPS, warm=True,
+                      sync_check=True)
+    out = _family_line("22a", cfg, tcfg, r, est, tag,
+                       f"{FAMILY_STEPS} timed steps after a warm-up")
+    print(f"phase 22a syncs: {len(r['debug_syncs'])} in PyTorch's sync debug "
+          f"mode {r['debug_syncs'][:3]} (a deliberate .item() after the "
+          f"steps caught: {r['instrument_ok']}) [{tag}]", flush=True)
+    check(not r["debug_syncs"] and r["instrument_ok"],
+          f"phase 22a: the train step synced: {r['debug_syncs'][:3]} (sync "
+          f"debug mode working: {r['instrument_ok']})")
+    return out
+
+
+def phase_family_ssm(dev, tag: str) -> dict:
+    """22b: zamba2-2.7b and falcon-mamba-7b as published (every layer),
+    bf16, remat, 8 x 512, the compressed state: one step each, no warm-up;
+    each peak held to the dry run's estimate within the launcher's
+    ``COUNT_MARGIN`` (``_family_line``)."""
+    out = {}
+    for name, model in (("zamba2-2.7b", _zamba2),
+                        ("falcon-mamba-7b", _falcon)):
+        cfg, tcfg = _family_configs(model())
+        est = _family_estimate(cfg, tcfg)
+        r = _family_train(dev, cfg, tcfg, 1, warm=False)
+        out[name] = _family_line("22b", cfg, tcfg, r, est, tag,
+                                 "one step, no warm-up")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_moe(dev, tag: str) -> dict:
+    """22c: qwen3-moe at its published widths, MOE_TRAIN_LAYERS of 94 layers
+    (128 experts top-8, the grouped dispatch at 4,096 tokens), bf16,
+    remat, 8 x 512, the compressed state: a warm-up and one timed step."""
+    cfg, tcfg = _family_configs(_qwen3moe(MOE_TRAIN_LAYERS))
+    est = _family_estimate(cfg, tcfg)
+    r = _family_train(dev, cfg, tcfg, 1, warm=True)
+    return _family_line("22c", cfg, tcfg, r, est, tag,
+                        "one timed step after a warm-up")
+
+
+def _family_route(dev, cfg, tcfg, impl: str) -> dict:
+    """22d's run of ``cfg`` on one route: FAMILY_WHOLE_STEPS steps from the
+    seeded params; the losses, the params (on the card) and, on the kernel
+    route, ``_whole_leaf_codec`` of the state (then dropped)."""
+    from repro_torch.common import contracts
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    kw = WHOLE_IMPLS[impl]
+    params = trainer.init_params(cfg, SEED + 2, dev)
+    opt = adamw.init(params, tcfg.optimizer, kw["quantize_impl"])
+    step_fn, _ = trainer.make_train_step(cfg, tcfg, **kw)
+    _reset_launches()
+    ms = []
+    for i in range(FAMILY_WHOLE_STEPS):
+        params, opt, m = step_fn(params, opt, make_batch(
+            cfg, i, global_batch=tcfg.global_batch, seq_len=tcfg.seq_len,
+            device=dev))
+        ms.append(m)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    host = contracts.fetch({f"loss{i}": m["loss"] for i, m in enumerate(ms)})
+    codec = _whole_leaf_codec(opt, tcfg.optimizer.state_block) \
+        if impl == "kernel" else None
+    del opt
+    return {"losses": [float(host[f"loss{i}"]) for i in range(len(ms))],
+            "params": params, "launches": launches, "codec": codec}
+
+
+def _leaf_errors(got, want) -> dict:
+    """Per leaf, ||got - want|| / ||want|| in float64 on the card, in
+    slices of whole leaves (``adamw._slices``); one fetch."""
+    from repro_torch.common import contracts
+    from repro_torch.common import tree as TR
+    from repro_torch.optim import adamw
+    wants = dict(TR.leaves_with_paths(want))
+    out = {}
+    for path, g in TR.leaves_with_paths(got):
+        a, b = g.reshape(-1), wants[path].reshape(-1)
+        num = den = 0
+        for s, e in adamw._slices(a.numel(), 1):
+            wb = b[s:e].double()
+            num = num + (a[s:e].double() - wb).square().sum()
+            den = den + wb.square().sum()
+        out["/".join(path)] = (num / torch.clamp(den, min=1e-300)).sqrt()
+    return {k: float(v) for k, v in contracts.fetch(out).items()}
+
+
+def phase_family_whole(dev, tag: str) -> dict:
+    """22d: each family at 2 layers of its published widths (zamba2: one
+    group, 6 Mamba2 layers and a shared block; qwen3-moe: 1) in float32,
+    microbatches 2, the compressed state, FAMILY_WHOLE_STEPS steps on the
+    kernel route (B3/B4/B6) and on the plain route: losses within
+    TRAIN_WHOLE_RTOL, every param leaf normwise within FAMILY_PARAM_TOL
+    (compared on the card), B6 and B3 launched on the kernel route only;
+    the kernel route's state at its whole-leaf blocks held to the plain
+    versions of B3 and B4 (``_whole_leaf_codec``)."""
+    t0 = time.perf_counter()
+    out = {}
+    for model, layers in FAMILY_WHOLE:
+        t1 = time.perf_counter()
+        cfg, tcfg = _family_configs(model(layers), "float32", 2)
+        k = _family_route(dev, cfg, tcfg, "kernel")
+        torch.cuda.empty_cache()
+        p = _family_route(dev, cfg, tcfg, "plain")
+        errs = _leaf_errors(k["params"], p["params"])
+        del k["params"], p["params"]
+        torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
+        perr = max(errs.values())
+        b6 = {r: x["launches"]["flash_attention"] for r, x in
+              (("kernel", k), ("plain", p))}
+        b3 = {r: x["launches"]["qpack_fixed_encode"] for r, x in
+              (("kernel", k), ("plain", p))}
+        out[cfg.name] = {"rel": rel, "param_err": perr,
+                         "wall_s": time.perf_counter() - t1}
+        print(f"phase 22d train whole {cfg.name} ({cfg.num_layers} layers at "
+              f"its widths, float32, microbatches 2, {FAMILY_WHOLE_STEPS} "
+              f"steps): losses kernel {k['losses']} / plain {p['losses']} "
+              f"(relative {[f'{x:.2e}' for x in rel]}) | params normwise, "
+              f"largest over {len(errs)} leaves {perr:.3e} "
+              f"({max(errs, key=errs.get)}) | B6 launches {b6}, B3 {b3} | "
+              f"the kernel route's state at its whole-leaf blocks "
+              f"{k['codec']['blocks']} ({k['codec']['leaves']} moments): "
+              f"{k['codec']['mismatches']} values, codes or scales differ "
+              f"from the plain B4/B3 | wall {out[cfg.name]['wall_s']:.3f} s "
+              f"[{tag}]", flush=True)
+        check(max(rel) <= TRAIN_WHOLE_RTOL,
+              f"phase 22d: {cfg.name}'s losses differ: {rel}")
+        check(perr <= FAMILY_PARAM_TOL,
+              f"phase 22d: {cfg.name}'s params differ: {perr}")
+        check(k["codec"]["mismatches"] == 0, f"phase 22d: {cfg.name}: B3/B4 "
+              f"differ from their plain versions on the state at blocks "
+              f"{k['codec']['blocks']}")
+        want_b6 = 2 * _attn_sites(cfg) * FAMILY_WHOLE_STEPS * 2
+        check(b6["kernel"] == want_b6 and b3["kernel"] > 0 and
+              b6["plain"] == 0 and b3["plain"] == 0,
+              f"phase 22d: {cfg.name}: routes crossed or B6 launched "
+              f"{b6['kernel']} times, expected {want_b6}; B3 {b3}")
+        del k, p
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _family_codec(dev, gen) -> dict:
+    """22e: B3 and B4 at every whole-leaf block (a leaf whose length the
+    state block does not divide is one block) that phase 22's updates hand
+    them, on random moments and on a zero leaf (``adamw.init``'s), byte for
+    byte against their plain versions."""
+    from repro_torch.common import tree as TR
+    from repro_torch.kernels import qpack
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    block = _family_configs(_minicpm())[1].optimizer.state_block
+    cfgs = [_minicpm(), _zamba2(), _falcon(), _qwen3moe(MOE_TRAIN_LAYERS)] + \
+        [model(layers) for model, layers in FAMILY_WHOLE]
+    sizes = sorted({p.numel() for cfg in cfgs for _, p in TR.leaves_with_paths(
+        trainer.init_params(cfg, SEED, "meta"))
+        if adamw._blk(p.numel(), block) != block})
+    bad = 0
+    for n in sizes:
+        for x in (torch.randn((n,), generator=gen, device=dev) * 1e-3,
+                  torch.zeros((n,), device=dev)):
+            got, want = qpack.encode(x, 8, n), qpack.encode_plain(x, 8, n)
+            a = qpack.decode(*want, 8, n, torch.float32)
+            b = qpack.decode_plain(*want, 8, n, torch.float32)
+            bad = bad + (got[0] != want[0]).sum() + \
+                (~_bits_equal(got[1][:, None], want[1][:, None])).sum() + \
+                (a.view(torch.int32) != b.view(torch.int32)).sum()
+    check(bool(sizes), "phase 22e: no whole-leaf block found in phase 22's "
+          "configs")
+    return {"blocks": sizes, "mismatches": int(bad)}
+
+
+def phase_family_attn(dev, tag: str) -> tuple:
+    """22e: B3/B4 at the families' whole-leaf blocks (``_family_codec``);
+    B6's forward at the families' train shapes (8 x 512, causal):
+    minicpm3-4b's 40 heads at 96/64, qwen3-moe's 64/4 x 128, zamba2's
+    32/32 x 80; bf16 (the tensor cores) and f32, each against its plain
+    version within ATTN_TOL (and normwise ATTN_NORM_TOL); then kernel /
+    eager / plain / SDPA / bound times in bf16."""
+    from repro_torch.kernels import flash_attn as FA
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    codec = _family_codec(dev, torch.Generator(device=dev).manual_seed(
+        SEED + 61))
+    print(f"phase 22e kernels: B3/B4 at 8 bits, f32, at the whole-leaf "
+          f"blocks of phase 22's configs {codec['blocks']}, random and zero "
+          f"moments, against their plain versions: {codec['mismatches']} "
+          f"codes, scales or values differ [{tag}]", flush=True)
+    check(codec["mismatches"] == 0, f"phase 22e: B3/B4 differ from their "
+          f"plain versions at blocks {codec['blocks']}")
+    B, S = FAMILY_ATTN_ROWS
+    errs, out = {}, {}
+    for name, (Hq, Hkv, D, Dv) in FAMILY_ATTN.items():
+        r = errs[name] = {"err": 0.0, "cases": 0, "mismatches": 0}
+        q = torch.randn((B, S, Hq, D), generator=gen, device=dev)
+        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+        v = torch.randn((B, S, Hkv, Dv), generator=gen, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            n0, tc0 = FA.launches, FA.launches_tc
+            got = FA.flash_attention(qd, kd, vd, causal=True)
+            check(FA.launches == n0 + 1 and FA.launches_tc == tc0 + int(
+                dt == torch.bfloat16), f"phase 22e: {name} {dt} did not "
+                "launch B6 once on its route")
+            want = FA.flash_attention_plain(qd, kd, vd, causal=True).float()
+            d = (got.float() - want).abs()
+            r["cases"] += 1
+            r["mismatches"] += int((d > ATTN_TOL[dt] * (1 + want.abs())).sum())
+            r["err"] = max(r["err"], float(d.max()))
+            nerr = float((got.float() - want).norm() / want.norm())
+            check(nerr <= ATTN_NORM_TOL[dt], f"phase 22e: {name} {dt} "
+                  f"normwise {nerr}")
+            del qd, kd, vd, got, want, d
+        qa, ka, va = (t.to(torch.bfloat16) for t in (q, k, v))
+        out[name] = dict(
+            shape=f"q {B}x{S}x{Hq}x{D}, k {B}x{S}x{Hkv}x{D}, v "
+                  f"{B}x{S}x{Hkv}x{Dv} bf16 causal (a layer's training "
+                  f"forward)",
+            kern=lambda qa=qa, ka=ka, va=va: FA.flash_attention(
+                qa, ka, va, causal=True),
+            plain=lambda qa=qa, ka=ka, va=va: FA.flash_attention_plain(
+                qa, ka, va, causal=True),
+            lib=lambda qa=qa, ka=ka, va=va: _sdpa(qa, ka, va, True),
+            nbytes=2 * B * S * (Hq * D + Hkv * D + Hkv * Dv + Hq * Dv),
+            ops=2 * B * Hq * (S * (S + 1) // 2) * (D + Dv), reps=20)
+    print(f"phase 22e kernels: B6 at the families' train shapes, bf16 and "
+          f"f32 against the plain version: "
+          f"{json.dumps({k: v for k, v in errs.items()})} [{tag}]",
+          flush=True)
+    check(all(r["mismatches"] == 0 for r in errs.values()),
+          f"phase 22e: B6 off tolerance: {errs}")
+    times = _time_rows(out, "22e", tag)
+    return errs, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -6528,6 +7007,24 @@ def main() -> int:
     finally:
         Path(gate).touch()    # a failed phase lets the ranks finish
         Path(gate20).touch()
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    family = {"22a": phase_family_main(dev, tag)}
+    torch.cuda.empty_cache()
+    family["22b"] = phase_family_ssm(dev, tag)
+    torch.cuda.empty_cache()
+    family["22c"] = phase_family_moe(dev, tag)
+    torch.cuda.empty_cache()
+    family["22d"] = phase_family_whole(dev, tag)
+    torch.cuda.empty_cache()
+    family_errs, family_times = phase_family_attn(dev, tag)
+    walls22 = {"22a": family["22a"]["wall_s"],
+               "22b": sum(r["wall_s"] for r in family["22b"].values()),
+               "22c": family["22c"]["wall_s"],
+               "22d": family["22d"]["wall_s"]}
+    print(f"phase 22 wall {time.perf_counter() - t22:.3f} s "
+          f"({json.dumps({k: round(v, 3) for k, v in walls22.items()})}) "
+          f"[{tag}]", flush=True)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     extra = ("composition_ms", "composition_graph_ms", "events",
@@ -6770,6 +7267,28 @@ def main() -> int:
             "shape": t["shape"], "cases": e["cases"],
             "mismatches": e["mismatches"]})
     kernels += across
+    # the families' training (phase 22): B6's forward at each family's
+    # shape, launched on 22a (minicpm3-4b), 22c (qwen3-moe) and 22b
+    # (zamba2-2.7b)
+    family_path = {
+        "flash_attention_train_mla": ("22a", family["22a"]),
+        "flash_attention_train_moe": ("22c", family["22c"]),
+        "flash_attention_train_hybrid": ("22b", family["22b"]["zamba2-2.7b"])}
+    for name_, (ph, run) in family_path.items():
+        t, e = family_times[name_], family_errs[name_]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn.py:72",
+            "launches": run["launches"]["flash_attention"],
+            "max_abs_err": e["err"], "ms": t["ms"], "bytes": t["bytes"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "eager_ms": t["eager_ms"],
+            "path": f"train (phase {ph}): the forward and the remat "
+                    f"forward, under autograd",
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"]})
     from repro_torch.roofline import analyze as RA
     for k in kernels:
         rl = RA.kernel_roofline([{"name": k["name"], "bytes": k["bytes"],

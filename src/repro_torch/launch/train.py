@@ -9,6 +9,14 @@ generator).
       --reduced --steps 3 --seq-len 32 --global-batch 4 --compress-state \\
       --device cpu
 
+Every family trains: dense (GQA/MHA and MLA, minicpm3_4b), MoE
+(qwen3_moe_235b_a22b, arctic_480b; the load-balance loss in the loss),
+SSM (falcon_mamba_7b) and hybrid (zamba2_2p7b). On one device a model
+whose step the dry run's count (``launch/dryrun.py::count_cell``), with
+``COUNT_MARGIN`` added, puts past the device's memory is refused before
+anything is allocated, both byte counts named (the published qwen3-moe
+and arctic on one card).
+
 A printed step reads its loss and grad norm from the card in one counted
 sync; the step itself makes none. Checkpoints (every ``--ckpt-every``
 steps, written by a worker thread) go to ``--ckpt-dir``, by default
@@ -42,11 +50,14 @@ import torch
 
 from repro_torch.common import contracts
 from repro_torch.common import sharding as SH
-from repro_torch.common.types import OptimizerConfig, TrainConfig
+from repro_torch.common.types import (MeshConfig, OptimizerConfig,
+                                      ShapeConfig, TrainConfig)
 from repro_torch.common.utils import resolve_device
 from repro_torch.configs import describe, get_config, get_reduced
 from repro_torch.data.pipeline import make_batch
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.serve import device_memory_bytes
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import elastic, trainer
@@ -54,6 +65,11 @@ from repro_torch.train import elastic, trainer
 # seconds the spawned ranks of --devices may train before every rank is
 # stopped (a rank stuck in a collective)
 RANK_TIMEOUT = 86400.0
+# the share the measured peak of a train step may exceed the dry run's
+# count by: the count reads low for the SSM and hybrid families (on an
+# H100, zamba2-2.7b's train_512 step peaked 8.4% above it and
+# falcon-mamba-7b's 3.3%; minicpm3-4b's 0.6%)
+COUNT_MARGIN = 0.10
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -104,6 +120,26 @@ def _rank_main(group: SH.ExpanderGroup, argv) -> dict:
     return _train(_parser().parse_args(argv), group.device, group)
 
 
+def check_fits(cfg, tcfg: TrainConfig, dev: torch.device) -> int:
+    """The dry run's count of one train step's peak bytes on ``dev``
+    alone; ``SystemExit`` naming it and the device's bytes
+    (``device_memory_bytes``) where the count and ``COUNT_MARGIN`` of it
+    pass them. The count is an estimate that reads low, so the margin
+    refuses a step the count puts just under the device."""
+    rec = dryrun.count_cell(
+        cfg, ShapeConfig("launch", tcfg.seq_len, tcfg.global_batch,
+                         "train"), MeshConfig((1, 1), ("data", "model")),
+        tcfg, route="kernel" if dev.type == "cuda" else "plain")
+    need, have = rec["peak_bytes"], device_memory_bytes(dev)
+    if need * (1 + COUNT_MARGIN) > have:
+        raise SystemExit(
+            f"{cfg.name}: a train step of {tcfg.global_batch} x "
+            f"{tcfg.seq_len} tokens needs {need} B by the dry run's count "
+            f"(and {COUNT_MARGIN:.0%} more for what it misses), past the "
+            f"{have} B of {dev}")
+    return need
+
+
 def _train(args, dev: torch.device, group: SH.ExpanderGroup = None):
     """The launcher's run on ``dev``: alone, or as one rank of the mesh
     (rank 0 prints and returns the summary; None on the others)."""
@@ -124,6 +160,8 @@ def _train(args, dev: torch.device, group: SH.ExpanderGroup = None):
         optimizer=OptimizerConfig(lr=args.lr, warmup_steps=20,
                                   compress_state=args.compress_state))
 
+    if group is None:
+        check_fits(cfg, tcfg, dev)
     params = trainer.init_params(cfg, tcfg.seed, dev)
     mesh = shardings = both = None
     if group is not None:

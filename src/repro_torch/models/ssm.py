@@ -11,6 +11,13 @@ of a chunk is 128 x 8192 x 16 x 4 B = 64 MiB, at zamba2's 128 x 80 x 64 x
 64 x 4 B = 160 MiB (Mamba2's decay [B, chunk, H, 1, 1] broadcasts against
 it and is never expanded). Decode is the O(1)-state recurrence.
 
+Training takes the same scan chunk by chunk through ``_ScanChunk``, an
+autograd Function that saves only the chunk's inputs and the state before
+it, and in the backward recomputes the chunk and runs the recurrence's
+adjoint as a reverse scan: autograd holds no Hillis-Steele pass beyond the
+chunk being differentiated, where a graph of the passes would hold log2(c)
+of them for every chunk of every mixer in a remat unit.
+
 A prompt length T must be at most the chunk or a multiple of it: the
 reference asserts so (``ssm._chunked_ssm_scan_out``), and the port keeps
 that refusal (ROADMAP C10) with an error that names the rule.
@@ -58,52 +65,114 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b.to(torch.float32)).to(x.dtype)
 
 
-def _scan_into(d: torch.Tensor, i: torch.Tensor
+def _scan_into(d: torch.Tensor, i: torch.Tensor, reverse: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inclusive scan along axis 1 of (decay, inp) pairs under the
     reference's combine, (da, ia) . (db, ib) = (da db, db ia + ib), in
-    log2(T) Hillis-Steele passes (each step t combines with t - s), each
+    log2(T) Hillis-Steele passes (each step t combines with t - s; with
+    ``reverse``, from the last step back, with t + s: the adjoint's), each
     pass written into the other of two buffers (``out=``); the inputs are
-    one of them, so they are overwritten."""
+    one of them, so they are overwritten. ``d`` may broadcast against
+    ``i`` (Mamba2's [B, T, H, 1, 1] decay)."""
     T = i.shape[1]
     d2, i2 = torch.empty_like(d), torch.empty_like(i)
     s = 1
     while s < T:
-        d2[:, :s] = d[:, :s]
-        i2[:, :s] = i[:, :s]
-        torch.mul(d[:, s:], d[:, :-s], out=d2[:, s:])
-        torch.addcmul(i[:, s:], d[:, s:], i[:, :-s], out=i2[:, s:])
+        if reverse:
+            keep, at, by = slice(T - s, None), slice(None, -s), slice(s, None)
+        else:
+            keep, at, by = slice(None, s), slice(s, None), slice(None, -s)
+        d2[:, keep] = d[:, keep]
+        i2[:, keep] = i[:, keep]
+        torch.mul(d[:, at], d[:, by], out=d2[:, at])
+        torch.addcmul(i[:, at], d[:, at], i[:, by], out=i2[:, at])
         d, d2, i, i2 = d2, d, i2, i
         s *= 2
     return d, i
 
 
-def _scan_new(d: torch.Tensor, i: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_scan_into``'s passes, each making new tensors (``cat``), which
-    autograd can differentiate: an ``out=`` write records no gradient.
-    The same products, so the same values bit for bit; ``cat`` adds a pass
-    over each chunk tensor."""
-    T = i.shape[1]
-    s = 1
-    while s < T:
-        d, i = (torch.cat([d[:, :s], torch.mul(d[:, s:], d[:, :-s])], 1),
-                torch.cat([i[:, :s], torch.addcmul(i[:, s:], d[:, s:],
-                                                   i[:, :-s])], 1))
-        s *= 2
-    return d, i
+def _chunk_states(xs: Sequence[torch.Tensor], h: torch.Tensor,
+                  params: Sequence[torch.Tensor], make_decay_inp: Callable
+                  ) -> torch.Tensor:
+    """A chunk's state history h_all [B, c, ..., N] from the state h before
+    it: the chunk's operands, ``_scan_into``, then the carry."""
+    dd, ii = _scan_into(*make_decay_inp(xs, *params))
+    return dd * h[:, None] + ii
 
 
-def _scan_chunk(d: torch.Tensor, i: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chunk's scan: ``_scan_new`` under autograd (training),
-    ``_scan_into`` otherwise (serving's prefill: on an H100 the new
-    tensors take a mixer's prefill of 1-8 x 1,024 tokens 1.37-1.83x as
-    long at falcon-mamba-7b's and zamba2-2.7b's widths,
-    ``tools/ssm_scan_forms.py``)."""
-    if torch.is_grad_enabled() and (d.requires_grad or i.requires_grad):
-        return _scan_new(d, i)
-    return _scan_into(d, i)
+class _ScanChunk(torch.autograd.Function):
+    """One chunk of ``_chunked_ssm_scan_out`` under autograd: (y, h_T) of
+    the chunk's inputs ``xs``, the state ``h`` before it and the mixer's
+    ``params``. The forward computes what the serving path computes
+    (``_chunk_states``, bit for bit) and saves only its inputs, so no pass
+    of the scan outlives its chunk. The backward recomputes the chunk's
+    states and runs the adjoint of h_t = a_t h_{t-1} + b_t as a reverse
+    scan under the same combine: lam_t = g_t + a_{t+1} lam_{t+1}, db_t =
+    lam_t, da_t = lam_t h_{t-1}, dh = a_1 lam_1, where g_t is h_t's
+    gradient through ``contract`` (recomputed) and, at the chunk's last
+    step, h_T's; autograd takes (da, db) through ``make_decay_inp``
+    (recomputed) to the inputs and params."""
+
+    @staticmethod
+    def forward(ctx, make_decay_inp, contract, n, h, *args):
+        xs, params = args[:n], args[n:]
+        h_all = _chunk_states(xs, h, params, make_decay_inp)
+        ctx.fns, ctx.n = (make_decay_inp, contract), n
+        ctx.save_for_backward(h, *args)
+        ctx.set_materialize_grads(False)
+        return contract(h_all, xs), h_all[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        make_decay_inp, contract = ctx.fns
+        h, *args = ctx.saved_tensors
+        leaves = [a.detach().requires_grad_(r)
+                  for a, r in zip(args, ctx.needs_input_grad[4:])]
+        xs, params = leaves[:ctx.n], leaves[ctx.n:]
+        with torch.no_grad():
+            decay, inp = make_decay_inp(xs, *params)
+            dshape, a1 = decay.shape, decay[:, 0].clone()
+            alpha = torch.zeros_like(decay)              # a_{t+1}; 0 at the end
+            alpha[:, :-1] = decay[:, 1:]
+            dd, ii = _scan_into(decay, inp)
+            del decay, inp
+            h_all = dd * h[:, None] + ii
+            del dd, ii
+        with torch.enable_grad():
+            h_all.requires_grad_()
+            y = contract(h_all, xs)
+            want = [h_all] + [x for x in xs if x.requires_grad]
+            gs = torch.autograd.grad(
+                y, want, torch.zeros_like(y) if gy is None else gy,
+                allow_unused=True)
+        grads = dict(zip(map(id, want[1:]), gs[1:]))
+        g, h_all = gs[0], h_all.detach()
+        with torch.no_grad():
+            if gh is not None:
+                g[:, -1] += gh
+            lam = _scan_into(alpha, g, reverse=True)[1]
+            del alpha, g
+            da = torch.empty_like(lam)
+            torch.mul(lam[:, 1:], h_all[:, :-1], out=da[:, 1:])
+            torch.mul(lam[:, :1], h[:, None], out=da[:, :1])
+            del h_all
+            da = da.sum_to_size(dshape)
+            dh = (a1 * lam[:, 0]).sum_to_size(h.shape)
+        with torch.enable_grad():
+            decay, inp = make_decay_inp(xs, *params)
+            outs = [(t, gt) for t, gt in ((decay, da), (inp, lam))
+                    if t.requires_grad]
+            want = [x for x in leaves if x.requires_grad]
+            if outs and want:
+                gs = torch.autograd.grad([t for t, _ in outs], want,
+                                         [gt for _, gt in outs],
+                                         allow_unused=True)
+                for x, gx in zip(want, gs):
+                    if gx is not None:
+                        prev = grads.get(id(x))
+                        grads[id(x)] = gx if prev is None else prev + gx
+        return (None, None, None, dh if ctx.needs_input_grad[3] else None,
+                *(grads.get(id(x)) for x in leaves))
 
 
 def _check_chunked(T: int, chunk: int) -> int:
@@ -122,13 +191,14 @@ def _chunked_ssm_scan(decay: torch.Tensor, inp: torch.Tensor,
                       h0: torch.Tensor, chunk: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = decay_t h_{t-1} + inp_t along axis 1 with the full state
-    history kept: (h_all [B, T, ...], h_T). Short T only (the reference's
-    own, which no caller there uses; prefill runs
-    ``_chunked_ssm_scan_out``)."""
+    history kept: (h_all [B, T, ...], h_T). Short T and no autograd only
+    (the reference's own, which no caller there uses; prefill and
+    training run ``_chunked_ssm_scan_out``)."""
     c = _check_chunked(inp.shape[1], chunk)
     h, hs = h0, []
     for t0 in range(0, inp.shape[1], c):
-        dd, ii = _scan_chunk(decay[:, t0:t0 + c], inp[:, t0:t0 + c])
+        dd, ii = _scan_into(decay[:, t0:t0 + c].clone(),
+                            inp[:, t0:t0 + c].clone())
         h_all = dd * h[:, None] + ii
         h = h_all[:, -1]
         hs.append(h_all)
@@ -137,22 +207,31 @@ def _chunked_ssm_scan(decay: torch.Tensor, inp: torch.Tensor,
 
 def _chunked_ssm_scan_out(ins: Sequence[torch.Tensor], h0: torch.Tensor,
                           make_decay_inp: Callable, contract: Callable,
-                          chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                          chunk: int, params: Sequence[torch.Tensor] = ()
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = decay_t h_{t-1} + inp_t along axis 1 of the [B, T, ...] tensors
-    of ``ins``, chunk by chunk: ``decay, inp = make_decay_inp(ins_chunk)``
-    builds the chunk's [B, chunk, ..., N] operands, the scan runs inside the
-    chunk, and ``contract(h_chunk, ins_chunk)`` reduces N away. Returns
-    (y [B, T, out...], h_T)."""
+    of ``ins``, chunk by chunk: ``decay, inp = make_decay_inp(ins_chunk,
+    *params)`` builds the chunk's [B, chunk, ..., N] operands, the scan runs
+    inside the chunk, and ``contract(h_chunk, ins_chunk)`` reduces N away.
+    Returns (y [B, T, out...], h_T). Under autograd each chunk is a
+    ``_ScanChunk`` (its gradient reaches ``ins``, ``h0`` and ``params``:
+    every tensor the two functions read must be among them)."""
     T = ins[0].shape[1]
     c = _check_chunked(T, chunk)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*ins, h0, *params))
     h, ys = h0, []
     for t0 in range(0, T, c):
         xs = tuple(a[:, t0:t0 + c] for a in ins)
-        dd, ii = _scan_chunk(*make_decay_inp(xs))
-        h_all = dd * h[:, None] + ii                     # [B, c, ..., N]
-        h = h_all[:, -1]
-        ys.append(contract(h_all, xs))
-        del dd, ii, h_all
+        if grad:
+            y, h = _ScanChunk.apply(make_decay_inp, contract, len(xs), h,
+                                    *xs, *params)
+        else:
+            h_all = _chunk_states(xs, h, params, make_decay_inp)
+            h = h_all[:, -1]
+            y = contract(h_all, xs)
+            del h_all
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 
@@ -217,7 +296,7 @@ def _mamba1_core(p: Params, xconv: torch.Tensor, z: torch.Tensor,
                     p["dt_bias"])                              # [B,T,d_in]
     A = -torch.exp(p["A_log"])                                 # [d_in, N]
 
-    def make_di(xs):
+    def make_di(xs, A):
         dtc, xc, bc, _ = xs
         decay = torch.exp(dtc[..., None] * A)                  # [B,c,d,N]
         inp = (dtc * xc.to(torch.float32))[..., None] * \
@@ -226,7 +305,8 @@ def _mamba1_core(p: Params, xconv: torch.Tensor, z: torch.Tensor,
 
     y, hT = _chunked_ssm_scan_out(
         (dt, xconv, Bc, Cc.to(torch.float32)), h0, make_di,
-        lambda h, xs: torch.einsum("btdn,btn->btd", h, xs[3]), ssm.chunk)
+        lambda h, xs: torch.einsum("btdn,btn->btd", h, xs[3]), ssm.chunk,
+        (A,))
     y = y + p["D"] * xconv.to(torch.float32)
     y = (y * F.silu(z.to(torch.float32))).to(dt_)
     return y @ p["out_proj"].to(dt_), hT
@@ -342,7 +422,7 @@ def _mamba2_core(p: Params, xc, Bc, Cc, dt, z, h0, cfg: ModelConfig
     dt = F.softplus(dt.to(f32) + p["dt_bias"])                 # [B,T,H]
     A = -torch.exp(p["A_log"])                                 # [H]
 
-    def make_di(xs):
+    def make_di(xs, A):
         dtc, xc_, bc, _ = xs
         decay = torch.exp(dtc * A)[..., None, None]            # [B,c,H,1,1]
         inp = (dtc[..., None] * xc_)[..., None] * bc[:, :, :, None, :]
@@ -350,7 +430,8 @@ def _mamba2_core(p: Params, xc, Bc, Cc, dt, z, h0, cfg: ModelConfig
 
     y, hT = _chunked_ssm_scan_out(
         (dt, xh, Bh, Ch), h0, make_di,
-        lambda h, xs: torch.einsum("bthpn,bthn->bthp", h, xs[3]), ssm.chunk)
+        lambda h, xs: torch.einsum("bthpn,bthn->bthp", h, xs[3]), ssm.chunk,
+        (A,))
     y = (y + p["D"][:, None] * xh).reshape(B_, T, d_in)
     y = rms_norm((y * F.silu(z.to(f32))).to(xc.dtype), p["norm_w"],
                  cfg.norm_eps)

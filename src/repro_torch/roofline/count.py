@@ -18,8 +18,10 @@ For the train, prefill and decode steps of every arch id at a given
   Attention on the ``"plain"`` route (the CPU's) is the online-softmax
   einsums over every key; on the ``"kernel"`` route (the card's) B6's
   forward counts the causal pairs and its PyTorch backward
-  (``flash_attention_backward``) five products over every key.
-  Microbatches count each microbatch at its rows.
+  (``flash_attention_backward``) five products over every key. The SSM
+  scans' C contraction counts once more in the backward: the chunk's
+  backward (``models/ssm.py::_ScanChunk``) recomputes it to differentiate
+  it. Microbatches count each microbatch at its rows.
 * **The float32 part of them** (``f32=True``), priced at the f32 peak:
   every product of a float32 model; in a bf16 model the SSM scans' C
   contraction (float32 state), attention on the plain route, B6's
@@ -224,6 +226,7 @@ def train_matmul_flops(cfg: ModelConfig, rows: int, seq: int,
     again = fwd - (prods[-1][1] if keep(prods[-1][0]) else 0) if remat \
         else 0
     bwd = 2 * _sum(p for p in kept if not _is_attn(p[0])) + \
+        _sum(p for p in kept if p[0] == "ssm_contract") + \
         (attn_bwd if keep("attn_bwd") else 0)
     unembed = 2 * rows * seq * cfg.d_model * cfg.vocab_size
     return times * (fwd + again + bwd) + (3 * unembed if keep("unembed")
@@ -480,13 +483,27 @@ def gathered_bytes(param_blocks: List[Block], sizes: Dict[str, int]) -> int:
                        b.dtype) for b in param_blocks if b.full)
 
 
+# bytes autograd saves a token a d_in channel of one mixer's forward, as
+# (a, b): a + b x the activation's bytes (the tensors its saved-tensor
+# hooks see at the published widths; tests/test_torch_train_ssm.py holds
+# the count to them)
+MIXER_SAVED = {"mamba1": (32.5, 2), "mamba2": (36, 3)}
+# [B, chunk, ..., N] float32 tensors one chunk's backward holds at once
+# (``_ScanChunk``: the recomputed states, their gradient, the reverse
+# scan's two buffers, the shifted decay and the decay's gradient; Mamba2's
+# decay is one value a head, so two fewer)
+SCAN_BACKWARD_LIVE = {"mamba1": 6, "mamba2": 4}
+
+
 def unit_working_set(cfg: ModelConfig, rows: int, seq: int,
                      grad: bool) -> int:
     """Bytes one remat unit holds while it runs (an estimate): with
     ``grad``, its recomputed activations and B6's PyTorch backward (float32
     keys and values expanded to every head, their grads, and the scores,
-    probabilities and their grad of a 512-row chunk); the SSM scan's
-    float32 chunk tensors (under autograd every Hillis-Steele pass's)."""
+    probabilities and their grad of a 512-row chunk); each mixer's saved
+    tensors (``MIXER_SAVED``) and the state before each scan chunk, and
+    one chunk's backward (``SCAN_BACKWARD_LIVE``; no pass of the scan is
+    kept past its chunk); without, the scan's float32 chunk tensors."""
     n, d, act = rows * seq, cfg.d_model, ACT_BYTES[cfg.dtype]
     out = 0
     if cfg.attn_kind != "none":
@@ -506,11 +523,16 @@ def unit_working_set(cfg: ModelConfig, rows: int, seq: int,
         ssm = cfg.ssm or SSMConfig()
         d_in = ssm.expand * d
         c = min(ssm.chunk, seq)
-        per = rows * c * d_in * ssm.d_state * 4
-        keep = (2 * max(c - 1, 1).bit_length() + 3) * max(seq // c, 1) \
-            if grad else 5
+        state = rows * d_in * ssm.d_state * 4
+        per = c * state
         period = T.hybrid_groups(cfg)[1] if cfg.family == "hybrid" else 1
-        out += period * (keep * per + n * 4 * d_in * act)
+        if grad:
+            a, b = MIXER_SAVED[ssm.kind]
+            out += period * (n * d_in * (a + b * act) +
+                             max(seq // c, 1) * state) + \
+                SCAN_BACKWARD_LIVE[ssm.kind] * per
+        else:
+            out += period * (5 * per + n * 4 * d_in * act)
     return int(out)
 
 

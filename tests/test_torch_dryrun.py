@@ -262,7 +262,9 @@ def test_kernel_route_f32_flops_are_b6_backward(arch):
     """On the card the float32 products of a bf16 model's train step are
     B6's PyTorch backward (``flash_attention_backward``, five products
     over every key: FlopCounterMode's count of it at the step's shape)
-    and the SSM scans' contraction; a float32 model's are all of them."""
+    and the SSM scans' contraction (forward, remat's forward, the chunk
+    backward's recompute and its two products); a float32 model's are all
+    of them."""
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.roofline import count as C
     cfg = get_reduced(arch)
@@ -282,7 +284,7 @@ def test_kernel_route_f32_flops_are_b6_backward(arch):
         sites * fc.get_total_flops()
     contract = sum(f for n, f in C._mamba(cfg, B, S) if n == "ssm_contract")
     assert scan == (0 if cfg.family != "hybrid" else
-                    cfg.num_layers * contract * (3 + int(cfg.remat)))
+                    cfg.num_layers * contract * (4 + int(cfg.remat)))
     f32 = dataclasses.replace(cfg, dtype="float32")
     assert C.train_matmul_flops(f32, B, S, "kernel", f32=True) == \
         C.train_matmul_flops(f32, B, S, "kernel")
@@ -298,6 +300,29 @@ def test_kernel_route_counts_causal_forward_and_full_backward():
     assert bwd == 2 * 8 * 32 * 512 * 512 * 5 * 128
     fwd, bwd = C._attention(8, 512, 512, 32, 128, 128, "plain")
     assert bwd == 2 * sum(f for _, f in fwd)
+
+
+# peak bytes the dry run counted for these train_512 cells on one device
+# before the SSM scan kept only one chunk's passes for the backward
+PEAK_BEFORE_CHUNK_SCAN = {"zamba2_2p7b": 565_448_255_612,
+                          "falcon_mamba_7b": 82_721_034_412}
+
+
+@pytest.mark.parametrize("arch,fits", [
+    ("zamba2_2p7b", True), ("falcon_mamba_7b", True), ("minicpm3_4b", True),
+    ("qwen3_moe_235b_a22b", False)])
+def test_one_card_train_512_fits(arch, fits, tmp_path):
+    """``dryrun --arch A --shape train_512 --devices 1``: the SSM and
+    hybrid steps fit one H100 now that the scan's backward keeps one
+    chunk (zamba2-2.7b counted 565 GB before, falcon-mamba-7b 82.7 GB of
+    the card's 85.0); qwen3-moe's 235B params do not."""
+    from repro_torch.roofline import analyze as RA
+    rec = DRY.run_cell(arch, "train_512", False, str(tmp_path), devices=1)
+    assert rec["cell"] == f"{arch}__train_512__d1" and rec["status"] == "ok"
+    assert rec["fits"] is fits
+    assert rec["device_memory"] == RA.HBM_BYTES
+    if arch in PEAK_BEFORE_CHUNK_SCAN:
+        assert rec["peak_bytes"] < 0.7 * PEAK_BEFORE_CHUNK_SCAN[arch]
 
 
 # ---------------------------------------------------------------------------

@@ -193,19 +193,40 @@ def test_init_state_matches():
 
 @pytest.mark.parametrize("T", [20, 32])
 def test_scan_forms_agree_bitwise(T):
-    """The scan's two forms (serving's ``out=`` buffers, which reuse the
-    inputs as scratch, and training's new tensors) run the same products:
-    equal bit for bit; under autograd the dispatch takes the new tensors,
-    whose gradient reaches the inputs."""
-    d = torch.from_numpy(np.exp(-np.abs(_normal(8, (2, T, D_IN, N)))))
-    i = torch.from_numpy(_normal(9, (2, T, D_IN, N)))
-    into = TSSM._scan_into(d.clone(), i.clone())
-    new = TSSM._scan_new(d.clone(), i.clone())
-    assert all(torch.equal(a, b) for a, b in zip(into, new))
-    assert all(torch.equal(a, b) for a, b in zip(
-        TSSM._scan_chunk(d.clone(), i.clone()), into))
-    dg, ig = d.clone().requires_grad_(), i.clone().requires_grad_()
-    got = TSSM._scan_chunk(dg, ig)
-    assert all(torch.equal(a.detach(), b) for a, b in zip(got, into))
+    """The scan's two routes (serving's ``out=`` buffers, which reuse the
+    inputs as scratch, and training's ``_ScanChunk``, whose forward runs
+    the same products) give equal outputs bit for bit; under autograd the
+    route takes the Function, whose gradient reaches every input, the
+    state before the chunk and the params."""
+    ins = [np.abs(_normal(3, (2, T, D_IN), 0.05)) + 1e-3,
+           _normal(4, (2, T, D_IN)), _normal(5, (2, T, N)),
+           _normal(6, (2, T, N))]
+    h0 = torch.from_numpy(_normal(7, (2, D_IN, N)))
+    A = -torch.exp(torch.from_numpy(_normal(8, (D_IN, N), 0.5)))
+
+    def make_di(xs, a):
+        dtc, xc, bc, _ = xs
+        return torch.exp(dtc[..., None] * a), \
+            (dtc * xc)[..., None] * bc[:, :, None, :]
+
+    def contract(h, xs):
+        return torch.einsum("btdn,btn->btd", h, xs[3])
+
+    d, i = make_di([torch.from_numpy(a) for a in ins], A)
+    dd, ii = TSSM._scan_into(d.clone(), i.clone())
+    assert torch.equal(TSSM._chunk_states(
+        [torch.from_numpy(a) for a in ins], h0, (A,), make_di),
+        dd * h0[:, None] + ii)
+    with torch.no_grad():
+        want = TSSM._chunked_ssm_scan_out(
+            tuple(torch.from_numpy(a) for a in ins), h0, make_di, contract,
+            CHUNK, (A,))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in ins]
+    hg, Ag = h0.clone().requires_grad_(), A.clone().requires_grad_()
+    got = TSSM._chunked_ssm_scan_out(tuple(leaves), hg, make_di, contract,
+                                     CHUNK, (Ag,))
+    assert all(torch.equal(a.detach(), b) for a, b in zip(got, want))
+    assert "_ScanChunk" in type(got[1].grad_fn).__name__
     (got[0].sum() + got[1].sum()).backward()
-    assert dg.grad is not None and ig.grad is not None
+    assert all(t.grad is not None and t.grad.abs().sum() > 0
+               for t in (*leaves, hg, Ag))

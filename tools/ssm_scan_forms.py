@@ -1,13 +1,14 @@
-"""The SSM scan's two forms on the card: ``models/ssm.py::_scan_into``
-(each Hillis-Steele pass written into the other of two buffers, serving's
-form) against ``_scan_new`` (each pass new tensors, the form autograd can
-differentiate), in one mixer's prefill at falcon-mamba-7b's (Mamba1) and
-zamba2-2.7b's (Mamba2) widths, without autograd.
+"""The SSM scan's two routes on the card: a mixer's prefill without
+autograd (``models/ssm.py``'s ``out=`` passes, serving's route) against
+its forward under autograd (training's ``_ScanChunk``, the same passes
+with only the chunk's inputs saved), and that forward with its backward,
+at falcon-mamba-7b's (Mamba1) and zamba2-2.7b's (Mamba2) widths.
 
-Per (arch, batch) the forms run in turns into, new, new, into; a turn is a
-warm-up call and 5 timed calls (CUDA events), the turn's median kept. The
-outputs of the two forms are compared bit for bit. Prints one JSON line a
-case and the card's name and power limit.
+Per (arch, batch) the routes run in turns serve, train, train, serve; a
+turn is a warm-up call and 5 timed calls (CUDA events), the turn's median
+kept; the backward is timed after each train turn. The outputs of the two
+routes are compared bit for bit. Prints one JSON line a case and the
+card's name and power limit.
 
     python3 tools/ssm_scan_forms.py                  # needs a card (~1 min)
     python3 tools/ssm_scan_forms.py --device cpu --batch 1 --seq 256
@@ -30,10 +31,8 @@ sys.path[:0] = [str(ROOT / "src")]
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 
-FORMS = {"into": ssm._scan_into, "new": ssm._scan_new}
 MIXERS = {"falcon_mamba_7b": (ssm.mamba1_init, ssm.mamba1_prefill),
           "zamba2_2p7b": (ssm.mamba2_init, ssm.mamba2_prefill)}
-_dispatch = ssm._scan_chunk
 
 
 def _time(fn, dev, reps: int = 5) -> float:
@@ -61,26 +60,41 @@ def run(dev, batches, seq: int) -> list:
         cfg = get_config(arch)
         gen = torch.Generator(device=dev).manual_seed(0)
         p = init(gen, cfg, torch.bfloat16, dev)
+        for t in p.values():
+            t.requires_grad_()
         for batch in batches:
             u = torch.randn((batch, seq, cfg.d_model), generator=gen,
                             device=dev).to(torch.bfloat16)
-            outs, ms = {}, {k: [] for k in FORMS}
-            with torch.no_grad():
-                for form in ("into", "new", "new", "into"):
-                    ssm._scan_chunk = FORMS[form]
-                    outs[form] = prefill(p, u, cfg)
-                    ms[form].append(_time(lambda: prefill(p, u, cfg), dev))
-            ssm._scan_chunk = _dispatch
-            equal = all(torch.equal(a, b) for a, b in zip(
-                (outs["into"][0], *outs["into"][1]),
-                (outs["new"][0], *outs["new"][1])))
+            g = torch.randn_like(u)
+
+            def serve():
+                with torch.no_grad():
+                    return prefill(p, u, cfg)
+
+            def train():
+                return prefill(p, u, cfg)
+
+            def train_backward():
+                train()[0].backward(g)
+
+            outs, ms = {}, {"serve": [], "train": [], "backward": []}
+            for form in ("serve", "train", "train", "serve"):
+                fn = serve if form == "serve" else train
+                outs[form] = fn()
+                ms[form].append(_time(fn, dev))
+                if form == "train":
+                    ms["backward"].append(_time(train_backward, dev))
+            equal = all(torch.equal(a.detach(), b) for a, b in zip(
+                (outs["train"][0], *outs["train"][1]),
+                (outs["serve"][0], *outs["serve"][1])))
             rows.append({"arch": arch, "batch": batch, "seq": seq,
-                         "ms_into": ms["into"], "ms_new": ms["new"],
-                         "new_over_into": statistics.mean(ms["new"]) /
-                         statistics.mean(ms["into"]),
+                         "ms_serve": ms["serve"], "ms_train": ms["train"],
+                         "ms_train_forward_backward": ms["backward"],
+                         "train_over_serve": statistics.mean(ms["train"]) /
+                         statistics.mean(ms["serve"]),
                          "bitwise_equal": equal})
             print(json.dumps(rows[-1]), flush=True)
-            del u, outs
+            del u, g, outs
         del p
     return rows
 
