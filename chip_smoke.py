@@ -245,7 +245,21 @@ exits non-zero:
              and params against the single-device step's, B6's launches at
              the rank's head counts (16/4 x 128 at model 2), and B6 at those
              counts held against its plain version and timed; gloo's
-             all_reduce and broadcast rates between the two ranks
+             all_reduce and broadcast rates between the two ranks; (c) on
+             the same ranks after 20b, the MLA, MoE, SSM and hybrid
+             families at 20b's recipe: minicpm3-4b, qwen3-moe and
+             falcon-mamba-7b at their published widths and 1 layer,
+             zamba2-2.7b at one group (6 Mamba2 layers and its shared
+             block), arctic at REDUCED, on (1, 2); qwen3-moe at REDUCED on
+             (2, 1) at a global 2 x 512 (grouped, a group a rank) and 4 x
+             32 at microbatches 2 (the sorted call re-dealt): losses and
+             params against the one-device step from the same seed (the
+             ranks train it at once, or in turn where the dry run counts
+             its peak past MESH_SHARE of the card, the end blocks then kept
+             on the host), each rank's argument bytes against the dry
+             run's count, step ms, host syncs, B6's launches by head count;
+             B6 at the families' rank heads (20 x 96/64, 32/2 x 128, 16/16 x
+             80) held against its plain version and timed
  21 roofline the dry run (``launch/dryrun.py``, ``roofline/``) beside what
              18b, 19c and 20 measured, no new training run: the counted
              argument bytes (params, state, grads; 19c's residuals) within
@@ -5485,16 +5499,19 @@ def shard_ranks_start(dev, gate: str, gate20: str):
 def _across_ranks(group, spec: dict, gate20: str) -> tuple:
     """One of the ranks of ``shard_ranks_start`` (a spawn target, so it is
     a module-level function): 19b's replay, then, once ``gate20`` exists,
-    20b (``_mesh_ranks``); in between, ``_train_warm``. Returns (its 19b
-    record, the time its replay ended, its 20b record); the 19b record is
-    rank 0's alone."""
+    20b (``_mesh_ranks``) and 20c (``_mesh_family_ranks``); in between,
+    ``_train_warm``. Returns (its 19b record, the time its replay ended,
+    its 20b record with 20c's under "families"); the 19b record is rank
+    0's alone."""
     from repro_torch.fabric import shard as FS
     recs = FS.replay_specs(group, [spec])
     t_end = time.perf_counter()
     _train_warm(group.device)
     while not os.path.exists(gate20):
         time.sleep(0.01)
-    return None if recs is None else recs[0], t_end, _mesh_ranks(group)
+    mesh = _mesh_ranks(group)
+    mesh["families"] = _mesh_family_ranks(group)
+    return None if recs is None else recs[0], t_end, mesh
 
 
 def phase_shard(dev, group, fut, gate: str, tag: str, during=None) -> dict:
@@ -5790,10 +5807,17 @@ MESH_STEPS = 2
 MESH_BATCH, MESH_SEQ = 4, 256
 MESH_LOSS_RTOL = 1e-5
 MESH_PARAM_TOL = 1e-4
-# B6 at a rank's heads on a model axis of 2 (llama3-8b's 32/8 -> 16/4 x
-# 128): 18b's recipe (8 x 512, bf16) and 20b's (4 x 256, float32)
-MESH_ATTN = ((8, 512, 16, 4, 128, torch.bfloat16),
-             (MESH_BATCH, MESH_SEQ, 16, 4, 128, torch.float32))
+# B6 at a rank's heads on a model axis of 2, at 18b's recipe (8 x 512,
+# bf16: a four-card (x, 2) mesh's shape) and 20b's (4 x 256, float32):
+# llama3-8b's 32/8 -> 16/4 x 128 (20b); minicpm3-4b's 40 x 96/64 -> 20,
+# qwen3-moe's 64/4 x 128 -> 32/2, zamba2-2.7b's 32/32 x 80 -> 16/16 (20c).
+# (row, query heads, KV heads, qk dim, v dim)
+MESH_ATTN = (("flash_attention_mesh", 16, 4, 128, 128),
+             ("flash_attention_mesh_mla", 20, 20, 96, 64),
+             ("flash_attention_mesh_moe", 32, 2, 128, 128),
+             ("flash_attention_mesh_hybrid", 16, 16, 80, 80))
+MESH_ATTN_ROWS = ((8, 512, torch.bfloat16, ""),
+                  (MESH_BATCH, MESH_SEQ, torch.float32, "_f32"))
 
 
 def _mesh_configs():
@@ -6014,45 +6038,300 @@ def _gloo_rates(group) -> dict:
     return out
 
 
+# 20c: the MLA, MoE, SSM and hybrid families on the mesh, on 20b's ranks
+# after 20b, at 20b's recipe (float32, the raw state, 2 steps): (name,
+# config, mesh, global batch, seq, microbatches). Published widths at 1
+# layer on (1, 2) (zamba2: one group, its 6 Mamba2 layers and its shared
+# block); arctic at REDUCED (a published layer's experts are 53.6 GB in
+# float32); qwen3-moe at REDUCED on (2, 1): a global 2 x 512 (one grouped
+# call, one group a rank) and 4 x 32 at microbatches 2 (the sorted call,
+# its rows re-dealt). The REDUCED configs take head dim 64, B6's least
+# (theirs is 32)
+def _reduced(arch):
+    from repro_torch.configs import get_reduced
+    return dataclasses.replace(get_reduced(arch), head_dim=64)
+
+
+MESH_FAMILY_RUNS = (
+    ("minicpm3-4b", lambda: _minicpm(1), (1, 2), MESH_BATCH, MESH_SEQ, 1),
+    ("qwen3-moe", lambda: _qwen3moe(1), (1, 2), MESH_BATCH, MESH_SEQ, 1),
+    ("falcon-mamba-7b", lambda: _falcon(1), (1, 2), MESH_BATCH, MESH_SEQ,
+     1),
+    ("zamba2-2.7b", lambda: _zamba2(6), (1, 2), MESH_BATCH, MESH_SEQ, 1),
+    ("arctic REDUCED", lambda: _reduced("arctic_480b"), (1, 2),
+     MESH_BATCH, MESH_SEQ, 1),
+    ("qwen3-moe REDUCED grouped", lambda: _reduced("qwen3_moe_235b_a22b"),
+     (2, 1), 2, 512, 1),
+    ("qwen3-moe REDUCED microbatches 2",
+     lambda: _reduced("qwen3_moe_235b_a22b"), (2, 1), 4, 32, 2))
+MESH_ARGS_RTOL = 0.01     # counted argument bytes against the allocation
+# a one-device step the dry run counts past this share of the card is
+# trained by one rank at a time (two at once would not fit)
+MESH_SHARE = 0.45
+
+
+def _mesh_family_one(group, name, cfg, shape, gb, seq, k, heads) -> dict:
+    """One run of 20c on this rank: the one-device step from the seed (2
+    steps; both ranks at once, or in turn where the dry run counts its
+    peak past MESH_SHARE of the card), its end blocks of this rank kept
+    on the host; then the mesh step from the same seed, the argument
+    bytes (params, state, a batch) against the dry run's count, 2 steps
+    timed (CUDA events), host syncs counted, B6's launches tallied by
+    head count (``heads``); then each leaf against the kept one on the
+    card, the squared differences summed over the ranks (a leaf the mesh
+    replicates counted once): the params' normwise error over the whole
+    tree, which 20c holds, and each leaf's, reported. A leaf the seed
+    makes zeros (Mamba2's conv_b and A_log) holds after 2 steps only
+    AdamW's updates, lr m / (sqrt(v) + eps), whose value moves with the
+    order of float32 sums wherever a gradient is near eps: normwise to
+    itself it is no measure of the step."""
+    import torch.distributed as dist
+    from repro_torch.common import contracts
+    from repro_torch.common import tree as TR
+    from repro_torch.common.types import (MeshConfig, OptimizerConfig,
+                                          ShapeConfig, TrainConfig)
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    t0 = time.perf_counter()
+    dev = group.device
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    tcfg = TrainConfig(seq_len=seq, global_batch=gb, microbatches=k,
+                       optimizer=OptimizerConfig(lr=3e-4, warmup_steps=20))
+    mc = MeshConfig(shape, ("data", "model"))
+    one = DRY.count_cell(cfg, ShapeConfig("20c", seq, gb, "train"),
+                         MeshConfig((1, 1), mc.axes), tcfg)["peak_bytes"]
+    counted = DRY.count_cell(cfg, ShapeConfig("20c", seq, gb, "train"), mc,
+                             tcfg)["memory"]["argument_bytes"]
+    turns = one > MESH_SHARE * torch.cuda.get_device_properties(
+        dev).total_memory
+    mesh = make_mesh(mc, group)
+    step, sh = trainer.make_train_step(cfg, tcfg, mesh)
+    batches = [make_batch(cfg, i, global_batch=gb, seq_len=seq, device=dev)
+               for i in range(MESH_STEPS)]
+    single, kept = None, None
+    home = "cpu" if turns else dev       # where the kept end blocks wait
+    for turn in range(group.world if turns else 1):
+        if turns:
+            dist.barrier()
+        if not turns or turn == group.rank:
+            p = trainer.init_params(cfg, SEED, dev)
+            opt = adamw.init(p, tcfg.optimizer)
+            one_step = trainer.make_train_step(cfg, tcfg)[0]
+            losses = []
+            for b in batches:
+                p, opt, m = one_step(p, opt, b)
+                losses.append(m["loss"])
+            single = [float(x) for x in torch.stack(losses).cpu()]
+            del opt, m
+            kept = TR.map_tree(lambda t: t.to(home, copy=True),
+                               sh["params"].shard(p))
+            del p
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+    if turns:
+        dist.barrier()
+    base = torch.cuda.memory_allocated(dev)
+    p = sh["params"].shard(trainer.init_params(cfg, SEED, dev))
+    opt = adamw.init(p, tcfg.optimizer, sharding=sh["params"])
+    torch.cuda.synchronize(dev)
+    rows = [sh["batch"].shard(b) for b in batches]
+    del batches
+    args = torch.cuda.memory_allocated(dev) - base + \
+        sum(v.numel() * v.element_size() for v in rows[0].values())
+    heads.clear()
+    contracts.SYNCS.reset()
+    losses, evs = [], []
+    for b in rows:
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        p, opt, m = step(p, opt, b)
+        e.record()
+        evs.append((a, e))
+        losses.append(m["loss"])
+    torch.cuda.synchronize(dev)
+    syncs = contracts.SYNCS.count
+    tally = dict(heads)
+    heads.clear()
+    del opt, m, rows
+    torch.cuda.empty_cache()
+    sums = []
+    for path, x in TR.leaves_with_paths(p):
+        r = TR.get(kept, path).to(dev)
+        own = float(mesh.owns(sh["params"].spec(path)))
+        sums.append(torch.stack([(x - r).float().norm() ** 2,
+                                 r.float().norm() ** 2]) * own)
+        del r
+    sums = mesh.psum(torch.stack(sums).double(), None).cpu()
+    err = (sums[:, 0] / sums[:, 1].clamp(min=1e-300)).sqrt()
+    tree = float((sums[:, 0].sum() / sums[:, 1].sum()).sqrt())
+    paths = ["/".join(map(str, path)) for path, _ in TR.leaves_with_paths(p)]
+    worst = {paths[i]: [float(err[i]), float(sums[i, 1].sqrt())]
+             for i in err.argsort(descending=True)[:3].tolist()}
+    del p, kept
+    torch.cuda.empty_cache()
+    return {"name": name, "arch": cfg.name, "layers": cfg.num_layers,
+            "shape": list(shape), "batch": [gb, seq, k],
+            "params": cfg.param_count(), "turns": bool(turns),
+            "losses": [float(x) for x in torch.stack(losses).cpu()],
+            "single": single, "param_err": tree,
+            "leaf_err": float(err.max()), "worst": worst,
+            "ms": [a.elapsed_time(e) for a, e in evs], "heads": tally,
+            "syncs": syncs, "args": args, "args_counted": counted,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _mesh_family_ranks(group) -> dict:
+    """20c on one of ``shard_ranks_start``'s ranks, after 20b: each run of
+    MESH_FAMILY_RUNS (``_mesh_family_one``), B6's launches tallied by its
+    (query heads / KV heads x head dim) while the mesh steps run."""
+    from repro_torch.kernels import flash_attn as FA
+    t0 = time.perf_counter()
+    heads: dict = {}
+    launch = FA._launch
+
+    def tallied(q, k, v, causal, sm_scale):
+        key = f"{q.shape[2]}/{k.shape[2]} x {q.shape[3]}"
+        heads[key] = heads.get(key, 0) + 1
+        return launch(q, k, v, causal, sm_scale)
+
+    FA._launch = tallied
+    runs = []
+    try:
+        for name, make, shape, gb, seq, k in MESH_FAMILY_RUNS:
+            runs.append(_mesh_family_one(group, name, make(), shape, gb,
+                                         seq, k, heads))
+            if group.rank == 0:         # progress, should a later run fail
+                print(f"phase 20c rank 0 {name}: losses "
+                      f"{runs[-1]['losses']}, params "
+                      f"{runs[-1]['param_err']:.3e}, wall "
+                      f"{runs[-1]['wall_s']:.3f} s", flush=True)
+    finally:
+        FA._launch = launch
+    return {"runs": runs, "wall_s": time.perf_counter() - t0}
+
+
+def _mesh_family_heads(cfg, shape) -> dict:
+    """B6's launches a rank of 20c expects: forward and remat a layer (the
+    hybrid: a group's shared block), a microbatch, a step, at the rank's
+    heads (MLA: query heads x qk dim; K heads as many)."""
+    m = shape[1]
+    if cfg.attn_kind == "none":
+        return {}
+    if cfg.attn_kind == "mla":
+        key = (f"{cfg.num_heads // m}/{cfg.num_heads // m} x "
+               f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}")
+    else:
+        key = (f"{cfg.num_heads // m}/{cfg.num_kv_heads // m} x "
+               f"{cfg.resolved_head_dim}")
+    from repro_torch.models import transformer as T
+    sites = T.hybrid_groups(cfg)[0] if cfg.family == "hybrid" else \
+        cfg.num_layers
+    return {key: 2 * sites * MESH_STEPS}
+
+
+def phase_mesh_family(ranks: list, gloo: dict, tag: str) -> dict:
+    """20c's report from the ranks' records: each run's losses and params
+    against the one-device step's, its argument bytes against the count
+    on every rank, step ms beside gloo's rates, host syncs, B6's launches
+    by head count. Returns B6's launches of each run (both ranks) and the
+    phase's wall on the ranks."""
+    launches = {}
+    makers = {n: mk for n, mk, *_ in MESH_FAMILY_RUNS}
+    for i, r0 in enumerate(ranks[0]["families"]["runs"]):
+        per = [r["families"]["runs"][i] for r in ranks]
+        rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                   r0["single"])]
+        name = r0["name"]
+        cfg = makers[name]()
+        want = _mesh_family_heads(cfg, r0["shape"])
+        want = {h: n * r0["batch"][2] for h, n in want.items()}
+        args = [abs(r["args"] - r["args_counted"]) / r["args_counted"]
+                for r in per]
+        print(f"phase 20c mesh {tuple(r0['shape'])} {name}: {r0['arch']} "
+              f"{r0['layers']} layer(s), {r0['params']} params, float32, raw "
+              f"AdamW, {MESH_STEPS} steps of {r0['batch'][0]} x "
+              f"{r0['batch'][1]} at microbatches {r0['batch'][2]} | losses "
+              f"{r0['losses']} against the one-device step's {r0['single']}"
+              f"{' (trained by each rank in turn)' if r0['turns'] else ''} "
+              f"(relative {[f'{x:.2e}' for x in rel]}) | params normwise "
+              f"{r0['param_err']:.3e} over the tree, {r0['leaf_err']:.3e} "
+              f"the worst leaf (the 3 worst leaves' [normwise error, "
+              f"norm]: {json.dumps(r0['worst'])}) | argument bytes a rank "
+              f"{[r['args'] for r in per]} against the count "
+              f"{r0['args_counted']} (relative "
+              f"{[f'{x:.2e}' for x in args]}) | step ms on rank 0 "
+              f"{[round(x, 3) for x in r0['ms']]} (CUDA events; gloo "
+              f"all_reduce {gloo['all_reduce']:.3f}, broadcast "
+              f"{gloo['broadcast']:.3f} GiB/s) | host syncs "
+              f"{[r['syncs'] for r in per]} | B6 launches by heads, rank by "
+              f"rank {json.dumps([r['heads'] for r in per])} | wall "
+              f"{r0['wall_s']:.3f} s [{tag}]", flush=True)
+        check(max(rel) <= MESH_LOSS_RTOL and
+              r0["param_err"] <= MESH_PARAM_TOL,
+              f"phase 20c {name}: losses {rel}, params {r0['param_err']}")
+        check(max(args) <= MESH_ARGS_RTOL, f"phase 20c {name}: argument "
+              f"bytes {[r['args'] for r in per]} against "
+              f"{r0['args_counted']}")
+        check(all(r["heads"] == want for r in per),
+              f"phase 20c {name}: B6 launches {[r['heads'] for r in per]}, "
+              f"expected {want} a rank")
+        launches[name] = sum(sum(r["heads"].values()) for r in per)
+    wall = max(r["families"]["wall_s"] for r in ranks)
+    print(f"phase 20c wall {wall:.3f} s on the ranks [{tag}]", flush=True)
+    return {"launches": launches, "wall_s": wall}
+
+
 def phase_mesh_kernels(dev, tag: str) -> tuple:
-    """20b's kernel side, in this process beside the ranks: B6 at a rank's
-    head counts on a model axis of 2 (MESH_ATTN) against its plain version
-    (ATTN_TOL), and its kernel / eager / plain / library / bound times."""
+    """20b's and 20c's kernel side, in this process beside the ranks: B6 at
+    a rank's head counts on a model axis of 2 (MESH_ATTN at each of
+    MESH_ATTN_ROWS) against its plain version (ATTN_TOL elementwise,
+    ATTN_NORM_TOL normwise), and its kernel / eager / plain / library /
+    bound times."""
     from repro_torch.kernels import flash_attn as FA
     gen = torch.Generator(device=dev).manual_seed(SEED + 70)
-    err = {"err": 0.0, "cases": 0, "mismatches": 0}
-    rows = {}
-    for B, S, Hq, Hkv, D, dt in MESH_ATTN:
-        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
-                   .to(dt) for h in (Hq, Hkv, Hkv))
-        n0 = FA.launches
-        o = FA.flash_attention(q, k, v, causal=True)
-        check(FA.launches == n0 + 1, "phase 20b: B6 did not launch")
-        want = FA.flash_attention_plain(q, k, v, causal=True)
-        d = (o.float() - want.float()).abs()
-        err["cases"] += 1
-        err["mismatches"] += int((d > ATTN_TOL[dt] *
-                                  (1 + want.float().abs())).sum())
-        err["err"] = max(err["err"], float(d.max()))
-        name = "flash_attention_mesh" + ("_f32" if dt == torch.float32
-                                         else "")
-        rows[name] = dict(
-            shape=f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} "
-                  f"{str(dt)[6:]} causal (a rank's heads at model 2)",
-            kern=lambda q=q, k=k, v=v: FA.flash_attention(q, k, v,
-                                                          causal=True),
-            plain=lambda q=q, k=k, v=v: FA.flash_attention_plain(
-                q, k, v, causal=True),
-            lib=lambda q=q, k=k, v=v: _sdpa(q, k, v, True),
-            nbytes=B * S * D * (2 * Hq + 2 * Hkv) * q.element_size(),
-            ops=4 * B * Hq * D * S * (S + 1) // 2,
-            ops_dtype=dt, reps=10)
-    print(f"phase 20b kernels: B6 at 16/4 x 128 ({len(MESH_ATTN)} shapes, "
-          f"bf16 and f32): max abs err {err['err']:.3e}, "
-          f"{err['mismatches']} outside ATTN_TOL [{tag}]", flush=True)
-    check(err["mismatches"] == 0, "phase 20b: B6 at 16/4 x 128 off "
-          "tolerance")
-    return err, _time_rows(rows, "20b", tag)
+    errs, rows = {}, {}
+    for name, Hq, Hkv, D, Dv in MESH_ATTN:
+        err = errs[name] = {"err": 0.0, "cases": 0, "mismatches": 0,
+                            "norm_fails": 0}
+        for B, S, dt, suffix in MESH_ATTN_ROWS:
+            q, k, v = (torch.randn((B, S, h, d), generator=gen, device=dev)
+                       .to(dt) for h, d in ((Hq, D), (Hkv, D), (Hkv, Dv)))
+            n0 = FA.launches
+            o = FA.flash_attention(q, k, v, causal=True)
+            check(FA.launches == n0 + 1, f"phase 20: B6 did not launch at "
+                  f"{Hq}/{Hkv} x {D}/{Dv}")
+            want = FA.flash_attention_plain(q, k, v, causal=True).float()
+            d = (o.float() - want).abs()
+            err["cases"] += 1
+            err["mismatches"] += int((d > ATTN_TOL[dt] *
+                                      (1 + want.abs())).sum())
+            err["norm_fails"] += int(float((o.float() - want).norm() /
+                                           want.norm()) > ATTN_NORM_TOL[dt])
+            err["err"] = max(err["err"], float(d.max()))
+            rows[name + suffix] = dict(
+                shape=f"q {B}x{S}x{Hq}x{D}, k {B}x{S}x{Hkv}x{D}, v "
+                      f"{B}x{S}x{Hkv}x{Dv} {str(dt)[6:]} causal (a rank's "
+                      f"heads at model 2)",
+                kern=lambda q=q, k=k, v=v: FA.flash_attention(q, k, v,
+                                                              causal=True),
+                plain=lambda q=q, k=k, v=v: FA.flash_attention_plain(
+                    q, k, v, causal=True),
+                lib=lambda q=q, k=k, v=v: _sdpa(q, k, v, True),
+                nbytes=B * S * (Hq + Hkv) * (D + Dv) * q.element_size(),
+                ops=2 * B * Hq * (S * (S + 1) // 2) * (D + Dv),
+                ops_dtype=dt, reps=10)
+            del o, want, d
+    print(f"phase 20 kernels: B6 at a rank's heads on a model axis of 2 "
+          f"(bf16 8 x 512 and f32 4 x 256): {json.dumps(errs)} [{tag}]",
+          flush=True)
+    check(all(e["mismatches"] == 0 and e["norm_fails"] == 0
+              for e in errs.values()), f"phase 20: B6 at a rank's heads off "
+          f"tolerance: {errs}")
+    return errs, _time_rows(rows, "20", tag)
 
 
 def phase_mesh_ranks(ranks: list, wall: float, tag: str) -> dict:
@@ -6142,13 +6421,15 @@ def phase_across(dev, tag: str, times: dict, errs: dict, train: dict,
     torch.cuda.empty_cache()
     mesh_ranks = phase_mesh_ranks(shard["mesh_ranks"],
                                   time.perf_counter() - beside["t20"], tag)
+    family = phase_mesh_family(shard["mesh_ranks"], mesh_ranks["gloo"], tag)
     mesh_errs, mesh_times = phase_mesh_kernels(dev, tag)   # the card alone
     wall = time.perf_counter() - t0
     print(f"phase 19 wall {wall:.3f} s ({json.dumps({'19c': round(dp['wall_s'], 3), '19e': round(rows['wall_s'], 3), '19abd': round(t_ab, 3)})}) "
           f"[{tag}]", flush=True)
     print(f"phase 20 wall {mesh_one['wall_s'] + time.perf_counter() - beside['t20']:.3f} s (20a "
-          f"{mesh_one['wall_s']:.3f} s, then 20b from the gate to its "
-          f"report, beside 19b's end) [{tag}]", flush=True)
+          f"{mesh_one['wall_s']:.3f} s, then 20b and 20c from the gate to "
+          f"their reports, beside 19b's end, and B6's rows; 20c "
+          f"{family['wall_s']:.3f} s on the ranks) [{tag}]", flush=True)
     kernels = []
     for kind, line in (("demote", 278), ("promote", 305)):
         t = times[(kind, 8 if kind == "demote" else 1)]
@@ -6206,7 +6487,8 @@ def phase_across(dev, tag: str, times: dict, errs: dict, train: dict,
             ("flash_attention_mesh", "flash_attn.cu", "flash_attn.py:72",
              None, "flash_attention_mesh_f32")):
         t = mesh_times[row] if key is None else train_times[row]
-        e = mesh_errs if key is None else train_errs[row]
+        e = mesh_errs["flash_attention_mesh"] if key is None \
+            else train_errs[row]
         kernels.append({
             "name": name_, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}",
@@ -6225,8 +6507,29 @@ def phase_across(dev, tag: str, times: dict, errs: dict, train: dict,
     kernels[-1]["path_shapes"] = {"bf16 8x512": {
         f: mesh_times["flash_attention_mesh"][f]
         for f in ("ms", "eager_ms", "library_ms", "bound_ms")}}
+    # B6 at the families' rank heads on 20c's (1, 2) meshes, f32 4 x 256
+    # (the path's), bf16 8 x 512 beside it
+    for row, run in (("flash_attention_mesh_mla", "minicpm3-4b"),
+                     ("flash_attention_mesh_moe", "qwen3-moe"),
+                     ("flash_attention_mesh_hybrid", "zamba2-2.7b")):
+        t, e = mesh_times[row + "_f32"], mesh_errs[row]
+        kernels.append({
+            "name": row, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn.py:72",
+            "launches": family["launches"][run], "max_abs_err": e["err"],
+            "ms": t["ms"], "bytes": t["bytes"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            "path": f"the mesh step at (1, 2) on two ranks (phase 20c): "
+                    f"{run}'s rank heads, forward and remat forward",
+            "shape": t["shape"], "cases": e["cases"],
+            "mismatches": e["mismatches"],
+            "path_shapes": {"bf16 8x512": {
+                f: mesh_times[row][f]
+                for f in ("ms", "eager_ms", "library_ms", "bound_ms")}}})
     return kernels, {"dp": dp, "mesh_one": mesh_one,
-                     "mesh_ranks": mesh_ranks}
+                     "mesh_ranks": mesh_ranks, "mesh_family": family}
 
 
 # ---------------------------------------------------------------------------

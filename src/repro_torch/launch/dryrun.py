@@ -27,9 +27,8 @@ can have of the card (``roofline.analyze.HBM_BYTES``). ``temp_bytes`` is that es
 less the arguments: the grads, the outputs and an estimate of the step's
 working set (``count.train_memory``/``serve_memory``); the argument bytes
 are exact. Serve cells carry no collectives (the port
-serves on one device), nor do train cells of the families the mesh step
-refuses on a mesh that shards anything (ROADMAP A.9.5): their memory and
-FLOPs are counted as the rule tables lay them out.
+serves on one device); every family's train cell carries its mesh step's
+(``count.train_collectives``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
@@ -64,7 +63,6 @@ from repro_torch.common.types import (ALL_SHAPES, SHAPES_BY_NAME, MeshConfig,
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import mesh as M
 from repro_torch.models import decode as D
-from repro_torch.models import parallel as PAR
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.roofline import analyze
@@ -245,15 +243,8 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
                              sizes)
         rec["bytes_accessed"] = C.train_hbm_floor(cfg, tcfg, pblocks,
                                                   state_b, rows, sizes)
-        if chips > 1 and (cfg.family, cfg.attn_kind) not in \
-                PAR.MESH_FAMILIES:
-            rec["collective_bytes"] = None
-            rec["collective_reason"] = (
-                "the port's mesh step refuses this family on a mesh that "
-                "shards anything (ROADMAP A.9.5)")
-        else:
-            rec["collective_bytes"] = C.train_collectives(
-                cfg, tcfg, pblocks, mesh.shape, mesh.axes, rows_spec)
+        rec["collective_bytes"] = C.train_collectives(
+            cfg, tcfg, pblocks, mesh.shape, mesh.axes, rows_spec)
         arg = p_bytes + state_b + batch_b
         rec["memory"] = {"argument_bytes": arg,
                          "output_bytes": p_bytes + state_b + 12,

@@ -190,13 +190,18 @@ def mla_latent(p: Params, x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([c, k_rope], dim=-1)
 
 
+def mla_q_latent(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The query latent of x [B,T,d]: [B, T, q_lora_rank], normed."""
+    return rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+
+
 def mla_project_q(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig):
-    """Queries of x [B,T,d]: (q_nope [B,T,H,nope], q_rope [B,T,H,rope],
-    rotated)."""
+                  cfg: ModelConfig, q_latent: torch.Tensor = None):
+    """Queries of x [B,T,d] (from its query latent, made here unless
+    given): (q_nope [B,T,H,nope], q_rope [B,T,H,rope], rotated)."""
     m = cfg.mla or MLAConfig()
     B, T, _ = x.shape
-    q = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = mla_q_latent(p, x, cfg) if q_latent is None else q_latent
     q = (q @ p["wq_b"].to(x.dtype)).reshape(
         B, T, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
@@ -206,7 +211,8 @@ def mla_project_q(p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 def mla_attend(p: Params, x: torch.Tensor, latent: torch.Tensor,
                positions: torch.Tensor, cfg: ModelConfig, *, causal: bool,
-               attn_impl: str = "auto") -> torch.Tensor:
+               attn_impl: str = "auto",
+               q_latent: torch.Tensor = None) -> torch.Tensor:
     """Attention of x's queries over the latent cache, expanded per head:
     MHA over H heads with a qk dim of nope + rope and a v dim of v_head_dim
     (B6 at that pair on the card), the rope key broadcast to every head."""
@@ -214,7 +220,7 @@ def mla_attend(p: Params, x: torch.Tensor, latent: torch.Tensor,
     h = cfg.num_heads
     B, T, _ = x.shape
     S = latent.shape[1]
-    q_nope, q_rope = mla_project_q(p, x, positions, cfg)
+    q_nope, q_rope = mla_project_q(p, x, positions, cfg, q_latent)
     c, k_rope = latent.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     kv = (c @ p["wkv_b"].to(x.dtype)).reshape(
         B, S, h, m.qk_nope_head_dim + m.v_head_dim)
@@ -227,12 +233,21 @@ def mla_attend(p: Params, x: torch.Tensor, latent: torch.Tensor,
 
 
 def mla_apply_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                    attn_impl: str = "auto") -> torch.Tensor:
+                    attn_impl: str = "auto", mesh=None) -> torch.Tensor:
+    """The full-sequence form. On a mesh (``cfg`` at the rank's heads;
+    ``wq_b``/``wkv_b`` the rank's columns, ``wo`` its rows): both latents
+    made on every rank from the replicated ``wq_a``/``wkv_a`` and norms,
+    then entered, so those leaves and ``x`` take whole, equal gradients;
+    the output is partial over ``model``."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :]
     latent = mla_latent(p, x, pos, cfg)
-    return mla_attend(p, x, latent, pos, cfg, causal=True,
-                      attn_impl=attn_impl)
+    if mesh is None:
+        return mla_attend(p, x, latent, pos, cfg, causal=True,
+                          attn_impl=attn_impl)
+    q_latent = mesh.enter(mla_q_latent(p, x, cfg))
+    return mla_attend(p, x, mesh.enter(latent), pos, cfg, causal=True,
+                      attn_impl=attn_impl, q_latent=q_latent)
 
 
 def mlp_init(gen, d: int, f: int, dtype, device) -> Params:

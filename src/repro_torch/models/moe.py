@@ -95,30 +95,74 @@ def _experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
 
 def _combine(p: Params, x: torch.Tensor, slots: torch.Tensor,
              xe: torch.Tensor, top_p: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
-    """Run the experts over the dispatched rows ``xe`` [E*C'+1, D] (the
-    last row the drop bin) and gather each pair's output at its row
-    (``slots`` [N, k], the drop bin reading zeros), weighted by its routing
-    probability in x's dtype; plus arctic's dense residual."""
+             cfg: ModelConfig, xin: torch.Tensor = None) -> torch.Tensor:
+    """Run the held experts over the dispatched rows ``xe`` [E'*C'+1, D]
+    (the last row the drop bin; E' the experts ``p`` holds) and gather each
+    pair's output at its row (``slots`` [N, k], the drop bin reading
+    zeros), weighted by its routing probability in x's dtype; plus arctic's
+    dense residual of ``xin`` (x where not given)."""
     mo = cfg.moe or MoEConfig()
     d = x.shape[-1]
-    ye = _experts(p, xe[:-1].reshape(mo.num_experts, -1, d)).reshape(-1, d)
+    ye = _experts(p, xe[:-1].reshape(p["wi"].shape[0], -1, d)).reshape(-1, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])
     out = torch.einsum("nkd,nk->nd", ye[slots], top_p.to(x.dtype))
     out = out.reshape(x.shape)
     if mo.dense_residual and "dense" in p:
-        out = out + L.mlp_apply(p["dense"], x)
+        out = out + L.mlp_apply(p["dense"], x if xin is None else xin)
     return out
 
 
-def moe_apply_sorted(p: Params, x: torch.Tensor, cfg: ModelConfig
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort-based capacity dispatch (decode and short prompts)."""
+class _Call:
+    """Where a routing call's tokens and experts lie: on one device, the
+    whole call and every expert; on a mesh (``mesh``, a
+    ``models/parallel.py::MeshModel``), the call spread over the batch's
+    ranks (this rank's tokens the ``batch_index``-th share) and the
+    experts over ``model`` (this rank's the ``mi``-th block)."""
+
+    def __init__(self, mesh, n: int, e: int):
+        self.mesh = mesh
+        self.ways = 1 if mesh is None else mesh.batch_ways
+        self.n = n * self.ways                       # the call's tokens
+        held = slice(0, e) if mesh is None else mesh.block(e)
+        self.e0, self.held = held.start, held.stop - held.start
+
+    def mean(self, probs: torch.Tensor) -> torch.Tensor:
+        """The mean of ``probs`` [n, E] over the call (its gradient the
+        whole call's: ``MeshModel.batch_sum``)."""
+        if self.ways == 1:
+            return probs.mean(dim=0)
+        return self.mesh.batch_sum(probs.sum(dim=0)) / self.n
+
+    def counts(self, c: torch.Tensor):
+        """(counts before this rank's tokens, the call's counts) of the
+        per-expert counts ``c``."""
+        if self.ways == 1:
+            return torch.zeros_like(c), c
+        rows = self.mesh.batch_rows(c)
+        return rows[:self.mesh.batch_index].sum(dim=0), rows.sum(dim=0)
+
+    def enter(self, x):
+        return x if self.mesh is None else self.mesh.enter(x)
+
+    def local(self, ex: torch.Tensor, keep: torch.Tensor):
+        """(the held experts' index of ``ex``, whether the pair is kept
+        here: kept by the capacity and its expert held)."""
+        le = ex - self.e0
+        return le, keep & (le >= 0) & (le < self.held)
+
+
+def moe_apply_sorted(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based capacity dispatch (decode and short prompts). On a mesh
+    the call's tokens are spread over the batch's ranks: C counts all of
+    them, and a pair's position counts the same expert's pairs of lower
+    ranks first (their counts gathered in one all_reduce)."""
     mo = cfg.moe or MoEConfig()
     B, S, d = x.shape
     e, k = mo.num_experts, mo.top_k
     n = B * S
-    cap = capacity(k, n, e)
+    call = _Call(mesh, n, e)
+    cap = capacity(k, call.n, e)
     xf = x.reshape(n, d)
     probs, top_p, top_i = route(p["router"], xf, k)
 
@@ -127,32 +171,44 @@ def moe_apply_sorted(p: Params, x: torch.Tensor, cfg: ModelConfig
     order = torch.argsort(flat_e, stable=True)
     sort_e = flat_e[order]
     counts = torch.bincount(flat_e, minlength=e)
+    before, total = call.counts(counts)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n * k, device=x.device) - starts[sort_e]
-    slot = torch.where(pos < cap, sort_e * cap + pos, e * cap)   # drop bin
+    le, kept = call.local(sort_e, pos + before[sort_e] < cap)
+    slot = torch.where(kept, le * cap + pos, call.held * cap)   # drop bin
 
     # dispatch: kept rows are unique, so each is 0 + its token exactly
-    xe = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    xe.index_add_(0, slot, xf[order // k])
+    xin = call.enter(x)
+    xe = torch.zeros((call.held * cap + 1, d), dtype=x.dtype,
+                     device=x.device)
+    xe.index_add_(0, slot, xin.reshape(n, d)[order // k])
     slots = torch.empty_like(slot)
     slots[order] = slot
-    out = _combine(p, x, slots.reshape(n, k), xe, top_p, cfg)
+    out = _combine(p, x, slots.reshape(n, k), xe, call.enter(top_p), cfg,
+                   xin)
 
     # switch-style aux loss over the routed (pre-drop) assignment
-    frac = counts.to(torch.float32) / (n * k)
-    aux = torch.sum(frac * probs.mean(dim=0)) * e * mo.load_balance_coef
+    frac = total.to(torch.float32) / (call.n * k)
+    aux = torch.sum(frac * call.mean(probs.reshape(n, e))) * e * \
+        mo.load_balance_coef
     return out, aux
 
 
-def moe_apply_grouped(p: Params, x: torch.Tensor, cfg: ModelConfig
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply_grouped(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                      mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard-style grouped dispatch: groups of GROUP_TOKENS tokens, a
-    capacity per (group, expert), choices filled in order j = 0..k-1."""
+    capacity per (group, expert), choices filled in order j = 0..k-1. On a
+    mesh each group lies whole on one of the batch's ranks (a ValueError
+    otherwise), and the aux loss's sums are the call's."""
     mo = cfg.moe or MoEConfig()
     B, S, d = x.shape
     e, k = mo.num_experts, mo.top_k
     n = B * S
-    sg = min(GROUP_TOKENS, n)
+    call = _Call(mesh, n, e)
+    sg = min(GROUP_TOKENS, call.n)
+    if n % sg:
+        raise ValueError(f"{n} tokens a rank of a routing call of "
+                         f"{call.n}: its groups of {sg} would straddle ranks")
     g = n // sg
     cap = capacity(k, sg, e)
     xg = x.reshape(g, sg, d)
@@ -161,6 +217,7 @@ def moe_apply_grouped(p: Params, x: torch.Tensor, cfg: ModelConfig
     gi = torch.arange(g, device=x.device)[:, None]
     fill = torch.zeros((g, e), dtype=torch.int64, device=x.device)
     kept = torch.zeros((e,), dtype=torch.float32, device=x.device)
+    drop = call.held * g * cap
     slots = []
     for j in range(k):
         ej = top_i[..., j]                                     # [G,Sg]
@@ -170,31 +227,36 @@ def moe_apply_grouped(p: Params, x: torch.Tensor, cfg: ModelConfig
         pos = (fill[:, None, :] + torch.cumsum(oh, dim=1) - oh).gather(
             -1, ej[..., None])[..., 0]
         keep = pos < cap
-        slots.append(torch.where(keep, (ej * g + gi) * cap + pos,
-                                 e * g * cap))
+        le, here = call.local(ej, keep)
+        slots.append(torch.where(here, (le * g + gi) * cap + pos, drop))
         kept += (oh * keep[..., None]).sum(dim=(0, 1)).to(torch.float32)
         fill = fill + oh.sum(dim=1)
     slots = torch.stack(slots, dim=-1).reshape(n, k)           # [N,k]
 
-    # dispatch into [E, G, C, D] (+ the drop bin); kept rows are unique
-    xf = x.reshape(n, d)
-    xe = torch.zeros((e * g * cap + 1, d), dtype=x.dtype, device=x.device)
+    # dispatch into [E', G, C, D] (+ the drop bin); kept rows are unique
+    xin = call.enter(x)
+    xf = xin.reshape(n, d)
+    xe = torch.zeros((drop + 1, d), dtype=x.dtype, device=x.device)
     for j in range(k):
         xe.index_add_(0, slots[:, j], xf)
-    out = _combine(p, x, slots, xe, top_p.reshape(n, k), cfg)
+    out = _combine(p, x, slots, xe, call.enter(top_p.reshape(n, k)), cfg,
+                   xin)
 
-    frac = kept / n
-    aux = torch.sum(frac * probs.reshape(n, e).mean(dim=0)) * e * \
+    frac = call.counts(kept)[1] / call.n
+    aux = torch.sum(frac * call.mean(probs.reshape(n, e))) * e * \
         mo.load_balance_coef
     return out, aux
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> (out [B,S,D], aux load-balance loss scalar): the
-    grouped form from 2 * GROUP_TOKENS tokens (padding counted), else the
-    sorted form."""
+    grouped form from 2 * GROUP_TOKENS tokens in the call (padding
+    counted; on a mesh, over the batch's ranks), else the sorted form. On
+    a mesh (``mesh``, the trainer's ``MeshModel``) ``p`` holds the rank's
+    experts and the output is their partial sum over ``model``."""
     B, S, _ = x.shape
-    if B * S >= 2 * GROUP_TOKENS:
-        return moe_apply_grouped(p, x, cfg)
-    return moe_apply_sorted(p, x, cfg)
+    ways = 1 if mesh is None else mesh.batch_ways
+    form = moe_apply_grouped if B * S * ways >= 2 * GROUP_TOKENS else \
+        moe_apply_sorted
+    return form(p, x, cfg) if mesh is None else form(p, x, cfg, mesh)

@@ -283,14 +283,17 @@ def mamba1_init(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def _mamba1_core(p: Params, xconv: torch.Tensor, z: torch.Tensor,
-                 h0: torch.Tensor, cfg: ModelConfig
+                 h0: torch.Tensor, cfg: ModelConfig, mix=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The selective scan of the conv output and the gate: (y [B,T,d],
-    h_T [B,d_in,N])."""
+    h_T [B,d_in,N]). ``mix`` (a mesh's): (dt, B, C) of a block of the
+    channels are partial sums, summed by it."""
     ssm = cfg.ssm or SSMConfig()
     r, N = _dt_rank(cfg), ssm.d_state
     dt_ = xconv.dtype
     dbc = xconv @ p["x_proj"].to(dt_)
+    if mix is not None:
+        dbc = mix(dbc)
     dt, Bc, Cc = dbc.split([r, N, N], dim=-1)
     dt = F.softplus((dt @ p["dt_proj"].to(dt_)).to(torch.float32) +
                     p["dt_bias"])                              # [B,T,d_in]
@@ -331,10 +334,35 @@ def mamba1_prefill(p: Params, u: torch.Tensor, cfg: ModelConfig
     return y, Mamba1State(hT, x[:, -(ssm.d_conv - 1):].to(torch.bfloat16))
 
 
-def mamba1_apply_train(p: Params, u: torch.Tensor,
-                       cfg: ModelConfig) -> torch.Tensor:
-    """The full-sequence form: u [B,T,d] -> y [B,T,d]."""
-    return mamba1_prefill(p, u, cfg)[0]
+def _rank_in_proj(w: torch.Tensor, u: torch.Tensor, parts, mesh):
+    """u through the columns of the whole ``in_proj`` ``w`` that are the
+    rank's: ``parts`` is [(offset, width, split)] of the column blocks
+    [x | z | ...] in order, each split over ``model`` or whole; one
+    product, then the blocks."""
+    cols, sizes = [], []
+    for off, n, split in parts:
+        b = mesh.block(n) if split else slice(0, n)
+        cols.append(w[:, off + b.start:off + b.stop])
+        sizes.append(b.stop - b.start)
+    return (u @ torch.cat(cols, dim=1).to(u.dtype)).split(sizes, dim=-1)
+
+
+def mamba1_apply_train(p: Params, u: torch.Tensor, cfg: ModelConfig,
+                       mesh=None) -> torch.Tensor:
+    """The full-sequence form: u [B,T,d] -> y [B,T,d]. On a mesh with a
+    model axis (``mesh``, the trainer's ``MeshModel``): ``in_proj``
+    whole, the rest the rank's channels; the input entered, (dt, B, C)
+    summed over ``model`` both ways, the output left."""
+    if mesh is None or not mesh.tp:
+        return mamba1_prefill(p, u, cfg)[0]
+    ssm = cfg.ssm or SSMConfig()
+    d_in = ssm.expand * cfg.d_model
+    x, z = _rank_in_proj(p["in_proj"], mesh.enter(u),
+                         [(0, d_in, True), (d_in, d_in, True)], mesh)
+    xc = _causal_conv(x, p["conv_w"], p["conv_b"])
+    h0 = torch.zeros((u.shape[0], x.shape[-1], ssm.d_state),
+                     dtype=torch.float32, device=u.device)
+    return mesh.leave(_mamba1_core(p, xc, z, h0, cfg, mesh.mix)[0])
 
 
 def mamba1_init_state(cfg: ModelConfig, batch: int, device) -> Mamba1State:
@@ -406,14 +434,17 @@ def _mamba2_split(p: Params, u: torch.Tensor, cfg: ModelConfig):
                                                 dim=-1)
 
 
-def _mamba2_core(p: Params, xc, Bc, Cc, dt, z, h0, cfg: ModelConfig
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _mamba2_core(p: Params, xc, Bc, Cc, dt, z, h0, cfg: ModelConfig,
+                 mix=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SSD scan of the conv output with a scalar decay per head, the
     skip, the gate (rounded to the activation dtype before the gated
     RMSNorm, as the reference does) and out_proj: (y [B,T,d], h_T
-    [B,H,P,N])."""
-    ssm, d_in, H = _mamba2_dims(cfg)
-    B_, T, _ = xc.shape
+    [B,H,P,N]). The heads are those of ``dt``'s last dim; ``mix`` (a
+    mesh's, the heads a block of them): the norm's sum of squares over
+    the block, summed by it over every channel."""
+    ssm = cfg.ssm or SSMConfig(kind="mamba2")
+    B_, T, d_in = xc.shape
+    H = dt.shape[-1]
     P, N, g = ssm.headdim, ssm.d_state, ssm.ngroups
     f32 = torch.float32
     xh = xc.reshape(B_, T, H, P).to(f32)
@@ -433,8 +464,14 @@ def _mamba2_core(p: Params, xc, Bc, Cc, dt, z, h0, cfg: ModelConfig
         lambda h, xs: torch.einsum("bthpn,bthn->bthp", h, xs[3]), ssm.chunk,
         (A,))
     y = (y + p["D"][:, None] * xh).reshape(B_, T, d_in)
-    y = rms_norm((y * F.silu(z.to(f32))).to(xc.dtype), p["norm_w"],
-                 cfg.norm_eps)
+    y = (y * F.silu(z.to(f32))).to(xc.dtype)
+    if mix is None:
+        y = rms_norm(y, p["norm_w"], cfg.norm_eps)
+    else:
+        var = mix(y.to(f32).square().sum(dim=-1, keepdim=True)) / \
+            (ssm.expand * cfg.d_model)
+        y = y * torch.rsqrt(var + cfg.norm_eps).to(y.dtype) * \
+            p["norm_w"].to(y.dtype)
     return y @ p["out_proj"].to(xc.dtype), hT
 
 
@@ -451,10 +488,33 @@ def mamba2_prefill(p: Params, u: torch.Tensor, cfg: ModelConfig
     return y, Mamba2State(hT, x[:, -(ssm.d_conv - 1):].to(torch.bfloat16))
 
 
-def mamba2_apply_train(p: Params, u: torch.Tensor,
-                       cfg: ModelConfig) -> torch.Tensor:
-    """The full-sequence form: u [B,T,d] -> y [B,T,d]."""
-    return mamba2_prefill(p, u, cfg)[0]
+def mamba2_apply_train(p: Params, u: torch.Tensor, cfg: ModelConfig,
+                       mesh=None) -> torch.Tensor:
+    """The full-sequence form: u [B,T,d] -> y [B,T,d]. On a mesh with a
+    model axis (``mesh``, the trainer's ``MeshModel``): ``in_proj`` whole,
+    sliced to the rank's z, x and dt and the whole B and C (one group,
+    shared by the heads); the per-head leaves, replicated, at the rank's
+    heads; conv, norm and ``out_proj`` the rank's channels; the input
+    entered, the gated norm's sum of squares summed both ways, the output
+    left."""
+    if mesh is None or not mesh.tp:
+        return mamba2_prefill(p, u, cfg)[0]
+    ssm, d_in, H = _mamba2_dims(cfg)
+    gn = ssm.ngroups * ssm.d_state
+    z, x, Bc, Cc, dt = _rank_in_proj(
+        p["in_proj"], mesh.enter(u),
+        [(0, d_in, True), (d_in, d_in, True), (2 * d_in, gn, False),
+         (2 * d_in + gn, gn, False), (2 * d_in + 2 * gn, H, True)], mesh)
+    heads = mesh.block(H)
+    # replicated over model, read at the rank's heads: entered, so every
+    # rank's copy takes the whole gradient
+    q = dict(p, **{k: mesh.enter(p[k])[heads]
+                   for k in ("dt_bias", "A_log", "D")})
+    xc = _causal_conv(x, p["conv_w"], p["conv_b"])
+    h0 = torch.zeros((u.shape[0], dt.shape[-1], ssm.headdim, ssm.d_state),
+                     dtype=torch.float32, device=u.device)
+    return mesh.leave(_mamba2_core(q, xc, Bc, Cc, dt, z, h0, cfg,
+                                   mesh.mix)[0])
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, device) -> Mamba2State:

@@ -72,11 +72,13 @@ def hybrid_groups(cfg: ModelConfig):
     return cfg.num_layers // period, period, cfg.attn_shared_blocks
 
 
-def mlp(lp: Params, h: torch.Tensor, cfg: ModelConfig):
+def mlp(lp: Params, h: torch.Tensor, cfg: ModelConfig, mesh=None):
     """A layer's MLP: (out, aux loss), the experts for the MoE family (the
-    dense MLP's aux is the number 0: no launch on the decode path)."""
+    dense MLP's aux is the number 0: no launch on the decode path). On a
+    mesh the output is partial over ``model``; the dense MLP's input is
+    entered by the caller, the experts enter their own."""
     if cfg.family == "moe":
-        return MOE.moe_apply(lp["mlp"], h, cfg)
+        return MOE.moe_apply(lp["mlp"], h, cfg, mesh)
     return L.mlp_apply(lp["mlp"], h), 0.0
 
 
@@ -197,7 +199,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         any(t.requires_grad for t in tensors(params))
     x = embed(params, batch, cfg) if mesh is None else \
         mesh.embed(params, batch, cfg)
-    zero = torch.zeros((), dtype=torch.float32)
+    aux = 0.0
     if cfg.family in ("ssm", "hybrid"):
         mixer = SSM.mamba2_apply_train if cfg.family == "hybrid" else \
             SSM.mamba1_apply_train
@@ -206,20 +208,22 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         def group(x, g):
             lps = params["layers"][g * period:(g + 1) * period]
             for lp in lps:
+                if mesh is not None:
+                    lp = mesh.layer(lp)
                 x = x + mixer(lp["mixer"], L.rms_norm(x, lp["ln"],
-                                                      cfg.norm_eps), cfg)
+                                                      cfg.norm_eps), cfg,
+                              mesh)
             if cfg.family == "hybrid":          # the group's shared block
                 sp = params["shared"][g % len(params["shared"])]
-                x = _attn_block(sp, x, cfg, attn_impl)[0]
+                x = _attn_block(sp, x, cfg, attn_impl, mesh, "shared")[0]
             return x
 
         for g in range(len(params["layers"]) // period):
             x = _remat(remat, group, x, g)
-        return unembed(params, x, cfg), zero
-    aux = 0.0
-    for lp in params["layers"]:
-        x, a = _remat(remat, _attn_block, lp, x, cfg, attn_impl, mesh)
-        aux = aux + a
+    else:
+        for lp in params["layers"]:
+            x, a = _remat(remat, _attn_block, lp, x, cfg, attn_impl, mesh)
+            aux = aux + a
     logits = unembed(params, x, cfg) if mesh is None else \
         mesh.unembed(params, x, cfg)
     return logits, torch.as_tensor(aux, dtype=torch.float32)
@@ -241,20 +245,27 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-                attn_impl: str, mesh=None):
+                attn_impl: str, mesh=None, unit: str = "layers"):
     """Pre-norm attention then MLP (or experts): (x, aux loss). On a mesh:
-    the layer's leaves gathered over data, each product tensor-parallel at
-    the rank's head counts (``mesh.cfg``)."""
+    the layer's leaves gathered over data (``unit``: the stack they come
+    from), each product tensor-parallel at the rank's head counts
+    (``mesh.cfg``); MLA enters its latents and the experts their input
+    (``layers.mla_apply_train``, ``moe.moe_apply``), not the normed
+    input."""
     attn = L.mla_apply_train if cfg.attn_kind == "mla" else L.gqa_apply_train
     if mesh is None:
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attn(lp["attn"], h, cfg, attn_impl)
         y, a = mlp(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
         return x + y, a
-    lp = mesh.layer(lp)
-    h = mesh.enter(L.rms_norm(x, lp["ln1"], cfg.norm_eps))
-    x = x + mesh.leave(attn(lp["attn"], h, mesh.cfg, attn_impl))
-    y, a = mlp(lp, mesh.enter(L.rms_norm(x, lp["ln2"], cfg.norm_eps)),
-               mesh.cfg)
+    lp = mesh.layer(lp, unit)
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.attn_kind == "mla":
+        o = attn(lp["attn"], h, mesh.cfg, attn_impl, mesh)
+    else:
+        o = attn(lp["attn"], mesh.enter(h), mesh.cfg, attn_impl)
+    x = x + mesh.leave(o)
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y, a = mlp(lp, h if cfg.family == "moe" else mesh.enter(h), mesh.cfg,
+               mesh)
     return x + mesh.leave(y), a
-

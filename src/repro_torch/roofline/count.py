@@ -46,8 +46,7 @@ For the train, prefill and decode steps of every arch id at a given
   part in all of them: the whole leaf's bytes, counted as "all-gather"),
   a reduce-scatter an all_reduce of the whole (zero-padded) leaf, a psum
   an all_reduce (both "all-reduce"). Serve cells get none, with the
-  reason: the port serves on one device; so do the families the mesh step
-  refuses (ROADMAP A.9.5).
+  reason: the port serves on one device.
 
 Per rank: the whole program's FLOPs over the ranks (the mesh step splits
 every product over ``model`` and the batch over ``data``), the bytes of
@@ -380,8 +379,72 @@ def total_bytes(bs: List[Block]) -> int:
 def _empty_collectives() -> Dict[str, Any]:
     out: Dict[str, Any] = {k: 0.0 for k in COLLECTIVE_KINDS}
     out["by_use"] = {"gather": 0.0, "scatter": 0.0, "psum": 0.0,
-                     "logits": 0.0, "replicas": 0.0, "update": 0.0}
+                     "logits": 0.0, "batch": 0.0, "replicas": 0.0,
+                     "update": 0.0}
     return out
+
+
+def _unit_lead(cfg: ModelConfig, stack: str) -> int:
+    """Stacked dims of a leaf of ``params[stack]``."""
+    return 2 if stack == "layers" and cfg.family == "hybrid" else 1
+
+
+def _unit_uses(cfg: ModelConfig, blk: Block) -> int:
+    """How many times a forward runs a stacked leaf's layers: each layer
+    once; the hybrid's shared blocks once a group."""
+    if blk.path[0] == "shared":
+        return T.hybrid_groups(cfg)[0]
+    return int(np.prod(blk.full[:_unit_lead(cfg, blk.path[0])]))
+
+
+def _tp_bytes(cfg: ModelConfig, n: int, remat: bool) -> int:
+    """Bytes one rank hands ``all_reduce`` over ``model`` in the layers of
+    one microbatch of n tokens (forward, remat's forward, backward), as
+    ``models/parallel.py`` places the psums. Remat's forward stops at the
+    unit's last saved tensor, so a psum after it (the unit's last
+    ``leave``) runs once."""
+    act, d = ACT_BYTES[cfg.dtype], cfg.d_model
+    resid = n * d * act
+    r = int(remat)
+    if cfg.family == "ssm":                     # a layer a unit
+        ssm = cfg.ssm or SSMConfig()
+        dbc = n * (max(1, d // 16) + 2 * ssm.d_state) * act
+        return cfg.num_layers * ((dbc + resid) + r * dbc + (resid + dbc))
+    # an attention block: the attention's leave and the MLP's, the first
+    # again in remat; backward, the attention's entered inputs and the
+    # MLP's
+    if cfg.attn_kind == "mla":
+        m = cfg.mla or MLAConfig()
+        attn_in = n * (m.q_lora_rank + m.kv_lora_rank +
+                       m.qk_rope_head_dim) * act
+    else:
+        attn_in = resid
+    mlp_in = resid + (n * (cfg.moe or MoEConfig()).top_k * 4
+                      if cfg.family == "moe" else 0)
+    block = 2 * resid + r * resid + attn_in + mlp_in
+    if cfg.family != "hybrid":
+        return cfg.num_layers * block
+    # a group: its mixers (the gated norm's float32 sum of squares and
+    # the output, both again in remat; backward the input, the sum of
+    # squares and the three per-head leaves' grads), then its shared
+    # block, whose MLP's leave ends the unit
+    ssm = cfg.ssm or SSMConfig(kind="mamba2")
+    heads = ssm.expand * d // ssm.headdim
+    mixer = (1 + r) * (n * 4 + resid) + resid + n * 4 + 3 * heads * 4
+    g, period, _ = T.hybrid_groups(cfg)
+    return g * (period * mixer + block)
+
+
+def _moe_batch_bytes(cfg: ModelConfig, n_call: int, ways: int,
+                     remat: bool) -> int:
+    """Bytes one rank hands ``all_reduce`` over the batch's ranks in the
+    MoE layers of one microbatch: each routing call's per-expert counts
+    gathered (the sorted form's int64 counts before the dispatch, the
+    grouped form's float32 kept pairs) and its probabilities summed, in
+    the forward and remat's."""
+    e = (cfg.moe or MoEConfig()).num_experts
+    rows = 4 if n_call >= 2 * MOE.GROUP_TOKENS else 8
+    return cfg.num_layers * (1 + int(remat)) * (ways * e * rows + e * 4)
 
 
 def train_collectives(cfg: ModelConfig, tcfg: TrainConfig,
@@ -390,14 +453,14 @@ def train_collectives(cfg: ModelConfig, tcfg: TrainConfig,
     """Bytes one rank hands ``all_reduce`` ("all-reduce") and ``broadcast``
     ("all-gather") in one ``make_train_step(mesh=)`` step, counted from
     ``models/parallel.py`` and ``train/trainer.py``: per microbatch each
-    layer's leaves gathered over their data axes in its forward and in
-    remat's, their grads reduced once; over ``model`` two psums of the
-    residual stream a layer forward (one in remat's, which stops at the
-    MLP's last product) and two backward, the embedding's psum, the
-    logits gathered and the unembedding input's psum backward; then the
-    replicated leaves' grads summed over the batch's axes, the grad norm's
-    and the loss's scalars, and with the compressed state each leaf's grad
-    and param gathered whole."""
+    layer's leaves gathered over their data axes (a mixer's ``in_proj``
+    over every axis) in its forward and in remat's, their grads reduced
+    once; over ``model`` the psums of ``_tp_bytes``, the embedding's psum,
+    the logits gathered and the unembedding input's psum backward; over
+    the batch's ranks the MoE routing calls' sums and, with microbatches,
+    the rows re-dealt once; then the replicated leaves' grads summed over
+    the batch's axes, the grad norm's and the loss's scalars, and with the
+    compressed state each leaf's grad and param gathered whole."""
     sizes = dict(zip(mesh_axes, mesh_shape))
     out = _empty_collectives()
     if int(np.prod(mesh_shape)) == 1:
@@ -418,29 +481,33 @@ def train_collectives(cfg: ModelConfig, tcfg: TrainConfig,
     dw = int(np.prod([sizes[a] for a in batch_axes])) if batch_axes else 1
     m = sizes.get(PAR.MODEL, 1)
     B = tcfg.global_batch if batch_axes == () else tcfg.global_batch // dw
-    b, S, d = B // k, tcfg.seq_len, cfg.d_model
+    b, S = B // k, tcfg.seq_len
     act = ACT_BYTES[cfg.dtype]
     remat = cfg.remat
-    resid = b * S * d * act
     for blk in param_blocks:
-        if blk.path[0] != "layers":
+        if blk.path[0] not in ("layers", "shared"):
             continue
-        per_layer = PAR.without_model(blk.spec)[1:]
-        axes = spec_axes(per_layer)
+        lead = _unit_lead(cfg, blk.path[0])
+        axes = spec_axes(PAR.unit_spec(blk.path, blk.spec, lead))
         if not axes:
             continue
         ways = int(np.prod([sizes[a] for a in axes]))
-        # the layer's leaf gathered whole over data at the rank's model block
-        whole = _nbytes(blk.local[1:], blk.dtype) * ways
-        layers = blk.full[0]
-        add("broadcast", "gather", k * layers * (1 + remat) * whole)
-        add("all_reduce", "scatter", k * layers * whole)
+        # the layer's leaf gathered whole over those axes
+        whole = _nbytes(blk.local[lead:], blk.dtype) * ways
+        uses = _unit_uses(cfg, blk)
+        add("broadcast", "gather", k * uses * (1 + remat) * whole)
+        add("all_reduce", "scatter", k * uses * whole)
     if m > 1:
-        L = cfg.num_layers
-        n_psum = L * (2 + int(remat) + 2) + \
-            (0 if cfg.frontend != "none" else 1) + 1
-        add("all_reduce", "psum", k * n_psum * resid)
+        embed = 0 if cfg.frontend != "none" else 1
+        add("all_reduce", "psum", k * (_tp_bytes(cfg, b * S, remat) +
+                                       (embed + 1) * b * S * cfg.d_model *
+                                       act))
         add("broadcast", "logits", k * b * S * cfg.vocab_size * act)
+    if dw > 1 and cfg.family == "moe":
+        add("all_reduce", "psum",
+            k * _moe_batch_bytes(cfg, b * S * dw, dw, remat))
+        if k > 1:                       # tokens and labels, int32
+            add("broadcast", "batch", 2 * tcfg.global_batch * S * 4)
     if batch_axes:
         gdt = None if k == 1 else torch.float32
         groups: Dict[Tuple, int] = {}
@@ -476,11 +543,17 @@ def _model_only(spec) -> Tuple:
                  for e in spec)
 
 
-def gathered_bytes(param_blocks: List[Block], sizes: Dict[str, int]) -> int:
+def gathered_bytes(param_blocks: List[Block], sizes: Dict[str, int],
+                   whole: bool = False) -> int:
     """Bytes of the params as the rank's products read them: each leaf
-    gathered over its data axes, the rank's block over ``model``."""
-    return sum(_nbytes(SH.block_shape(b.full, _model_only(b.spec), sizes),
-                       b.dtype) for b in param_blocks if b.full)
+    gathered over its data axes, the rank's block over ``model``; with
+    ``whole``, as a layer gathers them (a mixer's ``in_proj`` whole over
+    ``model`` too: ``models/parallel.py::WHOLE``)."""
+    def spec(b):
+        return () if whole and tuple(b.path[-2:]) in PAR.WHOLE else \
+            _model_only(b.spec)
+    return sum(_nbytes(SH.block_shape(b.full, spec(b), sizes), b.dtype)
+               for b in param_blocks if b.full)
 
 
 # bytes autograd saves a token a d_in channel of one mixer's forward, as
@@ -543,7 +616,7 @@ def train_memory(cfg: ModelConfig, tcfg: TrainConfig, param_blocks,
     with microbatches also the float32 sum), state, batch, and ``temp``, an
     estimate of the working set: the saved layer inputs under remat (every
     unit's working set without it), then the larger of one unit's working
-    set (with the layer gathered whole and its grads on a mesh) and the
+    set (with the layer's gathered leaves and their grads on a mesh) and the
     logits' (the loss's float32 log-softmax, its incoming grad and its
     grad: 12 B a logit). ``rows``: the rank's rows of the batch."""
     k = max(tcfg.microbatches, 1)
@@ -553,10 +626,13 @@ def train_memory(cfg: ModelConfig, tcfg: TrainConfig, param_blocks,
     grads = params + (4 * numel if k > 1 else 0)
     units = remat_unit_count(cfg)
     unit = unit_working_set(cfg, b, S, grad=True)
-    layers = [bl for bl in param_blocks if bl.path[0] in ("layers",
-                                                          "shared")]
-    gathered = 2 * gathered_bytes(layers, sizes) // max(units, 1) \
-        if int(np.prod(list(sizes.values()))) > 1 else 0
+    # the layer's leaves that its forward gathers (a live axis in the
+    # spec it gathers them under), and their grads
+    gathered = 2 * gathered_bytes([
+        bl for bl in param_blocks if bl.path[0] in ("layers", "shared") and
+        any(sizes[a] > 1 for e in PAR.unit_spec(
+            bl.path, bl.spec, _unit_lead(cfg, bl.path[0]))
+            for a in SH._entry_axes(e))], sizes, whole=True) // max(units, 1)
     saved = units * b * S * cfg.d_model * act if cfg.remat else \
         units * unit
     temp = saved + max(unit + gathered, 12 * b * S * cfg.vocab_size)

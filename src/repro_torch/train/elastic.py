@@ -12,8 +12,8 @@
 ``launch/train.py --devices D`` trains on ``plan_mesh(D,
 prefer_model=2)`` through ``trainer.make_train_step(mesh=)``, and a
 checkpoint restores onto any mesh, a ``degraded_plan`` included
-(``checkpoint.restore(shardings=)``); the mesh for MLA, MoE, SSM and
-hybrid is ROADMAP A.9.5. Data-parallel ranks with int8 gradient codes
+(``checkpoint.restore(shardings=)``), for every family (MLA, MoE, SSM and
+hybrid among them). Data-parallel ranks with int8 gradient codes
 train through ``trainer.make_dp_compressed_step``.
 """
 from __future__ import annotations

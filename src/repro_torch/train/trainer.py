@@ -23,8 +23,10 @@ device, NCCL on the cards, gloo on the CPU):
     layer and reduce-scatters its grads when they are complete), the
     batch split over data, leaves that the mesh replicates all-reduced
     after the backward, and AdamW on the blocks with a global norm
-    (``optim/adamw.py``). The GQA-and-dense-MLP families only on a mesh
-    that shards anything (MLA, MoE, SSM and hybrid: ROADMAP A.9.5);
+    (``optim/adamw.py``). Every family: MLA's latents on every rank and
+    its heads over model, MoE's experts over model with each routing call
+    the reference's across the data ranks (its microbatches re-dealt so),
+    the mixers' channels and heads over model (``models/parallel.py``);
   * ``make_dp_compressed_step`` is the reference's data-parallel step with
     int8 error-feedback gradient collectives.
 """
@@ -137,8 +139,9 @@ def grads_and_loss(params: Tree, batch: Dict[str, torch.Tensor],
     """(grads, loss). One microbatch: grads in the params' dtype. k > 1:
     each microbatch's grads (in the params' dtype) summed in float32 and
     scaled by 1/k, as the reference's ``lax.scan`` does. ``mesh``: the
-    rank's blocks and rows (``make_train_step(mesh=)``); the loss is the
-    rank's rows', the grads not yet reduced over replicas."""
+    rank's blocks and rows (``make_train_step(mesh=)``; the MoE family's
+    rows re-dealt first, ``_redeal``); the loss is the rank's rows', the
+    grads not yet reduced over replicas."""
     def zeros(p, dtype=None):
         return torch.zeros(p.shape, dtype=dtype or p.dtype, device=p.device)
 
@@ -147,6 +150,8 @@ def grads_and_loss(params: Tree, batch: Dict[str, torch.Tensor],
         return grads, _backward_into(params, grads, batch, cfg, attn_impl,
                                      mesh)
     k = microbatches
+    if mesh is not None and mesh.batch_ways > 1 and cfg.family == "moe":
+        batch = _redeal(batch, k, mesh)
     acc = TR.map_tree(lambda p: zeros(p, torch.float32), params)
     buf = TR.map_tree(zeros, params)
     lsum = None
@@ -165,6 +170,26 @@ def grads_and_loss(params: Tree, batch: Dict[str, torch.Tensor],
     for _, a in TR.leaves_with_paths(acc):
         a *= inv
     return acc, lsum * inv
+
+
+def _redeal(batch: Dict[str, torch.Tensor], k: int,
+            mesh: "PAR.MeshModel") -> Dict[str, torch.Tensor]:
+    """The rank's rows re-dealt so that its i-th microbatch is its share of
+    the reference's i-th (global rows [i B / k, (i + 1) B / k), spread
+    evenly over the batch's ranks): a routing call of the MoE family is
+    then the reference's token set. Every rank's rows are gathered (B x S
+    int32 tokens and labels) and the rank takes its own."""
+    out = {}
+    for name, x in batch.items():
+        whole = mesh.mesh.gather(x, mesh.batch_spec)
+        B, D = whole.shape[0], mesh.batch_ways
+        if B % (k * D):
+            raise ValueError(f"{B} rows do not split into {k} microbatches "
+                             f"over {D} ranks")
+        rows = whole.reshape((k, D, B // (k * D)) + whole.shape[1:])
+        out[name] = rows[:, mesh.batch_index].reshape(
+            (B // D,) + whole.shape[1:])
+    return out
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -196,15 +221,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     if mesh is None:
         return step, None
-    PAR.check_mesh_family(cfg, mesh)
+    PAR.check_splits(cfg, mesh)
     specs = SH.tree_specs(T.param_axes(cfg) if param_axes is None
                           else param_axes, rules, mesh.axes)
     _check_mesh_specs(cfg, mesh, specs)
     shardings = mesh_shardings(cfg, ocfg, mesh, specs, rules)
     if mesh.size == 1:                  # shards nothing: the one-device step
         return step, shardings
-    batch_axes = mesh.spec_axes(shardings["batch"].specs["tokens"])
-    model = PAR.MeshModel(cfg, mesh, specs, mesh.axis_size(batch_axes))
+    model = PAR.MeshModel(cfg, mesh, specs,
+                          shardings["batch"].specs["tokens"])
+    batch_axes = model.batch_axes
     psh = shardings["params"]
 
     def mesh_step(params: Tree, opt: adamw.AdamState,

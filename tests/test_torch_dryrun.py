@@ -22,8 +22,10 @@ the JAX package and against the port itself, on the CPU:
   * the count's collective bytes equal the bytes ``Mesh``'s collectives
     hand ``all_reduce`` and ``broadcast`` in one REDUCED llama3 step on
     gloo ranks at (2, 1), (1, 2) and (2, 2) (the raw state; at (2, 2) also
-    the compressed state and 2 microbatches), counted by wrapping the two
-    calls (``tests/torch_dryrun_ranks.py``);
+    the compressed state and 2 microbatches), and at (2, 1) and (1, 2) in
+    one step of each other kind (MLA, MoE at 2 microbatches, Mamba1,
+    hybrid), counted by wrapping the two calls
+    (``tests/torch_dryrun_ranks.py``);
   * the per-device ``memory_analysis().argument_size_in_bytes`` of the
     reference's compiled REDUCED train step on a (2, 2) mesh of 4 forced
     host devices (a subprocess, beside the ranks) equals the port's
@@ -66,6 +68,10 @@ MESHES = [MeshConfig((16, 16), ("data", "model")),
           MeshConfig((2, 16, 16), ("pod", "data", "model"))] + \
     [elastic.plan_mesh(n, prefer_model=2) for n in (1, 2, 4, 8)]
 RANK_MESHES = [(2, 1), (1, 2), (2, 2)]
+# one config of each other kind beside llama3 at (2, 1) and (1, 2): MLA,
+# MoE (at 2 microbatches: its rows re-dealt over data), Mamba1, hybrid
+FAMILY_MOE = "qwen3_moe_235b_a22b"
+RANK_FAMILIES = ("minicpm3_4b", FAMILY_MOE, "falcon_mamba_7b", "zamba2_2p7b")
 RANK_TIMEOUT = 300.0
 SRC = Path(__file__).resolve().parents[1] / "src"
 # the XLA subprocess's cell: REDUCED llama3 in float32 at 16 x 32 tokens
@@ -353,17 +359,24 @@ def rank_runs(tmp_path_factory):
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     sub = subprocess.Popen([sys.executable, __file__, str(tmp / "xla")],
                            env=env)
-    cfg = dataclasses.replace(get_reduced("llama3_8b"), dtype="float32")
+    def f32(arch):
+        return dataclasses.replace(get_reduced(arch), dtype="float32")
+
+    cfg = f32("llama3_8b")
     raw = TrainConfig(seq_len=32, global_batch=4)
     more = [TrainConfig(seq_len=32, global_batch=4, optimizer=OptimizerConfig(
         compress_state=True)), TrainConfig(seq_len=32, global_batch=8,
                                            microbatches=2)]
+    families = [(f32(a), TrainConfig(seq_len=32, global_batch=8,
+                                     microbatches=2) if a == FAMILY_MOE
+                 else raw) for a in RANK_FAMILIES]
+    runs = {s: [(cfg, raw)] + ([(cfg, t) for t in more] if s == (2, 2)
+                               else families) for s in RANK_MESHES}
     try:
         with cf.ThreadPoolExecutor(3) as pool:
             futs = {s: pool.submit(
                 SH.spawn_ranks, torch_dryrun_ranks.collective_bytes,
-                s[0] * s[1], backend="gloo",
-                args=(cfg, [raw] + (more if s == (2, 2) else []), s),
+                s[0] * s[1], backend="gloo", args=(runs[s], s),
                 device="cpu", workdir=str(tmp / ("%dx%d" % s)),
                 timeout=RANK_TIMEOUT) for s in RANK_MESHES}
             got = {s: f.result() for s, f in futs.items()}
@@ -371,16 +384,17 @@ def rank_runs(tmp_path_factory):
     finally:
         if sub.poll() is None:
             sub.kill()
-    return {"cfg": cfg, "tcfgs": [raw] + more, "ranks": got,
+    return {"cfg": cfg, "runs": runs, "ranks": got,
             "xla": int((tmp / "xla").read_text())}
 
 
 @pytest.mark.parametrize("shape", RANK_MESHES, ids=lambda s: "%dx%d" % s)
 def test_collective_bytes_equal_gloo_ranks(rank_runs, shape):
-    cfg = rank_runs["cfg"]
     mc = MeshConfig(shape, ("data", "model"))
+    runs = rank_runs["runs"][shape]
+    assert len(runs) == (3 if shape == (2, 2) else 1 + len(RANK_FAMILIES))
     for i, per_rank in enumerate(zip(*rank_runs["ranks"][shape])):
-        tcfg = rank_runs["tcfgs"][i]
+        cfg, tcfg = runs[i]
         want = DRY.count_cell(cfg, ShapeConfig(
             "reduced", tcfg.seq_len, tcfg.global_batch, "train"), mc,
             tcfg)["collective_bytes"]

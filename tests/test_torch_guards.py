@@ -202,12 +202,14 @@ def test_train_launcher_without_device_needs_cuda(capsys):
 
 
 def test_mesh_and_dp_compressed_step_raise_naming_roadmap():
-    """The mesh step refuses a family it does not shard (MLA here) on a
-    mesh that shards anything, naming ROADMAP A.9.5 (a stand-in for the
-    (2, 2) mesh of ``plan_mesh(4)``: the check reads its sizes); the
-    data-parallel step needs a rank group and says so without one."""
+    """The mesh step refuses, before anything is made, a model axis that
+    does not split the experts (9 over 2) or the Mamba heads (1 over 2),
+    naming both counts (a stand-in for the (2, 2) mesh of
+    ``plan_mesh(4)``: the check reads its sizes); the data-parallel step
+    needs a rank group and says so without one."""
+    import dataclasses
     import types
-    from repro_torch.common.types import TrainConfig
+    from repro_torch.common.types import MoEConfig, TrainConfig
     from repro_torch.configs import get_reduced
     from repro_torch.train import elastic, trainer
     cfg, tcfg = get_reduced("llama3_8b"), TrainConfig()
@@ -215,8 +217,17 @@ def test_mesh_and_dp_compressed_step_raise_naming_roadmap():
     mesh = types.SimpleNamespace(shape=plan.shape, axes=plan.axes,
                                  size=plan.num_devices,
                                  sizes=dict(zip(plan.axes, plan.shape)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9.5"):
-        trainer.make_train_step(get_reduced("minicpm3_4b"), tcfg, mesh)
+    moe = dataclasses.replace(get_reduced("qwen3_moe_235b_a22b"),
+                              moe=MoEConfig(num_experts=9, top_k=2,
+                                            expert_d_ff=256))
+    with pytest.raises(ValueError, match="9 experts do not split over a "
+                       "model axis of 2"):
+        trainer.make_train_step(moe, tcfg, mesh)
+    hybrid = get_reduced("zamba2_2p7b")
+    hybrid = dataclasses.replace(hybrid, ssm=dataclasses.replace(
+        hybrid.ssm, headdim=256))
+    with pytest.raises(ValueError, match="1 Mamba heads do not split"):
+        trainer.make_train_step(hybrid, tcfg, mesh)
     with pytest.raises(RuntimeError, match="no initialized rank group"):
         trainer.make_dp_compressed_step(cfg, tcfg)
 

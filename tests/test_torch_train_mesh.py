@@ -303,12 +303,15 @@ def test_mesh_collectives_in_pieces(tmp_path):
         assert len(out) == 10 and all(out.values()), (r, out)
 
 
-def test_launcher_devices_2_trains_on_the_planned_mesh(tmp_path, capfd):
+@pytest.mark.parametrize("arch", ["llama3_8b", "zamba2_2p7b"])
+def test_launcher_devices_2_trains_on_the_planned_mesh(tmp_path, capfd,
+                                                       arch):
     """``launch/train.py --devices 2 --device cpu`` spawns two gloo ranks
     and trains on ``plan_mesh(2, prefer_model=2)``: rank 0 prints the mesh
-    as the reference's launcher does and returns three finite losses."""
+    as the reference's launcher does and returns three finite losses (the
+    hybrid too: its mixers' heads over model)."""
     from repro_torch.launch import train as LT
-    out = LT.main(["--arch", "llama3_8b", "--reduced", "--devices", "2",
+    out = LT.main(["--arch", arch, "--reduced", "--devices", "2",
                    "--device", "cpu", "--steps", "3", "--seq-len", "32",
                    "--global-batch", "4", "--ckpt-dir", str(tmp_path)])
     text = capfd.readouterr().out
@@ -317,20 +320,6 @@ def test_launcher_devices_2_trains_on_the_planned_mesh(tmp_path, capfd):
     assert out["mesh"] == {"data": 1, "model": 2}
     assert sorted(out["losses"]) == [0, 1, 2]
     assert all(np.isfinite(v) for v in out["losses"].values())
-
-
-@pytest.mark.parametrize("arch", ["minicpm3_4b", "qwen3_moe_235b_a22b",
-                                  "arctic_480b", "falcon_mamba_7b",
-                                  "zamba2_2p7b"])
-@pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
-def test_families_without_mesh_support_raise(arch, shape):
-    """MLA, MoE, SSM and hybrid on a mesh that shards anything raise,
-    naming ROADMAP A.9.5 (a stand-in mesh: the check reads its sizes)."""
-    mesh = types.SimpleNamespace(shape=shape, axes=("data", "model"),
-                                 size=shape[0] * shape[1],
-                                 sizes=dict(zip(("data", "model"), shape)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9.5"):
-        trainer.make_train_step(get_reduced(arch), RAW, mesh)
 
 
 if __name__ == "__main__":

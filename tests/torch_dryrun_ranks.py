@@ -10,11 +10,12 @@ from repro_torch.optim import adamw
 from repro_torch.train import trainer
 
 
-def collective_bytes(group, cfg, tcfgs, shape) -> list:
-    """For each TrainConfig of ``tcfgs``: one ``make_train_step(mesh=)``
-    step of ``cfg`` on a (data, model) mesh of ``shape`` from the seeded
-    params, with every ``all_reduce`` and ``broadcast`` this rank makes in
-    the step tallied by the bytes of the tensor it hands over."""
+def collective_bytes(group, runs, shape) -> list:
+    """For each (model config, TrainConfig) of ``runs``: one
+    ``make_train_step(mesh=)`` step on a (data, model) mesh of ``shape``
+    from the seeded params, with every ``all_reduce`` and ``broadcast``
+    this rank makes in the step tallied by the bytes of the tensor it
+    hands over."""
     tally = {"all_reduce": 0, "broadcast": 0}
     real = {k: getattr(dist, k) for k in tally}
 
@@ -27,7 +28,7 @@ def collective_bytes(group, cfg, tcfgs, shape) -> list:
     mesh = make_mesh(MeshConfig(shape=tuple(shape), axes=("data", "model")),
                      group)
     out = []
-    for tcfg in tcfgs:
+    for cfg, tcfg in runs:
         step, sh = trainer.make_train_step(cfg, tcfg, mesh)
         p = sh["params"].shard(trainer.init_params(cfg, 0, "cpu"))
         opt = adamw.init(p, tcfg.optimizer, sharding=sh["params"])

@@ -34,3 +34,27 @@ def collectives_in_pieces(group, piece_bytes: int) -> dict:
             out[f"scatter {axes}"] = torch.equal(mesh.scatter(mine, spec),
                                                  mesh.shard(want, spec))
     return out
+
+
+def mesh_steps(group, shape, runs) -> list:
+    """``trainer.run_mesh_steps`` on a mesh of ``shape`` for each (model
+    config, TrainConfig, the reference's params as numpy, global batches,
+    ``enter_input``) of ``runs`` in turn; with ``enter_input`` MLA's
+    normed input is entered as well as its latents (each gradient that
+    reaches it then counted once a rank of the model axis). Rank 0's
+    records (losses, grad norms, the end params and state gathered);
+    None on the others."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import trainer
+    out = []
+    mla = L.mla_apply_train
+    for cfg, tcfg, params, batches, enter_input in runs:
+        if enter_input:
+            L.mla_apply_train = lambda p, x, c, impl="auto", mesh=None: mla(
+                p, mesh.enter(x), c, impl, mesh)
+        try:
+            out.append(trainer.run_mesh_steps(group, cfg, tcfg, shape,
+                                              params, batches))
+        finally:
+            L.mla_apply_train = mla
+    return out if group.rank == 0 else None

@@ -8,7 +8,13 @@ carried across in the stacked layout (``interop``), the same
   * the loss at rtol 1e-5, every grad leaf normwise 1e-4, microbatches 1
     and 2 (``grads_and_loss``);
   * three ``make_train_step`` steps (microbatches 2) against the
-    reference's jitted step: losses at rtol 1e-5, params normwise 1e-4;
+    reference's jitted step (``ref_steps``, run once an arch): losses at
+    rtol 1e-5, params normwise 1e-4;
+  * the same three steps on (data, model) meshes of gloo ranks
+    (``mesh_runs``, ``check_mesh``) against the same reference: GSPMD
+    keeps the one-device program's meaning, so the one-device step is
+    the mesh step's oracle up to the order of float32 sums; losses and
+    grad norms at rtol 1e-5, params and raw moments normwise 1e-4;
   * the compressed state (``compress_state=True``) against the reference's
     grads (jitted) and its eager update, each step fed the reference's params and
     state: losses at rtol 1e-5, params normwise 1e-4, the 8-bit codes of m
@@ -16,6 +22,7 @@ carried across in the stacked layout (``interop``), the same
     under 1 in 1,000, the scales within 1e-4 relative (C11: the
     reference's jitted compressed step cannot run).
 """
+import concurrent.futures as cf
 import dataclasses
 import functools
 
@@ -31,9 +38,11 @@ from repro.models import transformer as JT
 from repro.optim import adamw as JA
 from repro.train import trainer as JTR
 from repro_torch import interop
+from repro_torch.common import sharding as SH
 from repro_torch.common import tree as TR
 from repro_torch.common.types import OptimizerConfig, TrainConfig
 from repro_torch.configs import get_reduced
+from repro_torch.configs.registry import ALIASES
 from repro_torch.data.pipeline import make_batch
 from repro_torch.optim import adamw
 from repro_torch.train import trainer
@@ -42,6 +51,8 @@ GRAD_TOL = 1e-4
 LOSS_RTOL = 1e-5
 MAX_CODE_FLIPS = 1e-3
 BATCH, SEQ = 4, 32
+MESHES = [(2, 1), (1, 2), (2, 2)]
+RANK_TIMEOUT = 300.0
 
 
 def norm_err(got, want) -> float:
@@ -99,33 +110,123 @@ def check_grads(cfg, jcfg, jparams, microbatches: int) -> int:
     return len(got)
 
 
-def check_three_steps(cfg, jcfg, jparams) -> list:
-    """Three steps (microbatches 2) against the reference's jitted step;
-    the port's losses."""
-    jt = JTrain(steps=3, seq_len=SEQ, global_batch=BATCH, microbatches=2,
-                optimizer=JOpt(lr=1e-3, warmup_steps=1))
-    tcfg = TrainConfig(steps=3, seq_len=SEQ, global_batch=BATCH,
-                       microbatches=2,
-                       optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1))
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def train_cfgs(steps=3, global_batch=BATCH, seq_len=SEQ, microbatches=2):
+    """(the reference's TrainConfig, the port's): lr 1e-3, warm-up 1."""
+    kw = dict(steps=steps, seq_len=seq_len, global_batch=global_batch,
+              microbatches=microbatches)
+    return (JTrain(optimizer=JOpt(lr=1e-3, warmup_steps=1), **kw),
+            TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1),
+                        **kw))
+
+
+def np_batches(jcfg, steps, global_batch=BATCH, seq_len=SEQ):
+    return [{k: np.asarray(v) for k, v in jmake_batch(
+        jcfg, i, global_batch=global_batch, seq_len=seq_len).items()}
+        for i in range(steps)]
+
+
+@functools.lru_cache(maxsize=None)
+def ref_steps(arch: str, steps=3, global_batch=BATCH, seq_len=SEQ,
+              microbatches=2) -> dict:
+    """The reference's jitted step from its ``init_params``, ``steps``
+    times over ``make_batch``'s batches: losses, grad norms, and the end
+    params and raw moments as numpy (one run an arch and recipe, shared
+    by the one-device and the mesh checks)."""
+    _, jcfg, jparams = setup(arch)
+    jt = train_cfgs(steps, global_batch, seq_len, microbatches)[0]
     jstep, _ = JTR.make_train_step(jcfg, jt)
     jp = jax.tree_util.tree_map(jnp.asarray, jparams)
     jopt = JA.init(jp, jt.optimizer)
+    losses, norms = [], []
+    for b in np_batches(jcfg, steps, global_batch, seq_len):
+        jp, jopt, jm = jstep(jp, jopt, b)
+        losses.append(float(jm["loss"]))
+        norms.append(float(jm["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms, "params": _np(jp),
+            "m": _np(jopt.m), "v": _np(jopt.v)}
+
+
+def check_three_steps(cfg, jcfg, jparams) -> list:
+    """Three steps (microbatches 2) against the reference's jitted step;
+    the port's losses."""
+    ref = ref_steps(ALIASES[cfg.name])
+    tcfg = train_cfgs()[1]
     step, _ = trainer.make_train_step(cfg, tcfg)
     p = params(cfg, jparams)
     opt = adamw.init(p, tcfg.optimizer)
     losses = []
     for i in range(3):
-        jp, jopt, jm = jstep(jp, jopt, jbatch(jcfg, i))
         p, opt, m = step(p, opt, batch(cfg, i))
-        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+        np.testing.assert_allclose(float(m["loss"]), ref["losses"][i],
                                    rtol=LOSS_RTOL)
         np.testing.assert_allclose(float(m["grad_norm"]),
-                                   float(jm["grad_norm"]), rtol=GRAD_TOL)
+                                   ref["grad_norms"][i], rtol=GRAD_TOL)
         losses.append(float(m["loss"]))
-    want = dict(TR.leaves_with_paths(jax.tree_util.tree_map(np.asarray, jp)))
+    want = dict(TR.leaves_with_paths(ref["params"]))
     for path, x in TR.leaves_with_paths(p):
         assert norm_err(x, want[path]) <= GRAD_TOL, path
     return losses
+
+
+def mesh_runs(archs, tmp, extra=None) -> dict:
+    """Each arch's three steps (``ref_steps``' recipe) on each mesh of
+    MESHES over gloo ranks: one spawn a mesh, side by side, each running
+    the archs in turn (``torch_mesh_ranks.mesh_steps``), the reference's
+    runs made meanwhile. ``extra``: {shape: [(key, arch, TrainConfig,
+    global batch, seq len, enter_input)]} run after the archs on that
+    mesh. Returns {(arch or key, shape): rank 0's record}."""
+    import torch_mesh_ranks
+    jobs = {s: [(a, a, train_cfgs()[1], BATCH, SEQ, False) for a in archs]
+            + list((extra or {}).get(s, ())) for s in MESHES}
+
+    def run(shape):
+        runs = []
+        for _, arch, tcfg, gb, seq, enter in jobs[shape]:
+            cfg, jcfg, jparams = setup(arch)
+            runs.append((cfg, tcfg, jparams,
+                         np_batches(jcfg, tcfg.steps, gb, seq), enter))
+        return SH.spawn_ranks(
+            torch_mesh_ranks.mesh_steps, shape[0] * shape[1],
+            backend="gloo", args=(shape, runs), device="cpu",
+            workdir=str(tmp / ("%dx%d" % shape)), timeout=RANK_TIMEOUT)[0]
+
+    for arch in archs:
+        setup(arch)
+    with cf.ThreadPoolExecutor(len(MESHES)) as pool:
+        futs = {s: pool.submit(run, s) for s in MESHES}
+        for arch in archs:
+            ref_steps(arch)
+        return {(key, s): rec for s, f in futs.items()
+                for (key, *_), rec in zip(jobs[s], f.result())}
+
+
+def check_mesh(got: dict, ref: dict) -> dict:
+    """A mesh run against the reference's steps: losses and grad norms at
+    rtol LOSS_RTOL, every param and raw moment normwise GRAD_TOL; the
+    largest errors."""
+    errs = {}
+    for key in ("losses", "grad_norms"):
+        np.testing.assert_allclose(got[key], ref[key], rtol=LOSS_RTOL)
+        errs[key] = max(abs(a - b) / abs(b) for a, b in zip(got[key],
+                                                            ref[key]))
+    n = 0
+    for name, tree in (("params", got["params"]), ("m", got["opt"].m),
+                       ("v", got["opt"].v)):
+        want = dict(TR.leaves_with_paths(ref[name]))
+        assert {p for p, _ in TR.leaves_with_paths(tree)} == set(want)
+        errs[name] = 0.0
+        for path, x in TR.leaves_with_paths(tree):
+            assert x.shape == want[path].shape, (name, path)
+            e = norm_err(x, want[path])
+            assert e <= GRAD_TOL, (name, path, e)
+            errs[name] = max(errs[name], e)
+            n += 1
+    errs["leaves"] = n
+    return errs
 
 
 def assert_codes_close(got_state, want_state, what, scale_rtol):
