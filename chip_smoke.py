@@ -286,6 +286,14 @@ exits non-zero:
              the families' train shapes (40 x 96/64, 64/4 x 128, 32/32 x
              80) against its plain version, and its kernel / eager / plain
              / SDPA / bound times
+ 23 lint     (a) the port's host-sync lint (``repro_torch.analysis``) in
+             process over src/repro_torch against its committed baseline:
+             files, active, suppressed and new findings, seconds; any new
+             finding fails the script; (b) its sync-free regions
+             (``@sync_contract(fetches=0)``) on the card, each called once
+             after a warm-up under PyTorch's sync debug mode:
+             ``decode_step`` on phase 9's model and the train step on
+             18c's, 0 sync warnings and 0 counted syncs each
 
 Every kernel row's bound comes from ``roofline.analyze.kernel_bound`` and
 the kernels line carries each row's ``kernel_roofline`` fields.
@@ -7161,6 +7169,134 @@ def phase_family_attn(dev, tag: str) -> tuple:
     return errs, times
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the port's host-sync lint, and its sync-free regions on the card.
+# ---------------------------------------------------------------------------
+
+LINT_BASELINE = "src/repro_torch/analysis/baseline.json"
+
+
+def phase_lint(tag: str) -> dict:
+    """23a: the port's lint (``repro_torch.analysis``, stdlib only) in
+    process over src/repro_torch against its committed baseline. A new
+    finding, a stale baseline entry or a parse error fails the script."""
+    from repro_torch.analysis import lint as LINT
+    t0 = time.perf_counter()
+    report = LINT.run_lint([str(ROOT / "src" / "repro_torch")],
+                           baseline_path=ROOT / LINT_BASELINE)
+    secs = time.perf_counter() - t0
+    report.pop("_findings")
+    c = report["counts"]
+    print(f"phase 23a lint: {report['files']} files, {c['active']} active "
+          f"({c['grandfathered']} grandfathered, {c['new']} new), "
+          f"{c['suppressed']} suppressed host-ok, {c['stale_baseline']} "
+          f"stale baseline entries, {c['parse_errors']} parse errors, by "
+          f"rule {json.dumps(report['by_rule'])} | {secs:.3f} s [{tag}]",
+          flush=True)
+    for f in report["new"] + report["parse_errors"]:
+        print(f"  {f['path']}:{f['line']}: {f['rule']} [{f['func']}] "
+              f"{f['message']}", flush=True)
+    check(report["ok"] and not report["stale_baseline"],
+          f"phase 23a: the port's lint failed: {c}")
+    return {"seconds": secs, **c}
+
+
+def _under_sync_debug(fn, probe: torch.Tensor) -> tuple:
+    """(fn's result, the sync warnings PyTorch's sync debug mode gave
+    during fn, whether it caught a deliberate ``probe.item()`` after it:
+    the instrument's own check)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            n = len(caught)
+            probe.reshape(-1)[0].item()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    msgs = [str(w.message)[:120] for w in caught[:n]
+            if SYNC_WARNING in str(w.message)]
+    return out, msgs, any(SYNC_WARNING in str(w.message)
+                          for w in caught[n:])
+
+
+def phase_regions(dev, tag: str) -> dict:
+    """23b: the lint's sync-free regions (``@sync_contract(fetches=0)``)
+    held against the card: each region the script builds inputs for,
+    called once after a warm-up call, under PyTorch's sync debug mode:
+    ``decode_step`` (with ``gqa_decode_layer``) on phase 9's model
+    (llama3-8b's widths, 2 layers, bf16, 4 lanes after a prefill of
+    phase 9's prompts) and the train step (with ``adamw.update``) on
+    18c's (2 layers, float32, microbatches 2, compressed state). Every
+    region must show 0 sync warnings and leave ``contracts.SYNCS`` as it
+    was."""
+    from repro_torch.common import contracts
+    from repro_torch.common.types import ServeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    t0 = time.perf_counter()
+    out = {}
+    cfg = _llama(layers=2)
+    name = cfg.name
+    params = T.init_params(cfg, seed=SEED + 2, device=dev)
+    prompts = _prompts(4, cfg.vocab_size, SEED + 2)
+    S = 1 << (max(map(len, prompts)) - 1).bit_length()
+    tokens = torch.zeros((4, S), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    scfg = ServeConfig(**SERVE_CFG)
+    lg, cache = D.prefill(params, {"tokens": tokens}, cfg, scfg,
+                          SERVE_MAX_LEN, lens=lens)
+    tok = lg.argmax(-1).to(torch.int32)
+    lg, _ = D.decode_step(params, cache, tok, lens, cfg, scfg)  # warm-up
+    tok, pos = lg.argmax(-1).to(torch.int32), lens + 1
+    torch.cuda.synchronize()
+    s0 = contracts.SYNCS.count
+    (lg, _), msgs, probe_ok = _under_sync_debug(
+        lambda: D.decode_step(params, cache, tok, pos, cfg, scfg), lg)
+    out["decode_step"] = {"warnings": len(msgs), "msgs": msgs[:3],
+                          "syncs": contracts.SYNCS.count - s0,
+                          "probe": probe_ok,
+                          "finite": bool(lg.float().isfinite().all())}
+    del params, cache, lg
+    torch.cuda.empty_cache()
+
+    cfg, tcfg = _train_configs(TRAIN_WHOLE_LAYERS, "float32", 2)
+    params = trainer.init_params(cfg, SEED + 1, dev)
+    opt = adamw.init(params, tcfg.optimizer)
+    step_fn, _ = trainer.make_train_step(cfg, tcfg)
+    batches = [make_batch(cfg, i, global_batch=tcfg.global_batch,
+                          seq_len=tcfg.seq_len, device=dev)
+               for i in range(2)]
+    params, opt, m = step_fn(params, opt, batches[0])          # warm-up
+    torch.cuda.synchronize()
+    s0 = contracts.SYNCS.count
+    (params, opt, m), msgs, probe_ok = _under_sync_debug(
+        lambda: step_fn(params, opt, batches[1]), m["loss"])
+    out["train_step"] = {"warnings": len(msgs), "msgs": msgs[:3],
+                         "syncs": contracts.SYNCS.count - s0,
+                         "probe": probe_ok,
+                         "finite": bool(torch.isfinite(m["loss"]))}
+    del params, opt, batches, m
+    wall = time.perf_counter() - t0
+    print(f"phase 23b sync-free regions under PyTorch's sync debug mode "
+          f"(one call each after a warm-up): decode_step on {name} 2 "
+          f"layers bf16, 4 lanes after a prefill; train step on "
+          f"{TRAIN_WHOLE_LAYERS} layers float32, microbatches 2, compressed "
+          f"AdamW | {json.dumps(out)} | wall {wall:.3f} s [{tag}]",
+          flush=True)
+    for name, r in out.items():
+        check(r["warnings"] == 0 and r["syncs"] == 0 and r["probe"] and
+              r["finite"], f"phase 23b: region {name} synced or failed: {r}")
+    return {"wall_s": wall, **out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -7328,6 +7464,12 @@ def main() -> int:
     print(f"phase 22 wall {time.perf_counter() - t22:.3f} s "
           f"({json.dumps({k: round(v, 3) for k, v in walls22.items()})}) "
           f"[{tag}]", flush=True)
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    phase_lint(tag)
+    phase_regions(dev, tag)
+    print(f"phase 23 wall {time.perf_counter() - t23:.3f} s [{tag}]",
+          flush=True)
 
     src = "src/repro_torch/csrc/qpack_fused.cu"
     extra = ("composition_ms", "composition_graph_ms", "events",

@@ -9,6 +9,7 @@ reset it before the run they measure and read it after.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -71,29 +72,54 @@ def fetch_packed(tree: dict) -> dict:
     return out
 
 
+_ATTR = "__sync_contract__"
+
+
 @dataclass(frozen=True)
 class SyncContract:
     """Declared host-sync budget: at most ``fetches`` device->host fetch
-    sites per ``syncs_per`` event (the reference's ``@sync_contract``)."""
+    sites per ``syncs_per`` event (the reference's ``@sync_contract``).
+    ``fetches=0`` declares a sync-free region (the port's counterpart of a
+    jitted step): no device->host read at all."""
     syncs_per: str
     fetches: int = 1
+
+    def expected_syncs(self, n_events: int) -> int:
+        return n_events * self.fetches
 
 
 def sync_contract(syncs_per: str, fetches: int = 1):
     """Annotate a function with its host-sync contract; returns it
-    unchanged. The repo's lint (rule R5) reads the decorator from source;
-    ``verify_sync_counters`` checks measured counts against it."""
+    unchanged (no wrapper frame on the hot paths). The port's lint
+    (``repro_torch.analysis``, rules R1 and R5) reads the decorator from
+    source; ``verify_sync_counters`` checks measured counts against it."""
+    if not isinstance(fetches, int) or fetches < 0:
+        raise ValueError(f"fetches must be a non-negative int, got {fetches!r}")
+
     def attach(fn):
-        fn.__sync_contract__ = SyncContract(syncs_per, fetches)
+        setattr(fn, _ATTR, SyncContract(syncs_per=syncs_per, fetches=fetches))
         return fn
     return attach
 
 
-def verify_sync_counters(fn, n_events: int, n_syncs: int) -> SyncContract:
-    """Assert the measured sync count matches the budget ``fn`` declared."""
-    c = getattr(fn, "__sync_contract__", None)
-    assert c is not None, f"{fn.__qualname__} declares no @sync_contract"
-    assert n_syncs == n_events * c.fetches, (
-        f"{fn.__qualname__}: {n_syncs} syncs over {n_events} "
-        f"{c.syncs_per}s, contract {c.fetches} per {c.syncs_per}")
+def get_sync_contract(fn) -> Optional[SyncContract]:
+    """The contract attached to ``fn`` (bound methods resolve through to
+    the underlying function), or None when undeclared."""
+    return getattr(fn, _ATTR, None)
+
+
+def verify_sync_counters(fn, n_events: int, n_syncs: int,
+                         what: str = "") -> SyncContract:
+    """Runtime half of the contract: assert the measured sync count matches
+    the budget ``fn`` declared (0 for a sync-free region). Raises
+    AssertionError when ``fn`` declares no contract or when the counts
+    disagree; returns the contract."""
+    c = get_sync_contract(fn)
+    name = getattr(fn, "__qualname__", repr(fn))
+    assert c is not None, f"{name} declares no @sync_contract ({what})"
+    expected = c.expected_syncs(n_events)
+    assert n_syncs == expected, (
+        f"{name}: measured {n_syncs} syncs over {n_events} {c.syncs_per}s, "
+        f"contract declares {c.fetches} per {c.syncs_per} "
+        f"(expected {expected}) {what}")
     return c

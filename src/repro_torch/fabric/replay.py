@@ -852,14 +852,18 @@ class Fabric:
         """Bit-identity of two fabrics' end states: every leaf of the
         stacked pool (counters included) and the placement override
         tables. A sharded fabric gathers its leaves (a collective), so
-        every rank calls it, each with an ``other`` of its own."""
-        same = []
-        S.tree_map(lambda a, b: same.append(
-            a.shape == b.shape and bool(torch.equal(a, b.to(a.device)))),
-            self._all_pools(), other._all_pools())
-        return bool(all(same) and
-                    (self.placement.overrides ==
-                     other.placement.overrides).all())
+        every rank calls it, each with an ``other`` of its own. One
+        counted read: the leaves' equality flags, stacked on the card."""
+        shapes, same = [], []
+
+        def compare(a, b):
+            shapes.append(a.shape == b.shape)
+            if a.shape == b.shape:
+                same.append((a == b.to(a.device)).all().to(self.device))
+        S.tree_map(compare, self._all_pools(), other._all_pools())
+        leaves = all(shapes) and contracts.item(torch.stack(same).all())
+        return bool(leaves and (self.placement.overrides ==
+                                other.placement.overrides).all())
 
     def counters_by_expander(self) -> List[Dict[str, int]]:
         return [dict(zip(S.COUNTER_NAMES, row)) for row in contracts.tolist(

@@ -370,6 +370,7 @@ def _run(ap, args, group: SH.ExpanderGroup = None):
     t0 = time.perf_counter()
     fab.replay(ospn, wr, blk)
     if dev.type == "cuda":
+        # lint: host-ok(the launcher's wall-clock barrier after the replay)
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     # collective on the sharded driver: every rank reads them

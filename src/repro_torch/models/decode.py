@@ -61,6 +61,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.common import contracts
 from repro_torch.common.types import MLAConfig, ModelConfig, ServeConfig
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.compressor import (dequantize_blocks,
@@ -307,6 +308,7 @@ def _ring_positions(pos: torch.Tensor, W: int) -> torch.Tensor:
 # Per-layer decode: GQA
 # ---------------------------------------------------------------------------
 
+@contracts.sync_contract(syncs_per="step", fetches=0)
 def gqa_decode_layer(lp: Params, x: torch.Tensor,
                      cache_l: Dict[str, torch.Tensor], pos: torch.Tensor,
                      cfg: ModelConfig, scfg: ServeConfig) -> torch.Tensor:
@@ -349,6 +351,7 @@ def gqa_decode_layer(lp: Params, x: torch.Tensor,
 # latent)
 # ---------------------------------------------------------------------------
 
+@contracts.sync_contract(syncs_per="step", fetches=0)
 def mla_decode_layer(lp: Params, x: torch.Tensor,
                      cache_l: Dict[str, torch.Tensor], pos: torch.Tensor,
                      cfg: ModelConfig, scfg: ServeConfig) -> torch.Tensor:
@@ -396,6 +399,7 @@ def mla_decode_layer(lp: Params, x: torch.Tensor,
     return x
 
 
+@contracts.sync_contract(syncs_per="step", fetches=0)
 def decode_step(params: Params, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
                 scfg: ServeConfig, embeds: Optional[torch.Tensor] = None

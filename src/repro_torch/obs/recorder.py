@@ -8,8 +8,9 @@ contracted fetches (``Fabric._fetch_view``'s per-segment fetch,
 ``(tok, done, ref, pos)`` fetch) plus host-only scheduling facts
 (migration plans, admissions, park/resume bookkeeping). A drain handed a
 ``torch.Tensor`` raises ``TypeError``: reading it would be a device fetch
-outside the contracts' budgets (the reference's lint rule R6 knows only
-JAX producers, so the port checks at run time).
+outside the contracts' budgets (the port's lint, rule R6 of
+``repro_torch.analysis``, finds a device value handed to a drain inside a
+``@sync_contract`` in the source; this check holds at run time).
 
 Samples land in two places: a :class:`~repro_torch.obs.registry.
 MetricsRegistry` (aggregates; counter metrics keyed by

@@ -39,6 +39,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.common import contracts
 from repro_torch.common import tree as TR
 from repro_torch.common.types import OptimizerConfig
 from repro_torch.core.compressor import dequantize_blocks, quantize_blocks_fast
@@ -158,6 +159,7 @@ def global_norm(tree: Params, sharding=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+@contracts.sync_contract(syncs_per="step", fetches=0)
 def update(grads: Params, state: AdamState, params: Params,
            cfg: OptimizerConfig, impl: str = "auto", sharding=None
            ) -> Tuple[Params, AdamState, Dict[str, torch.Tensor]]:

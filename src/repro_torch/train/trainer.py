@@ -37,6 +37,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common import contracts
 from repro_torch.common import sharding as SH
 from repro_torch.common import tree as TR
 from repro_torch.common.types import ModelConfig, TrainConfig
@@ -210,6 +211,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     under ``rules``. The loss in the metrics is the whole batch's."""
     ocfg = tcfg.optimizer
 
+    @contracts.sync_contract(syncs_per="step", fetches=0)
     def step(params: Tree, opt: adamw.AdamState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[Tree, adamw.AdamState, Dict[str, torch.Tensor]]:
         grads, loss = grads_and_loss(params, batch, cfg, tcfg.microbatches,
@@ -233,6 +235,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     batch_axes = model.batch_axes
     psh = shardings["params"]
 
+    @contracts.sync_contract(syncs_per="step", fetches=0)
     def mesh_step(params: Tree, opt: adamw.AdamState,
                   batch: Dict[str, torch.Tensor]):
         grads, loss = grads_and_loss(params, batch, cfg, tcfg.microbatches,
@@ -340,6 +343,7 @@ def make_dp_compressed_step(cfg: ModelConfig, tcfg: TrainConfig,
     group = SH.current_group() if group is None else group
     ocfg = tcfg.optimizer
 
+    @contracts.sync_contract(syncs_per="step", fetches=0)
     def step(params: Tree, opt: adamw.AdamState, residual: Tree,
              batch: Dict[str, torch.Tensor]):
         grads, loss = grads_and_loss(params, batch, cfg, tcfg.microbatches,
@@ -419,10 +423,11 @@ def run_dp_steps(group: SH.ExpanderGroup, cfg: ModelConfig,
     got = group.gather_tree(flat)
     if group.rank:
         return None
-    return {"losses": [float(x) for x in torch.stack(losses).cpu()],
+    return {"losses": contracts.fetch(torch.stack(losses)).tolist(),
             "params": interop.stacked_params_to_numpy(p),
             "opt": interop.opt_state_to_numpy(opt),
-            "residual": {k: v.cpu().numpy() for k, v in got.items()}}
+            "residual": {k: v.numpy()
+                         for k, v in contracts.fetch(got).items()}}
 
 
 def mean_grads_on_ranks(group: SH.ExpanderGroup, grads, residuals,
@@ -483,7 +488,9 @@ def run_mesh_steps(group: SH.ExpanderGroup, cfg: ModelConfig,
     whole = both.gather({"params": p, "opt": opt})
     if group.rank:
         return None
-    return {"losses": [float(x) for x in torch.stack(losses).cpu()],
-            "grad_norms": [float(x) for x in torch.stack(norms).cpu()],
+    host = contracts.fetch({"losses": torch.stack(losses),
+                            "grad_norms": torch.stack(norms)})
+    return {"losses": host["losses"].tolist(),
+            "grad_norms": host["grad_norms"].tolist(),
             "params": interop.stacked_params_to_numpy(whole["params"]),
             "opt": interop.opt_state_to_numpy(whole["opt"])}
